@@ -4,24 +4,37 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives the §5.1 availability Monte Carlo at the paper tile (n = 155
-nodes, P = 4096 partitions, 8 trials).  One JSON line per phase:
+drives its two main paths at the paper tile (n = 155 nodes, P = 4096
+partitions, 8 trials): the §5.1 availability Monte Carlo and the §6
+commit-pause engine.  One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
-2. ``build``: nvcc for sm_90a, one process per source, and its seconds.
+2. ``build``: nvcc for sm_90a, one process per source, all at once, and
+   their seconds.
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
-   n_pad 155 and 160), plus its time per call beside the plain version's.
+   n_pad 155 and 160; rosters, extras and counts on and off), the packed
+   kernels against the unpacked ones on the same state, plus each
+   kernel's time per call beside the plain version's (``kernel_time``).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
-   packed, about 6k steps with the trajectory kept.  The two runs must
+   packed, about 3k steps with the trajectory kept.  The two runs must
    agree exactly, the first 512 steps must equal a ``device="cpu"`` run,
-   and each kernel's launch count over this phase (the main path) must
-   be positive.
+   and both §5.1 kernels must have launched over this path.
 5. ``bench_row``: the BENCH_sweep i.i.d. row and the hetero-mttf row at
    rf = 2, p = 1e-3, rebuilt by the port's runner on cuda, packed and
    unpacked, must equal the committed rows of
    ``benchmarks/BENCH_sweep.json`` byte for byte.
-6. ``kernels``: every ported kernel with its launches on the main path,
+6. ``downtime``: ``simulate_downtime_batched`` on cuda at rf = 2,
+   p = 1e-3, about 3k steps with the trajectory kept, for the fixed model
+   (default knobs) and for reconfig with zipf sizes (skew 1) and 1 GiB/s
+   shared bandwidth, each unpacked and packed; the layouts must agree
+   exactly, each of the four §6 kernels must have launched over this
+   path, and a 128-step run on cuda must equal the same run on the CPU.
+7. ``downtime_bench_row``: the i.i.d. row at rf = 2, p = 3e-3 of
+   BENCH_downtime.json, BENCH_downtime_reconfig.json and
+   BENCH_downtime_skew.json, rebuilt on cuda, packed and unpacked, must
+   equal the committed row byte for byte.
+8. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound and error.
 
 Any failure raises and exits non-zero.  The last line is
@@ -43,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import availability_batched as ab  # noqa: E402
+from repro_torch.core import downtime_batched as db  # noqa: E402
 from repro_torch.experiments import runner  # noqa: E402
 from repro_torch.kernels import _build, bitpack  # noqa: E402
 from repro_torch.kernels import fused_step as fk  # noqa: E402
@@ -57,8 +71,26 @@ HBM_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
 #: 32-bit integer lane rate: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 INT_OPS = 132 * 64 * 1.98e9
 #: integer ops per element, counted from the kernels' inner loops:
-#: pac_eval per (row, column) byte lane; fused_pac_eval per word
-OPS_PER_LANE = {"pac_eval": 10, "fused_pac_eval": 16}
+#: pac_eval / downtime_eval per (row, column) byte lane, fused kernels
+#: per word, node_count per partition
+OPS_PER_LANE = {"pac_eval": 10, "fused_pac_eval": 16, "downtime_eval": 12,
+                "downtime_eval_roster": 12, "node_count": 6,
+                "fused_downtime_eval": 20}
+#: where each kernel's source lives and which TPU kernel body it replaces
+SOURCES = {
+    "pac_eval": ("src/repro_torch/kernels/csrc/pac_eval.cu",
+                 "src/repro/kernels/pac_eval.py:23"),
+    "fused_pac_eval": ("src/repro_torch/kernels/csrc/fused_step.cu",
+                       "src/repro/kernels/fused_step.py:62"),
+    "downtime_eval": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
+                      "src/repro/kernels/pac_eval.py:87"),
+    "downtime_eval_roster": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
+                             "src/repro/kernels/pac_eval.py:131"),
+    "node_count": ("src/repro_torch/kernels/csrc/node_count.cu",
+                   "src/repro/kernels/pac_eval.py:200"),
+    "fused_downtime_eval": ("src/repro_torch/kernels/csrc/fused_downtime.cu",
+                            "src/repro/kernels/fused_step.py:121"),
+}
 
 
 def emit(obj):
@@ -186,30 +218,239 @@ def check_kernels(bw):
 
     pac_bytes = 3 * R * N + 2 * R
     fused_bytes = 3 * B * W * P * 4 + 2 * B * P
-    rec = {}
-    for name, nbytes, lanes, ms, wrap_ms, plain_ms in (
-            ("pac_eval", pac_bytes, R * N, pac_ms, pac_wrap_ms,
-             pac_plain_ms),
-            ("fused_pac_eval", fused_bytes, B * W * P, fused_ms,
-             fused_wrap_ms, fused_plain_ms)):
-        bytes_ms = nbytes / bw * 1e3
-        ops_ms = lanes * OPS_PER_LANE[name] / INT_OPS * 1e3
-        rec[name] = {"ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
-                     "max_abs_err": worst[name],
-                     "bytes": nbytes, "bound_ms": max(bytes_ms, ops_ms),
-                     "bound_by": "bytes" if bytes_ms >= ops_ms
-                     else "operations"}
-        emit({"phase": "kernel_time", "kernel": name, **rec[name]})
+    return {
+        "pac_eval": record("pac_eval", pac_bytes, R * N, pac_ms, pac_wrap_ms,
+                           pac_plain_ms, worst["pac_eval"], bw),
+        "fused_pac_eval": record("fused_pac_eval", fused_bytes, B * W * P,
+                                 fused_ms, fused_wrap_ms, fused_plain_ms,
+                                 worst["fused_pac_eval"], bw)}
+
+
+def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw):
+    """One kernel's timing record: its bound is the larger of its bytes
+    over the HBM rate and its integer ops over the INT32 lane rate."""
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = lanes * OPS_PER_LANE[name] / INT_OPS * 1e3
+    rec = {"ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "bytes": nbytes,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "kernel_time", "kernel": name, **rec})
     return rec
 
 
+def random_rosters(gen, R, rf, dev):
+    """(R, rf) int32 rosters of distinct ranks in [0, N), some seats out of
+    range (those read as down)."""
+    ro = torch.argsort(torch.rand((R, N), generator=gen, device=dev),
+                       dim=1)[:, :rf].to(torch.int32)
+    ro[::7, 0] = N + 3
+    return ro.contiguous()
+
+
+def check_downtime_kernels(bw):
+    """Phase 3 for the §6 kernels: bitwise agreement with the plain
+    versions at the paper tile, packed against unpacked, and times at the
+    §6 main path's shapes.  Returns the timing/bound records."""
+    dev = torch.device(DEVICE)
+    names = ("downtime_eval", "downtime_eval_roster", "node_count",
+             "fused_downtime_eval")
+    worst = dict.fromkeys(names, 0.0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    R, W = B * P, bitpack.n_words(N)
+
+    def agree(name, got, want, **tags):
+        ok = len(got) == len(want) and \
+            all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max_abs_err(got, want)
+        worst[name] = max(worst[name], err)
+        emit({"phase": "kernel", "kernel": name, "equal": ok,
+              "max_abs_err": err, **tags})
+        if not ok:
+            raise SystemExit(f"{name} disagrees ({tags})")
+
+    for n_pad in (155, 160):
+        for rf in (2, 3, 4):
+            up = torch.rand((R, n_pad), generator=gen, device=dev) < 0.9
+            full = torch.rand((R, n_pad), generator=gen, device=dev) < 0.3
+            up[:64] = False                   # rows with no node up
+            roster = random_rosters(gen, R, rf, dev)
+            for with_roster in (False, True):
+                for extras in (False, True):
+                    kw = dict(rf=rf, n_real=N, want_repmask=extras,
+                              want_rleader=extras and with_roster,
+                              roster=roster if with_roster else None)
+                    got = pk.downtime_eval(up, full, **kw)
+                    torch.cuda.synchronize()
+                    agree("downtime_eval_roster" if with_roster
+                          else "downtime_eval", got,
+                          pk.downtime_eval_plain(up, full, **kw),
+                          n_pad=n_pad, rf=rf, extras=extras)
+            # packed on the same state, roster, counts: the same bits
+            upw = bitpack.pack_words(up.reshape(B, P, n_pad)) \
+                .movedim(-1, 1).contiguous()
+            fullw = bitpack.pack_words(full.reshape(B, P, n_pad)) \
+                .movedim(-1, 1).contiguous()
+            rec = torch.randint(-2, N + 3, (B, P), generator=gen,
+                                device=dev, dtype=torch.int32)
+            act = torch.rand((B, P), generator=gen, device=dev) < 0.3
+            flat = pk.downtime_eval(up, full, rf=rf, n_real=N, roster=roster,
+                                    want_repmask=True, want_rleader=True)
+            cnt = pk.node_count(rec, act, n_real=N)
+            packed = fk.fused_downtime_eval(
+                upw, fullw, rf=rf, n_real=N,
+                roster=roster.reshape(B, P, rf), recruit=rec, active=act,
+                want_repmask=True, want_rleader=True)
+            torch.cuda.synchronize()
+            creps_w = bitpack.pack_words(flat[-1].reshape(B, P, n_pad)) \
+                .movedim(-1, 1)
+            same = all(torch.equal(pw.reshape(R), f)
+                       for pw, f in zip(packed[:7], flat[:7])) \
+                and torch.equal(packed[7], creps_w) \
+                and torch.equal(packed[8], cnt)
+            emit({"phase": "kernel", "kernel": "fused_downtime_eval",
+                  "packed_equals_unpacked": same, "n_pad": n_pad, "rf": rf})
+            if not same:
+                raise SystemExit(f"packed and unpacked §6 kernels disagree "
+                                 f"(n_pad={n_pad}, rf={rf})")
+            agree("node_count", (cnt,),
+                  (pk.node_count_plain(rec, act, n_real=N),), n_pad=n_pad,
+                  rf=rf)
+    for rf in (2, 3, 4):
+        # words with every bit pattern, bit 31 included
+        upw = torch.randint(-2 ** 31, 2 ** 31, (B, W, P), generator=gen,
+                            device=dev, dtype=torch.int64).to(torch.int32)
+        fullw = torch.randint(-2 ** 31, 2 ** 31, (B, W, P), generator=gen,
+                              device=dev, dtype=torch.int64) \
+            .to(torch.int32)
+        roster = random_rosters(gen, R, rf, dev).reshape(B, P, rf)
+        rec = torch.randint(-2, N + 3, (B, P), generator=gen, device=dev,
+                            dtype=torch.int32)
+        act = torch.rand((B, P), generator=gen, device=dev) < 0.3
+        for with_roster in (False, True):
+            for counts in (False, True):
+                for extras in (False, True):
+                    kw = dict(rf=rf, n_real=N, want_repmask=extras,
+                              want_rleader=extras and with_roster,
+                              roster=roster if with_roster else None)
+                    if counts:
+                        kw.update(recruit=rec, active=act)
+                    got = fk.fused_downtime_eval(upw, fullw, **kw)
+                    torch.cuda.synchronize()
+                    agree("fused_downtime_eval", got,
+                          fk.fused_downtime_eval_plain(upw, fullw, **kw),
+                          rf=rf, roster=with_roster, counts=counts,
+                          extras=extras)
+
+    # times at the §6 main path's shapes: rf = 2, n_pad = n = 155, the
+    # state of a mostly-up cluster; the raw launchers are timed (the
+    # kernels), the wrappers beside them
+    rf = 2
+    up = torch.rand((R, N), generator=gen, device=dev) < 0.99
+    full = torch.rand((R, N), generator=gen, device=dev) < 0.02
+    roster = random_rosters(gen, R, rf, dev)
+    rec = torch.randint(0, N + 1, (B, P), generator=gen, device=dev,
+                        dtype=torch.int32)
+    act = torch.rand((B, P), generator=gen, device=dev) < 0.05
+    upw = bitpack.pack_words(up.reshape(B, P, N)).movedim(-1, 1).contiguous()
+    fullw = bitpack.pack_words(full.reshape(B, P, N)) \
+        .movedim(-1, 1).contiguous()
+    rost3 = roster.reshape(B, P, rf)
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for name, ro in (("downtime_eval", None),
+                     ("downtime_eval_roster", roster)):
+        outs = pk.downtime_eval(up, full, rf=rf, n_real=N, roster=ro)
+        sym = "downtime_eval_launch" if ro is None \
+            else "downtime_roster_launch"
+        raw = _build.function("downtime_eval", sym, pk._DT_ARGTYPES)
+        args = (up.data_ptr(), full.data_ptr(), ptr(ro),
+                *(o.data_ptr() for o in outs[:5]), None, None,
+                outs[5].data_ptr(), R, N, N, rf, stream)
+        times[name] = (
+            time_ms(lambda: raw(*args), 200),
+            time_ms(lambda: pk.downtime_eval(up, full, rf=rf, n_real=N,
+                                             roster=ro), 200),
+            time_ms(lambda: pk.downtime_eval_plain(up, full, rf=rf,
+                                                   n_real=N, roster=ro), 20))
+    cnt = pk.node_count(rec, act, n_real=N)
+    raw = _build.function("node_count", "node_count_launch", pk._NC_ARGTYPES)
+    times["node_count"] = (
+        time_ms(lambda: raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(),
+                            B, P, N, stream), 200),
+        time_ms(lambda: pk.node_count(rec, act, n_real=N), 200),
+        time_ms(lambda: pk.node_count_plain(rec, act, n_real=N), 20))
+    # the fused kernel at the reconfig-with-bandwidth shape (roster and
+    # counts, the BENCH_downtime_skew step); the fixed model's shape (no
+    # roster, no counts) is timed beside it
+    fouts = fk.fused_downtime_eval(upw, fullw, rf=rf, n_real=N, roster=rost3,
+                                   recruit=rec, active=act)
+    fraw = _build.function("fused_downtime", "fused_downtime_eval_launch",
+                           fk._FDT_ARGTYPES)
+    fargs = (upw.data_ptr(), fullw.data_ptr(), rost3.data_ptr(),
+             rec.data_ptr(), act.data_ptr(),
+             *(o.data_ptr() for o in fouts[:5]), None, None,
+             fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf, stream)
+    times["fused_downtime_eval"] = (
+        time_ms(lambda: fraw(*fargs), 200),
+        time_ms(lambda: fk.fused_downtime_eval(
+            upw, fullw, rf=rf, n_real=N, roster=rost3, recruit=rec,
+            active=act), 200),
+        time_ms(lambda: fk.fused_downtime_eval_plain(
+            upw, fullw, rf=rf, n_real=N, roster=rost3, recruit=rec,
+            active=act), 20))
+    fixed_args = fargs[:2] + (None, None, None) + fargs[5:13] + (None,) + \
+        fargs[14:]
+    fixed_ms = time_ms(lambda: fraw(*fixed_args), 200)
+    fixed_bytes = 3 * B * W * P * 4 + 11 * B * P
+    emit({"phase": "kernel_time", "kernel": "fused_downtime_eval",
+          "shape": "fixed (no roster, no counts)", "ms": fixed_ms,
+          "bytes": fixed_bytes, "bound_ms": fixed_bytes / bw * 1e3})
+
+    nbytes = {
+        "downtime_eval": 3 * R * N + 11 * R,
+        "downtime_eval_roster": 3 * R * N + 11 * R + 4 * R * rf,
+        "node_count": 5 * B * P + 4 * B * N,
+        "fused_downtime_eval": 3 * B * W * P * 4 + 11 * B * P
+        + 4 * B * P * rf + 5 * B * P + 4 * B * N,
+    }
+    lanes = {"downtime_eval": R * N, "downtime_eval_roster": R * N,
+             "node_count": B * P, "fused_downtime_eval": B * W * P}
+    return {name: record(name, nbytes[name], lanes[name], *times[name],
+                         worst[name], bw) for name in names}
+
+
+def counters():
+    """Every ported kernel's launch counter, by the kernel's name."""
+    return {"pac_eval": (pk.pac_eval, "launches"),
+            "fused_pac_eval": (fk.fused_pac_eval, "launches"),
+            "downtime_eval": (pk.downtime_eval, "launches"),
+            "downtime_eval_roster": (pk.downtime_eval, "roster_launches"),
+            "node_count": (pk.node_count, "launches"),
+            "fused_downtime_eval": (fk.fused_downtime_eval, "launches")}
+
+
+def reset_counts():
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts(names):
+    c = counters()
+    return {name: getattr(*c[name]) for name in names}
+
+
 def check_engine():
-    """Phase 4, the main path: the engine on cuda, unpacked and packed.
-    Returns each kernel's launches over the phase."""
+    """Phase 4, the §5.1 main path: the engine on cuda, unpacked and
+    packed.  Returns each §5.1 kernel's launches over the two runs."""
     kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
-              max_steps=6000, seed=0, trajectory=True)
-    pk.pac_eval.launches = 0
-    fk.fused_pac_eval.launches = 0
+              max_steps=3072, seed=0, trajectory=True)
+    reset_counts()
     runs = {}
     for packed in (False, True):
         torch.cuda.synchronize()
@@ -224,8 +465,7 @@ def check_engine():
               "ticks": runs[packed].ticks, "u_lark": runs[packed].u_lark,
               "u_maj": runs[packed].u_maj,
               "lark_events": runs[packed].lark_events})
-    launches = {"pac_eval": pk.pac_eval.launches,
-                "fused_pac_eval": fk.fused_pac_eval.launches}
+    launches = read_counts(("pac_eval", "fused_pac_eval"))
     a, b = runs[False], runs[True]
     same = all(np.array_equal(a.trajectory[k], b.trajectory[k])
                for k in a.trajectory) and a.u_lark == b.u_lark \
@@ -293,6 +533,121 @@ def check_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
+#: the two §6 configurations of the main path: the fixed model at its
+#: default knobs, and reconfig with zipf-skewed sizes and 1 GiB/s shared
+#: per-node bandwidth (the BENCH_downtime_skew knobs)
+DOWNTIME_CONFIGS = {
+    "fixed": {},
+    "reconfig-skew-bw": dict(rebuild_model="reconfig", size_dist="zipf",
+                             size_skew=1.0, node_bandwidth_gibps=1.0),
+}
+DOWNTIME_KERNELS = ("downtime_eval", "downtime_eval_roster", "node_count",
+                    "fused_downtime_eval")
+
+
+def same_downtime(a, b) -> bool:
+    return all(np.array_equal(a.trajectory[k], b.trajectory[k])
+               for k in a.trajectory) \
+        and (a.pause_lark, a.pause_quorum, a.lark_events, a.quorum_events,
+             a.ticks, a.ci_lark, a.ci_quorum) == \
+        (b.pause_lark, b.pause_quorum, b.lark_events, b.quorum_events,
+         b.ticks, b.ci_lark, b.ci_quorum) \
+        and np.array_equal(a.hist_lark, b.hist_lark) \
+        and np.array_equal(a.hist_quorum, b.hist_quorum) \
+        and np.array_equal(a.pause_quorum_trials, b.pause_quorum_trials)
+
+
+def check_downtime_engine():
+    """Phase 6, the §6 main path: the commit-pause engine on cuda at the
+    paper tile, both configurations, unpacked and packed.  Returns each
+    §6 kernel's launches over those four runs."""
+    kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
+              max_steps=3072, seed=0, trajectory=True)
+    reset_counts()
+    runs = {}
+    for name, knobs in DOWNTIME_CONFIGS.items():
+        for packed in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            r = db.simulate_downtime_batched(packed=packed, device=DEVICE,
+                                             **kw, **knobs)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            runs[name, packed] = r
+            steps = len(r.trajectory["times"])
+            emit({"phase": "downtime", "config": name, "packed": packed,
+                  "steps": steps, "wall_s": wall,
+                  "steps_per_s": steps / wall, "ticks": r.ticks,
+                  "pause_lark": r.pause_lark,
+                  "pause_quorum": r.pause_quorum,
+                  "lark_events": r.lark_events,
+                  "quorum_events": r.quorum_events,
+                  "hist_quorum": r.hist_quorum.tolist()})
+    launches = read_counts(DOWNTIME_KERNELS)
+    emit({"phase": "downtime", "launches": launches})
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a §6 kernel was not launched on the main path: "
+                         f"{launches}")
+    for name in DOWNTIME_CONFIGS:
+        a, b = runs[name, False], runs[name, True]
+        same = same_downtime(a, b)
+        emit({"phase": "downtime", "config": name,
+              "packed_equals_unpacked": same,
+              "paused_quorum_partition_steps":
+                  int(a.trajectory["paused_quorum"].sum())})
+        if not same:
+            raise SystemExit(f"packed and unpacked §6 runs disagree "
+                             f"({name})")
+        if a.quorum_events <= 0 or a.lark_events <= 0:
+            raise SystemExit(f"no pause events in the §6 run ({name})")
+
+    # one 128-step chunk on cuda and on the CPU, the same arguments
+    for name, knobs in DOWNTIME_CONFIGS.items():
+        short = dict(kw, chunk_steps=128, max_steps=2, **knobs)
+        gpu = db.simulate_downtime_batched(device=DEVICE, **short)
+        t0 = time.monotonic()
+        cpu = db.simulate_downtime_batched(device="cpu", **short)
+        cpu_wall = time.monotonic() - t0
+        same = same_downtime(gpu, cpu)
+        emit({"phase": "downtime", "config": name, "cpu_steps": 128,
+              "cpu_equal": same, "cpu_wall_s": cpu_wall})
+        if not same:
+            raise SystemExit(f"cuda §6 run disagrees with the cpu run "
+                             f"({name})")
+    return launches
+
+
+def check_downtime_bench_rows():
+    """Phase 7: the i.i.d. rf = 2, p = 3e-3 row of each committed §6
+    baseline, rebuilt on cuda, packed and unpacked."""
+    for name in ("downtime", "downtime_reconfig", "downtime_skew"):
+        base = json.loads((ROOT / "benchmarks" /
+                           f"BENCH_{name}.json").read_text())
+        want = [r for r in base["rows"] if r["kind"] == "downtime" and
+                r["rf"] == 2 and r["p"] == 3e-3]
+        if len(want) != 1:
+            raise SystemExit(f"no committed i.i.d. row in BENCH_{name}")
+        want = json.dumps(want[0], sort_keys=True)
+        spec = runner.ExperimentSpec.from_file(
+            str(ROOT / "benchmarks" / "configs" / f"{name}.toml"))
+        for packed in (False, True):
+            t0 = time.monotonic()
+            row = next(runner._gen_run_downtime(
+                full=spec.full, trials=spec.trials, seed=spec.seed,
+                devices=spec.devices, smoke=spec.smoke,
+                params=spec.downtime_params(), packed=packed,
+                device=DEVICE))
+            wall = time.monotonic() - t0
+            got = json.dumps(runner._json_safe(row), sort_keys=True)
+            emit({"phase": "downtime_bench_row", "config": name,
+                  "packed": packed, "identical": got == want,
+                  "pause_quorum": row["pause_quorum"],
+                  "ticks": row["ticks"], "wall_s": wall})
+            if got != want:
+                raise SystemExit(f"row differs from BENCH_{name}.json:\n"
+                                 f"got  {got}\nwant {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -313,30 +668,29 @@ def main() -> int:
     emit({"phase": "build", "seconds": secs,
           "flags": " ".join(_build.NVCC_FLAGS)})
 
-    rec = check_kernels(hbm_bw(name))
+    bw = hbm_bw(name)
+    rec = check_kernels(bw)
+    rec.update(check_downtime_kernels(bw))
     launches = check_engine()
     check_bench_rows()
+    launches.update(check_downtime_engine())
+    check_downtime_bench_rows()
 
-    sources = {"pac_eval": ("src/repro_torch/kernels/csrc/pac_eval.cu",
-                            "src/repro/kernels/pac_eval.py:23"),
-               "fused_pac_eval": (
-                   "src/repro_torch/kernels/csrc/fused_step.cu",
-                   "src/repro/kernels/fused_step.py:62")}
     kernels = []
-    for kname in ("pac_eval", "fused_pac_eval"):
+    for kname, (source, replaces) in SOURCES.items():
         r = rec[kname]
         kernels.append({
-            "name": kname, "route": "cuda", "source": sources[kname][0],
-            "replaces": sources[kname][1], "launches": launches[kname],
+            "name": kname, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[kname],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"],
-            "library_ms": None})
-    emit({"phase": "total", "wall_s": time.monotonic() - t_start})
+            "bound_by": r["bound_by"], "library_ms": None})
+    emit({"phase": "total", "wall_s": time.monotonic() - t_start,
+          "device_count": torch.cuda.device_count()})
     print(json.dumps({"kernels": kernels}), flush=True)
+    # the run drives one card, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": name, "count": 1}}), flush=True)
     return 0
 
 

@@ -388,12 +388,13 @@ def _make_step(pac_fn, succ, *, n: int, P: int, horizon: int, dt_vec,
 _FULL, _LANE0 = 3, 12
 
 
-def carry_from_numpy(carry, device="cpu"):
+def carry_from_numpy(carry, device=None):
     """The reference engine's carry (a 13-tuple of numpy arrays) as the
-    port's tensors on `device`.  Packed holder words (uint32) are
-    reinterpreted as int32 with ``.view``; lane0 (uint32 lane ids) becomes
-    int64 of the same value."""
-    dev = torch.device(device)
+    port's tensors on `device` (``None``: the card, through
+    ``resolve_device``, like every entry point).  Packed holder words
+    (uint32) are reinterpreted as int32 with ``.view``; lane0 (uint32
+    lane ids) becomes int64 of the same value."""
+    dev = resolve_device(device)
     out = []
     for i, a in enumerate(carry):
         a = np.asarray(a)

@@ -1,12 +1,61 @@
-"""Port of ``repro/core/downtime_batched.py`` — only ``DowntimeParams``
-and the constants that ``experiments/spec.py`` validates against
-(lines 111-305 of the reference, copied).  The §6 commit-pause engine
-itself is still to be ported (ROADMAP Queue 1 item 5).
+"""Batched commit-pause engine — paper §6 at Monte Carlo scale, in
+PyTorch (port of ``repro/core/downtime_batched.py``).
+
+Runs B trials x P partitions through the availability engine's exact
+counter-RNG node trajectories (its node advance, initial state and
+chunk loop are reused), and carries two per-partition protocol state
+machines per step:
+
+  LARK         paused iff PAC fails; ready the instant PAC holds again.
+               A leader change onto a partition whose new acting leader
+               lacks the latest copy costs `dupres_ticks` paused ticks.
+  quorum-log   paused iff a majority of the f+1-copy replica set is
+               down, or a rebuild is in progress.  rebuild_model "fixed"
+               keeps the first rf succession ranks and restarts a
+               `rebuild_steps` countdown on every replica loss;
+               "reconfig" carries a per-partition roster, recruits the
+               next up node after a loss, and counts down a data-sized
+               catch-up (`rebuild_ticks_per_gib` x a per-partition size
+               from `size_dist`).  A finite `node_bandwidth_gibps`
+               makes concurrent catch-ups ingesting on one node share
+               its bandwidth, in _REB_SCALE fixed-point work units, in
+               both models.
+
+Each step evaluates both protocols through ``kernels/ops.step_eval``
+(metric "downtime"): on a CUDA device the hand-written kernels
+``downtime_eval`` (and its roster variant) plus ``node_count``
+(unpacked), or one ``fused_downtime_eval`` launch (packed); on the CPU
+their plain PyTorch versions.
+
+The port reproduces the reference bit for bit for the same seed and
+knobs.  All protocol state is integer or boolean; the pause
+accumulators are float32 sums of integer terms, kept as the reference's
+separate eager ops (no FMA, no ``torch.compile``; ARCHITECTURE
+invariant 8).  The float64 drains, the early stop and the trajectory
+columns fall on the reference's chunk boundaries, host-side in numpy.
+
+Not ported yet, each raising ``NotImplementedError``: the protocol zoo
+(``engines`` beyond lark/quorum, ``lease_ticks``, ``view_change_ticks``,
+``_disable_predicates``; ROADMAP Queue 1 item 7) and the client-latency
+layer (``_lat_plan``; item 8).
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..kernels.ops import StepSpec, rebuild_node_counts, step_eval
+from .availability import t975
+from .availability_batched import (_default_max_steps, _engine_setup,
+                                   _initial_full_state, _initial_node_state,
+                                   _lane_keys, _make_node_advance,
+                                   _pack_holders, _run_chunk, _seed_mix,
+                                   _uniforms, _validate_batched_args)
 
 _SIZE_SALT = 0x94D049BB
 
@@ -41,6 +90,9 @@ _SIZE_SKEW_MAX = 32.0
 #: plain-tick countdown, which is what makes node_bandwidth_gibps=inf
 #: bit-exact against the unshared model.
 _REB_SCALE = 256
+_REB_BIG = 2 ** 30          # "never finishes" remaining-ticks sentinel
+
+_SIZE_MEAN_GIB = 1.5      # the uniform [1, 2) mean every dist is pinned to
 
 #: largest accepted key_zipf (the client-latency workload's key-popularity
 #: exponent): beyond this the zipf mass is so concentrated that the
@@ -193,3 +245,831 @@ class DowntimeParams:
     @property
     def spinnaker(self) -> bool:
         return "spinnaker" in self.engines
+
+
+# ---------------------------------------------------------------------------
+# Host-side partition size tables (float64 numpy, as the reference)
+# ---------------------------------------------------------------------------
+
+def _norm_ppf(u: np.ndarray) -> np.ndarray:
+    """Inverse standard-normal CDF (Acklam's rational approximation,
+    |rel err| < 1.2e-9) — vectorized host-side numpy, no scipy.  Only
+    used to shape the deterministic lognormal size table."""
+    a = (-3.969683028665376e+01, 2.209460984245205e+02,
+         -2.759285104469687e+02, 1.383577518672690e+02,
+         -3.066479806614716e+01, 2.506628277459239e+00)
+    b = (-5.447609879822406e+01, 1.615858368580409e+02,
+         -1.556989798598866e+02, 6.680131188771972e+01,
+         -1.328068155288572e+01)
+    c = (-7.784894002430293e-03, -3.223964580411365e-01,
+         -2.400758277161838e+00, -2.549732539343734e+00,
+         4.374664141464968e+00, 2.938163982698783e+00)
+    d = (7.784695709041462e-03, 3.224671290700398e-01,
+         2.445134137142996e+00, 3.754408661907416e+00)
+    u = np.clip(np.asarray(u, dtype=np.float64), 2.0 ** -25, 1 - 2.0 ** -25)
+    lo, hi = u < 0.02425, u > 1 - 0.02425
+    mid = ~(lo | hi)
+    z = np.empty_like(u)
+    q = np.sqrt(-2.0 * np.log(np.where(lo, u, 0.5)))
+    z_lo = (((((c[0] * q + c[1]) * q + c[2]) * q + c[3]) * q + c[4]) * q
+            + c[5]) / ((((d[0] * q + d[1]) * q + d[2]) * q + d[3]) * q + 1)
+    q = np.sqrt(-2.0 * np.log(np.where(hi, 1 - u, 0.5)))
+    z_hi = -(((((c[0] * q + c[1]) * q + c[2]) * q + c[3]) * q + c[4]) * q
+             + c[5]) / ((((d[0] * q + d[1]) * q + d[2]) * q + d[3]) * q + 1)
+    q = u - 0.5
+    r = q * q
+    z_mid = (((((a[0] * r + a[1]) * r + a[2]) * r + a[3]) * r + a[4]) * r
+             + a[5]) * q / \
+        (((((b[0] * r + b[1]) * r + b[2]) * r + b[3]) * r + b[4]) * r + 1)
+    z[lo] = z_lo[lo]
+    z[hi] = z_hi[hi]
+    z[mid] = z_mid[mid]
+    return z
+
+
+def partition_sizes_gib(seed: int, partitions: int, *,
+                        dist: str = "uniform",
+                        skew: float = 1.0) -> np.ndarray:
+    """Deterministic per-partition data sizes in GiB (float64): uniform in
+    [1, 2), or zipf ((1 - u)^(-skew)) / lognormal (exp(skew * z(u)))
+    rescaled to the uniform mean of 1.5 GiB, so skew moves bytes between
+    partitions without changing the total.  The uniforms are the counter
+    hash at step 0 under ``_SIZE_SALT`` over partition-indexed lanes,
+    drawn once on the CPU, so every device gets the identical table."""
+    if dist not in SIZE_DISTS:
+        raise ValueError(f"dist must be one of {SIZE_DISTS}; got {dist!r}")
+    if not 0 <= skew <= _SIZE_SKEW_MAX:
+        raise ValueError(f"skew must be in [0, {_SIZE_SKEW_MAX:g}] "
+                         f"(larger Pareto exponents overflow the float64 "
+                         f"size table); got {skew!r}")
+    lanes = _lane_keys(torch.zeros(1, dtype=torch.int64), partitions)
+    u = _uniforms(_seed_mix(seed), 0, _SIZE_SALT, lanes)[0] \
+        .numpy().astype(np.float64)
+    if dist == "uniform":
+        return 1.0 + u
+    if dist == "zipf":
+        raw = (1.0 - u) ** (-skew)
+    else:                                        # lognormal
+        raw = np.exp(skew * _norm_ppf(u))
+    return raw * (_SIZE_MEAN_GIB / raw.mean())
+
+
+def _partition_rebuild_ticks(seed: int, partitions: int,
+                             ticks_per_gib: int, *,
+                             dist: str = "uniform", skew: float = 1.0,
+                             cap: Optional[int] = None) -> np.ndarray:
+    """(P,) int32 catch-up countdowns for the reconfiguring baseline:
+    floor(ticks_per_gib x size_gib), at least 1 tick whenever a rebuild
+    costs anything, at most `cap` (the engine passes horizon + 1, which
+    keeps the fixed-point work units in int32)."""
+    t = np.floor(ticks_per_gib *
+                 partition_sizes_gib(seed, partitions, dist=dist, skew=skew))
+    if ticks_per_gib > 0:
+        t = np.maximum(t, 1.0)
+    if cap is not None:
+        t = np.minimum(t, float(cap))
+    return t.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Result
+# ---------------------------------------------------------------------------
+
+@dataclass
+class BatchedDowntimeResult:
+    p: float
+    rf: int
+    n: int
+    partitions: int
+    trials: int
+    device: str
+    ticks: int                       # mean elapsed ticks per trial
+    pause_lark: float                # mean commit-pause fraction, pooled
+    pause_quorum: float
+    lark_events: int                 # pause-start events (incl. dup-res)
+    quorum_events: int
+    ci_lark: float                   # 95% half-widths on the fractions
+    ci_quorum: float
+    dupres_ticks: int
+    rebuild_steps: int
+    stopped_early: bool
+    devices: int = 1
+    rebuild_model: str = "fixed"
+    rebuild_ticks_per_gib: int = 0   # reconfig only; 0 under "fixed"
+    size_dist: str = "uniform"       # reconfig only; "uniform" under "fixed"
+    size_skew: float = 0.0           # zipf/lognormal only; 0 elsewhere
+    node_bandwidth_gibps: float = math.inf   # inf = unshared
+    hist_edges: np.ndarray = field(repr=False, default=None)   # (nbins,)
+    hist_lark: np.ndarray = field(repr=False, default=None)    # (nbins,)
+    hist_quorum: np.ndarray = field(repr=False, default=None)
+    pause_lark_trials: np.ndarray = field(repr=False, default=None)
+    pause_quorum_trials: np.ndarray = field(repr=False, default=None)
+    #: the reference's protocol-zoo slots, kept so one result type serves
+    #: every engine set; only lark/quorum are simulated so far
+    engines: tuple = ("lark", "quorum")
+    lease_ticks: int = 0
+    view_change_ticks: int = 0
+    pause_hermes: Optional[float] = None
+    hermes_events: int = 0
+    ci_hermes: float = 0.0
+    pause_spinnaker: Optional[float] = None
+    spinnaker_events: int = 0
+    ci_spinnaker: float = 0.0
+    hist_hermes: np.ndarray = field(repr=False, default=None)
+    hist_spinnaker: np.ndarray = field(repr=False, default=None)
+    pause_hermes_trials: np.ndarray = field(repr=False, default=None)
+    pause_spinnaker_trials: np.ndarray = field(repr=False, default=None)
+    trajectory: Optional[Dict[str, np.ndarray]] = field(repr=False,
+                                                        default=None)
+
+    @property
+    def availability_ratio(self) -> float:
+        """Quorum-log pause over LARK pause — the §6 headline ratio."""
+        return self.pause_quorum / self.pause_lark if self.pause_lark > 0 \
+            else math.inf
+
+    def engine_stats(self, engine: str) -> Dict[str, object]:
+        """Uniform per-engine view: pause fraction, CI half-width, event
+        count, duration histogram, and per-trial fractions."""
+        if engine not in self.engines:
+            raise ValueError(f"engine {engine!r} was not simulated "
+                             f"(engines={self.engines})")
+        by = {
+            "lark": (self.pause_lark, self.ci_lark, self.lark_events,
+                     self.hist_lark, self.pause_lark_trials),
+            "quorum": (self.pause_quorum, self.ci_quorum,
+                       self.quorum_events, self.hist_quorum,
+                       self.pause_quorum_trials),
+            "hermes": (self.pause_hermes, self.ci_hermes,
+                       self.hermes_events, self.hist_hermes,
+                       self.pause_hermes_trials),
+            "spinnaker": (self.pause_spinnaker, self.ci_spinnaker,
+                          self.spinnaker_events, self.hist_spinnaker,
+                          self.pause_spinnaker_trials),
+        }[engine]
+        return {"pause": by[0], "ci_pause": by[1], "events": by[2],
+                "hist": by[3], "pause_trials": by[4]}
+
+
+# ---------------------------------------------------------------------------
+# The per-event step
+# ---------------------------------------------------------------------------
+
+def _hist_add(hist_bins: int, hist, mask, d):
+    """Add completed pause durations d (B, P) where mask into
+    power-of-two buckets (bucket k counts [2^k, 2^(k+1)), top bucket
+    open-ended).  The bucket is #{k in 1..hist_bins-1 : d >= 2^k}, the
+    reference's count of comparisons, taken by one ``torch.bucketize``
+    against the edges 2^k.  Duration-0 runs are dropped."""
+    mask = mask & (d > 0)
+    edges = torch.tensor([1 << k for k in range(1, hist_bins)],
+                         dtype=d.dtype, device=d.device)
+    b = torch.bucketize(d, edges, right=True)                 # (B, P)
+    return hist + torch.zeros_like(hist, dtype=torch.int64).scatter_add_(
+        1, b, mask.to(torch.int64)).to(torch.int32)
+
+
+def _fdiv(a, b):
+    """Floor division of integer tensors (numpy's ``//``; every operand
+    the engine divides is non-negative)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
+               dupres_ticks: int, rebuild_steps: int, hist_bins: int,
+               rebuild_model: str = "fixed", rebuild_ticks=None,
+               bandwidth_fp=None, cnt_fn=None, rebuild_fp=None,
+               packed: bool = False):
+    """The step closure for one configuration: ``step`` (fixed model),
+    ``step_fixed_bw`` (fixed, shared bandwidth), ``step_reconfig`` or
+    ``step_reconfig_packed``, each the reference's op for op.  Carry
+    layout is the reference's 20 leaves, + (roster, recruit) under
+    reconfig or + (recruit,) under fixed with shared bandwidth."""
+    device = succ.device
+    p_idx = torch.arange(P, dtype=torch.int64, device=device)[None, :]
+    lanes_n = torch.arange(n, dtype=torch.int32, device=device)
+    slot = torch.arange(rf, dtype=torch.int32, device=device)
+
+    def hist_add(hist, mask, d):
+        return _hist_add(hist_bins, hist, mask, d)
+
+    def succ_node(rank, hi: int):
+        """succ[p, clip(rank, 0, hi)] as int32 node ids (B, P); succ is
+        int64, so the gather is cast back before it meets recruit."""
+        return succ[p_idx, rank.clamp(0, hi).to(torch.int64)] \
+            .to(torch.int32)
+
+    def contention_rate(counts, recruit):
+        """The bandwidth share, in work units per tick, each partition's
+        recruit node grants it: min(_REB_SCALE, bandwidth_fp // k) with k
+        the node's in-flight count (1 for an unknown recruit)."""
+        k = torch.gather(counts, 1,
+                         recruit.clamp(0, n - 1).to(torch.int64))
+        # sentinel-recruit partitions must not inherit node n-1's
+        # in-flight count from the clipped gather
+        k = torch.where(recruit < n, k.clamp(min=1), 1)
+        return _fdiv(torch.full_like(k, bandwidth_fp), k) \
+            .clamp(max=_REB_SCALE)
+
+    # -- shared protocol blocks, run verbatim by every model
+
+    def interval_pause(now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt,
+                       qhist, rate=None):
+        """Pause time over [now, t_clamp) from interval-start state.
+
+        rate=None is the fixed model's plain-tick countdown; a rate tensor
+        puts qreb in _REB_SCALE work units.  The rebuild-overlap charge
+        sums integer terms in float32 over partitions, as the reference
+        does: any summation order gives the reference's bits while the
+        partial sums stay below 2^24, which P * horizon bounds at every
+        configuration the engine is run at."""
+        lpt = lpt + ldn.sum(dim=1).to(torch.float32) * dt
+        qmaj_prev = 2 * qrep.sum(dim=2) > rf                  # (B, P)
+        qpt = qpt + (~qmaj_prev).sum(dim=1).to(torch.float32) * dt
+        if rate is None:
+            rem = qreb                       # remaining wall-ticks
+            prog = dt_i[:, None]             # progress over the interval
+        else:
+            safe_rate = rate.clamp(min=1)
+            rem = torch.where(qreb > 0,
+                              torch.where(rate > 0,
+                                          _fdiv(qreb + safe_rate - 1,
+                                                safe_rate),
+                                          _REB_BIG),
+                              0)
+            prog = dt_i[:, None] * rate
+        qpt = qpt + torch.where(
+            qmaj_prev, torch.minimum(rem, dt_i[:, None]), 0) \
+            .to(torch.float32).sum(dim=1)
+        ends_mid = qdn & qmaj_prev & (qreb > 0) & (prog >= qreb)
+        qhist = hist_add(qhist, ends_mid, (now[:, None] + rem) - qt0)
+        qdn = qdn & ~ends_mid
+        qreb = (qreb - prog).clamp(min=0)
+        return lpt, qpt, qreb, qdn, qhist
+
+    def lark_transitions(t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt,
+                         lev, lhist):
+        """Close LARK runs that came back, open new ones, and charge the
+        dup-res penalty (available partition, new acting leader that
+        lacks the latest copy)."""
+        lhist = hist_add(lhist, ldn & lark, t_clamp[:, None] - lt0)
+        lgo = ~ldn & ~lark
+        lt0 = torch.where(lgo, t_clamp[:, None], lt0)
+        lev = lev + lgo.sum(dim=1).to(torch.int32)
+        ldn = ~lark
+        if dupres_ticks > 0:
+            pen = (ldr != leader) & lark & ~lfull
+            npen = pen.sum(dim=1).to(torch.int32)
+            # two eager ops: no FMA (invariant 8)
+            lpt = lpt + npen.to(torch.float32) * float(dupres_ticks)
+            lev = lev + npen
+            lhist = hist_add(lhist, pen, torch.full(
+                pen.shape, dupres_ticks, dtype=torch.int32, device=device))
+        leader = torch.where(lark, ldr, leader)
+        return ldn, lt0, leader, lpt, lev, lhist
+
+    def quorum_transitions(t_clamp, qmaj, qreb, qdn, qt0, qev, qhist):
+        """Close quorum pause runs whose condition cleared, open new ones
+        (the reference's pause_transitions on ~qmaj | rebuilding)."""
+        pause = ~qmaj | (qreb > 0)
+        qhist = hist_add(qhist, qdn & ~pause, t_clamp[:, None] - qt0)
+        go = ~qdn & pause
+        qt0 = torch.where(go, t_clamp[:, None], qt0)
+        qev = qev + go.sum(dim=1).to(torch.int32)
+        return pause, qt0, qev, qhist
+
+    def outputs(t_clamp, ldn, qdn, up):
+        return (t_clamp, ldn.sum(dim=1).to(torch.int32),
+                qdn.sum(dim=1).to(torch.int32),
+                up.sum(dim=1).to(torch.int32))
+
+    def unpack_rows(out_t, B):
+        return tuple(o.reshape(B, P) for o in out_t[:4])
+
+    def step(carry, s: int):
+        (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist) = carry
+        B = up.shape[0]
+        t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
+            now, up, ev_t, rr_t, rr_idx, lane0, s)
+        dt_i = t_clamp - now                                  # (B,) int32
+        lpt, qpt, qreb, qdn, qhist = interval_pause(
+            now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist)
+        now = t_clamp
+
+        # -- re-evaluate both protocols on the post-event cluster state
+        up_succ = up[:, succ]                                 # (B, P, n)
+        rep_new = up_succ[:, :, :rf]                          # replica lanes
+        if packed:
+            out_t = dt_fn(_pack_holders(up_succ), full)
+            lark, qmaj, ldr, lfull = out_t[:4]
+            full = torch.where(lark[:, None, :], out_t[-1], full)
+        else:
+            out_t = dt_fn(up_succ.reshape(B * P, n), full.reshape(B * P, n))
+            lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
+            full = torch.where(lark[:, :, None],
+                               out_t[-1].reshape(B, P, n), full)
+
+        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+            t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        # -- any replica loss (a replica lane going up -> down, even if
+        # masked by a simultaneous recovery of another lane) (re)starts
+        # the constant rebuild countdown
+        if rebuild_steps > 0:
+            loss = (qrep & ~rep_new).any(dim=2)
+            qreb = torch.where(loss, rebuild_steps, qreb)
+        qdn, qt0, qev, qhist = quorum_transitions(
+            t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
+        qrep = rep_new
+        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
+                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
+                 lhist, qhist)
+        return carry, outputs(t_clamp, ldn, qdn, up)
+
+    def step_fixed_bw(carry, s: int):
+        """The fixed model with per-node bandwidth-contended rebuilds:
+        qreb in _REB_SCALE work units (restart value `rebuild_fp`), the
+        rebuild pinned to the lost replica's own node (the carried
+        `recruit` leaf).  As the reference, the post-event evaluation
+        (and, packed, the counts in the same launch) runs before the
+        interval charges; the counts and interval_pause still see the
+        interval-start recruit/qreb, so this is a dataflow reorder of
+        `step`."""
+        (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
+         recruit) = carry
+        B = up.shape[0]
+        t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
+            now, up, ev_t, rr_t, rr_idx, lane0, s)
+        dt_i = t_clamp - now                                  # (B,) int32
+
+        up_succ = up[:, succ]                                 # (B, P, n)
+        rep_new = up_succ[:, :, :rf]                          # replica lanes
+        inflight = (qreb > 0) & (recruit < n)
+        if packed:
+            out_t = dt_fn(_pack_holders(up_succ), full, None, recruit,
+                          inflight)
+            lark, qmaj, ldr, lfull = out_t[:4]
+        else:
+            out_t = dt_fn(up_succ.reshape(B * P, n),
+                          full.reshape(B * P, n), None, recruit, inflight)
+            lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
+        counts = out_t[-1]
+        rate = contention_rate(counts, recruit)
+
+        lpt, qpt, qreb, qdn, qhist = interval_pause(
+            now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
+            rate=rate)
+        now = t_clamp
+
+        if packed:
+            full = torch.where(lark[:, None, :], out_t[-2], full)
+        else:
+            full = torch.where(lark[:, :, None],
+                               out_t[-2].reshape(B, P, n), full)
+        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+            t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+
+        # -- a replica loss (re)starts the constant countdown in
+        # fixed-point units and pins the rebuild to the lowest replica
+        # lane that went up -> down this step
+        if rebuild_fp is not None and rebuild_fp > 0:
+            lost = qrep & ~rep_new                            # (B, P, rf)
+            loss = lost.any(dim=2)
+            qreb = torch.where(loss, rebuild_fp, qreb)
+            rank = torch.where(lost, slot[None, None, :], rf).amin(dim=2)
+            recruit = torch.where(loss, succ_node(rank, rf - 1), recruit)
+        qdn, qt0, qev, qhist = quorum_transitions(
+            t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
+        qrep = rep_new
+        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
+                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
+                 lhist, qhist, recruit)
+        return carry, outputs(t_clamp, ldn, qdn, up)
+
+    def recruit_roster(up_succ, rup, roster):
+        """Replace every down roster member with the first up node in
+        succession order not already in the roster (a seat with no up
+        candidate is kept until a later step finds one).  Returns the new
+        roster and (new_rank, took): the most recent recruit's rank per
+        partition and whether any seat was filled."""
+        in_roster = torch.zeros(up_succ.shape, dtype=torch.bool,
+                                device=device)
+        for j in range(rf):
+            in_roster = in_roster | (lanes_n[None, None, :]
+                                     == roster[:, :, j, None])
+        new_rank = torch.full(rup.shape[:2], n, dtype=torch.int32,
+                              device=device)
+        took = torch.zeros(rup.shape[:2], dtype=torch.bool, device=device)
+        for j in range(rf):
+            need = ~rup[:, :, j]
+            cand = up_succ & ~in_roster
+            repl = torch.where(cand, lanes_n[None, None, :], n).amin(dim=2)
+            take = need & (repl < n)
+            old_j = roster[:, :, j]
+            new_j = torch.where(take, repl, old_j)
+            in_roster = in_roster & ~(take[:, :, None] &
+                                      (lanes_n[None, None, :]
+                                       == old_j[:, :, None]))
+            in_roster = in_roster | (take[:, :, None] &
+                                     (lanes_n[None, None, :]
+                                      == new_j[:, :, None]))
+            roster = torch.where((slot == j)[None, None, :],
+                                 new_j[:, :, None], roster)
+            new_rank = torch.where(take, repl, new_rank)
+            took = took | take
+        return roster, new_rank, took
+
+    def roster_up(up_succ, roster):
+        """up_succ[b, p, roster[b, p, j]] (B, P, rf) — the carried int32
+        roster cast to int64 only for the gather."""
+        return torch.gather(up_succ, 2, roster.to(torch.int64))
+
+    def reconfigure(up_succ, roster, qrep):
+        """Fresh losses (roster members up at interval start, down now)
+        restart the data-sized catch-up; recruitment refills the seats
+        and names the ingesting node (the most recent recruit; unknown,
+        n, when a loss found no candidate)."""
+        rup = roster_up(up_succ, roster)
+        loss_any = (qrep & ~rup).any(dim=2)
+        roster, new_rank, took = recruit_roster(up_succ, rup, roster)
+        return roster, loss_any, new_rank, took
+
+    def restart_catchups(loss_any, new_rank, took, qreb, recruit):
+        qreb = torch.where(loss_any, rebuild_ticks[None, :], qreb)
+        recruit = torch.where(took, succ_node(new_rank, n - 1),
+                              torch.where(loss_any, n, recruit))
+        return qreb, recruit
+
+    def step_reconfig(carry, s: int):
+        """The reconfiguring baseline: `step`'s shared blocks with the
+        carried per-partition roster as the replica set and the
+        per-partition `rebuild_ticks` catch-ups in fixed-point units,
+        shared per recruit node when bandwidth_fp is set (the counts come
+        from ``node_count``).  LARK's path is untouched."""
+        (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
+         roster, recruit) = carry
+        B = up.shape[0]
+        t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
+            now, up, ev_t, rr_t, rr_idx, lane0, s)
+        dt_i = t_clamp - now                                  # (B,) int32
+        if bandwidth_fp is None:
+            rate = torch.full((B, P), _REB_SCALE, dtype=torch.int32,
+                              device=device)
+        else:
+            inflight = (qreb > 0) & (recruit < n)
+            rate = contention_rate(cnt_fn(recruit, inflight), recruit)
+        lpt, qpt, qreb, qdn, qhist = interval_pause(
+            now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
+            rate=rate)
+        now = t_clamp
+
+        up_succ = up[:, succ]                                 # (B, P, n)
+        roster, loss_any, new_rank, took = reconfigure(up_succ, roster,
+                                                       qrep)
+        qreb, recruit = restart_catchups(loss_any, new_rank, took, qreb,
+                                         recruit)
+
+        # -- roster-aware evaluation on the reconfigured roster
+        out_t = dt_fn(up_succ.reshape(B * P, n), full.reshape(B * P, n),
+                      roster.reshape(B * P, rf))
+        lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
+        full = torch.where(lark[:, :, None], out_t[-1].reshape(B, P, n),
+                           full)
+
+        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+            t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        qdn, qt0, qev, qhist = quorum_transitions(
+            t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
+        qrep = roster_up(up_succ, roster)
+        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
+                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
+                 lhist, qhist, roster, recruit)
+        return carry, outputs(t_clamp, ldn, qdn, up)
+
+    def step_reconfig_packed(carry, s: int):
+        """step_reconfig over packed (B, W, P) words, reordered as the
+        reference so that the evaluation, the roster select and the
+        in-flight counts are one ``fused_downtime_eval`` launch: the
+        reconfiguration runs first, the counts still see the
+        interval-start recruit/qreb, and interval_pause the
+        interval-start protocol state."""
+        (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
+         roster, recruit) = carry
+        B = up.shape[0]
+        t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
+            now, up, ev_t, rr_t, rr_idx, lane0, s)
+        dt_i = t_clamp - now                                  # (B,) int32
+
+        up_succ = up[:, succ]                                 # (B, P, n)
+        roster, loss_any, new_rank, took = reconfigure(up_succ, roster,
+                                                       qrep)
+        upw = _pack_holders(up_succ)
+        if bandwidth_fp is None:
+            out_t = dt_fn(upw, full, roster)
+            rate = torch.full((B, P), _REB_SCALE, dtype=torch.int32,
+                              device=device)
+            crepsw = out_t[-1]
+        else:
+            inflight = (qreb > 0) & (recruit < n)
+            out_t = dt_fn(upw, full, roster, recruit, inflight)
+            rate = contention_rate(out_t[-1], recruit)
+            crepsw = out_t[-2]
+        lark, qmaj, ldr, lfull = out_t[:4]
+
+        lpt, qpt, qreb, qdn, qhist = interval_pause(
+            now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
+            rate=rate)
+        now = t_clamp
+        qreb, recruit = restart_catchups(loss_any, new_rank, took, qreb,
+                                         recruit)
+
+        full = torch.where(lark[:, None, :], crepsw, full)
+        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+            t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        qdn, qt0, qev, qhist = quorum_transitions(
+            t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
+        qrep = roster_up(up_succ, roster)
+        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
+                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
+                 lhist, qhist, roster, recruit)
+        return carry, outputs(t_clamp, ldn, qdn, up)
+
+    if rebuild_model == "reconfig":
+        return step_reconfig_packed if packed else step_reconfig
+    if bandwidth_fp is not None:
+        return step_fixed_bw
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Carry exchange with the reference engine
+# ---------------------------------------------------------------------------
+
+#: carry slots: (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep,
+#: qreb, qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist[, roster],
+#: [recruit])
+_FULL, _LANE0 = 3, 6
+
+
+def carry_from_numpy(carry, device=None):
+    """The reference downtime engine's carry — its 20 leaves, plus
+    (roster, recruit) under reconfig or (recruit,) under fixed with
+    shared bandwidth — as the port's tensors on `device` (``None``: the
+    card, via ``resolve_device``).  Packed holder words (uint32) are
+    reinterpreted as int32; lane0 (uint32) becomes int64 of the same
+    value; roster and recruit stay int32."""
+    dev = resolve_device(device)
+    out = []
+    for i, a in enumerate(carry):
+        a = np.asarray(a)
+        if i == _LANE0:
+            a = a.astype(np.int64)
+        elif a.dtype == np.uint32:
+            a = np.ascontiguousarray(a).view(np.int32)
+        out.append(torch.from_numpy(np.array(a)).to(dev))
+    return tuple(out)
+
+
+def carry_to_numpy(carry):
+    """The port's downtime carry as the reference engine's numpy arrays
+    (holder words back to uint32, lane0 to uint32, the rest as carried)."""
+    out = []
+    for i, t in enumerate(carry):
+        a = t.detach().cpu().numpy()
+        if i == _LANE0:
+            a = a.astype(np.uint32)
+        elif i == _FULL and a.dtype == np.int32:
+            a = a.view(np.uint32)
+        out.append(a)
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Driver
+# ---------------------------------------------------------------------------
+
+def simulate_downtime_batched(
+        *, n: int = 155, partitions: int = 4096, rf: int = 2,
+        p: float = 1e-3, downtime: int = 10, trials: int = 8,
+        min_ticks: int = 50_000, max_ticks: int = 3_000_000,
+        eps_abs: float = 5e-6, eps_rel: float = 0.05,
+        min_events: int = 200, seed: int = 0,
+        dupres_ticks: int = 1, rebuild_steps: int = 100,
+        hist_bins: int = 16,
+        rebuild_model: str = "fixed", rebuild_ticks_per_gib: int = 100,
+        size_dist: str = "uniform", size_skew: float = 1.0,
+        node_bandwidth_gibps: float = math.inf,
+        pair_fail_prob: float = 0.0, restart_period: int = 0,
+        wave_width: int = 1, p_node=None, downtime_node=None,
+        devices: int = 1, chunk_steps: int = 512,
+        max_steps: Optional[int] = None, trajectory: bool = False,
+        params: Optional[DowntimeParams] = None, packed: bool = False,
+        engines: tuple = ("lark", "quorum"), lease_ticks: int = 0,
+        view_change_ticks: int = 0, _disable_predicates: tuple = (),
+        _lat_plan=None, device=None) -> BatchedDowntimeResult:
+    """Batched §6 commit-pause Monte Carlo over `trials` trajectories —
+    the reference's knobs and results (see its docstring for each knob).
+
+    The protocol/rebuild knobs come individually or as one validated
+    ``params=DowntimeParams(...)``, which then takes precedence.
+    device: ``None`` runs on ``cuda`` (and raises without a card);
+    ``"cpu"`` runs the plain PyTorch kernels.  devices > 1 is validated
+    (trials must divide) and the trials run as one batch on `device`,
+    bit-identical to the sharded run.  packed=True carries the holder
+    masks as (B, W, P) int32 words and evaluates each step with one
+    ``fused_downtime_eval`` launch — layout only, bit-identical.
+    """
+    _validate_batched_args(devices=devices, trials=trials,
+                           wave_width=wave_width, n=n)
+    if params is None:
+        params = DowntimeParams(
+            dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps,
+            hist_bins=hist_bins, rebuild_model=rebuild_model,
+            rebuild_ticks_per_gib=rebuild_ticks_per_gib,
+            size_dist=size_dist, size_skew=size_skew,
+            node_bandwidth_gibps=node_bandwidth_gibps,
+            engines=engines, lease_ticks=lease_ticks,
+            view_change_ticks=view_change_ticks)
+    if params.hermes or params.spinnaker or params.lease_ticks \
+            or params.view_change_ticks or _disable_predicates:
+        raise NotImplementedError(
+            "the protocol zoo (hermes/spinnaker engines, lease_ticks, "
+            "view_change_ticks, _disable_predicates) is not ported yet "
+            "(ROADMAP Queue 1 item 7); the port simulates lark and quorum")
+    if _lat_plan is not None:
+        raise NotImplementedError(
+            "the client-latency layer (_lat_plan) is not ported yet "
+            "(ROADMAP Queue 1 item 8)")
+    dupres_ticks, rebuild_steps = params.dupres_ticks, params.rebuild_steps
+    hist_bins, rebuild_model = params.hist_bins, params.rebuild_model
+    rebuild_ticks_per_gib = params.rebuild_ticks_per_gib
+    size_dist, size_skew = params.size_dist, params.size_skew
+    node_bandwidth_gibps = params.node_bandwidth_gibps
+    reconfig = params.reconfig
+    bandwidth_shared = params.bandwidth_shared
+    if (reconfig or bandwidth_shared) \
+            and max_ticks > (2 ** 31 - 1) // _REB_SCALE - 2:
+        raise ValueError("max_ticks too large for the fixed-point "
+                         f"catch-up countdowns (<= "
+                         f"{(2 ** 31 - 1) // _REB_SCALE - 2})")
+    dev = resolve_device(device)
+    B, P, horizon = trials, partitions, max_ticks
+    (succ, seed_mix, geo_masks, geo_tables, dt_vec, pair_perm,
+     p_arr, dt_arr) = _engine_setup(
+        n=n, partitions=P, seed=seed, p=p, downtime=downtime,
+        p_node=p_node, downtime_node=downtime_node, max_ticks=max_ticks,
+        device=dev)
+    spec = StepSpec(metric="downtime", rf=rf, n_real=n,
+                    rebuild_model=rebuild_model, packed=packed,
+                    dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps)
+
+    def dt_fn(u, f, roster=None, recruit=None, active=None):
+        o = step_eval(spec, u, f, roster=roster, recruit=recruit,
+                      active=active)
+        base = (o.lark, o.maj, o.leader, o.leader_full, o.nrep, o.creps)
+        return (base + (o.counts,)) if recruit is not None else base
+
+    rebuild_ticks = torch.as_tensor(_partition_rebuild_ticks(
+        seed, P, rebuild_ticks_per_gib, dist=size_dist, skew=size_skew,
+        cap=max_ticks + 1) * np.int32(_REB_SCALE), device=dev) \
+        if reconfig else None
+    bandwidth_fp = int(min(math.floor(_REB_SCALE * node_bandwidth_gibps),
+                           _REB_BIG)) if bandwidth_shared else None
+    cnt_fn = (lambda rec, act: rebuild_node_counts(rec, act, n_real=n)) \
+        if bandwidth_shared else None
+    # fixed-model restart value in fixed-point work units; the horizon
+    # cap keeps rebuild_steps * _REB_SCALE inside int32
+    rebuild_fp = int(min(rebuild_steps, max_ticks + 1)) * _REB_SCALE \
+        if (bandwidth_shared and not reconfig) else None
+    advance = _make_node_advance(
+        n=n, horizon=horizon, dt_vec=dt_vec, geo_masks=geo_masks,
+        geo_tables=geo_tables, seed_mix=seed_mix,
+        pair_fail_prob=pair_fail_prob, pair_perm=pair_perm,
+        restart_period=restart_period, wave_width=wave_width)
+    step = _make_step(dt_fn, advance, succ, n=n, P=P, rf=rf,
+                      dupres_ticks=dupres_ticks,
+                      rebuild_steps=rebuild_steps, hist_bins=hist_bins,
+                      rebuild_model=rebuild_model,
+                      rebuild_ticks=rebuild_ticks,
+                      bandwidth_fp=bandwidth_fp, cnt_fn=cnt_fn,
+                      rebuild_fp=rebuild_fp, packed=packed)
+
+    # initial state: everyone up, roster replicas full, both protocols
+    # evaluated once at t=0 — without a roster under both models (the
+    # t=0 roster is [0..rf-1], so the plain evaluation is exact)
+    lane0, up0, ev0, rr_t0 = _initial_node_state(
+        B=B, n=n, seed_mix=seed_mix, geo_masks=geo_masks,
+        geo_tables=geo_tables, restart_period=restart_period,
+        horizon=horizon, device=dev)
+    full0, outs0 = _initial_full_state(dt_fn, up0, succ, B=B, P=P, n=n,
+                                       rf=rf, packed=packed)
+    lark0 = outs0[0].reshape(B, P)
+    qmaj0 = outs0[1].reshape(B, P)
+    ldr0 = outs0[2].reshape(B, P)
+    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
+    zf = torch.zeros((B,), dtype=torch.float32, device=dev)
+    zbp = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    zh = torch.zeros((B, hist_bins), dtype=torch.int32, device=dev)
+    carry = (zi, up0, ev0, full0, rr_t0, zi, lane0,
+             ~lark0, zbp,                              # ldn, lt0
+             up0[:, succ[:, :rf]],                     # qrep (all up)
+             zbp,                                      # qreb
+             ~qmaj0, zbp,                              # qdn, qt0
+             ldr0.to(torch.int32),                     # leader
+             zf, zf, zi, zi, zh, zh)
+    # no catch-up in flight at t=0, so no recruit node to ingest on
+    recruit0 = torch.full((B, P), n, dtype=torch.int32, device=dev)
+    if reconfig:
+        roster0 = torch.arange(rf, dtype=torch.int32, device=dev) \
+            .expand(B, P, rf).contiguous()
+        carry = carry + (roster0, recruit0)
+    elif bandwidth_shared:
+        carry = carry + (recruit0,)
+
+    if max_steps is None:
+        max_steps = _default_max_steps(p_arr, dt_arr, n=n, horizon=horizon,
+                                       restart_period=restart_period)
+
+    # per-chunk accumulators at fixed offsets 14..19, reset every drain
+    acc_reset = {14: zf, 15: zf, 16: zi, 17: zi, 18: zh, 19: zh}
+    lpt_tot = np.zeros(B)
+    qpt_tot = np.zeros(B)
+    lev_tot = qev_tot = 0
+    lhist_tot = np.zeros(hist_bins, dtype=np.int64)
+    qhist_tot = np.zeros(hist_bins, dtype=np.int64)
+    traj = [] if trajectory else None
+    stopped = False
+    s0 = 1
+    while s0 < max_steps:
+        carry, ys = _run_chunk(step, carry, s0, chunk_steps, trajectory)
+        s0 += chunk_steps
+        if trajectory:
+            traj.append(ys)
+        # drain per-chunk accumulators into float64/int totals
+        now = carry[0].cpu().numpy().astype(np.int64)
+        lpt_tot += carry[14].cpu().numpy().astype(np.float64)
+        qpt_tot += carry[15].cpu().numpy().astype(np.float64)
+        lev_tot += int(carry[16].cpu().numpy().sum())
+        qev_tot += int(carry[17].cpu().numpy().sum())
+        lhist_tot += carry[18].cpu().numpy().astype(np.int64).sum(axis=0)
+        qhist_tot += carry[19].cpu().numpy().astype(np.int64).sum(axis=0)
+        carry = tuple(acc_reset.get(i, c) for i, c in enumerate(carry))
+        if (now >= horizon).all():
+            break
+        # pooled CI early stop, mirroring the availability engine's rule
+        if now.mean() >= min_ticks and lev_tot >= min_events \
+                and qev_tot >= min_events:
+            pt = float(P) * float(now.sum())
+            u_l = min(lpt_tot.sum() / pt, 1.0)
+            u_q = min(qpt_tot.sum() / pt, 1.0)
+            hw_l = 1.96 * math.sqrt(max(u_l * (1 - u_l), 1e-30) / pt)
+            hw_q = 1.96 * math.sqrt(max(u_q * (1 - u_q), 1e-30) / pt)
+            if hw_l <= max(eps_abs, eps_rel * u_l) and \
+                    hw_q <= max(eps_abs, eps_rel * u_q):
+                stopped = True
+                break
+
+    now = np.maximum(carry[0].cpu().numpy().astype(np.int64), 1)
+    pt_b = P * now.astype(np.float64)
+    pt = float(pt_b.sum())
+    # the instantaneous dup-res charge can overshoot wall time under
+    # extreme dupres_ticks — clip, as the reference
+    u_l = min(float(lpt_tot.sum()) / pt, 1.0)
+    u_q = min(float(qpt_tot.sum()) / pt, 1.0)
+    u_l_trials = np.minimum(lpt_tot / pt_b, 1.0)
+    u_q_trials = np.minimum(qpt_tot / pt_b, 1.0)
+    hw_l = hw_q = 0.0
+    if B >= 3:
+        t = t975(B - 1) / math.sqrt(B)
+        hw_l = t * float(u_l_trials.std(ddof=1))
+        hw_q = t * float(u_q_trials.std(ddof=1))
+    traj_out = None
+    if trajectory:
+        names = ["times", "paused_lark", "paused_quorum", "nodes_up"]
+        cols = [np.concatenate([c[i] for c in traj])
+                for i in range(len(names))]
+        traj_out = dict(zip(names, cols))
+    return BatchedDowntimeResult(
+        p=p, rf=rf, n=n, partitions=P, trials=B, device=str(dev),
+        ticks=int(now.mean()), pause_lark=u_l, pause_quorum=u_q,
+        lark_events=lev_tot, quorum_events=qev_tot,
+        ci_lark=max(hw_l,
+                    1.96 * math.sqrt(max(u_l * (1 - u_l), 1e-30) / pt)),
+        ci_quorum=max(hw_q,
+                      1.96 * math.sqrt(max(u_q * (1 - u_q), 1e-30) / pt)),
+        dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps,
+        stopped_early=stopped, devices=devices,
+        rebuild_model=rebuild_model,
+        rebuild_ticks_per_gib=rebuild_ticks_per_gib if reconfig else 0,
+        size_dist=size_dist if reconfig else "uniform",
+        size_skew=size_skew if size_dist in ("zipf", "lognormal") else 0.0,
+        node_bandwidth_gibps=node_bandwidth_gibps,
+        hist_edges=np.asarray([1 << k for k in range(hist_bins)],
+                              dtype=np.int64),
+        hist_lark=lhist_tot, hist_quorum=qhist_tot,
+        pause_lark_trials=u_l_trials, pause_quorum_trials=u_q_trials,
+        engines=params.engines, lease_ticks=params.lease_ticks,
+        view_change_ticks=params.view_change_ticks, trajectory=traj_out)

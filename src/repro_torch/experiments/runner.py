@@ -1,5 +1,5 @@
-"""Config-driven experiment runner, availability metric (port of
-``repro/experiments/runner.py``).
+"""Config-driven experiment runner, availability and downtime metrics
+(port of ``repro/experiments/runner.py``).
 
 One ``ExperimentSpec`` in; CSV progress lines, JSONL events and a
 provenance-stamped summary out.  The grids, the scales and every row
@@ -7,7 +7,8 @@ expression are the reference's, so a spec regenerates the reference's
 rows byte for byte (``benchmarks/check_regression.py --identical``).
 
 * ``iter_rows(spec, device=...)`` — the i.i.d. grid, then each scenario
-  grid, in the reference's order and shapes.
+  grid, in the reference's order and shapes: §5.1 availability rows or
+  §6 downtime rows (``spec.downtime_params()`` carries the knobs).
 * ``ExperimentRunner`` — drives ``iter_rows``, prints the CSV progress
   lines, streams one JSONL event per row, assembles the summary.
 * ``run_batch(specs)`` — several specs back to back.
@@ -16,9 +17,11 @@ Backends: the spec's ``numpy``, ``jax`` and ``pallas`` all run the port's
 engine (the reference proves them row-identical).  ``devices > 1`` is
 checked (trials must divide) and runs all trials as one batch on one
 card, which invariant 2 makes equal to the sharded run; provenance
-records the requested geometry beside the observed one.  Not ported yet,
-each raising ``NotImplementedError``: the downtime and latency metrics
-(ROADMAP Queue 1 items 5 and 8), ``backend="event"`` (item 11) and
+records the requested geometry beside the observed one.  Downtime rows
+under ``backend="event"`` run the batched engine on one device, as the
+reference's do.  Not ported yet, each raising ``NotImplementedError``:
+the protocol zoo's engines (ROADMAP Queue 1 item 7), the latency metric
+(item 8), availability under ``backend="event"`` (item 11) and
 ``autotune`` (item 10).
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ import time
 from ..core.analytical import (improvement_factor, lark_unavailability,
                                node_unavailability)
 from ..core.availability_batched import simulate_availability_batched
+from ..core.downtime_batched import DowntimeParams, simulate_downtime_batched
 from ..core.scenarios import get_scenario
 from ..device import resolve_device
 from .provenance import build_provenance
@@ -111,6 +115,91 @@ def _gen_run_scenarios(names, full: bool = False, trials: int = 4,
             }
 
 
+def _downtime_row(r, *, kind: str, scenario: str):
+    return {
+        "kind": kind, "scenario": scenario, "rf": r.rf, "p": r.p,
+        "pause_lark": r.pause_lark, "pause_quorum": r.pause_quorum,
+        "ci_pause_lark": r.ci_lark, "ci_pause_quorum": r.ci_quorum,
+        "ratio": r.availability_ratio,
+        "lark_events": r.lark_events, "quorum_events": r.quorum_events,
+        "hist_edges": r.hist_edges.tolist(),
+        "hist_lark": r.hist_lark.tolist(),
+        "hist_quorum": r.hist_quorum.tolist(),
+        "dupres_ticks": r.dupres_ticks, "rebuild_steps": r.rebuild_steps,
+        "rebuild_model": r.rebuild_model,
+        "rebuild_ticks_per_gib": r.rebuild_ticks_per_gib,
+        "size_dist": r.size_dist, "size_skew": r.size_skew,
+        # inf (no sharing) serializes as null — _json_safe
+        "node_bandwidth_gibps": r.node_bandwidth_gibps,
+        "ticks": r.ticks,
+    }
+
+
+def _downtime_engine_rows(r, *, kind: str, scenario: str):
+    """One row per protocol-zoo engine beyond the lark/quorum pair the
+    base downtime row already carries (none until the zoo is ported)."""
+    rows = []
+    for engine in r.engines:
+        if engine in ("lark", "quorum"):
+            continue
+        s = r.engine_stats(engine)
+        rows.append({
+            "kind": kind, "engine": engine, "scenario": scenario,
+            "rf": r.rf, "p": r.p,
+            "pause": s["pause"], "ci_pause": s["ci_pause"],
+            "events": s["events"],
+            "hist_edges": r.hist_edges.tolist(),
+            "hist": s["hist"].tolist(),
+            "lease_ticks": r.lease_ticks,
+            "view_change_ticks": r.view_change_ticks,
+            "dupres_ticks": r.dupres_ticks,
+            "rebuild_steps": r.rebuild_steps,
+            "rebuild_model": r.rebuild_model,
+            "rebuild_ticks_per_gib": r.rebuild_ticks_per_gib,
+            "size_dist": r.size_dist, "size_skew": r.size_skew,
+            "node_bandwidth_gibps": r.node_bandwidth_gibps,
+            "ticks": r.ticks,
+        })
+    return rows
+
+
+def _gen_run_downtime(full: bool = False, trials: int = 4, seed: int = 0,
+                      devices: int = 1, smoke: bool = False,
+                      params: DowntimeParams = DowntimeParams(),
+                      packed: bool = False, device=None):
+    """§6 commit-pause rows over the i.i.d. grid: one batch of `trials`
+    trials from `seed` per grid point."""
+    grid = _iid_grid(full, smoke)
+    n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=False)
+    for rf, p in grid:
+        r = simulate_downtime_batched(
+            n=n, partitions=parts, rf=rf, p=p, trials=trials,
+            max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
+            devices=devices, params=params, packed=packed, device=device)
+        yield _downtime_row(r, kind="downtime", scenario="iid")
+        yield from _downtime_engine_rows(r, kind="downtime_engine",
+                                         scenario="iid")
+
+
+def _gen_run_downtime_scenarios(names, full: bool = False, trials: int = 4,
+                                seed: int = 0, devices: int = 1,
+                                smoke: bool = False,
+                                params: DowntimeParams = DowntimeParams(),
+                                packed: bool = False, device=None):
+    n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=True)
+    for name in names:
+        sc = get_scenario(name)
+        for rf, p in sc.grid:
+            r = simulate_downtime_batched(
+                n=n, partitions=parts, rf=rf, p=p, trials=trials,
+                max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
+                devices=devices, params=params, packed=packed,
+                device=device, **sc.kwargs(n=n, rf=rf, p=p))
+            yield _downtime_row(r, kind="downtime_scenario", scenario=name)
+            yield from _downtime_engine_rows(
+                r, kind="downtime_engine_scenario", scenario=name)
+
+
 def _json_safe(row):
     """Non-finite floats are not RFC-JSON; dump them as null."""
     return {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
@@ -118,7 +207,7 @@ def _json_safe(row):
 
 
 def row_csv_line(r: dict):
-    """The progress line the sweep prints for an availability row."""
+    """The progress line the sweep prints for a result row."""
     kind = r["kind"]
     if kind == "iid":
         return (f"availability,rf{r['rf']}_p{r['p']:g},0,"
@@ -129,16 +218,38 @@ def row_csv_line(r: dict):
         return (f"availability_scenario,{r['scenario']}_rf{r['rf']}_"
                 f"p{r['p']:g},0,u_lark={r['u_lark']:.3e};"
                 f"u_maj={r['u_maj']:.3e};ratio={r['ratio']:.2f}")
+    if kind == "downtime":
+        return (f"downtime,rf{r['rf']}_p{r['p']:g},0,"
+                f"pause_lark={r['pause_lark']:.3e};"
+                f"pause_quorum={r['pause_quorum']:.3e};"
+                f"ratio={r['ratio']:.2f}")
+    if kind == "downtime_scenario":
+        return (f"downtime_scenario,{r['scenario']}_rf{r['rf']}_"
+                f"p{r['p']:g},0,pause_lark={r['pause_lark']:.3e};"
+                f"pause_quorum={r['pause_quorum']:.3e};"
+                f"ratio={r['ratio']:.2f}")
+    if kind == "downtime_engine":
+        return (f"downtime_engine,{r['engine']}_rf{r['rf']}_"
+                f"p{r['p']:g},0,pause={r['pause']:.3e};"
+                f"events={r['events']}")
+    if kind == "downtime_engine_scenario":
+        return (f"downtime_engine_scenario,{r['engine']}_"
+                f"{r['scenario']}_rf{r['rf']}_p{r['p']:g},0,"
+                f"pause={r['pause']:.3e};events={r['events']}")
     return None
 
 
 def _check_ported(spec: ExperimentSpec):
-    if spec.metric != "availability":
-        item = 5 if spec.metric == "downtime" else 8
+    if spec.metric == "latency":
         raise NotImplementedError(
-            f"metric {spec.metric!r} is not ported yet (ROADMAP Queue 1 "
-            f"item {item}); the port runs metric 'availability'")
-    if spec.backend == "event":
+            "metric 'latency' is not ported yet (ROADMAP Queue 1 item 8); "
+            "the port runs metrics 'availability' and 'downtime'")
+    zoo = [e for e in spec.engines if e not in ("lark", "quorum")]
+    if spec.metric == "downtime" and zoo:
+        raise NotImplementedError(
+            f"protocol-zoo engines {zoo} are not ported yet (ROADMAP "
+            f"Queue 1 item 7); the port simulates lark and quorum")
+    if spec.metric == "availability" and spec.backend == "event":
         raise NotImplementedError(
             "backend 'event' (the scalar event engine) is not ported yet "
             "(ROADMAP Queue 1 item 11); use backend 'numpy', 'jax' or "
@@ -153,6 +264,18 @@ def iter_rows(spec: ExperimentSpec, device=None):
     then each scenario grid."""
     _check_ported(spec)
     names = list(spec.scenarios)
+    if spec.metric == "downtime":
+        # event rows run the batched engine on one device, as the
+        # reference's _batched_backend maps them
+        common = dict(full=spec.full, trials=spec.trials, seed=spec.seed,
+                      devices=1 if spec.backend == "event" else spec.devices,
+                      smoke=spec.smoke, params=spec.downtime_params(),
+                      packed=spec.packed, device=device)
+        if not spec.scenarios_only:
+            yield from _gen_run_downtime(**common)
+        if names:
+            yield from _gen_run_downtime_scenarios(names, **common)
+        return
     if not spec.scenarios_only:
         yield from _gen_run(
             full=spec.full,

@@ -10,12 +10,12 @@ bit 31 set reads as negative) and does its arithmetic in int64 on values
 in [0, 2^32), masking back to 32 bits where a product can overflow.
 ``to_u32`` / ``to_i32`` convert between the two carriers.
 
-``pac_eval_packed`` is the plain PyTorch version of the ``fused_pac_eval``
-kernel (kernels/fused_step.py) and follows the reference function step
-for step: SWAR popcount, prefix masks, k rounds of lowest-set-bit
-extraction.  All of it is integer and bit math, so it is exact.  The
-downtime half (``downtime_eval_packed``, ``select_bit``) belongs to the
-§6 slice (ROADMAP Queue 1 item 5).
+``pac_eval_packed`` and ``downtime_eval_packed`` are the plain PyTorch
+versions of the ``fused_pac_eval`` and ``fused_downtime_eval`` kernels
+(kernels/fused_step.py) and follow the reference functions step for
+step: SWAR popcount, prefix masks, k rounds of lowest-set-bit
+extraction, the one-hot word select of ``select_bit``.  All of it is
+integer and bit math, so it is exact.
 """
 from __future__ import annotations
 
@@ -153,3 +153,92 @@ def pac_eval_packed(up_words, full_words, *, rf: int, voters: int,
     maj = 2 * nv > voters
     creps = [to_i32(w) for w in lowest_set_bits(u, rf)]
     return lark, maj, creps
+
+
+def select_bit(planes, rank):
+    """Bit `rank` across a word-plane list -> int32 0/1 per element.
+
+    planes: int64 values in [0, 2^32); rank: an integer tensor of the
+    plane shape.  The word is picked by a one-hot compare over the word
+    list, then shifted down by rank mod 32 (floor division and
+    remainder, as numpy's).  A rank below 0 or at or above 32 * W selects
+    no word and reads 0."""
+    widx = torch.div(rank, WORD_BITS, rounding_mode="floor")
+    word = torch.zeros_like(planes[0])
+    for kk, w in enumerate(planes):
+        word = torch.where(widx == kk, w, word)
+    bit = torch.remainder(rank, WORD_BITS).to(torch.int64)
+    return ((word >> bit) & 1).to(torch.int32)
+
+
+def downtime_eval_packed(up_words, full_words, *, rf: int, n_real: int,
+                         roster=None, want_repmask: bool = False,
+                         want_rleader: bool = False):
+    """Packed-word §6 per-step eval, bit-identical to the boolean one
+    (``pac_eval.downtime_eval_plain``).
+
+    Same word-plane contract as pac_eval_packed.  roster, optional: a
+    length-rf list of int32 rank planes — the reconfiguring baseline's
+    replica-set ranks; qmaj/nrep then count those ranks' up bits
+    (select_bit per slot) instead of the first-rf prefix.  Returns (lark,
+    qmaj, leader, leader_full, nrep, *extras, creps_words): bool, bool,
+    int32, bool, int32, then repmask (int32 first-rf up bits) and rleader
+    (int32 lowest up roster rank, n_real when none) as requested, then a
+    length-W list of int32 planes.  The leader is the first non-empty
+    word's lowest set bit, 32k + popcount(lsb - 1), and leader_full that
+    bit of the full word."""
+    if want_rleader and roster is None:
+        raise ValueError("rleader needs a roster (it elects among "
+                         "roster members)")
+    W = len(up_words)
+    n_pad = W * WORD_BITS
+    real = prefix_masks(n_real, n_pad)
+    u = _mask_planes([to_u32(w) for w in up_words], real)
+    f = _mask_planes([to_u32(w) for w in full_words], real)
+    n_up = _popcount_sum(u)
+    majority = 2 * n_up > n_real
+    any_roster = _any_bit(_mask_planes(u, prefix_masks(rf, n_pad)))
+    full_up = _any_bit([a & b for a, b in zip(u, f)])
+    lark = majority & any_roster & full_up
+
+    rleader = None
+    if roster is None:
+        nrep = _popcount_sum(_mask_planes(u, prefix_masks(rf, n_pad)))
+    else:
+        if want_rleader:
+            rleader = torch.full(u[0].shape, n_real, dtype=torch.int32,
+                                 device=u[0].device)
+        nrep = torch.zeros(u[0].shape, dtype=torch.int32,
+                           device=u[0].device)
+        for r in roster:
+            bit = select_bit(u, r)
+            nrep = nrep + bit
+            if want_rleader:
+                rleader = torch.minimum(
+                    rleader, torch.where(bit > 0, r.to(torch.int32),
+                                         n_real))
+    qmaj = 2 * nrep > rf
+
+    leader = torch.full(u[0].shape, n_pad, dtype=torch.int32,
+                        device=u[0].device)
+    leader_full = torch.zeros(u[0].shape, dtype=torch.bool,
+                              device=u[0].device)
+    done = None
+    for k in range(W):
+        w = u[k]
+        nz = w != 0
+        lsb = w & -w
+        tz = popcount32(lsb - 1)
+        pick = nz if done is None else (nz & ~done)
+        leader = torch.where(pick, WORD_BITS * k + tz, leader)
+        leader_full = torch.where(pick, (f[k] & lsb) != 0, leader_full)
+        done = nz if done is None else (done | nz)
+    leader = torch.clamp(leader, max=n_real)
+
+    extras = ()
+    if want_repmask:
+        extras = extras + ((u[0] & ((1 << rf) - 1)).to(torch.int32),)
+    if want_rleader:
+        extras = extras + (rleader,)
+    creps = [to_i32(w) for w in lowest_set_bits(u, rf)]
+    return (lark, qmaj, leader, leader_full, nrep) + extras + (creps,)

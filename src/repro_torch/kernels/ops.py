@@ -1,18 +1,21 @@
 """The per-step evaluation API (port of ``repro/kernels/ops.py``'s
-``StepSpec`` / ``StepOutputs`` / ``step_eval``, availability metric).
+``StepSpec`` / ``StepOutputs`` / ``step_eval`` / node counts).
 
 ``StepSpec`` and ``StepOutputs`` are copied from the reference, so one
 frozen spec names the same step on both sides.  ``step_eval`` maps a
-spec onto a kernel by layout:
+spec onto kernels by metric and layout:
 
-  packed=False  (R, n_pad) bool rank-space tiles  -> pac_eval.pac_eval
-  packed=True   (B, W, P) int32 word planes       -> fused_step.fused_pac_eval
+  availability, packed=False  (R, n_pad) bool tiles  -> pac_eval.pac_eval
+  availability, packed=True   (B, W, P) int32 words  -> fused_step.fused_pac_eval
+  downtime, packed=False      bool tiles [+ roster]  -> pac_eval.downtime_eval
+                              [+ recruit/active]     -> pac_eval.node_count
+  downtime, packed=True       words [+ roster + recruit/active]
+                                                     -> fused_step.fused_downtime_eval
 
 and each kernel wrapper dispatches by the tensor's device (CUDA kernel on
 a CUDA tensor, plain PyTorch on a CPU tensor).  The reference's
 numpy/jax/pallas backend switch and its block-size autotuners have no
-counterpart here.  The §6 downtime metric is still to be ported (ROADMAP
-Queue 1 item 5).
+counterpart here.
 """
 from __future__ import annotations
 
@@ -143,21 +146,82 @@ class StepOutputs(NamedTuple):
     rleader: object = None
 
 
-def step_eval(spec: StepSpec, up, full) -> StepOutputs:
+def _take_extras(outs, want_repmask: bool, want_rleader: bool):
+    """Pull the protocol-zoo extras out of a kernel's (lark, qmaj, leader,
+    leader_full, nrep, *extras, creps[, counts]) tuple."""
+    k = 5
+    repmask = rleader = None
+    if want_repmask:
+        repmask = outs[k]
+        k += 1
+    if want_rleader:
+        rleader = outs[k]
+    return repmask, rleader
+
+
+def rebuild_node_counts(recruit, active, *, n_real: int):
+    """Per-node in-flight rebuild counts for the §6 bandwidth-contended
+    rebuild model (the reference's ``_rebuild_node_counts_impl``):
+    recruit (B, P) int32 node ids (values outside [0, n_real) are
+    ignored), active (B, P) bool -> counts (B, n_real) int32.  The
+    reduction never crosses trials."""
+    return pac_eval.node_count(recruit, active, n_real=n_real)
+
+
+def step_eval(spec: StepSpec, up, full, *, roster=None, recruit=None,
+              active=None) -> StepOutputs:
     """Evaluate one Monte Carlo step under `spec`.
 
     Boolean layout (spec.packed=False): up/full are (R, n_pad) bool
-    rank-space tiles; outputs are lark/maj (R,) and creps (R, n_pad).
+    rank-space tiles, roster (R, rf) int32, and outputs are (R,) /
+    (R, n_pad).  recruit/active ((B, P) int32/bool) additionally request
+    the bandwidth model's node counts (B, n_real).
     Packed layout (spec.packed=True): up/full are (B, W, P) int32 word
-    planes (bit b of word k = succession rank 32k+b); outputs are lark/maj
-    (B, P) and creps as (B, W, P) words.  Both layouts give the same bits.
+    planes (bit b of word k = succession rank 32k+b), roster is the
+    engine's carried (B, P, rf) int32 ranks, row outputs are (B, P) and
+    creps comes back as (B, W, P) words; one ``fused_downtime_eval``
+    launch gives the eval, the roster select and the counts.
+    Both layouts give the same bits.
     """
-    if spec.metric != "availability":
-        raise NotImplementedError(
-            f"step_eval metric {spec.metric!r} is not ported yet: the §6 "
-            "downtime evaluation is ROADMAP Queue 1 item 5")
-    kernel = fused_step.fused_pac_eval if spec.packed else pac_eval.pac_eval
-    lark, maj, creps = kernel(up, full, rf=spec.rf,
-                              voters=spec.resolved_voters,
-                              n_real=spec.n_real)
-    return StepOutputs(lark=lark, maj=maj, creps=creps)
+    if spec.metric == "downtime" and spec.rebuild_model != "reconfig" \
+            and roster is not None:
+        raise ValueError("roster is only meaningful for "
+                         "rebuild_model='reconfig'")
+    if (recruit is None) != (active is None):
+        raise ValueError("recruit and active must be passed together")
+    if spec.metric == "availability" and recruit is not None:
+        raise ValueError("rebuild node counts are a downtime-engine "
+                         "output; availability spec can't request them")
+    if spec.metric == "availability":
+        kernel = fused_step.fused_pac_eval if spec.packed \
+            else pac_eval.pac_eval
+        lark, maj, creps = kernel(up, full, rf=spec.rf,
+                                  voters=spec.resolved_voters,
+                                  n_real=spec.n_real)
+        return StepOutputs(lark=lark, maj=maj, creps=creps)
+
+    # rleader elects among the carried roster, so a roster-less call
+    # (e.g. the engines' t=0 init eval) simply doesn't produce it
+    want_rm = spec.want_repmask
+    want_rl = spec.want_rleader and roster is not None
+    if spec.packed:
+        outs = fused_step.fused_downtime_eval(
+            up, full, rf=spec.rf, n_real=spec.n_real, roster=roster,
+            recruit=recruit, active=active, want_repmask=want_rm,
+            want_rleader=want_rl)
+        ncr = 6 + int(want_rm) + int(want_rl)
+        counts = outs[ncr] if recruit is not None else None
+        creps = outs[ncr - 1]
+    else:
+        counts = None
+        if recruit is not None:
+            counts = rebuild_node_counts(recruit, active,
+                                         n_real=spec.n_real)
+        outs = pac_eval.downtime_eval(
+            up, full, rf=spec.rf, n_real=spec.n_real, roster=roster,
+            want_repmask=want_rm, want_rleader=want_rl)
+        creps = outs[-1]
+    repmask, rleader = _take_extras(outs, want_rm, want_rl)
+    return StepOutputs(lark=outs[0], maj=outs[1], leader=outs[2],
+                       leader_full=outs[3], nrep=outs[4], creps=creps,
+                       counts=counts, repmask=repmask, rleader=rleader)

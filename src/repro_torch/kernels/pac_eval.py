@@ -1,15 +1,28 @@
-"""§5.1 PAC evaluation on boolean rank-space tiles: the CUDA kernel
-``pac_eval`` (csrc/pac_eval.cu) and its plain PyTorch version.
+"""Per-row evaluation on boolean rank-space tiles: the CUDA kernels
+``pac_eval`` (csrc/pac_eval.cu), ``downtime_eval`` and its roster
+variant (csrc/downtime_eval.cu) and ``node_count`` (csrc/node_count.cu),
+each beside its plain PyTorch version.
 
-Replaces ``repro/kernels/pac_eval.py:pac_eval`` (Pallas body
-``_pac_kernel``).  Bound by bytes: 2·R·n_pad read, R·n_pad + 2R written
-(about 15.3 MB per call at the paper tile R = 8·4096, n = 155).  The
-kernel gives one warp to each row and turns each 32-column chunk into a
-word with ``__ballot_sync``, so every byte is read or written once and
-the counts are ``__popc`` of those words; see the source for the rest.
+* ``pac_eval`` replaces ``repro/kernels/pac_eval.py:pac_eval`` (Pallas
+  body ``_pac_kernel``): §5.1 PAC.  Bound by bytes: 2·R·n_pad read,
+  R·n_pad + 2R written (about 15.3 MB per call at the paper tile
+  R = 8·4096, n = 155).
+* ``downtime_eval`` replaces ``repro/kernels/pac_eval.py:downtime_eval``
+  (bodies ``_downtime_kernel`` and, with a roster,
+  ``_downtime_roster_kernel``): the §6 per-step evaluation.  Bound by
+  bytes: 2·R·n_pad read, R·n_pad + 11·R written, + 4·R·rf roster bytes
+  read (about 15.6 MB, 15.9 MB with a rf = 2 roster).
+* ``node_count`` replaces ``repro/kernels/pac_eval.py:node_count`` (body
+  ``_node_count_kernel``): in-flight catch-ups per (trial, node).
+  5·B·P bytes read, 4·B·n_real written (about 0.17 MB): bound by launch
+  latency, not by bytes.
+
+The row kernels give one warp to each row and turn each 32-column chunk
+into a word with ``__ballot_sync``, so every byte is read or written
+once and the counts are ``__popc`` of those words; see the sources.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs ``pac_eval_plain``.  There is no fallback.
+raises), a CPU tensor runs the plain version.  There is no fallback.
 """
 from __future__ import annotations
 
@@ -87,3 +100,197 @@ def pac_eval(up, full, *, rf: int, voters: int, n_real: int):
 #: kernel launches since the last reset (a plain count, set to 0 by the
 #: caller before a run it wants to attribute)
 pac_eval.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# downtime_eval: the §6 per-row evaluation (plain and roster variants)
+# ---------------------------------------------------------------------------
+
+_DT_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + \
+    (ctypes.c_void_p,)
+
+
+def downtime_eval_plain(up, full, *, rf: int, n_real: int, roster=None,
+                        want_repmask: bool = False,
+                        want_rleader: bool = False):
+    """(R, n_pad) bool tiles -> (lark, qmaj, leader, leader_full, nrep,
+    *extras, creps) — the math of ``repro/kernels/pac_np.py:
+    downtime_eval_rank_np``.
+
+    lark (R,) bool is PAC; qmaj (R,) bool is a majority of the replica
+    set up and nrep (R,) int32 its up count — the first rf lanes, or the
+    ranks of ``roster`` (R, rf) when given, where a rank outside
+    [0, n_real) reads as down (as the Pallas kernel's one-hot compare
+    over valid lanes); leader (R,) int32 is the lowest up rank (n_real
+    when none) and leader_full (R,) bool whether it holds the latest
+    copy; creps (R, n_pad) bool the first rf up lanes.  Extras, between
+    nrep and creps: repmask (R,) int32, bit j = lane j < rf up; rleader
+    (R,) int32, the lowest up roster rank (n_real when none)."""
+    if want_rleader and roster is None:
+        raise ValueError("rleader needs a roster (it elects among "
+                         "roster members)")
+    lark, _, creps = pac_eval_plain(up, full, rf=rf, voters=rf,
+                                    n_real=n_real)
+    R, n_pad = up.shape
+    lanes = torch.arange(n_pad, dtype=torch.int32, device=up.device)
+    if n_pad > n_real:
+        up = up & (lanes < n_real)
+        full = full & (lanes < n_real)
+    rup = None
+    if roster is None:
+        nrep = up[:, :rf].sum(dim=1).to(torch.int32)
+    else:
+        idx = roster.clamp(0, n_pad - 1).to(torch.int64)
+        rup = torch.gather(up, 1, idx) & (roster >= 0) & (roster < n_real)
+        nrep = rup.sum(dim=1).to(torch.int32)
+    qmaj = 2 * nrep > rf
+    leader = torch.where(up, lanes[None, :], n_pad).amin(dim=1)
+    leader = leader.clamp(max=n_real)
+    leader_full = ((full & up) & (lanes[None, :] == leader[:, None])) \
+        .any(dim=1)
+    extras = ()
+    if want_repmask:
+        bits = torch.tensor([1 << j for j in range(rf)], dtype=torch.int32,
+                            device=up.device)
+        extras = extras + ((up[:, :rf].to(torch.int32) * bits[None, :])
+                           .sum(dim=1, dtype=torch.int32),)
+    if want_rleader:
+        extras = extras + (torch.where(rup, roster.to(torch.int32), n_real)
+                           .amin(dim=1),)
+    return (lark, qmaj, leader, leader_full, nrep) + extras + (creps,)
+
+
+def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
+                  want_repmask: bool = False, want_rleader: bool = False):
+    """(R, n_pad) bool rank-space tiles [+ roster (R, rf) int32] ->
+    (lark, qmaj, leader, leader_full, nrep, *extras, creps); see
+    ``downtime_eval_plain``.  CUDA tensors launch the kernel
+    (``downtime_eval.launches`` counts the plain variant,
+    ``downtime_eval.roster_launches`` the roster one); CPU tensors run
+    the plain version."""
+    _check(up, full, rf=rf, voters=rf, n_real=n_real)
+    if want_rleader and roster is None:
+        raise ValueError("rleader needs a roster (it elects among "
+                         "roster members)")
+    if want_repmask and rf > 30:
+        raise ValueError(f"repmask needs rf <= 30 (a non-negative int32 "
+                         f"bitmask); got rf={rf}")
+    R = up.shape[0]
+    if roster is not None:
+        if roster.dtype != torch.int32 or roster.shape != (R, rf):
+            raise ValueError(f"roster must be ({R}, {rf}) int32; got "
+                             f"{tuple(roster.shape)} {roster.dtype}")
+        if roster.device != up.device or not roster.is_contiguous():
+            raise ValueError("roster must be contiguous, on the tiles' "
+                             "device")
+    if up.device.type == "cpu":
+        return downtime_eval_plain(up, full, rf=rf, n_real=n_real,
+                                   roster=roster, want_repmask=want_repmask,
+                                   want_rleader=want_rleader)
+    if up.device.type != "cuda":
+        raise ValueError(f"downtime_eval runs on cuda or cpu, not "
+                         f"{up.device}")
+    dev = up.device
+    n_pad = up.shape[1]
+
+    def rows(dtype):
+        return torch.empty(R, dtype=dtype, device=dev)
+
+    lark, qmaj, lfull = (rows(torch.bool) for _ in range(3))
+    leader, nrep = rows(torch.int32), rows(torch.int32)
+    repmask = rows(torch.int32) if want_repmask else None
+    rleader = rows(torch.int32) if want_rleader else None
+    creps = torch.empty((R, n_pad), dtype=torch.bool, device=dev)
+    symbol = "downtime_eval_launch" if roster is None \
+        else "downtime_roster_launch"
+    launch = _build.function("downtime_eval", symbol, _DT_ARGTYPES)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = launch(up.data_ptr(), full.data_ptr(), ptr(roster),
+                 lark.data_ptr(), qmaj.data_ptr(), leader.data_ptr(),
+                 lfull.data_ptr(), nrep.data_ptr(), ptr(repmask),
+                 ptr(rleader), creps.data_ptr(), R, n_pad, n_real, rf,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "downtime_eval")
+    if roster is None:
+        downtime_eval.launches += 1
+    else:
+        downtime_eval.roster_launches += 1
+    extras = tuple(t for t in (repmask, rleader) if t is not None)
+    return (lark, qmaj, leader, lfull, nrep) + extras + (creps,)
+
+
+#: kernel launches since the last reset, one count per variant
+downtime_eval.launches = 0
+downtime_eval.roster_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# node_count: in-flight catch-ups per (trial, node)
+# ---------------------------------------------------------------------------
+
+_NC_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 3 + \
+    (ctypes.c_void_p,)
+
+
+def node_count_plain(recruit, active, *, n_real: int):
+    """recruit (B, P) int32 node ids, active (B, P) bool -> (B, n_real)
+    int32 counts: cnt[b, node] = #{p : active[b, p] and recruit[b, p] ==
+    node}.  Ids outside [0, n_real) count nowhere — the math of
+    ``repro/kernels/pac_np.py: rebuild_node_counts_np``."""
+    ok = active & (recruit >= 0) & (recruit < n_real)
+    counts = torch.zeros((recruit.shape[0], n_real), dtype=torch.int32,
+                         device=recruit.device)
+    return counts.scatter_add_(
+        1, recruit.clamp(0, n_real - 1).to(torch.int64), ok.to(torch.int32))
+
+
+def check_counts_args(recruit, active, *, n_real: int):
+    if recruit.dtype != torch.int32 or active.dtype != torch.bool:
+        raise TypeError(f"node counts take int32 recruit ids and a bool "
+                        f"active mask; got {recruit.dtype}, "
+                        f"{active.dtype}")
+    if recruit.dim() != 2 or recruit.shape != active.shape:
+        raise ValueError(f"recruit/active must share a (B, P) shape; got "
+                         f"{tuple(recruit.shape)} vs "
+                         f"{tuple(active.shape)}")
+    if recruit.device != active.device:
+        raise ValueError(f"recruit on {recruit.device}, active on "
+                         f"{active.device}")
+    if not (recruit.is_contiguous() and active.is_contiguous()):
+        raise ValueError("recruit and active must be contiguous")
+    if not 1 <= n_real <= 8192:
+        raise ValueError(f"n_real={n_real} must be in [1, 8192] (one "
+                         f"shared-memory histogram per block)")
+
+
+def node_count(recruit, active, *, n_real: int):
+    """recruit (B, P) int32, active (B, P) bool -> (B, n_real) int32
+    per-node in-flight counts; see ``node_count_plain``.  CUDA tensors
+    launch the kernel; CPU tensors run the plain version."""
+    check_counts_args(recruit, active, n_real=n_real)
+    if recruit.device.type == "cpu":
+        return node_count_plain(recruit, active, n_real=n_real)
+    if recruit.device.type != "cuda":
+        raise ValueError(f"node_count runs on cuda or cpu, not "
+                         f"{recruit.device}")
+    B, P = recruit.shape
+    if B > 65535:
+        raise ValueError(f"node_count takes at most 65535 trials (the "
+                         f"grid's y axis); got {B}")
+    counts = torch.zeros((B, n_real), dtype=torch.int32,
+                         device=recruit.device)
+    launch = _build.function("node_count", "node_count_launch",
+                             _NC_ARGTYPES)
+    err = launch(recruit.data_ptr(), active.data_ptr(), counts.data_ptr(),
+                 B, P, n_real,
+                 torch.cuda.current_stream(recruit.device).cuda_stream)
+    _build.check(err, "node_count")
+    node_count.launches += 1
+    return counts
+
+
+#: kernel launches since the last reset
+node_count.launches = 0

@@ -1,11 +1,15 @@
-"""Where the availability engine's time goes on the card.
+"""Where an engine's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--packed] \\
-        [--n 155 --partitions 4096 --trials 8 --chunks 4] [--json OUT]
+        [--n 155 --partitions 4096 --trials 8 --chunks 4] [--json OUT] \\
+        [--metric downtime --rebuild-model reconfig --size-dist zipf \\
+         --size-skew 1 --node-bandwidth-gibps 1]
 
-Runs ``simulate_availability_batched`` on cuda once to warm up, then
-for ``--chunks`` chunks of 512 steps twice: once timed on the host clock
-with nothing else attached (wall seconds, steps per second), once under
+Runs ``simulate_availability_batched`` (``--metric availability``, the
+default) or ``simulate_downtime_batched`` (``--metric downtime``, with
+the §6 rebuild knobs) on cuda once to warm up, then for ``--chunks``
+chunks of 512 steps twice: once timed on the host clock with nothing
+else attached (wall seconds, steps per second), once under
 ``torch.profiler`` for the kernels' device times.  Prints one JSON
 object: the unprofiled wall time, the device-busy seconds (the sum of
 the CUDA kernel events' durations), the idle share 1 - busy / wall, and
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
 
@@ -25,6 +30,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .core.availability_batched import simulate_availability_batched
+from .core.downtime_batched import simulate_downtime_batched
 
 
 def _device_self_us(evt) -> float:
@@ -44,6 +50,14 @@ def main(argv=None) -> int:
     ap.add_argument("--p", type=float, default=1e-3)
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--packed", action="store_true")
+    ap.add_argument("--metric", default="availability",
+                    choices=("availability", "downtime"))
+    ap.add_argument("--rebuild-model", default="fixed",
+                    choices=("fixed", "reconfig"))
+    ap.add_argument("--size-dist", default="uniform",
+                    choices=("uniform", "zipf", "lognormal"))
+    ap.add_argument("--size-skew", type=float, default=1.0)
+    ap.add_argument("--node-bandwidth-gibps", type=float, default=math.inf)
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -51,17 +65,26 @@ def main(argv=None) -> int:
     kw = dict(n=args.n, partitions=args.partitions, trials=args.trials,
               rf=args.rf, p=args.p, min_ticks=10 ** 9, seed=0,
               packed=args.packed, device="cuda")
-    simulate_availability_batched(max_steps=2, **kw)          # warm-up
+    knobs = {}
+    if args.metric == "downtime":
+        knobs = dict(rebuild_model=args.rebuild_model,
+                     size_dist=args.size_dist, size_skew=args.size_skew,
+                     node_bandwidth_gibps=args.node_bandwidth_gibps)
+        kw.update(knobs)
+        simulate = simulate_downtime_batched
+    else:
+        simulate = simulate_availability_batched
+    simulate(max_steps=2, **kw)                               # warm-up
     torch.cuda.synchronize()
     steps = 512 * args.chunks
     t0 = time.monotonic()
-    simulate_availability_batched(max_steps=steps, **kw)
+    simulate(max_steps=steps, **kw)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        simulate_availability_batched(max_steps=steps, **kw)
+        simulate(max_steps=steps, **kw)
         torch.cuda.synchronize()
         wall_profiled = time.monotonic() - t0
     # kernel events only: a CPU op's self device time repeats the
@@ -73,7 +96,8 @@ def main(argv=None) -> int:
                 _device_self_us(evt)
     busy = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
-    out = {"device": torch.cuda.get_device_name(0), "n": args.n,
+    out = {"device": torch.cuda.get_device_name(0), "metric": args.metric,
+           **knobs, "n": args.n,
            "partitions": args.partitions, "trials": args.trials,
            "rf": args.rf, "packed": args.packed, "steps": steps,
            "wall_s": wall, "steps_per_s": steps / wall,

@@ -1,4 +1,4 @@
-"""§5.1 availability sweep on the PyTorch/CUDA port.
+"""§5.1 availability and §6 downtime sweeps on the PyTorch/CUDA port.
 
 The port's counterpart of ``benchmarks/availability_sweep.py``'s config
 mode: it runs an experiment spec through ``repro_torch.experiments``
@@ -13,7 +13,9 @@ byte-identical to the reference's for the same spec.
 
 ``--config`` is mutually exclusive with the spec flags (--backend,
 --trials, ...), which build a spec directly as the reference sweep's
-flags do.  Only the availability metric is ported; the runner raises
+flags do; the §6 knobs (rebuild model, size skew, bandwidth) come from a
+config, as in ``benchmarks/configs/downtime*.toml``.  The availability
+and downtime metrics are ported; the runner raises
 ``NotImplementedError`` for the rest.  ``--device`` defaults to cuda.
 """
 from __future__ import annotations

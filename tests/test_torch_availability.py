@@ -17,6 +17,10 @@ from repro.kernels.ops import step_eval as ref_step_eval
 from repro_torch.core import availability_batched as T
 from repro_torch.kernels.ops import StepSpec, step_eval
 
+# the tensors here are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores
+torch.set_num_threads(1)
+
 N = 13
 KW = dict(n=N, partitions=32, rf=2, p=5e-3, trials=3, max_ticks=4_000,
           min_ticks=10 ** 9, chunk_steps=64, max_steps=300, seed=11,
@@ -155,7 +159,7 @@ def test_mid_run_restart_from_reference_carry(packed):
     carry = carry[:3] + (full,) + carry[4:]
     want_carry, want_ys = R._run_chunk_numpy(ref_step, carry, 65, 96)
 
-    tcarry = T.carry_from_numpy(carry)
+    tcarry = T.carry_from_numpy(carry, device="cpu")
     if packed:
         assert tcarry[3].dtype == torch.int32
         assert (carry[3] >= 2 ** 31).any()     # bit-31 words carried over

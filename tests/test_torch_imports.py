@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import downtime_batched
 from repro_torch.core.availability_batched import \
     simulate_availability_batched
 from repro_torch.device import resolve_device
@@ -99,3 +100,51 @@ def test_wrappers_dispatch_by_device_without_fallback():
     with pytest.raises(TypeError):
         fused_step.fused_pac_eval(words.to(torch.int64), words, rf=2,
                                   voters=3, n_real=9)
+
+
+def test_downtime_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        downtime_batched.simulate_downtime_batched(n=7, partitions=8,
+                                                   trials=1, max_steps=2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        downtime_batched.carry_from_numpy((np.zeros(2, np.int32),))
+    cpu = downtime_batched.carry_from_numpy((np.zeros(2, np.int32),),
+                                            device="cpu")
+    assert cpu[0].device == torch.device("cpu")
+
+
+def test_downtime_wrappers_dispatch_by_device_without_fallback():
+    up = torch.ones((4, 9), dtype=torch.bool)
+    # rank 9 lies outside the 9 real lanes and reads as down
+    roster = torch.tensor([[0, 9]] * 4, dtype=torch.int32)
+    counts = (pac_eval.downtime_eval.launches,
+              pac_eval.downtime_eval.roster_launches,
+              pac_eval.node_count.launches,
+              fused_step.fused_downtime_eval.launches)
+    outs = pac_eval.downtime_eval(up, up, rf=2, n_real=9, roster=roster)
+    assert outs[2].tolist() == [0] * 4 and outs[4].tolist() == [1] * 4
+    rec = torch.zeros((2, 4), dtype=torch.int32)
+    assert pac_eval.node_count(rec, rec == 0, n_real=9)[:, 0].tolist() == \
+        [4, 4]
+    words = torch.from_numpy(np.full((2, 1, 4), -1, dtype=np.int32))
+    fused_step.fused_downtime_eval(words, words, rf=2, n_real=9,
+                                   recruit=rec, active=rec == 0)
+    assert counts == (pac_eval.downtime_eval.launches,   # plain: no launch
+                      pac_eval.downtime_eval.roster_launches,
+                      pac_eval.node_count.launches,
+                      fused_step.fused_downtime_eval.launches)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pac_eval.downtime_eval(up.to(meta), up.to(meta), rf=2, n_real=9)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pac_eval.node_count(rec.to(meta), (rec == 0).to(meta), n_real=9)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        fused_step.fused_downtime_eval(words.to(meta), words.to(meta), rf=2,
+                                       n_real=9)
+    with pytest.raises(TypeError):
+        pac_eval.node_count(rec.to(torch.int64), rec == 0, n_real=9)
+    with pytest.raises(ValueError, match="roster"):
+        pac_eval.downtime_eval(up, up, rf=2, n_real=9,
+                               roster=roster.to(torch.int64))

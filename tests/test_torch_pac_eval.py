@@ -12,7 +12,7 @@ import torch
 from repro.kernels import bitpack as ref_bitpack
 from repro.kernels import fused_step as ref_fused
 from repro.kernels import pac_eval as ref_pac
-from repro.kernels.pac_np import pac_eval_rank_np
+from repro.kernels.pac_np import downtime_eval_rank_np, pac_eval_rank_np
 from repro_torch.kernels import bitpack, fused_step, ops, pac_eval
 
 
@@ -119,6 +119,9 @@ def test_popcount_and_prefix_masks_match_reference():
 
 
 def test_step_eval_dispatches_by_layout_and_rejects_downtime():
+    """Availability and downtime specs dispatch to their kernels in both
+    layouts; an availability spec rejects the downtime-only node
+    counts."""
     B, P, n = 2, 8, 20
     up, full = _state(B * P, n, seed=5)
     spec = ops.StepSpec(metric="availability", rf=2, n_real=n)
@@ -126,6 +129,19 @@ def test_step_eval_dispatches_by_layout_and_rejects_downtime():
     want = pac_eval_rank_np(up, full, rf=2, voters=3, n_real=n)
     assert np.array_equal(o.lark.numpy(), want[0])
     assert o.leader is None and o.counts is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ops.step_eval(ops.StepSpec(metric="downtime", rf=2, n_real=n),
-                      torch.from_numpy(up), torch.from_numpy(full))
+    want_dt = downtime_eval_rank_np(up, full, rf=2, n_real=n)
+    words = [bitpack.pack_words(torch.from_numpy(a).reshape(B, P, n))
+             .movedim(-1, 1).contiguous() for a in (up, full)]
+    for packed, (u, f) in ((False, (torch.from_numpy(up),
+                                    torch.from_numpy(full))),
+                           (True, words)):
+        dt = ops.step_eval(ops.StepSpec(metric="downtime", rf=2, n_real=n,
+                                        packed=packed), u, f)
+        for got, w in zip((dt.lark, dt.maj, dt.leader, dt.leader_full,
+                           dt.nrep), want_dt[:5]):
+            assert np.array_equal(got.reshape(-1).numpy(), w)
+        assert dt.counts is None
+    rec = torch.zeros((B, P), dtype=torch.int32)
+    with pytest.raises(ValueError, match="availability spec"):
+        ops.step_eval(spec, torch.from_numpy(up), torch.from_numpy(full),
+                      recruit=rec, active=rec > 0)
