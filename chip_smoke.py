@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives its two main paths at the paper tile (n = 155 nodes, P = 4096
-partitions, 8 trials): the §5.1 availability Monte Carlo and the §6
-commit-pause engine.  One JSON line per phase:
+drives its main paths at the paper tile (n = 155 nodes, P = 4096
+partitions, 8 trials): the §5.1 availability Monte Carlo, the §6
+commit-pause engine, its client-latency layer and its protocol zoo.
+One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
 2. ``build``: nvcc for sm_90a, one process per source, all at once, and
@@ -17,15 +18,15 @@ commit-pause engine.  One JSON line per phase:
    kernels against the unpacked ones on the same state, plus each
    kernel's time per call beside the plain version's (``kernel_time``).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
-   packed, about 3k steps with the trajectory kept.  The two runs must
-   agree exactly, the first 512 steps must equal a ``device="cpu"`` run,
+   packed, 2048 steps with the trajectory kept.  The two runs must
+   agree exactly, the first 128 steps must equal a ``device="cpu"`` run,
    and both §5.1 kernels must have launched over this path.
 5. ``bench_row``: the BENCH_sweep i.i.d. row and the hetero-mttf row at
    rf = 2, p = 1e-3, rebuilt by the port's runner on cuda, packed and
    unpacked, must equal the committed rows of
    ``benchmarks/BENCH_sweep.json`` byte for byte.
 6. ``downtime``: ``simulate_downtime_batched`` on cuda at rf = 2,
-   p = 1e-3, about 3k steps with the trajectory kept, for the fixed model
+   p = 1e-3, 2048 steps with the trajectory kept, for the fixed model
    (default knobs) and for reconfig with zipf sizes (skew 1) and 1 GiB/s
    shared bandwidth, each unpacked and packed; the layouts must agree
    exactly, each of the four §6 kernels must have launched over this
@@ -34,7 +35,20 @@ commit-pause engine.  One JSON line per phase:
    BENCH_downtime.json, BENCH_downtime_reconfig.json and
    BENCH_downtime_skew.json, rebuilt on cuda, packed and unpacked, must
    equal the committed row byte for byte.
-8. ``kernels``: every ported kernel with its launches on its main path,
+8. ``latency``: ``simulate_client_latency`` on cuda at rf = 2, p = 1e-3,
+   the fixed model, 2048 steps, unpacked and packed; the layouts must
+   agree exactly, ``latency_charge`` must have launched on this path
+   (and the §6 eval kernels beside it), and a 128-step run on cuda must
+   equal the same run on the CPU.  ``latency_charge`` itself is held
+   against its plain version in phase 3, on adversarial inputs.
+9. ``zoo``: the reconfig engine with hermes and spinnaker
+   (lease_ticks = 40, view_change_ticks = 200) at the same tile, the same
+   checks.
+10. ``zoo_bench_row``: the i.i.d. rf = 2, p = 3e-3 row of
+   BENCH_latency.json and the three rows of that grid point in
+   BENCH_shootout.json (downtime, hermes, spinnaker), rebuilt on cuda,
+   packed and unpacked, byte for byte.
+11. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound and error.
 
 Any failure raises and exits non-zero.  The last line is
@@ -44,6 +58,7 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -56,6 +71,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core import availability_batched as ab  # noqa: E402
+from repro_torch.core import client_latency as cl  # noqa: E402
 from repro_torch.core import downtime_batched as db  # noqa: E402
 from repro_torch.experiments import runner  # noqa: E402
 from repro_torch.kernels import _build, bitpack  # noqa: E402
@@ -90,6 +106,8 @@ SOURCES = {
                    "src/repro/kernels/pac_eval.py:200"),
     "fused_downtime_eval": ("src/repro_torch/kernels/csrc/fused_downtime.cu",
                             "src/repro/kernels/fused_step.py:121"),
+    "latency_charge": ("src/repro_torch/kernels/csrc/latency_charge.cu",
+                       "src/repro/kernels/pac_eval.py:263"),
 }
 
 
@@ -226,11 +244,14 @@ def check_kernels(bw):
                                  worst["fused_pac_eval"], bw)}
 
 
-def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw):
+def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None):
     """One kernel's timing record: its bound is the larger of its bytes
-    over the HBM rate and its integer ops over the INT32 lane rate."""
+    over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
+    the 32-bit lane rate."""
     bytes_ms = nbytes / bw * 1e3
-    ops_ms = lanes * OPS_PER_LANE[name] / INT_OPS * 1e3
+    if ops is None:
+        ops = lanes * OPS_PER_LANE[name]
+    ops_ms = ops / INT_OPS * 1e3
     rec = {"ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
            "max_abs_err": err, "bytes": nbytes,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -425,6 +446,108 @@ def check_downtime_kernels(bw):
                          worst[name], bw) for name in names}
 
 
+def latency_inputs(gen, dev, *, slo_ticks=8):
+    """latency_charge arguments at the paper tile: the decay tables of
+    the paper workload (zipf keys, 32 requests/tick, 3M-tick horizon: 22
+    tables), then adversarial state — dt with many bits set and 0, rem
+    below 0, inside and beyond dt, mixed flags, dirty fractions a few ulps
+    around the 1e-30 flush floor."""
+    plan = cl.make_latency_plan(0, P, db.DowntimeParams(
+        key_zipf=1.0, read_frac=0.8, requests_per_tick=32.0,
+        slo_ticks=slo_ticks), 3_000_000)
+    NB = plan.kf.shape[0]
+    dirty = torch.rand((B, P, NB), generator=gen, device=dev)
+    floor = torch.tensor(1e-30, dtype=torch.float32, device=dev)
+    ulps = torch.randint(-4, 5, (B, P, NB), generator=gen, device=dev)
+    near = (floor.view(torch.int32) + ulps.to(torch.int32)) \
+        .view(torch.float32)
+    dirty = torch.where(torch.rand((B, P, NB), generator=gen, device=dev)
+                        < 0.3, near, dirty)
+    dt = torch.randint(0, 3_000_001, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dt[:4] = torch.tensor([0, 0x2AAAAA, 0x155555, 2 ** 21 - 1],
+                          dtype=torch.int32, device=dev)
+    rem = torch.randint(0, 9_000_000, (B, P), generator=gen, device=dev,
+                        dtype=torch.int32)
+    inside = (dt[:, None] * torch.rand((B, P), generator=gen, device=dev)) \
+        .to(torch.int32)
+    below = torch.randint(-50, 0, (B, P), generator=gen, device=dev,
+                          dtype=torch.int32)
+    col = torch.arange(P, device=dev) % 3
+    rem = torch.where(col == 0, inside, torch.where(col == 1, below, rem))
+    return dict(dirty=dirty, dt_i=dt,
+                avail=torch.rand((B, P), generator=gen, device=dev) < 0.7,
+                qok=torch.rand((B, P), generator=gen, device=dev) < 0.7,
+                rem=rem,
+                pow_tables=torch.as_tensor(plan.pow_tables, device=dev),
+                kf=torch.as_tensor(plan.kf, device=dev),
+                lamw=torch.as_tensor(plan.lamw, device=dev)), plan
+
+
+def check_latency_kernel(bw):
+    """Phase 3 for latency_charge: bitwise agreement with the plain
+    version at the paper tile for slo_ticks 0 and 8, then times at the
+    main path's shape (the paper workload's tables, state as the engine
+    carries it).  Returns the timing/bound record."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    worst = 0.0
+    nbins = 16
+    for slo in (0, 8):
+        args, _ = latency_inputs(gen, dev, slo_ticks=slo)
+        got = pk.latency_charge(**args, nbins=nbins, slo_ticks=slo)
+        torch.cuda.synchronize()
+        want = pk.latency_charge_plain(**args, nbins=nbins, slo_ticks=slo)
+        ok = all(torch.equal(g, w) for g, w in zip(got, want))
+        err = max(float((g.double() - w.double()).abs().max().item())
+                  for g, w in zip(got, want))
+        worst = max(worst, err)
+        emit({"phase": "kernel", "kernel": "latency_charge", "slo_ticks": slo,
+              "equal": ok, "max_abs_err": err,
+              "dup_sum": got[1].double().sum().item(),
+              "qsum_sum": got[4].double().sum().item(),
+              "flushed": int((got[0] == 0).sum().item())})
+        if not ok:
+            raise SystemExit(f"latency_charge disagrees (slo_ticks={slo})")
+
+    # times at the main path's shape: dirty fractions in [0, 1), event
+    # intervals of a few to a few hundred ticks, rebuilds under 128 ticks
+    args, plan = latency_inputs(gen, dev)
+    args["dt_i"] = torch.randint(1, 400, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+    args["rem"] = torch.randint(0, 128, (B, P), generator=gen, device=dev,
+                                dtype=torch.int32)
+    NB, nbits = plan.kf.shape[0], plan.pow_tables.shape[0]
+    outs = pk.latency_charge(**args, nbins=nbins, slo_ticks=8)
+    raw = _build.function("latency_charge", "latency_charge_launch",
+                          pk._LC_ARGTYPES)
+    ptrs = [args[k].data_ptr() for k in ("dirty", "dt_i", "avail", "qok",
+                                         "rem", "pow_tables", "kf", "lamw")]
+    ptrs += [o.data_ptr() for o in outs]
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = time_ms(lambda: raw(*ptrs, B, P, NB, nbits, nbins, 8, stream), 200)
+    wrap_ms = time_ms(lambda: pk.latency_charge(**args, nbins=nbins,
+                                                slo_ticks=8), 200)
+    plain_ms = time_ms(lambda: pk.latency_charge_plain(
+        **args, nbins=nbins, slo_ticks=8), 20)
+    # bytes this call must move: each input once (only the pow tables of
+    # the bits some trial's dt sets), each output once
+    R = B * P
+    bits = 0
+    for d in args["dt_i"].tolist():
+        bits |= d
+    tables = bin(bits).count("1")
+    nbytes = (R * NB * 4 + 4 * B + 2 * R + 4 * R + tables * P * NB * 4
+              + NB * 4 + P * 4) + (2 * R * NB * 4 + R * nbins * 4 + 2 * R * 4)
+    # ops per row: the chain's multiplies for each set bit, ~6 per bucket,
+    # ~10 per histogram lane, ~20 for the scalars
+    per_row = sum(bin(d).count("1") for d in args["dt_i"].tolist()) / B * NB \
+        + 6 * NB + 10 * nbins + 20
+    return record("latency_charge", nbytes, R, ms, wrap_ms, plain_ms, worst,
+                  bw, ops=R * per_row)
+
+
 def counters():
     """Every ported kernel's launch counter, by the kernel's name."""
     return {"pac_eval": (pk.pac_eval, "launches"),
@@ -432,7 +555,8 @@ def counters():
             "downtime_eval": (pk.downtime_eval, "launches"),
             "downtime_eval_roster": (pk.downtime_eval, "roster_launches"),
             "node_count": (pk.node_count, "launches"),
-            "fused_downtime_eval": (fk.fused_downtime_eval, "launches")}
+            "fused_downtime_eval": (fk.fused_downtime_eval, "launches"),
+            "latency_charge": (pk.latency_charge, "launches")}
 
 
 def reset_counts():
@@ -449,7 +573,7 @@ def check_engine():
     """Phase 4, the §5.1 main path: the engine on cuda, unpacked and
     packed.  Returns each §5.1 kernel's launches over the two runs."""
     kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
-              max_steps=3072, seed=0, trajectory=True)
+              max_steps=2048, seed=0, trajectory=True)
     reset_counts()
     runs = {}
     for packed in (False, True):
@@ -481,10 +605,11 @@ def check_engine():
         raise SystemExit(f"a kernel was not launched on the main path: "
                          f"{launches}")
 
-    # the first chunk (512 steps) on the CPU, through the plain versions
+    # a first chunk of 128 steps on the CPU, through the plain versions
     t0 = time.monotonic()
     cpu = ab.simulate_availability_batched(
-        packed=False, device="cpu", **{**kw, "max_steps": 2})
+        packed=False, device="cpu", **{**kw, "chunk_steps": 128,
+                                       "max_steps": 2})
     cpu_wall = time.monotonic() - t0
     k = len(cpu.trajectory["times"])
     cpu_same = all(np.array_equal(cpu.trajectory[c], a.trajectory[c][:k])
@@ -533,87 +658,36 @@ def check_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
-#: the two §6 configurations of the main path: the fixed model at its
-#: default knobs, and reconfig with zipf-skewed sizes and 1 GiB/s shared
-#: per-node bandwidth (the BENCH_downtime_skew knobs)
+#: the two §6 configurations of the main path, each with the kernels it
+#: must launch: the fixed model at its default knobs, and reconfig with
+#: zipf-skewed sizes and 1 GiB/s shared per-node bandwidth (the
+#: BENCH_downtime_skew knobs)
 DOWNTIME_CONFIGS = {
-    "fixed": {},
-    "reconfig-skew-bw": dict(rebuild_model="reconfig", size_dist="zipf",
-                             size_skew=1.0, node_bandwidth_gibps=1.0),
+    "fixed": ({}, ("downtime_eval", "fused_downtime_eval")),
+    "reconfig-skew-bw": (dict(rebuild_model="reconfig", size_dist="zipf",
+                              size_skew=1.0, node_bandwidth_gibps=1.0),
+                         ("downtime_eval_roster", "node_count",
+                          "fused_downtime_eval")),
 }
+
+
 DOWNTIME_KERNELS = ("downtime_eval", "downtime_eval_roster", "node_count",
                     "fused_downtime_eval")
-
-
-def same_downtime(a, b) -> bool:
-    return all(np.array_equal(a.trajectory[k], b.trajectory[k])
-               for k in a.trajectory) \
-        and (a.pause_lark, a.pause_quorum, a.lark_events, a.quorum_events,
-             a.ticks, a.ci_lark, a.ci_quorum) == \
-        (b.pause_lark, b.pause_quorum, b.lark_events, b.quorum_events,
-         b.ticks, b.ci_lark, b.ci_quorum) \
-        and np.array_equal(a.hist_lark, b.hist_lark) \
-        and np.array_equal(a.hist_quorum, b.hist_quorum) \
-        and np.array_equal(a.pause_quorum_trials, b.pause_quorum_trials)
 
 
 def check_downtime_engine():
     """Phase 6, the §6 main path: the commit-pause engine on cuda at the
     paper tile, both configurations, unpacked and packed.  Returns each
-    §6 kernel's launches over those four runs."""
-    kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
-              max_steps=3072, seed=0, trajectory=True)
-    reset_counts()
-    runs = {}
-    for name, knobs in DOWNTIME_CONFIGS.items():
-        for packed in (False, True):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            r = db.simulate_downtime_batched(packed=packed, device=DEVICE,
-                                             **kw, **knobs)
-            torch.cuda.synchronize()
-            wall = time.monotonic() - t0
-            runs[name, packed] = r
-            steps = len(r.trajectory["times"])
-            emit({"phase": "downtime", "config": name, "packed": packed,
-                  "steps": steps, "wall_s": wall,
-                  "steps_per_s": steps / wall, "ticks": r.ticks,
-                  "pause_lark": r.pause_lark,
-                  "pause_quorum": r.pause_quorum,
-                  "lark_events": r.lark_events,
-                  "quorum_events": r.quorum_events,
-                  "hist_quorum": r.hist_quorum.tolist()})
-    launches = read_counts(DOWNTIME_KERNELS)
-    emit({"phase": "downtime", "launches": launches})
-    if min(launches.values()) <= 0:
-        raise SystemExit(f"a §6 kernel was not launched on the main path: "
-                         f"{launches}")
-    for name in DOWNTIME_CONFIGS:
-        a, b = runs[name, False], runs[name, True]
-        same = same_downtime(a, b)
-        emit({"phase": "downtime", "config": name,
-              "packed_equals_unpacked": same,
-              "paused_quorum_partition_steps":
-                  int(a.trajectory["paused_quorum"].sum())})
-        if not same:
-            raise SystemExit(f"packed and unpacked §6 runs disagree "
-                             f"({name})")
-        if a.quorum_events <= 0 or a.lark_events <= 0:
+    kernel's launches summed over those four runs."""
+    launches = {}
+    for name, (knobs, kernels) in DOWNTIME_CONFIGS.items():
+        r, got = check_engine_pair(
+            "downtime", db.simulate_downtime_batched, downtime_fingerprint,
+            kernels, dict(knobs, trajectory=True), config=name)
+        if r.quorum_events <= 0 or r.lark_events <= 0:
             raise SystemExit(f"no pause events in the §6 run ({name})")
-
-    # one 128-step chunk on cuda and on the CPU, the same arguments
-    for name, knobs in DOWNTIME_CONFIGS.items():
-        short = dict(kw, chunk_steps=128, max_steps=2, **knobs)
-        gpu = db.simulate_downtime_batched(device=DEVICE, **short)
-        t0 = time.monotonic()
-        cpu = db.simulate_downtime_batched(device="cpu", **short)
-        cpu_wall = time.monotonic() - t0
-        same = same_downtime(gpu, cpu)
-        emit({"phase": "downtime", "config": name, "cpu_steps": 128,
-              "cpu_equal": same, "cpu_wall_s": cpu_wall})
-        if not same:
-            raise SystemExit(f"cuda §6 run disagrees with the cpu run "
-                             f"({name})")
+        for k in DOWNTIME_KERNELS:
+            launches[k] = launches.get(k, 0) + got[k]
     return launches
 
 
@@ -648,6 +722,143 @@ def check_downtime_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
+#: the client-latency layer's main path: the fixed model under the paper
+#: workload (zipf keys, 32 requests/tick, 80 % reads, an 8-tick SLO)
+LATENCY_KNOBS = dict(key_zipf=1.0, read_frac=0.8, requests_per_tick=32.0,
+                     slo_ticks=8)
+#: the protocol zoo's main path: reconfig with all four engines, the
+#: BENCH_shootout knobs
+ZOO_KNOBS = dict(rebuild_model="reconfig", engines=db.ENGINES,
+                 lease_ticks=40, view_change_ticks=200)
+
+
+def latency_fingerprint(r):
+    """Every number a latency run reports, and its raw accumulators."""
+    fp = {k: v for k, v in vars(r).items()
+          if k not in ("downtime", "device")}
+    fp.update({f"raw:{k}": v for k, v in r.downtime.latency_raw.items()})
+    return fp
+
+
+def downtime_fingerprint(r):
+    """Every engine's stats, the elapsed ticks and the trajectory."""
+    fp = {f"traj:{k}": v for k, v in r.trajectory.items()}
+    for engine in r.engines:
+        fp.update({f"{engine}:{k}": v
+                   for k, v in r.engine_stats(engine).items()})
+    fp["ticks"] = r.ticks
+    return fp
+
+
+def same_fingerprint(a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def check_engine_pair(phase, simulate, fingerprint, kernels, knobs, *,
+                      steps=2048, config=None):
+    """Drive one §6 path on cuda at the paper tile for `steps` steps (a
+    multiple of the 512-step chunk), unpacked and packed, with the launch
+    counts set to 0 just before and read just after: the layouts must
+    agree exactly, every kernel of `kernels` must have launched, and a
+    128-step run on cuda must equal the CPU's.  Returns the unpacked run
+    and every kernel's launches over the two runs."""
+    kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
+              max_steps=steps, seed=0, **knobs)
+    tag = {"phase": phase, "config": config}
+    reset_counts()
+    runs = {}
+    for packed in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r = simulate(packed=packed, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        runs[packed] = r
+        emit({**tag, "packed": packed, "steps": steps, "wall_s": wall,
+              "steps_per_s": steps / wall,
+              **{k: v for k, v in fingerprint(r).items()
+                 if isinstance(v, (int, float)) and math.isfinite(v)}})
+    launches = read_counts(counters())
+    same = same_fingerprint(fingerprint(runs[False]), fingerprint(runs[True]))
+    emit({**tag, "launches": launches, "packed_equals_unpacked": same})
+    if not same:
+        raise SystemExit(f"packed and unpacked {phase} runs disagree "
+                         f"({config})")
+    if min(launches[k] for k in kernels) <= 0:
+        raise SystemExit(f"a kernel of {kernels} was not launched on the "
+                         f"{phase} path ({config}): {launches}")
+    short = dict(kw, chunk_steps=128, max_steps=2)
+    gpu = simulate(device=DEVICE, **short)
+    t0 = time.monotonic()
+    cpu = simulate(device="cpu", **short)
+    cpu_wall = time.monotonic() - t0
+    same = same_fingerprint(fingerprint(gpu), fingerprint(cpu))
+    emit({**tag, "cpu_steps": 128, "cpu_equal": same, "cpu_wall_s": cpu_wall})
+    if not same:
+        raise SystemExit(f"cuda {phase} run disagrees with the cpu run "
+                         f"({config})")
+    return runs[False], launches
+
+
+def check_latency_engine():
+    """Phase 8, the client-latency path: returns the launches."""
+    r, launches = check_engine_pair(
+        "latency", cl.simulate_client_latency, latency_fingerprint,
+        ("latency_charge", "downtime_eval", "fused_downtime_eval"),
+        LATENCY_KNOBS)
+    raw = r.downtime.latency_raw
+    finite = all(np.isfinite(v).all() for v in raw.values())
+    emit({"phase": "latency", "finite": finite,
+          "dup_total": float(raw["dup"].sum()),
+          "qsum_total": float(raw["qsum"].sum()),
+          "p999_quorum": r.p999_quorum, "lat_lark": r.lat_lark})
+    if not finite or r.lat_lark <= 0 or r.lat_quorum <= 0 or \
+            not r.p50_quorum <= r.p99_quorum <= r.p999_quorum:
+        raise SystemExit("the latency run charged nothing or is not finite")
+    return launches
+
+
+def check_zoo_engine():
+    """Phase 9, the protocol zoo: returns the launches."""
+    r, launches = check_engine_pair(
+        "zoo", db.simulate_downtime_batched, downtime_fingerprint,
+        ("downtime_eval_roster", "fused_downtime_eval"),
+        dict(ZOO_KNOBS, trajectory=True))
+    if r.hermes_events <= 0 or r.spinnaker_events <= 0:
+        raise SystemExit("no hermes or spinnaker pause events in the zoo run")
+    return launches
+
+
+def check_zoo_bench_rows():
+    """Phase 10: the i.i.d. rf = 2, p = 3e-3 rows of BENCH_latency.json
+    and BENCH_shootout.json, rebuilt on cuda, packed and unpacked."""
+    for name, gen in (("latency", runner._gen_run_latency),
+                      ("shootout", runner._gen_run_downtime)):
+        base = json.loads((ROOT / "benchmarks" /
+                           f"BENCH_{name}.json").read_text())
+        want = [json.dumps(r, sort_keys=True) for r in base["rows"]
+                if r["scenario"] == "iid" and r["rf"] == 2
+                and r["p"] == 3e-3]
+        spec = runner.ExperimentSpec.from_file(
+            str(ROOT / "benchmarks" / "configs" / f"{name}.toml"))
+        for packed in (False, True):
+            t0 = time.monotonic()
+            rows = gen(full=spec.full, trials=spec.trials, seed=spec.seed,
+                       devices=spec.devices, smoke=spec.smoke,
+                       params=spec.downtime_params(), packed=packed,
+                       device=DEVICE)
+            got = [json.dumps(runner._json_safe(next(rows)), sort_keys=True)
+                   for _ in want]
+            wall = time.monotonic() - t0
+            emit({"phase": "zoo_bench_row", "config": name, "packed": packed,
+                  "rows": len(want), "identical": got == want,
+                  "wall_s": wall})
+            if not want or got != want:
+                raise SystemExit(f"rows differ from BENCH_{name}.json:\n"
+                                 f"got  {got}\nwant {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -671,10 +882,14 @@ def main() -> int:
     bw = hbm_bw(name)
     rec = check_kernels(bw)
     rec.update(check_downtime_kernels(bw))
+    rec["latency_charge"] = check_latency_kernel(bw)
     launches = check_engine()
     check_bench_rows()
     launches.update(check_downtime_engine())
     check_downtime_bench_rows()
+    launches["latency_charge"] = check_latency_engine()["latency_charge"]
+    check_zoo_engine()
+    check_zoo_bench_rows()
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

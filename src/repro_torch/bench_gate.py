@@ -1,8 +1,12 @@
 """Regenerate committed baselines on the port and gate them byte for byte.
 
     PYTHONPATH=src python -m repro_torch.bench_gate \\
-        --config benchmarks/configs/downtime.toml [--config ...] \\
+        --config benchmarks/configs/latency.toml \\
+        --config benchmarks/configs/shootout.toml [--config ...] \\
         [--packed-too] [--device cuda] --out DIR
+
+Every committed config runs: ``sweep.toml``, the three
+``downtime*.toml``, ``latency.toml`` and ``shootout.toml``.
 
 For each config (and, with ``--packed-too``, a copy of it with
 ``packed = true``) this starts ``python -m repro_torch.sweep --config

@@ -21,11 +21,22 @@ machines per step:
                its bandwidth, in _REB_SCALE fixed-point work units, in
                both models.
 
-Each step evaluates both protocols through ``kernels/ops.step_eval``
-(metric "downtime"): on a CUDA device the hand-written kernels
-``downtime_eval`` (and its roster variant) plus ``node_count``
-(unpacked), or one ``fused_downtime_eval`` launch (packed); on the CPU
-their plain PyTorch versions.
+The protocol zoo rides the same trajectories (``engines``): hermes
+(membership leases; writes block for `lease_ticks` after a replica-set
+member is suspected) and spinnaker (Paxos with reconfiguration; a
+`view_change_ticks` reconciliation pause on leader loss, reconfig only).
+Each carries 7 leaves and draws no randomness, so switching it on
+changes no lark/quorum bit.  The client-latency layer
+(``core/client_latency.py``, through `_lat_plan`) appends 5 float32
+leaves and charges every interval through ``ops.client_latency_step``.
+
+Each step evaluates the protocols through ``kernels/ops.step_eval``
+(metric "downtime"; hermes asks for the membership bitmask `repmask`,
+spinnaker for the electable roster leader `rleader`): on a CUDA device
+the hand-written kernels ``downtime_eval`` (and its roster variant) plus
+``node_count`` (unpacked), or one ``fused_downtime_eval`` launch
+(packed), and ``latency_charge`` for the latency layer; on the CPU their
+plain PyTorch versions.
 
 The port reproduces the reference bit for bit for the same seed and
 knobs.  All protocol state is integer or boolean; the pause
@@ -33,11 +44,6 @@ accumulators are float32 sums of integer terms, kept as the reference's
 separate eager ops (no FMA, no ``torch.compile``; ARCHITECTURE
 invariant 8).  The float64 drains, the early stop and the trajectory
 columns fall on the reference's chunk boundaries, host-side in numpy.
-
-Not ported yet, each raising ``NotImplementedError``: the protocol zoo
-(``engines`` beyond lark/quorum, ``lease_ticks``, ``view_change_ticks``,
-``_disable_predicates``; ROADMAP Queue 1 item 7) and the client-latency
-layer (``_lat_plan``; item 8).
 """
 from __future__ import annotations
 
@@ -49,7 +55,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.ops import StepSpec, rebuild_node_counts, step_eval
+from ..kernels.ops import (StepSpec, client_latency_step,
+                           rebuild_node_counts, step_eval)
 from .availability import t975
 from .availability_batched import (_default_max_steps, _engine_setup,
                                    _initial_full_state, _initial_node_state,
@@ -69,6 +76,11 @@ REBUILD_MODELS = ("fixed", "reconfig")
 #: a view-change log-reconciliation pause on leader loss) are optional
 #: contrast engines riding the same node trajectories.
 ENGINES = ("lark", "quorum", "hermes", "spinnaker")
+
+#: the necessity hooks: each disables exactly one transition predicate of
+#: the zoo state machines so tests can prove the predicate is load-bearing
+DISABLE_PREDICATES = ("lease-expiry", "view-change-trigger",
+                      "roster-recruit")
 
 #: per-partition data-size distributions for the reconfiguring baseline.
 #: All three pin the same mean (the uniform model's 1.5 GiB), so every
@@ -364,8 +376,8 @@ class BatchedDowntimeResult:
     hist_quorum: np.ndarray = field(repr=False, default=None)
     pause_lark_trials: np.ndarray = field(repr=False, default=None)
     pause_quorum_trials: np.ndarray = field(repr=False, default=None)
-    #: the reference's protocol-zoo slots, kept so one result type serves
-    #: every engine set; only lark/quorum are simulated so far
+    #: protocol-zoo outputs — None/0 unless the matching engine was in
+    #: `engines` (lark/quorum keep their dedicated fields above)
     engines: tuple = ("lark", "quorum")
     lease_ticks: int = 0
     view_change_ticks: int = 0
@@ -381,6 +393,12 @@ class BatchedDowntimeResult:
     pause_spinnaker_trials: np.ndarray = field(repr=False, default=None)
     trajectory: Optional[Dict[str, np.ndarray]] = field(repr=False,
                                                         default=None)
+    #: raw per-trial client-latency accumulators (only when driven
+    #: through core/client_latency.py): dup (B, NB), qhist (B, nbins),
+    #: qslo (B,), qsum (B,), now (B,), and dupw (B, NB) under write skew —
+    #: pooled over partitions host-side in float64
+    latency_raw: Optional[Dict[str, np.ndarray]] = field(repr=False,
+                                                         default=None)
 
     @property
     def availability_ratio(self) -> float:
@@ -439,13 +457,25 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
                dupres_ticks: int, rebuild_steps: int, hist_bins: int,
                rebuild_model: str = "fixed", rebuild_ticks=None,
                bandwidth_fp=None, cnt_fn=None, rebuild_fp=None,
-               packed: bool = False):
+               packed: bool = False, lat_fn=None, engines: tuple = (),
+               lease_ticks: int = 0, view_change_ticks: int = 0,
+               disable=frozenset()):
     """The step closure for one configuration: ``step`` (fixed model),
     ``step_fixed_bw`` (fixed, shared bandwidth), ``step_reconfig`` or
     ``step_reconfig_packed``, each the reference's op for op.  Carry
-    layout is the reference's 20 leaves, + (roster, recruit) under
-    reconfig or + (recruit,) under fixed with shared bandwidth."""
+    layout is the reference's: 20 base leaves, + (roster, recruit) under
+    reconfig or + (recruit,) under fixed with shared bandwidth, then 7
+    leaves per zoo engine (hermes, then spinnaker), then the 5 lat leaves
+    when `lat_fn` is set.  `disable` strips single zoo transition
+    predicates (DISABLE_PREDICATES) for the necessity tests."""
     device = succ.device
+    hermes = "hermes" in engines
+    spinnaker = "spinnaker" in engines
+    lease_on = "lease-expiry" not in disable
+    vc_on = "view-change-trigger" not in disable
+    recruit_on = "roster-recruit" not in disable
+    base_len = 20 + (2 if rebuild_model == "reconfig"
+                     else int(bandwidth_fp is not None))
     p_idx = torch.arange(P, dtype=torch.int64, device=device)[None, :]
     lanes_n = torch.arange(n, dtype=torch.int32, device=device)
     slot = torch.arange(rf, dtype=torch.int32, device=device)
@@ -471,6 +501,37 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         return _fdiv(torch.full_like(k, bandwidth_fp), k) \
             .clamp(max=_REB_SCALE)
 
+    def split_carry(carry):
+        """(base leaves, hermes state, spinnaker state, lat leaves)."""
+        k = base_len
+        hstate = sstate = None
+        if hermes:
+            hstate, k = carry[k:k + 7], k + 7
+        if spinnaker:
+            sstate, k = carry[k:k + 7], k + 7
+        return carry[:base_len], hstate, sstate, carry[k:]
+
+    def join_carry(base, hstate, sstate, lat):
+        return base + (hstate if hermes else ()) \
+            + (sstate if spinnaker else ()) + lat
+
+    # -- the client-latency hooks (no-ops without a latency plan)
+
+    def lat_interval(lat, dt_i, ldn, qmaj_prev, rem):
+        """Charge the client-latency layer for one event interval from
+        interval-start state: the partition serves where LARK was up,
+        the majority and the remaining rebuild are interval_pause's."""
+        if lat_fn is None:
+            return lat
+        return lat_fn(lat, dt_i, ~ldn, qmaj_prev, rem)
+
+    def lat_dirty_reset(lat, pen):
+        """A leader change onto a stale leader makes every key of the
+        partition dirty: its next touch pays the dup-res round."""
+        if lat_fn is None or pen is None:
+            return lat
+        return (torch.where(pen[:, :, None], 1.0, lat[0]),) + lat[1:]
+
     # -- shared protocol blocks, run verbatim by every model
 
     def interval_pause(now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt,
@@ -482,7 +543,9 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         sums integer terms in float32 over partitions, as the reference
         does: any summation order gives the reference's bits while the
         partial sums stay below 2^24, which P * horizon bounds at every
-        configuration the engine is run at."""
+        configuration the engine is run at.  Also returns the
+        interval-start majority mask and remaining rebuild wall-ticks,
+        which the zoo and the latency layer charge from."""
         lpt = lpt + ldn.sum(dim=1).to(torch.float32) * dt
         qmaj_prev = 2 * qrep.sum(dim=2) > rf                  # (B, P)
         qpt = qpt + (~qmaj_prev).sum(dim=1).to(torch.float32) * dt
@@ -505,18 +568,20 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         qhist = hist_add(qhist, ends_mid, (now[:, None] + rem) - qt0)
         qdn = qdn & ~ends_mid
         qreb = (qreb - prog).clamp(min=0)
-        return lpt, qpt, qreb, qdn, qhist
+        return lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem
 
     def lark_transitions(t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt,
                          lev, lhist):
         """Close LARK runs that came back, open new ones, and charge the
         dup-res penalty (available partition, new acting leader that
-        lacks the latest copy)."""
+        lacks the latest copy).  Returns the penalty mask `pen` too
+        (None without a dup-res cost), for the latency layer."""
         lhist = hist_add(lhist, ldn & lark, t_clamp[:, None] - lt0)
         lgo = ~ldn & ~lark
         lt0 = torch.where(lgo, t_clamp[:, None], lt0)
         lev = lev + lgo.sum(dim=1).to(torch.int32)
         ldn = ~lark
+        pen = None
         if dupres_ticks > 0:
             pen = (ldr != leader) & lark & ~lfull
             npen = pen.sum(dim=1).to(torch.int32)
@@ -526,35 +591,134 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
             lhist = hist_add(lhist, pen, torch.full(
                 pen.shape, dupres_ticks, dtype=torch.int32, device=device))
         leader = torch.where(lark, ldr, leader)
-        return ldn, lt0, leader, lpt, lev, lhist
+        return ldn, lt0, leader, lpt, lev, lhist, pen
+
+    def pause_transitions(t_clamp, pause, dn, t0, ev, hist):
+        """Close pause runs whose condition cleared, open new ones (a
+        pause start is one event) — the block the quorum baseline and
+        every zoo engine share, in one op order."""
+        hist = hist_add(hist, dn & ~pause, t_clamp[:, None] - t0)
+        go = ~dn & pause
+        t0 = torch.where(go, t_clamp[:, None], t0)
+        ev = ev + go.sum(dim=1).to(torch.int32)
+        return pause, t0, ev, hist
 
     def quorum_transitions(t_clamp, qmaj, qreb, qdn, qt0, qev, qhist):
-        """Close quorum pause runs whose condition cleared, open new ones
-        (the reference's pause_transitions on ~qmaj | rebuilding)."""
-        pause = ~qmaj | (qreb > 0)
-        qhist = hist_add(qhist, qdn & ~pause, t_clamp[:, None] - qt0)
-        go = ~qdn & pause
-        qt0 = torch.where(go, t_clamp[:, None], qt0)
-        qev = qev + go.sum(dim=1).to(torch.int32)
-        return pause, qt0, qev, qhist
+        return pause_transitions(t_clamp, ~qmaj | (qreb > 0), qdn, qt0,
+                                 qev, qhist)
 
-    def outputs(t_clamp, ldn, qdn, up):
-        return (t_clamp, ldn.sum(dim=1).to(torch.int32),
-                qdn.sum(dim=1).to(torch.int32),
-                up.sum(dim=1).to(torch.int32))
+    # -- protocol-zoo engines: 7 leaves each — (dn bool, t0 i32, two
+    # engine-specific (B, P) i32 states, pt f32 (B,), ev i32 (B,), hist
+    # i32 (B, hist_bins)) — and no randomness of their own (invariant 3)
+
+    def knob_interval(now, dt, dt_i, base_dn, rem_x, dn, t0, pt, hist, *,
+                      expire=True):
+        """Interval pause charge for a knob-pause engine: full dt where
+        its base condition held at interval start (the lark/quorum
+        expression), plus min(countdown, dt) where it did not but a knob
+        countdown ran; a countdown expiring mid-interval with the base
+        condition clear closes the pause run between events."""
+        pt = pt + base_dn.sum(dim=1).to(torch.float32) * dt
+        pt = pt + torch.where(~base_dn, torch.minimum(rem_x, dt_i[:, None]),
+                              0).to(torch.float32).sum(dim=1)
+        if expire:
+            ends_mid = dn & ~base_dn & (rem_x > 0) & \
+                (dt_i[:, None] >= rem_x)
+            hist = hist_add(hist, ends_mid, (now[:, None] + rem_x) - t0)
+            dn = dn & ~ends_mid
+        return pt, dn, hist
+
+    def hermes_interval(now, dt, dt_i, ldn, hstate):
+        """Hermes: down wherever PAC was down at interval start, plus the
+        remaining lease-epoch wait where writes were blocked."""
+        hdn, ht0, hmask, hlease, hpt, hev, hhist = hstate
+        hpt, hdn, hhist = knob_interval(now, dt, dt_i, ldn, hlease, hdn,
+                                        ht0, hpt, hhist, expire=lease_on)
+        if lease_on:
+            hlease = (hlease - dt_i[:, None]).clamp(min=0)
+        return (hdn, ht0, hmask, hlease, hpt, hev, hhist)
+
+    def hermes_post(t_clamp, lark, repm, hstate):
+        """A member of the carried membership view going down is a
+        suspicion: writes block for lease_ticks, and the view re-forms
+        on the surviving replicas."""
+        hdn, ht0, hmask, hlease, hpt, hev, hhist = hstate
+        loss_h = (hmask & ~repm) != 0
+        if lease_ticks > 0:
+            hlease = torch.where(loss_h, lease_ticks, hlease)
+        hmask = repm
+        hpause = ~lark | (hlease > 0)
+        hdn, ht0, hev, hhist = pause_transitions(t_clamp, hpause, hdn,
+                                                 ht0, hev, hhist)
+        return (hdn, ht0, hmask, hlease, hpt, hev, hhist)
+
+    def spinnaker_interval(now, dt, dt_i, qmaj_prev, rem0, sstate):
+        """Spinnaker: the quorum baseline's interval accounting with the
+        view-change countdown overlaid (the later of the two clears the
+        pause, so the remaining wait is their max)."""
+        sdn, st0, sldr, svc, spt, sev, shist = sstate
+        spt, sdn, shist = knob_interval(
+            now, dt, dt_i, ~qmaj_prev, torch.maximum(rem0, svc), sdn, st0,
+            spt, shist)
+        svc = (svc - dt_i[:, None]).clamp(min=0)
+        return (sdn, st0, sldr, svc, spt, sev, shist)
+
+    def spinnaker_post(t_clamp, qmaj, qreb, rup_post, roster, rlead,
+                       sstate):
+        """Losing the elected leader (no longer an up roster member)
+        triggers a view change: the new leader, the lowest up roster rank
+        (the kernel's rleader), pauses commits for view_change_ticks."""
+        sdn, st0, sldr, svc, spt, sev, shist = sstate
+        valid = ((roster == sldr[:, :, None]) & rup_post).any(dim=2)
+        new_sldr = torch.where(valid, sldr, rlead)
+        trigger = ~valid & (sldr < n) & (new_sldr < n) & \
+            (new_sldr != sldr)
+        if view_change_ticks > 0 and vc_on:
+            svc = torch.where(trigger, view_change_ticks, svc)
+        sldr = new_sldr
+        spause = ~qmaj | (qreb > 0) | (svc > 0)
+        sdn, st0, sev, shist = pause_transitions(t_clamp, spause, sdn,
+                                                 st0, sev, shist)
+        return (sdn, st0, sldr, svc, spt, sev, shist)
+
+    def zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0, hstate, sstate):
+        if hermes:
+            hstate = hermes_interval(now, dt, dt_i, ldn, hstate)
+        if spinnaker:
+            sstate = spinnaker_interval(now, dt, dt_i, qmaj_prev, rem0,
+                                        sstate)
+        return hstate, sstate
+
+    def outputs(t_clamp, ldn, qdn, up, hstate, sstate):
+        out = (t_clamp, ldn.sum(dim=1).to(torch.int32),
+               qdn.sum(dim=1).to(torch.int32),
+               up.sum(dim=1).to(torch.int32))
+        if hermes:
+            out = out + (hstate[0].sum(dim=1).to(torch.int32),)
+        if spinnaker:
+            out = out + (sstate[0].sum(dim=1).to(torch.int32),)
+        return out
 
     def unpack_rows(out_t, B):
         return tuple(o.reshape(B, P) for o in out_t[:4])
 
+    def repmask_of(out_t, B):
+        """The hermes membership bitmask, the first extra (B, P)."""
+        return out_t[5].reshape(B, P) if hermes else None
+
     def step(carry, s: int):
+        base, hstate, sstate, lat = split_carry(carry)
         (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
-         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist) = carry
+         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist) = base
         B = up.shape[0]
         t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
             now, up, ev_t, rr_t, rr_idx, lane0, s)
         dt_i = t_clamp - now                                  # (B,) int32
-        lpt, qpt, qreb, qdn, qhist = interval_pause(
+        lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
             now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist)
+        hstate, sstate = zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0,
+                                      hstate, sstate)
+        lat = lat_interval(lat, dt_i, ldn, qmaj_prev, rem0)
         now = t_clamp
 
         # -- re-evaluate both protocols on the post-event cluster state
@@ -569,9 +733,11 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
             lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
             full = torch.where(lark[:, :, None],
                                out_t[-1].reshape(B, P, n), full)
+        repm = repmask_of(out_t, B)
 
-        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+        ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
             t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        lat = lat_dirty_reset(lat, pen)
         # -- any replica loss (a replica lane going up -> down, even if
         # masked by a simultaneous recovery of another lane) (re)starts
         # the constant rebuild countdown
@@ -581,10 +747,13 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         qdn, qt0, qev, qhist = quorum_transitions(
             t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
         qrep = rep_new
-        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
-                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
-                 lhist, qhist)
-        return carry, outputs(t_clamp, ldn, qdn, up)
+        if hermes:
+            hstate = hermes_post(t_clamp, lark, repm, hstate)
+        carry = join_carry(
+            (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+             qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist),
+            hstate, sstate, lat)
+        return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
 
     def step_fixed_bw(carry, s: int):
         """The fixed model with per-node bandwidth-contended rebuilds:
@@ -595,9 +764,10 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         interval charges; the counts and interval_pause still see the
         interval-start recruit/qreb, so this is a dataflow reorder of
         `step`."""
+        base, hstate, sstate, lat = split_carry(carry)
         (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
          qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
-         recruit) = carry
+         recruit) = base
         B = up.shape[0]
         t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
             now, up, ev_t, rr_t, rr_idx, lane0, s)
@@ -614,12 +784,15 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
             out_t = dt_fn(up_succ.reshape(B * P, n),
                           full.reshape(B * P, n), None, recruit, inflight)
             lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
-        counts = out_t[-1]
-        rate = contention_rate(counts, recruit)
+        repm = repmask_of(out_t, B)
+        rate = contention_rate(out_t[-1], recruit)
 
-        lpt, qpt, qreb, qdn, qhist = interval_pause(
+        lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
             now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
             rate=rate)
+        hstate, sstate = zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0,
+                                      hstate, sstate)
+        lat = lat_interval(lat, dt_i, ldn, qmaj_prev, rem0)
         now = t_clamp
 
         if packed:
@@ -627,8 +800,9 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         else:
             full = torch.where(lark[:, :, None],
                                out_t[-2].reshape(B, P, n), full)
-        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+        ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
             t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        lat = lat_dirty_reset(lat, pen)
 
         # -- a replica loss (re)starts the constant countdown in
         # fixed-point units and pins the rebuild to the lowest replica
@@ -642,17 +816,27 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         qdn, qt0, qev, qhist = quorum_transitions(
             t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
         qrep = rep_new
-        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
-                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
-                 lhist, qhist, recruit)
-        return carry, outputs(t_clamp, ldn, qdn, up)
+        if hermes:
+            hstate = hermes_post(t_clamp, lark, repm, hstate)
+        carry = join_carry(
+            (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+             qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist, recruit),
+            hstate, sstate, lat)
+        return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
 
     def recruit_roster(up_succ, rup, roster):
         """Replace every down roster member with the first up node in
         succession order not already in the roster (a seat with no up
         candidate is kept until a later step finds one).  Returns the new
         roster and (new_rank, took): the most recent recruit's rank per
-        partition and whether any seat was filled."""
+        partition and whether any seat was filled.  With the
+        "roster-recruit" predicate disabled no seat is ever filled."""
+        if not recruit_on:
+            return (roster,
+                    torch.full(rup.shape[:2], n, dtype=torch.int32,
+                               device=device),
+                    torch.zeros(rup.shape[:2], dtype=torch.bool,
+                                device=device))
         in_roster = torch.zeros(up_succ.shape, dtype=torch.bool,
                                 device=device)
         for j in range(rf):
@@ -701,15 +885,25 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
                               torch.where(loss_any, n, recruit))
         return qreb, recruit
 
+    def zoo_post(t_clamp, lark, qmaj, qreb, qrep, roster, repm, rlead,
+                 hstate, sstate):
+        if hermes:
+            hstate = hermes_post(t_clamp, lark, repm, hstate)
+        if spinnaker:
+            sstate = spinnaker_post(t_clamp, qmaj, qreb, qrep, roster,
+                                    rlead, sstate)
+        return hstate, sstate
+
     def step_reconfig(carry, s: int):
         """The reconfiguring baseline: `step`'s shared blocks with the
         carried per-partition roster as the replica set and the
         per-partition `rebuild_ticks` catch-ups in fixed-point units,
         shared per recruit node when bandwidth_fp is set (the counts come
         from ``node_count``).  LARK's path is untouched."""
+        base, hstate, sstate, lat = split_carry(carry)
         (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
          qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
-         roster, recruit) = carry
+         roster, recruit) = base
         B = up.shape[0]
         t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
             now, up, ev_t, rr_t, rr_idx, lane0, s)
@@ -720,9 +914,12 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         else:
             inflight = (qreb > 0) & (recruit < n)
             rate = contention_rate(cnt_fn(recruit, inflight), recruit)
-        lpt, qpt, qreb, qdn, qhist = interval_pause(
+        lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
             now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
             rate=rate)
+        hstate, sstate = zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0,
+                                      hstate, sstate)
+        lat = lat_interval(lat, dt_i, ldn, qmaj_prev, rem0)
         now = t_clamp
 
         up_succ = up[:, succ]                                 # (B, P, n)
@@ -735,29 +932,36 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         out_t = dt_fn(up_succ.reshape(B * P, n), full.reshape(B * P, n),
                       roster.reshape(B * P, rf))
         lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
+        repm = repmask_of(out_t, B)
+        rlead = out_t[5 + int(hermes)].reshape(B, P) if spinnaker else None
         full = torch.where(lark[:, :, None], out_t[-1].reshape(B, P, n),
                            full)
 
-        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+        ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
             t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        lat = lat_dirty_reset(lat, pen)
         qdn, qt0, qev, qhist = quorum_transitions(
             t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
         qrep = roster_up(up_succ, roster)
-        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
-                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
-                 lhist, qhist, roster, recruit)
-        return carry, outputs(t_clamp, ldn, qdn, up)
+        hstate, sstate = zoo_post(t_clamp, lark, qmaj, qreb, qrep, roster,
+                                  repm, rlead, hstate, sstate)
+        carry = join_carry(
+            (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+             qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist, roster,
+             recruit), hstate, sstate, lat)
+        return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
 
     def step_reconfig_packed(carry, s: int):
         """step_reconfig over packed (B, W, P) words, reordered as the
-        reference so that the evaluation, the roster select and the
-        in-flight counts are one ``fused_downtime_eval`` launch: the
-        reconfiguration runs first, the counts still see the
+        reference so that the evaluation, the roster select, the zoo
+        extras and the in-flight counts are one ``fused_downtime_eval``
+        launch: the reconfiguration runs first, the counts still see the
         interval-start recruit/qreb, and interval_pause the
         interval-start protocol state."""
+        base, hstate, sstate, lat = split_carry(carry)
         (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
          qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
-         roster, recruit) = carry
+         roster, recruit) = base
         B = up.shape[0]
         t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
             now, up, ev_t, rr_t, rr_idx, lane0, s)
@@ -778,24 +982,33 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
             rate = contention_rate(out_t[-1], recruit)
             crepsw = out_t[-2]
         lark, qmaj, ldr, lfull = out_t[:4]
+        repm = out_t[5] if hermes else None
+        rlead = out_t[5 + int(hermes)] if spinnaker else None
 
-        lpt, qpt, qreb, qdn, qhist = interval_pause(
+        lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
             now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
             rate=rate)
+        hstate, sstate = zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0,
+                                      hstate, sstate)
+        lat = lat_interval(lat, dt_i, ldn, qmaj_prev, rem0)
         now = t_clamp
         qreb, recruit = restart_catchups(loss_any, new_rank, took, qreb,
                                          recruit)
 
         full = torch.where(lark[:, None, :], crepsw, full)
-        ldn, lt0, leader, lpt, lev, lhist = lark_transitions(
+        ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
             t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
+        lat = lat_dirty_reset(lat, pen)
         qdn, qt0, qev, qhist = quorum_transitions(
             t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
         qrep = roster_up(up_succ, roster)
-        carry = (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0,
-                 qrep, qreb, qdn, qt0, leader, lpt, qpt, lev, qev,
-                 lhist, qhist, roster, recruit)
-        return carry, outputs(t_clamp, ldn, qdn, up)
+        hstate, sstate = zoo_post(t_clamp, lark, qmaj, qreb, qrep, roster,
+                                  repm, rlead, hstate, sstate)
+        carry = join_carry(
+            (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
+             qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist, roster,
+             recruit), hstate, sstate, lat)
+        return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
 
     if rebuild_model == "reconfig":
         return step_reconfig_packed if packed else step_reconfig
@@ -810,17 +1023,21 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
 
 #: carry slots: (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep,
 #: qreb, qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist[, roster],
-#: [recruit])
+#: [recruit]), then the hermes and spinnaker blocks (dn, t0, two int32
+#: states, pt, ev, hist each), then the lat leaves (dirty, dup, qhist,
+#: qslo, qsum)
 _FULL, _LANE0 = 3, 6
 
 
 def carry_from_numpy(carry, device=None):
-    """The reference downtime engine's carry — its 20 leaves, plus
-    (roster, recruit) under reconfig or (recruit,) under fixed with
-    shared bandwidth — as the port's tensors on `device` (``None``: the
-    card, via ``resolve_device``).  Packed holder words (uint32) are
-    reinterpreted as int32; lane0 (uint32) becomes int64 of the same
-    value; roster and recruit stay int32."""
+    """The reference downtime engine's carry, in its order — its 20
+    leaves, plus (roster, recruit) under reconfig or (recruit,) under
+    fixed with shared bandwidth, then the 7 leaves of each zoo engine
+    (hermes, then spinnaker) and the 5 float32 lat leaves — as the port's
+    tensors on `device` (``None``: the card, via ``resolve_device``).
+    Packed holder words (uint32) are reinterpreted as int32; lane0
+    (uint32) becomes int64 of the same value; every other leaf keeps its
+    dtype (roster, recruit and the hermes mask stay int32)."""
     dev = resolve_device(device)
     out = []
     for i, a in enumerate(carry):
@@ -881,6 +1098,15 @@ def simulate_downtime_batched(
     bit-identical to the sharded run.  packed=True carries the holder
     masks as (B, W, P) int32 words and evaluates each step with one
     ``fused_downtime_eval`` launch — layout only, bit-identical.
+
+    engines adds the protocol zoo on the same node trajectories (hermes:
+    `lease_ticks` membership leases; spinnaker: `view_change_ticks`
+    reconciliation on leader loss, reconfig only); the zoo changes no
+    lark/quorum output bit.  _disable_predicates (private,
+    DISABLE_PREDICATES) strips single zoo transition predicates for the
+    necessity tests.  _lat_plan (private; set by core/client_latency.py)
+    appends the client-latency accumulators to the carry and fills
+    `latency_raw`.
     """
     _validate_batched_args(devices=devices, trials=trials,
                            wave_width=wave_width, n=n)
@@ -893,16 +1119,6 @@ def simulate_downtime_batched(
             node_bandwidth_gibps=node_bandwidth_gibps,
             engines=engines, lease_ticks=lease_ticks,
             view_change_ticks=view_change_ticks)
-    if params.hermes or params.spinnaker or params.lease_ticks \
-            or params.view_change_ticks or _disable_predicates:
-        raise NotImplementedError(
-            "the protocol zoo (hermes/spinnaker engines, lease_ticks, "
-            "view_change_ticks, _disable_predicates) is not ported yet "
-            "(ROADMAP Queue 1 item 7); the port simulates lark and quorum")
-    if _lat_plan is not None:
-        raise NotImplementedError(
-            "the client-latency layer (_lat_plan) is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
     dupres_ticks, rebuild_steps = params.dupres_ticks, params.rebuild_steps
     hist_bins, rebuild_model = params.hist_bins, params.rebuild_model
     rebuild_ticks_per_gib = params.rebuild_ticks_per_gib
@@ -910,6 +1126,12 @@ def simulate_downtime_batched(
     node_bandwidth_gibps = params.node_bandwidth_gibps
     reconfig = params.reconfig
     bandwidth_shared = params.bandwidth_shared
+    hermes_on, spinnaker_on = params.hermes, params.spinnaker
+    disable = frozenset(_disable_predicates)
+    unknown = disable - set(DISABLE_PREDICATES)
+    if unknown:
+        raise ValueError(f"unknown disable predicates {sorted(unknown)}; "
+                         f"expected a subset of {DISABLE_PREDICATES}")
     if (reconfig or bandwidth_shared) \
             and max_ticks > (2 ** 31 - 1) // _REB_SCALE - 2:
         raise ValueError("max_ticks too large for the fixed-point "
@@ -922,14 +1144,21 @@ def simulate_downtime_batched(
         n=n, partitions=P, seed=seed, p=p, downtime=downtime,
         p_node=p_node, downtime_node=downtime_node, max_ticks=max_ticks,
         device=dev)
+    zoo = tuple(e for e in ("hermes", "spinnaker") if e in params.engines)
     spec = StepSpec(metric="downtime", rf=rf, n_real=n,
                     rebuild_model=rebuild_model, packed=packed,
-                    dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps)
+                    dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps,
+                    engines=zoo)
 
     def dt_fn(u, f, roster=None, recruit=None, active=None):
+        """(lark, qmaj, leader, leader_full, nrep, *extras, creps
+        [, counts]); the extras are repmask (hermes) and rleader
+        (spinnaker, roster calls only)."""
         o = step_eval(spec, u, f, roster=roster, recruit=recruit,
                       active=active)
-        base = (o.lark, o.maj, o.leader, o.leader_full, o.nrep, o.creps)
+        extras = tuple(x for x in (o.repmask, o.rleader) if x is not None)
+        base = (o.lark, o.maj, o.leader, o.leader_full, o.nrep) + extras \
+            + (o.creps,)
         return (base + (o.counts,)) if recruit is not None else base
 
     rebuild_ticks = torch.as_tensor(_partition_rebuild_ticks(
@@ -949,17 +1178,35 @@ def simulate_downtime_batched(
         geo_tables=geo_tables, seed_mix=seed_mix,
         pair_fail_prob=pair_fail_prob, pair_perm=pair_perm,
         restart_period=restart_period, wave_width=wave_width)
+    lat_fn = None
+    if _lat_plan is not None:
+        lat_pow = torch.as_tensor(_lat_plan.pow_tables, device=dev)
+        lat_kf = torch.as_tensor(_lat_plan.kf, device=dev)
+        lat_lamw = torch.as_tensor(_lat_plan.lamw, device=dev)
+
+        def lat_fn(lat, dt_i, avail, qok, rem):
+            nd, di, hi, si, qi = client_latency_step(
+                lat[0], dt_i, avail, qok, rem, pow_tables=lat_pow,
+                kf=lat_kf, lamw=lat_lamw, nbins=_lat_plan.nbins,
+                slo_ticks=_lat_plan.slo_ticks)
+            # the charges accumulate by one eager float32 add each
+            return (nd, lat[1] + di, lat[2] + hi, lat[3] + si,
+                    lat[4] + qi)
     step = _make_step(dt_fn, advance, succ, n=n, P=P, rf=rf,
                       dupres_ticks=dupres_ticks,
                       rebuild_steps=rebuild_steps, hist_bins=hist_bins,
                       rebuild_model=rebuild_model,
                       rebuild_ticks=rebuild_ticks,
                       bandwidth_fp=bandwidth_fp, cnt_fn=cnt_fn,
-                      rebuild_fp=rebuild_fp, packed=packed)
+                      rebuild_fp=rebuild_fp, packed=packed, lat_fn=lat_fn,
+                      engines=zoo, lease_ticks=params.lease_ticks,
+                      view_change_ticks=params.view_change_ticks,
+                      disable=disable)
 
     # initial state: everyone up, roster replicas full, both protocols
     # evaluated once at t=0 — without a roster under both models (the
-    # t=0 roster is [0..rf-1], so the plain evaluation is exact)
+    # t=0 roster is [0..rf-1], so the plain evaluation is exact); under
+    # hermes that evaluation also returns the t=0 membership bitmask
     lane0, up0, ev0, rr_t0 = _initial_node_state(
         B=B, n=n, seed_mix=seed_mix, geo_masks=geo_masks,
         geo_tables=geo_tables, restart_period=restart_period,
@@ -988,18 +1235,66 @@ def simulate_downtime_batched(
         carry = carry + (roster0, recruit0)
     elif bandwidth_shared:
         carry = carry + (recruit0,)
+    h0 = len(carry)                   # hermes leaves start here (if any)
+    if hermes_on:
+        # the t=0 membership view is the repmask of the initial
+        # evaluation; the pause mask starts exactly at LARK's
+        hmask0 = outs0[5].reshape(B, P).to(torch.int32)
+        carry = carry + (~lark0, zbp, hmask0, zbp, zf, zi, zh)
+    s0_i = len(carry)                 # spinnaker leaves start here
+    if spinnaker_on:
+        # rank 0 leads at t=0; no view change in flight, so the pause
+        # mask starts at the quorum baseline's
+        carry = carry + (~qmaj0, zbp, zbp, zbp, zf, zi, zh)
+    lat_i = len(carry)                # lat leaves ride at the carry tail
+    if _lat_plan is not None:
+        nb = _lat_plan.kf.shape[0]
+        lz_nb = torch.zeros((B, P, nb), dtype=torch.float32, device=dev)
+        lz_hb = torch.zeros((B, P, _lat_plan.nbins), dtype=torch.float32,
+                            device=dev)
+        lz_bp = torch.zeros((B, P), dtype=torch.float32, device=dev)
+        # dirty starts clean (no leader has changed yet), charges at zero
+        carry = carry + (lz_nb, lz_nb, lz_hb, lz_bp, lz_bp)
 
     if max_steps is None:
         max_steps = _default_max_steps(p_arr, dt_arr, n=n, horizon=horizon,
                                        restart_period=restart_period)
 
-    # per-chunk accumulators at fixed offsets 14..19, reset every drain
+    # per-chunk accumulators, reset every drain: the base ones at fixed
+    # offsets 14..19, each zoo engine's (pause time, events, histogram)
+    # at offsets +4..+6 of its block
     acc_reset = {14: zf, 15: zf, 16: zi, 17: zi, 18: zh, 19: zh}
+    if hermes_on:
+        acc_reset.update({h0 + 4: zf, h0 + 5: zi, h0 + 6: zh})
+    if spinnaker_on:
+        acc_reset.update({s0_i + 4: zf, s0_i + 5: zi, s0_i + 6: zh})
+
+    def host(t, dtype):
+        return t.cpu().numpy().astype(dtype)
+
     lpt_tot = np.zeros(B)
     qpt_tot = np.zeros(B)
     lev_tot = qev_tot = 0
     lhist_tot = np.zeros(hist_bins, dtype=np.int64)
     qhist_tot = np.zeros(hist_bins, dtype=np.int64)
+    zoo_tot = {}                      # engine -> [pt (B,), ev, hist]
+    for name, k0, on in (("hermes", h0, hermes_on),
+                         ("spinnaker", s0_i, spinnaker_on)):
+        if on:
+            zoo_tot[name] = (k0, [np.zeros(B), 0,
+                                  np.zeros(hist_bins, dtype=np.int64)])
+    if _lat_plan is not None:
+        lat_dup = np.zeros((B, _lat_plan.kf.shape[0]))
+        lat_qhist = np.zeros((B, _lat_plan.nbins))
+        lat_qslo = np.zeros(B)
+        lat_qsum = np.zeros(B)
+        lat_wfp = None
+        if _lat_plan.wfp is not None:
+            # skewed write mix: pool a second, write-fraction-weighted
+            # view of the same dup charges (hermes pays dup-res on writes
+            # only, so its share is per-partition under write_skew)
+            lat_wfp = np.asarray(_lat_plan.wfp, dtype=np.float64)
+            lat_dupw = np.zeros((B, _lat_plan.kf.shape[0]))
     traj = [] if trajectory else None
     stopped = False
     s0 = 1
@@ -1009,13 +1304,30 @@ def simulate_downtime_batched(
         if trajectory:
             traj.append(ys)
         # drain per-chunk accumulators into float64/int totals
-        now = carry[0].cpu().numpy().astype(np.int64)
-        lpt_tot += carry[14].cpu().numpy().astype(np.float64)
-        qpt_tot += carry[15].cpu().numpy().astype(np.float64)
+        now = host(carry[0], np.int64)
+        lpt_tot += host(carry[14], np.float64)
+        qpt_tot += host(carry[15], np.float64)
         lev_tot += int(carry[16].cpu().numpy().sum())
         qev_tot += int(carry[17].cpu().numpy().sum())
-        lhist_tot += carry[18].cpu().numpy().astype(np.int64).sum(axis=0)
-        qhist_tot += carry[19].cpu().numpy().astype(np.int64).sum(axis=0)
+        lhist_tot += host(carry[18], np.int64).sum(axis=0)
+        qhist_tot += host(carry[19], np.int64).sum(axis=0)
+        for k0, tot in zoo_tot.values():
+            tot[0] += host(carry[k0 + 4], np.float64)
+            tot[1] += int(carry[k0 + 5].cpu().numpy().sum())
+            tot[2] += host(carry[k0 + 6], np.int64).sum(axis=0)
+        if _lat_plan is not None:
+            # pool the per-(trial, partition) float32 charges over
+            # partitions here, host-side in float64, in the reference's
+            # order (the dirty fractions persist; the charges restart)
+            lt_ = carry[lat_i:]
+            dup_bp = host(lt_[1], np.float64)
+            lat_dup += dup_bp.sum(axis=1)
+            if lat_wfp is not None:
+                lat_dupw += (dup_bp * lat_wfp[None, :, None]).sum(axis=1)
+            lat_qhist += host(lt_[2], np.float64).sum(axis=1)
+            lat_qslo += host(lt_[3], np.float64).sum(axis=1)
+            lat_qsum += host(lt_[4], np.float64).sum(axis=1)
+            carry = carry[:lat_i] + (lt_[0], lz_nb, lz_hb, lz_bp, lz_bp)
         carry = tuple(acc_reset.get(i, c) for i, c in enumerate(carry))
         if (now >= horizon).all():
             break
@@ -1032,7 +1344,7 @@ def simulate_downtime_batched(
                 stopped = True
                 break
 
-    now = np.maximum(carry[0].cpu().numpy().astype(np.int64), 1)
+    now = np.maximum(host(carry[0], np.int64), 1)
     pt_b = P * now.astype(np.float64)
     pt = float(pt_b.sum())
     # the instantaneous dup-res charge can overshoot wall time under
@@ -1048,10 +1360,31 @@ def simulate_downtime_batched(
         hw_q = t * float(u_q_trials.std(ddof=1))
     traj_out = None
     if trajectory:
-        names = ["times", "paused_lark", "paused_quorum", "nodes_up"]
+        names = ["times", "paused_lark", "paused_quorum", "nodes_up"] + \
+            [f"paused_{e}" for e in zoo_tot]
         cols = [np.concatenate([c[i] for c in traj])
                 for i in range(len(names))]
         traj_out = dict(zip(names, cols))
+    lat_raw = None
+    if _lat_plan is not None:
+        lat_raw = {"dup": lat_dup, "qhist": lat_qhist, "qslo": lat_qslo,
+                   "qsum": lat_qsum, "now": now.copy()}
+        if lat_wfp is not None:
+            lat_raw["dupw"] = lat_dupw
+
+    zoo_kw = {}
+    for name, (_, (pt_tot, ev_tot, hist_tot)) in zoo_tot.items():
+        u = min(float(pt_tot.sum()) / pt, 1.0)
+        u_trials = np.minimum(pt_tot / pt_b, 1.0)
+        hw = 0.0
+        if B >= 3:
+            hw = t975(B - 1) / math.sqrt(B) * float(u_trials.std(ddof=1))
+        zoo_kw.update({
+            f"pause_{name}": u,
+            f"ci_{name}": max(hw, 1.96 * math.sqrt(
+                max(u * (1 - u), 1e-30) / pt)),
+            f"{name}_events": ev_tot, f"hist_{name}": hist_tot,
+            f"pause_{name}_trials": u_trials})
     return BatchedDowntimeResult(
         p=p, rf=rf, n=n, partitions=P, trials=B, device=str(dev),
         ticks=int(now.mean()), pause_lark=u_l, pause_quorum=u_q,
@@ -1072,4 +1405,5 @@ def simulate_downtime_batched(
         hist_lark=lhist_tot, hist_quorum=qhist_tot,
         pause_lark_trials=u_l_trials, pause_quorum_trials=u_q_trials,
         engines=params.engines, lease_ticks=params.lease_ticks,
-        view_change_ticks=params.view_change_ticks, trajectory=traj_out)
+        view_change_ticks=params.view_change_ticks, trajectory=traj_out,
+        latency_raw=lat_raw, **zoo_kw)

@@ -16,12 +16,8 @@ import time
 
 import torch
 
+from ..core.client_latency import _KEY_SALT
 from ..core.downtime_batched import _SIZE_SALT
-
-#: the client-latency engine's key-popularity salt
-#: (repro/core/client_latency.py:_KEY_SALT), kept here until that engine
-#: is ported so the artifact's RNG identity matches the reference's
-_KEY_SALT = 0xC2B2AE35
 
 
 def file_sha256(path: str) -> str:

@@ -1,5 +1,5 @@
-"""Config-driven experiment runner, availability and downtime metrics
-(port of ``repro/experiments/runner.py``).
+"""Config-driven experiment runner, availability, downtime and latency
+metrics (port of ``repro/experiments/runner.py``).
 
 One ``ExperimentSpec`` in; CSV progress lines, JSONL events and a
 provenance-stamped summary out.  The grids, the scales and every row
@@ -7,8 +7,9 @@ expression are the reference's, so a spec regenerates the reference's
 rows byte for byte (``benchmarks/check_regression.py --identical``).
 
 * ``iter_rows(spec, device=...)`` — the i.i.d. grid, then each scenario
-  grid, in the reference's order and shapes: §5.1 availability rows or
-  §6 downtime rows (``spec.downtime_params()`` carries the knobs).
+  grid, in the reference's order and shapes: §5.1 availability rows, §6
+  downtime rows (with one row per protocol-zoo engine) or client-latency
+  rows (``spec.downtime_params()`` carries the knobs).
 * ``ExperimentRunner`` — drives ``iter_rows``, prints the CSV progress
   lines, streams one JSONL event per row, assembles the summary.
 * ``run_batch(specs)`` — several specs back to back.
@@ -17,12 +18,11 @@ Backends: the spec's ``numpy``, ``jax`` and ``pallas`` all run the port's
 engine (the reference proves them row-identical).  ``devices > 1`` is
 checked (trials must divide) and runs all trials as one batch on one
 card, which invariant 2 makes equal to the sharded run; provenance
-records the requested geometry beside the observed one.  Downtime rows
-under ``backend="event"`` run the batched engine on one device, as the
-reference's do.  Not ported yet, each raising ``NotImplementedError``:
-the protocol zoo's engines (ROADMAP Queue 1 item 7), the latency metric
-(item 8), availability under ``backend="event"`` (item 11) and
-``autotune`` (item 10).
+records the requested geometry beside the observed one.  Downtime and
+latency rows under ``backend="event"`` run the batched engine on one
+device, as the reference's do.  Not ported yet, each raising
+``NotImplementedError``: availability under ``backend="event"`` (ROADMAP
+Queue 1 item 11) and ``autotune`` (item 10).
 """
 from __future__ import annotations
 
@@ -33,6 +33,7 @@ import time
 from ..core.analytical import (improvement_factor, lark_unavailability,
                                node_unavailability)
 from ..core.availability_batched import simulate_availability_batched
+from ..core.client_latency import simulate_client_latency
 from ..core.downtime_batched import DowntimeParams, simulate_downtime_batched
 from ..core.scenarios import get_scenario
 from ..device import resolve_device
@@ -137,7 +138,7 @@ def _downtime_row(r, *, kind: str, scenario: str):
 
 def _downtime_engine_rows(r, *, kind: str, scenario: str):
     """One row per protocol-zoo engine beyond the lark/quorum pair the
-    base downtime row already carries (none until the zoo is ported)."""
+    base downtime row already carries."""
     rows = []
     for engine in r.engines:
         if engine in ("lark", "quorum"):
@@ -200,6 +201,78 @@ def _gen_run_downtime_scenarios(names, full: bool = False, trials: int = 4,
                 r, kind="downtime_engine_scenario", scenario=name)
 
 
+def _latency_row(r, *, kind: str, scenario: str):
+    row = {
+        "kind": kind, "scenario": scenario, "rf": r.rf, "p": r.p,
+        "lat_lark": r.lat_lark, "lat_quorum": r.lat_quorum,
+        "lat_hermes": r.lat_hermes,
+        "ci_lat_lark": r.ci_lat_lark, "ci_lat_quorum": r.ci_lat_quorum,
+        "p50_lark": r.p50_lark, "p99_lark": r.p99_lark,
+        "p999_lark": r.p999_lark,
+        "p50_quorum": r.p50_quorum, "p99_quorum": r.p99_quorum,
+        "p999_quorum": r.p999_quorum,
+        "p50_hermes": r.p50_hermes, "p99_hermes": r.p99_hermes,
+        "p999_hermes": r.p999_hermes,
+        "slo_lark": r.slo_lark, "slo_quorum": r.slo_quorum,
+        "slo_hermes": r.slo_hermes,
+        "req_total": r.req_total,
+        "hist_edges": r.hist_edges.tolist(),
+        "hist_quorum_req": r.hist_quorum_req.tolist(),
+        "dupres_ticks": r.dupres_ticks, "rebuild_model": r.rebuild_model,
+        "key_zipf": r.key_zipf, "read_frac": r.read_frac,
+        "requests_per_tick": r.requests_per_tick,
+        "slo_ticks": r.slo_ticks,
+        "ticks": r.ticks,
+    }
+    # the sharpening knobs only add columns when set, so rows at their
+    # degenerate settings keep the reference's pre-knob columns
+    if r.write_skew:
+        row["write_skew"] = r.write_skew
+    if math.isfinite(r.node_bandwidth_gibps):
+        row["node_bandwidth_gibps"] = r.node_bandwidth_gibps
+    if r.slo_curve_bins:
+        row["slo_curve_bins"] = r.slo_curve_bins
+        row["slo_curve_edges"] = r.slo_curve_edges.tolist()
+        row["slo_curve_lark"] = r.slo_curve_lark.tolist()
+        row["slo_curve_quorum"] = r.slo_curve_quorum.tolist()
+        row["slo_curve_hermes"] = r.slo_curve_hermes.tolist()
+    return row
+
+
+def _gen_run_latency(full: bool = False, trials: int = 4, seed: int = 0,
+                     devices: int = 1, smoke: bool = False,
+                     params: DowntimeParams = DowntimeParams(),
+                     packed: bool = False, device=None):
+    """Client-latency rows over the i.i.d. grid — the downtime metric's
+    grid, scale and tick budgets, so both describe the same
+    trajectories."""
+    grid = _iid_grid(full, smoke)
+    n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=False)
+    for rf, p in grid:
+        r = simulate_client_latency(
+            n=n, partitions=parts, rf=rf, p=p, trials=trials,
+            max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
+            devices=devices, params=params, packed=packed, device=device)
+        yield _latency_row(r, kind="latency", scenario="iid")
+
+
+def _gen_run_latency_scenarios(names, full: bool = False, trials: int = 4,
+                               seed: int = 0, devices: int = 1,
+                               smoke: bool = False,
+                               params: DowntimeParams = DowntimeParams(),
+                               packed: bool = False, device=None):
+    n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=True)
+    for name in names:
+        sc = get_scenario(name)
+        for rf, p in sc.grid:
+            r = simulate_client_latency(
+                n=n, partitions=parts, rf=rf, p=p, trials=trials,
+                max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
+                devices=devices, params=params, packed=packed,
+                device=device, **sc.kwargs(n=n, rf=rf, p=p))
+            yield _latency_row(r, kind="latency_scenario", scenario=name)
+
+
 def _json_safe(row):
     """Non-finite floats are not RFC-JSON; dump them as null."""
     return {k: (None if isinstance(v, float) and not math.isfinite(v) else v)
@@ -236,19 +309,23 @@ def row_csv_line(r: dict):
         return (f"downtime_engine_scenario,{r['engine']}_"
                 f"{r['scenario']}_rf{r['rf']}_p{r['p']:g},0,"
                 f"pause={r['pause']:.3e};events={r['events']}")
+    if kind == "latency":
+        return (f"latency,rf{r['rf']}_p{r['p']:g},0,"
+                f"lat_lark={r['lat_lark']:.3e};"
+                f"lat_quorum={r['lat_quorum']:.3e};"
+                f"p999_lark={r['p999_lark']:g};"
+                f"p999_quorum={r['p999_quorum']:g};"
+                f"slo_quorum={r['slo_quorum']:.3e}")
+    if kind == "latency_scenario":
+        return (f"latency_scenario,{r['scenario']}_rf{r['rf']}_"
+                f"p{r['p']:g},0,lat_lark={r['lat_lark']:.3e};"
+                f"lat_quorum={r['lat_quorum']:.3e};"
+                f"p999_quorum={r['p999_quorum']:g};"
+                f"slo_quorum={r['slo_quorum']:.3e}")
     return None
 
 
 def _check_ported(spec: ExperimentSpec):
-    if spec.metric == "latency":
-        raise NotImplementedError(
-            "metric 'latency' is not ported yet (ROADMAP Queue 1 item 8); "
-            "the port runs metrics 'availability' and 'downtime'")
-    zoo = [e for e in spec.engines if e not in ("lark", "quorum")]
-    if spec.metric == "downtime" and zoo:
-        raise NotImplementedError(
-            f"protocol-zoo engines {zoo} are not ported yet (ROADMAP "
-            f"Queue 1 item 7); the port simulates lark and quorum")
     if spec.metric == "availability" and spec.backend == "event":
         raise NotImplementedError(
             "backend 'event' (the scalar event engine) is not ported yet "
@@ -264,17 +341,20 @@ def iter_rows(spec: ExperimentSpec, device=None):
     then each scenario grid."""
     _check_ported(spec)
     names = list(spec.scenarios)
-    if spec.metric == "downtime":
+    if spec.metric in ("downtime", "latency"):
         # event rows run the batched engine on one device, as the
         # reference's _batched_backend maps them
         common = dict(full=spec.full, trials=spec.trials, seed=spec.seed,
                       devices=1 if spec.backend == "event" else spec.devices,
                       smoke=spec.smoke, params=spec.downtime_params(),
                       packed=spec.packed, device=device)
+        iid, scen = (_gen_run_downtime, _gen_run_downtime_scenarios) \
+            if spec.metric == "downtime" \
+            else (_gen_run_latency, _gen_run_latency_scenarios)
         if not spec.scenarios_only:
-            yield from _gen_run_downtime(**common)
+            yield from iid(**common)
         if names:
-            yield from _gen_run_downtime_scenarios(names, **common)
+            yield from scen(names, **common)
         return
     if not spec.scenarios_only:
         yield from _gen_run(

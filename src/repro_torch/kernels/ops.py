@@ -12,10 +12,11 @@ spec onto kernels by metric and layout:
   downtime, packed=True       words [+ roster + recruit/active]
                                                      -> fused_step.fused_downtime_eval
 
-and each kernel wrapper dispatches by the tensor's device (CUDA kernel on
-a CUDA tensor, plain PyTorch on a CPU tensor).  The reference's
-numpy/jax/pallas backend switch and its block-size autotuners have no
-counterpart here.
+``client_latency_step`` is the client-latency layer's post-step op, one
+``pac_eval.latency_charge`` call.  Each kernel wrapper dispatches by the
+tensor's device (CUDA kernel on a CUDA tensor, plain PyTorch on a CPU
+tensor).  The reference's numpy/jax/pallas backend switch and its
+block-size autotuners have no counterpart here.
 """
 from __future__ import annotations
 
@@ -225,3 +226,12 @@ def step_eval(spec: StepSpec, up, full, *, roster=None, recruit=None,
     return StepOutputs(lark=outs[0], maj=outs[1], leader=outs[2],
                        leader_full=outs[3], nrep=outs[4], creps=creps,
                        counts=counts, repmask=repmask, rleader=rleader)
+
+
+#: the client-latency layer's post-step op (``core/client_latency.py``,
+#: the reference's ``ops.client_latency_step``): one event interval of
+#: dirty-key decay with LARK first-touch charges and the closed-form
+#: quorum rebuild-wait charges, in the reference's argument order and
+#: output shapes — on CUDA tensors one ``latency_charge`` launch, the
+#: decay chain included; on CPU tensors its plain version
+client_latency_step = pac_eval.latency_charge

@@ -16,6 +16,12 @@ each beside its plain PyTorch version.
   ``_node_count_kernel``): in-flight catch-ups per (trial, node).
   5·B·P bytes read, 4·B·n_real written (about 0.17 MB): bound by launch
   latency, not by bytes.
+* ``latency_charge`` (csrc/latency_charge.cu) replaces
+  ``repro/kernels/pac_eval.py:latency_charge`` (body ``_latency_kernel``)
+  and the ``decay_from_dt`` chain before it: one interval of the §6
+  client-latency layer, one thread per (trial, partition) row, float32
+  math held bitwise.  Bound by bytes: about 5.6 MB per call at the paper
+  tile (B = 8, P = 4096, NB = 4, nbins = 16, nbits = 22).
 
 The row kernels give one warp to each row and turn each 32-column chunk
 into a word with ``__ballot_sync``, so every byte is read or written
@@ -31,6 +37,7 @@ import ctypes
 import torch
 
 from . import _build
+from .latency import latency_step_ref
 
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
 
@@ -294,3 +301,100 @@ def node_count(recruit, active, *, n_real: int):
 
 #: kernel launches since the last reset
 node_count.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# latency_charge: one interval of the §6 client-latency layer
+# ---------------------------------------------------------------------------
+
+_LC_ARGTYPES = (ctypes.c_void_p,) * 13 + (ctypes.c_int,) * 6 + \
+    (ctypes.c_void_p,)
+
+#: most key-popularity buckets the kernel keeps in registers
+_LC_MAX_BUCKETS = 8
+
+
+#: the plain version: the decay chain and the dirty/quorum math in eager
+#: PyTorch, the reference's ``latency_step_ref`` op for op
+latency_charge_plain = latency_step_ref
+
+
+def _check_latency_args(dirty, dt_i, avail, qok, rem, pow_tables, kf, lamw,
+                        nbins: int):
+    if dirty.dim() != 3:
+        raise ValueError(f"dirty must be (B, P, NB); got "
+                         f"{tuple(dirty.shape)}")
+    B, P, NB = dirty.shape
+    want = {"dirty": (dirty, torch.float32, (B, P, NB)),
+            "dt_i": (dt_i, torch.int32, (B,)),
+            "avail": (avail, torch.bool, (B, P)),
+            "qok": (qok, torch.bool, (B, P)),
+            "rem": (rem, torch.int32, (B, P)),
+            "pow_tables": (pow_tables, torch.float32,
+                           (pow_tables.shape[0], P, NB)),
+            "kf": (kf, torch.float32, (NB,)),
+            "lamw": (lamw, torch.float32, (P,))}
+    for name, (t, dtype, shape) in want.items():
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape} {dtype}; got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != dirty.device:
+            raise ValueError(f"{name} on {t.device}, dirty on "
+                             f"{dirty.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= pow_tables.shape[0] <= 31:
+        raise ValueError(f"pow_tables must hold 1..31 tables (one per bit "
+                         f"of an int32 dt); got {pow_tables.shape[0]}")
+    if not 2 <= nbins <= 30:
+        raise ValueError(f"nbins={nbins} must be in [2, 30]")
+    if not 1 <= NB <= _LC_MAX_BUCKETS:
+        raise ValueError(f"NB={NB} must be in [1, {_LC_MAX_BUCKETS}]")
+
+
+def latency_charge(dirty, dt_i, avail, qok, rem, *, pow_tables, kf, lamw,
+                   nbins: int, slo_ticks: int):
+    """One event interval of the client-latency layer.
+
+    dirty (B, P, NB) float32 carried dirty-key fractions; dt_i (B,) int32
+    interval lengths; avail, qok (B, P) bool (partition serving, replica
+    majority up, at interval start); rem (B, P) int32 remaining rebuild
+    wall-ticks; pow_tables (nbits, P, NB) float32 decay squares; kf (NB,)
+    float32 keys per bucket; lamw (P,) float32 write rates.  Returns
+    (new_dirty (B, P, NB), dup (B, P, NB), qhist (B, P, nbins),
+    qslo (B, P), qsum (B, P)) float32.
+
+    CUDA tensors make one ``latency_charge`` launch (decay chain
+    included); CPU tensors run ``latency_charge_plain``.  Both give the
+    same bits."""
+    _check_latency_args(dirty, dt_i, avail, qok, rem, pow_tables, kf, lamw,
+                        nbins)
+    if dirty.device.type == "cpu":
+        return latency_charge_plain(dirty, dt_i, avail, qok, rem,
+                                    pow_tables=pow_tables, kf=kf, lamw=lamw,
+                                    nbins=nbins, slo_ticks=slo_ticks)
+    if dirty.device.type != "cuda":
+        raise ValueError(f"latency_charge runs on cuda or cpu, not "
+                         f"{dirty.device}")
+    B, P, NB = dirty.shape
+    dev = dirty.device
+    new_dirty = torch.empty_like(dirty)
+    dup = torch.empty_like(dirty)
+    qhist = torch.empty((B, P, nbins), dtype=torch.float32, device=dev)
+    qslo = torch.empty((B, P), dtype=torch.float32, device=dev)
+    qsum = torch.empty((B, P), dtype=torch.float32, device=dev)
+    launch = _build.function("latency_charge", "latency_charge_launch",
+                             _LC_ARGTYPES)
+    err = launch(dirty.data_ptr(), dt_i.data_ptr(), avail.data_ptr(),
+                 qok.data_ptr(), rem.data_ptr(), pow_tables.data_ptr(),
+                 kf.data_ptr(), lamw.data_ptr(), new_dirty.data_ptr(),
+                 dup.data_ptr(), qhist.data_ptr(), qslo.data_ptr(),
+                 qsum.data_ptr(), B, P, NB, pow_tables.shape[0], nbins,
+                 slo_ticks, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "latency_charge")
+    latency_charge.launches += 1
+    return new_dirty, dup, qhist, qslo, qsum
+
+
+#: kernel launches since the last reset
+latency_charge.launches = 0

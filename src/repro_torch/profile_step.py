@@ -3,11 +3,16 @@
     PYTHONPATH=src python -m repro_torch.profile_step [--packed] \\
         [--n 155 --partitions 4096 --trials 8 --chunks 4] [--json OUT] \\
         [--metric downtime --rebuild-model reconfig --size-dist zipf \\
-         --size-skew 1 --node-bandwidth-gibps 1]
+         --size-skew 1 --node-bandwidth-gibps 1] \\
+        [--engines lark,quorum,hermes,spinnaker --lease-ticks 40 \\
+         --view-change-ticks 200] [--metric latency]
 
 Runs ``simulate_availability_batched`` (``--metric availability``, the
-default) or ``simulate_downtime_batched`` (``--metric downtime``, with
-the §6 rebuild knobs) on cuda once to warm up, then for ``--chunks``
+default), ``simulate_downtime_batched`` (``--metric downtime``, with the
+§6 rebuild knobs and the protocol zoo's ``--engines``) or
+``simulate_client_latency`` (``--metric latency``: the §6 engine with
+the client-latency layer under the paper workload — zipf keys, 32
+requests/tick, 80 % reads, an 8-tick SLO) on cuda once to warm up, then for ``--chunks``
 chunks of 512 steps twice: once timed on the host clock with nothing
 else attached (wall seconds, steps per second), once under
 ``torch.profiler`` for the kernels' device times.  Prints one JSON
@@ -30,6 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .core.availability_batched import simulate_availability_batched
+from .core.client_latency import simulate_client_latency
 from .core.downtime_batched import simulate_downtime_batched
 
 
@@ -51,13 +57,17 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--packed", action="store_true")
     ap.add_argument("--metric", default="availability",
-                    choices=("availability", "downtime"))
+                    choices=("availability", "downtime", "latency"))
     ap.add_argument("--rebuild-model", default="fixed",
                     choices=("fixed", "reconfig"))
     ap.add_argument("--size-dist", default="uniform",
                     choices=("uniform", "zipf", "lognormal"))
     ap.add_argument("--size-skew", type=float, default=1.0)
     ap.add_argument("--node-bandwidth-gibps", type=float, default=math.inf)
+    ap.add_argument("--engines", default="lark,quorum",
+                    help="comma-separated protocol zoo (§6 metrics)")
+    ap.add_argument("--lease-ticks", type=int, default=0)
+    ap.add_argument("--view-change-ticks", type=int, default=0)
     ap.add_argument("--json", metavar="PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -66,14 +76,26 @@ def main(argv=None) -> int:
               rf=args.rf, p=args.p, min_ticks=10 ** 9, seed=0,
               packed=args.packed, device="cuda")
     knobs = {}
-    if args.metric == "downtime":
+    if args.metric == "availability":
+        simulate = simulate_availability_batched
+    else:
         knobs = dict(rebuild_model=args.rebuild_model,
                      size_dist=args.size_dist, size_skew=args.size_skew,
                      node_bandwidth_gibps=args.node_bandwidth_gibps)
+        zoo = dict(engines=tuple(args.engines.split(",")),
+                   lease_ticks=args.lease_ticks,
+                   view_change_ticks=args.view_change_ticks)
+        if args.metric == "downtime":
+            knobs.update(zoo)
+            simulate = simulate_downtime_batched
+        elif zoo != dict(engines=("lark", "quorum"), lease_ticks=0,
+                         view_change_ticks=0):
+            ap.error("--engines, --lease-ticks and --view-change-ticks "
+                     "apply to --metric downtime")
+        else:
+            # the workload knobs keep simulate_client_latency's defaults
+            simulate = simulate_client_latency
         kw.update(knobs)
-        simulate = simulate_downtime_batched
-    else:
-        simulate = simulate_availability_batched
     simulate(max_steps=2, **kw)                               # warm-up
     torch.cuda.synchronize()
     steps = 512 * args.chunks

@@ -1,4 +1,5 @@
-"""§5.1 availability and §6 downtime sweeps on the PyTorch/CUDA port.
+"""§5.1 availability, §6 downtime and client-latency sweeps on the
+PyTorch/CUDA port.
 
 The port's counterpart of ``benchmarks/availability_sweep.py``'s config
 mode: it runs an experiment spec through ``repro_torch.experiments``
@@ -14,9 +15,11 @@ byte-identical to the reference's for the same spec.
 ``--config`` is mutually exclusive with the spec flags (--backend,
 --trials, ...), which build a spec directly as the reference sweep's
 flags do; the §6 knobs (rebuild model, size skew, bandwidth) come from a
-config, as in ``benchmarks/configs/downtime*.toml``.  The availability
-and downtime metrics are ported; the runner raises
-``NotImplementedError`` for the rest.  ``--device`` defaults to cuda.
+config, as in ``benchmarks/configs/downtime*.toml``,
+``latency.toml`` (the client-latency metric) and ``shootout.toml`` (the
+protocol zoo).  Availability under ``--backend event`` and
+``autotune`` are not ported; the runner raises ``NotImplementedError``
+for them.  ``--device`` defaults to cuda.
 """
 from __future__ import annotations
 

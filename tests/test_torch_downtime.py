@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro.core import availability_batched as RA
+from repro.core import client_latency as RC
 from repro.core import downtime_batched as R
 from repro.core.scenarios import get_scenario, scenario_names
 from repro.kernels.ops import StepSpec as RefStepSpec
@@ -266,13 +267,30 @@ def test_mid_run_restart_from_reference_carry(packed):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(engines=("lark", "quorum", "hermes")), "item 7"),
+    (dict(engines=("lark", "quorum", "hermes"), lease_ticks=20), "item 7"),
     (dict(engines=("lark", "quorum", "spinnaker"), rebuild_model="reconfig",
           view_change_ticks=3), "item 7"),
-    (dict(_disable_predicates=("roster-recruit",)), "item 7"),
-    (dict(_lat_plan=object()), "item 8"),
+    (dict(_disable_predicates=("roster-recruit",),
+          rebuild_model="reconfig"), "item 7"),
+    (dict(_lat_plan=True), "item 8"),
 ])
 def test_unported_knobs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        T.simulate_downtime_batched(n=7, partitions=8, trials=1,
-                                    max_steps=2, device="cpu", **kw)
+    """These knobs raised NotImplementedError, naming ROADMAP Queue 1
+    `item`, until the protocol zoo (item 7) and the client-latency layer
+    (item 8) were ported.  They run now, and give the reference's run."""
+    kw = dict(KW, **kw)
+    if kw.get("_lat_plan"):
+        kw["_lat_plan"] = RC.make_latency_plan(
+            KW["seed"], KW["partitions"], R.DowntimeParams(
+                key_zipf=1.0, read_frac=0.5, requests_per_tick=8.0,
+                slo_ticks=1), KW["max_ticks"])
+    want = R.simulate_downtime_batched(backend="numpy", **kw)
+    got = T.simulate_downtime_batched(device="cpu", **kw)
+    _assert_same(want, got)
+    for engine in want.engines:
+        w, g = want.engine_stats(engine), got.engine_stats(engine)
+        assert all(np.array_equal(w[k], g[k]) for k in w), (item, engine)
+    if want.latency_raw is not None:
+        assert all(np.array_equal(v, got.latency_raw[k])
+                   for k, v in want.latency_raw.items())
+        assert want.latency_raw["qsum"].sum() > 0

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, bitwise, and the engine on cuda against the engine on the CPU.
+version, bitwise, and the engines (§5.1, §6 with the protocol zoo, and
+client latency) on cuda against the same runs on the CPU.
 
 This file imports neither jax nor repro, so it runs on a machine that
 has only torch and a card:
@@ -13,8 +14,11 @@ import torch
 
 from repro_torch.core.availability_batched import \
     simulate_availability_batched
-from repro_torch.core.downtime_batched import simulate_downtime_batched
+from repro_torch.core.client_latency import simulate_client_latency
+from repro_torch.core.downtime_batched import (ENGINES,
+                                               simulate_downtime_batched)
 from repro_torch.kernels import fused_step, pac_eval
+from repro_torch.kernels.latency import decay_pow_tables
 
 pytestmark = pytest.mark.gpu
 
@@ -175,3 +179,82 @@ def test_cuda_downtime_engine_matches_cpu(cuda, config, packed):
     assert (got.pause_lark, got.pause_quorum, got.quorum_events) == \
         (want.pause_lark, want.pause_quorum, want.quorum_events)
     assert np.array_equal(got.hist_quorum, want.hist_quorum)
+
+
+def _latency_inputs(rng, B, P, NB=4, max_ticks=3_000_000):
+    """Adversarial latency_charge inputs: dt with many bits set and 0,
+    rem below 0, inside and beyond dt, mixed flags, dirty fractions a few
+    ulps around the 1e-30 flush floor."""
+    lam = rng.uniform(0.0, 4.0, P)
+    f = np.array([0.001, 0.01, 0.2, 0.789])[:NB]
+    tabs = decay_pow_tables(lam, np.full(NB, 1.0 / NB), f, 1024, max_ticks)
+    dirty = rng.uniform(0.0, 1.0, (B, P, NB)).astype(np.float32)
+    near = np.float32(1e-30) + rng.integers(-4, 5, dirty.shape) * \
+        np.spacing(np.float32(1e-30))
+    dirty = np.where(rng.random(dirty.shape) < 0.3, near, dirty) \
+        .astype(np.float32)
+    dt = rng.integers(0, max_ticks + 1, B).astype(np.int32)
+    dt[:4] = 0, 0x2AAAAA, 0x155555, 2 ** 21 - 1        # 0, many bits set
+    rem = rng.integers(0, 3 * max_ticks, (B, P)).astype(np.int32)
+    rem[:, ::3] = (dt[:, None] * rng.random((B, (P + 2) // 3))) \
+        .astype(np.int32)
+    rem[:, 1::3] = rng.integers(-50, 0, (B, (P + 1) // 3))
+    return dict(dirty=dirty, dt_i=dt, avail=rng.random((B, P)) < 0.7,
+                qok=rng.random((B, P)) < 0.7, rem=rem,
+                pow_tables=tabs, kf=(1024 * f).astype(np.float32),
+                lamw=rng.uniform(0.0, 8.0, P).astype(np.float32))
+
+
+@pytest.mark.parametrize("slo_ticks", [0, 8])
+def test_cuda_latency_charge_matches_plain(cuda, slo_ticks):
+    args = {k: torch.from_numpy(v) for k, v in
+            _latency_inputs(np.random.default_rng(slo_ticks), 8,
+                            512).items()}
+    on_card = {k: v.to(cuda) for k, v in args.items()}
+    before = pac_eval.latency_charge.launches
+    got = pac_eval.latency_charge(**on_card, nbins=16, slo_ticks=slo_ticks)
+    torch.cuda.synchronize()
+    assert pac_eval.latency_charge.launches == before + 1
+    want = pac_eval.latency_charge_plain(**args, nbins=16,
+                                         slo_ticks=slo_ticks)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
+@pytest.mark.parametrize("config", ["fixed", "reconfig-skew-bw"])
+def test_cuda_latency_engine_matches_cpu(cuda, config, packed):
+    kw = dict(n=40, partitions=32, rf=2, p=2e-2, trials=3, max_ticks=4_000,
+              min_ticks=10 ** 9, chunk_steps=64, max_steps=192, seed=11,
+              packed=packed, dupres_ticks=4, rebuild_steps=30,
+              rebuild_ticks_per_gib=30, write_skew=1.0, slo_curve_bins=5)
+    if config != "fixed":
+        kw.update(rebuild_model="reconfig", size_dist="zipf", size_skew=1.0,
+                  node_bandwidth_gibps=1.0)
+    before = pac_eval.latency_charge.launches
+    got = simulate_client_latency(device=cuda, **kw)
+    assert pac_eval.latency_charge.launches > before
+    want = simulate_client_latency(device="cpu", **kw)
+    for k, v in want.downtime.latency_raw.items():
+        assert np.array_equal(got.downtime.latency_raw[k], v), k
+    assert (got.lat_lark, got.lat_quorum, got.p999_quorum,
+            got.slo_quorum) == (want.lat_lark, want.lat_quorum,
+                                want.p999_quorum, want.slo_quorum)
+    assert got.lat_quorum > 0
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
+def test_cuda_zoo_engine_matches_cpu(cuda, packed):
+    kw = dict(n=40, partitions=32, rf=3, p=2e-2, trials=3, max_ticks=4_000,
+              min_ticks=10 ** 9, chunk_steps=64, max_steps=192, seed=11,
+              trajectory=True, packed=packed, rebuild_model="reconfig",
+              rebuild_ticks_per_gib=30, engines=ENGINES, lease_ticks=40,
+              view_change_ticks=200)
+    got = simulate_downtime_batched(device=cuda, **kw)
+    want = simulate_downtime_batched(device="cpu", **kw)
+    for k in want.trajectory:
+        assert np.array_equal(got.trajectory[k], want.trajectory[k]), k
+    for engine in ENGINES:
+        g, w = got.engine_stats(engine), want.engine_stats(engine)
+        assert (g["pause"], g["events"]) == (w["pause"], w["events"])
+        assert np.array_equal(g["hist"], w["hist"])
+    assert want.hermes_events > 0 and want.spinnaker_events > 0

@@ -148,3 +148,11 @@ def test_downtime_wrappers_dispatch_by_device_without_fallback():
     with pytest.raises(ValueError, match="roster"):
         pac_eval.downtime_eval(up, up, rf=2, n_real=9,
                                roster=roster.to(torch.int64))
+
+
+def test_latency_entry_point_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.core.client_latency import simulate_client_latency
+    with pytest.raises(RuntimeError, match="cuda"):
+        simulate_client_latency(n=7, partitions=8, trials=1, max_steps=2)
