@@ -6,7 +6,9 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its main paths at the paper tile (n = 155 nodes, P = 4096
 partitions, 8 trials): the §5.1 availability Monte Carlo, the §6
-commit-pause engine, its client-latency layer and its protocol zoo.
+commit-pause engine, its client-latency layer and its protocol zoo; and
+the LM serve path at full width: xlstm-350m behind the LARK session
+store.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -48,7 +50,26 @@ One JSON line per phase:
    BENCH_latency.json and the three rows of that grid point in
    BENCH_shootout.json (downtime, hermes, spinnaker), rebuilt on cuda,
    packed and unpacked, byte for byte.
-11. ``kernels``: every ported kernel with its launches on its main path,
+11. ``mlstm`` / ``kernel_time``: ``mlstm_chunkwise`` against
+   ``mlstm_chunkwise_plain`` on the card at the xlstm-350m serve shape
+   (B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256) in bf16 and f32,
+   a ragged S = 1000, a carried-in state, and gates that make the
+   stabilizer matter (log_f near 0, log_i over +-10): h and the final
+   (C, n, m), element by element within what float32 rounding allows
+   (``repro_torch.kernels.mlstm_check``); then its time.
+12. ``serve``: xlstm-350m at full width (24 layers, d_model 1024, vocab
+   50304, bf16, random weights from seed 0) serves 4 prompts of 1024
+   tokens from ``SyntheticLMData`` through ``ServeLoop``: 32 tokens with
+   a session checkpoint every 8 into a ``LarkSessionStore`` (4 nodes,
+   rf 2), ``fail_server(0)``, 8 more from the store; the resumed tokens
+   must equal an uninterrupted 40-token run bitwise, every logit must be
+   finite, and ``mlstm_chunkwise`` must launch 21 times per prefill
+   with the plain version never run.  Prints prefill and decode tokens/s
+   (one of each warms up first).
+13. ``serve_cpu``: the reduced xlstm config through the same path on the
+   CPU (plain) and on the card (kernel): prefill logits within a stated
+   tolerance, and equal tokens.
+14. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound and error.
 
 Any failure raises and exits non-zero.  The last line is
@@ -70,13 +91,20 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core import availability_batched as ab  # noqa: E402
 from repro_torch.core import client_latency as cl  # noqa: E402
 from repro_torch.core import downtime_batched as db  # noqa: E402
 from repro_torch.experiments import runner  # noqa: E402
 from repro_torch.kernels import _build, bitpack  # noqa: E402
 from repro_torch.kernels import fused_step as fk  # noqa: E402
+from repro_torch.data import SyntheticLMData  # noqa: E402
+from repro_torch.kernels import mlstm_check as mc  # noqa: E402
+from repro_torch.kernels import mlstm_chunk as mk  # noqa: E402
 from repro_torch.kernels import pac_eval as pk  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serving import LarkSessionStore, ServeLoop  # noqa: E402
+from repro_torch.models.transformer import tree_map  # noqa: E402
 
 #: paper tile (runner.py --full scale): nodes, partitions, trials
 N, P, B = 155, 4096, 8
@@ -108,7 +136,16 @@ SOURCES = {
                             "src/repro/kernels/fused_step.py:121"),
     "latency_charge": ("src/repro_torch/kernels/csrc/latency_charge.cu",
                        "src/repro/kernels/pac_eval.py:263"),
+    "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
+                        "src/repro/kernels/mlstm_chunk.py:22"),
 }
+#: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
+#: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
+#: CUDA cores (f32 work has no faster exact path)
+FLOAT_PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the serve phase: xlstm-350m, 4 prompts of 1024 tokens, 32 tokens then
+#: 8 more after a failover, a session checkpoint every 8 tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
 
 
 def emit(obj):
@@ -244,14 +281,15 @@ def check_kernels(bw):
                                  worst["fused_pac_eval"], bw)}
 
 
-def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None):
+def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
+           rate=INT_OPS):
     """One kernel's timing record: its bound is the larger of its bytes
     over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
-    the 32-bit lane rate."""
+    `rate` (the 32-bit lane rate unless given)."""
     bytes_ms = nbytes / bw * 1e3
     if ops is None:
         ops = lanes * OPS_PER_LANE[name]
-    ops_ms = ops / INT_OPS * 1e3
+    ops_ms = ops / rate * 1e3
     rec = {"ms": ms, "wrapper_ms": wrap_ms, "plain_ms": plain_ms,
            "max_abs_err": err, "bytes": nbytes,
            "bound_ms": max(bytes_ms, ops_ms),
@@ -556,7 +594,9 @@ def counters():
             "downtime_eval_roster": (pk.downtime_eval, "roster_launches"),
             "node_count": (pk.node_count, "launches"),
             "fused_downtime_eval": (fk.fused_downtime_eval, "launches"),
-            "latency_charge": (pk.latency_charge, "launches")}
+            "latency_charge": (pk.latency_charge, "launches"),
+            "mlstm_chunkwise": (mk.mlstm_chunkwise, "launches"),
+            "mlstm_chunkwise_plain": (mk.mlstm_chunkwise_plain, "calls")}
 
 
 def reset_counts():
@@ -859,6 +899,248 @@ def check_zoo_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
+# ---------------------------------------------------------------------------
+# the LM serve path: mlstm_chunkwise and xlstm-350m behind the session store
+# ---------------------------------------------------------------------------
+
+def mlstm_abs_err(got, want):
+    """Largest |got - want| in float32."""
+    return (got.float() - want.float()).abs().max().item()
+
+
+def mlstm_flops(B, H, S, Dq, Dv, chunk):
+    """Float ops one call needs: per (b, h, chunk of l positions) q C and
+    the C update (2 l Dq Dv each), and the causal half of q k^T and W v
+    (l (l + 1) / 2 pairs, 2 (Dq + Dv) each); the masked upper triangle
+    is not work."""
+    total = 0
+    for c0 in range(0, S, chunk):
+        ln = min(chunk, S - c0)
+        total += 2 * ln * Dq * Dv * 2 + ln * (ln + 1) * (Dq + Dv)
+    return B * H * total
+
+
+def mlstm_bytes(B, H, S, Dq, Dv, dtype, initial=False):
+    """Each input read once, each output written once: q, k, v and h in
+    `dtype`, the two gates in f32, the final (C, n, m) in f32 (and the
+    initial one, when given)."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    state = 4 * B * H * (Dq * Dv + Dq + 1)
+    return isz * B * H * S * (2 * Dq + 2 * Dv) + 8 * B * H * S + \
+        state * (2 if initial else 1)
+
+
+def check_mlstm_kernel(bw):
+    """Phase 11: mlstm_chunkwise against its plain version on the card,
+    then its time at the serve shape.  Each output is held element by
+    element against the scale of its own float32 rounding (the same sums
+    over absolute values, ``mlstm_check.mlstm_rounding_scale``): h within
+    2^-16 of it plus 2^-7 of |h| for one rounding of h to bf16; C, n, m
+    within 2^-12 (their carry weights are exp of gate sums ~10^2)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    B, H, S, D, L = SERVE_BATCH, 4, SERVE_PROMPT, 512, 256
+    worst = 0.0
+    for name, dtype, s, initial, stress in mc.CASES:
+        args, init = mc.mlstm_inputs(gen, B, H, s, D, D, dtype,
+                                     stress=stress, initial=initial)
+        h, state = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
+        torch.cuda.synchronize()
+        (want_h, want_state), scales = mc.reference(args, L, init)
+        errs = mc.mlstm_errors(h, state, want_h, want_state, scales)
+        ok = h.dtype == dtype and h.shape == want_h.shape and \
+            all(e <= 1.0 for e in errs.values())
+        h2, state2 = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
+        same = torch.equal(h, h2) and all(
+            torch.equal(a, b) for a, b in zip(state, state2))
+        abs_err = {"h": mlstm_abs_err(h, want_h.to(dtype))}
+        abs_err.update({n: mlstm_abs_err(g, w)
+                        for n, g, w in zip("Cnm", state, want_state)})
+        worst = max(worst, abs_err["h"])
+        emit({"phase": "kernel", "kernel": "mlstm_chunkwise", "case": name,
+              "dtype": str(dtype), "S": s, "within_rounding": ok,
+              "deterministic": same, "errors_over_allowed": errs,
+              "gamma": mc.GAMMA, "out_step": mc.OUT_STEP[dtype],
+              "max_abs_err": abs_err})
+        if not (ok and same):
+            raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
+                             f"version ({name}): {errs}")
+    (q, k, v, lf, li), _ = mc.mlstm_inputs(gen, B, H, S, D, D,
+                                           torch.bfloat16)
+    libfn = _build.function("mlstm_chunk", "mlstm_chunk_launch",
+                            mk._ARGTYPES)
+    nC, Lp, BH = S // L, L, B * H
+    outs = [torch.empty((B, H, S, D), dtype=torch.bfloat16, device=dev)] + \
+        [torch.empty(sh, device=dev) for sh in
+         ((B, H, D, D), (B, H, D), (B, H), (BH, S), (BH, S), (BH, S),
+          (BH, nC + 1), (BH * nC, Lp, Lp))]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        libfn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
+              li.data_ptr(), None, None, None,
+              *[t.data_ptr() for t in outs], BH, S, D, D, L, 1, stream)
+
+    ms = time_ms(raw, 20)
+    wrap_ms = time_ms(lambda: mk.mlstm_chunkwise(q, k, v, lf, li, chunk=L),
+                      20)
+    plain_ms = time_ms(lambda: mk.mlstm_chunkwise_plain(q, k, v, lf, li,
+                                                        chunk=L), 5)
+    flops = mlstm_flops(B, H, S, D, D, L)
+    rec = record("mlstm_chunkwise", mlstm_bytes(B, H, S, D, D,
+                                                torch.bfloat16),
+                 0, ms, wrap_ms, plain_ms, worst, bw, ops=flops,
+                 rate=FLOAT_PEAK[torch.bfloat16])
+    emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise",
+          "flops": flops, "tflops_achieved": flops / ms / 1e9,
+          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3,
+          "shape": [B, H, S, D, D, L]})
+    return rec
+
+
+def watch_logits(loop, finite):
+    """Wrap the loop's model entry points so each call's logits add one
+    on-device all-finite flag to `finite` (read once, at the end)."""
+    for key in ("prefill", "decode_step"):
+        fn = loop.model[key]
+
+        def checked(*a, _fn=fn, **kw):
+            logits, state = _fn(*a, **kw)
+            finite.append(torch.isfinite(logits).all())
+            return logits, state
+        loop.model[key] = checked
+
+
+def state_bytes(state):
+    total = []
+    tree_map(lambda t: total.append(t.numel() * t.element_size()), state)
+    return sum(total)
+
+
+def check_serve():
+    """Phase 12, the LM serve path at full width.  Returns the mLSTM
+    kernel's launches over the main path."""
+    t_phase = time.monotonic()
+    cfg = get_config("xlstm_350m")
+    model = build_model(cfg)
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    leaves = []
+    tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    data = SyntheticLMData(cfg, SERVE_BATCH, SERVE_PROMPT)
+    batch = {"tokens": data.batch_at(0)["tokens"]}
+    tokens = torch.from_numpy(batch["tokens"]).to(dev)
+    # tokens/s, timed before the counted run: a first prefill and a first
+    # decode step warm up, then one prefill and SERVE_GEN decode steps
+    with torch.no_grad():
+        logits, state = model["prefill"](params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, state = model["prefill"](params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        cur = logits.argmax(-1)
+        logits, state = model["decode_step"](params, state, cur)
+        cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(SERVE_GEN):
+            logits, state = model["decode_step"](params, state, cur)
+            cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+    sbytes = state_bytes(state)
+    del logits, state, cur
+
+    sessions = LarkSessionStore(num_nodes=4, rf=2)
+    max_len = SERVE_PROMPT + SERVE_GEN + SERVE_RESUME
+    loop = ServeLoop(cfg, params, max_len=max_len, session_store=sessions,
+                     checkpoint_every=8, device=DEVICE)
+    whole = ServeLoop(cfg, params, max_len=max_len, device=DEVICE)
+    finite = []
+    watch_logits(loop, finite)
+    watch_logits(whole, finite)
+    names = ("mlstm_chunkwise", "mlstm_chunkwise_plain")
+    reset_counts()
+    t0 = time.monotonic()
+    toks = loop.generate(batch, steps=SERVE_GEN, session_id="req-0")
+    first = read_counts(names)
+    sessions.fail_server(0)
+    available = sessions.store.available_fraction()
+    resumed = loop.resume("req-0", steps=SERVE_RESUME)
+    after_resume = read_counts(names)
+    uninterrupted = whole.generate(batch, steps=SERVE_GEN + SERVE_RESUME)
+    torch.cuda.synchronize()
+    main_wall = time.monotonic() - t0
+    launches = read_counts(names)
+    all_finite = bool(torch.stack(finite).all().item())
+    n_layers_mlstm = sum(k == "mlstm" for p, r in cfg.layout
+                         for _ in range(r) for k in p)
+    checks = {
+        "prefix_equal": resumed is not None and
+        np.array_equal(resumed[:, :SERVE_GEN], toks),
+        "resume_equals_uninterrupted": resumed is not None and
+        np.array_equal(resumed, uninterrupted),
+        "logits_finite": all_finite,
+        "launches_per_prefill": first["mlstm_chunkwise"] == n_layers_mlstm
+        and after_resume["mlstm_chunkwise"] == n_layers_mlstm
+        and launches["mlstm_chunkwise"] == 2 * n_layers_mlstm,
+        "plain_never_ran": launches["mlstm_chunkwise_plain"] == 0}
+    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "dtype": cfg.act_dtype, "params": n_params, "param_bytes": p_bytes,
+          "decode_state_bytes": sbytes, "batch": SERVE_BATCH,
+          "prompt_len": SERVE_PROMPT, "generated": SERVE_GEN,
+          "resumed": SERVE_RESUME, "available_after_failure": available,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+          "main_path_wall_s": main_wall, "launches": launches,
+          "tokens_head": toks[:, :6].tolist(), **checks,
+          "wall_s": time.monotonic() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"the serve phase failed: {checks}")
+    return launches["mlstm_chunkwise"]
+
+
+def check_serve_cpu():
+    """Phase 13: the reduced xlstm config on the CPU (plain) and on the
+    card (kernel).  Logit tolerance: rtol 1e-3 and atol 1e-3 of the
+    largest logit (float32 on both sides; each of the 8 layers amplifies
+    an input difference, as tests/test_torch_xlstm.py measures)."""
+    cfg = reduced_config("xlstm_350m")
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    gpu_params = tree_map(lambda t: t.to(DEVICE), params)
+    prompt = SyntheticLMData(cfg, 2, 300).batch_at(0)["tokens"]
+    tok = torch.from_numpy(prompt)
+    with torch.no_grad():
+        lc, _ = model["prefill"](params, {"tokens": tok})
+        before = mk.mlstm_chunkwise.launches
+        lg, _ = model["prefill"](gpu_params, {"tokens": tok.to(DEVICE)})
+        launched = mk.mlstm_chunkwise.launches - before
+    scale = max(1.0, lc.abs().max().item())
+    close = torch.allclose(lg.cpu(), lc, atol=1e-3 * scale, rtol=1e-3)
+    got = ServeLoop(cfg, params, device=DEVICE).generate(
+        {"tokens": prompt}, steps=8)
+    want = ServeLoop(cfg, params, device="cpu").generate(
+        {"tokens": prompt}, steps=8)
+    same = np.array_equal(got, want)
+    emit({"phase": "serve_cpu", "prompt_len": 300, "logits_close": close,
+          "max_abs_err": mlstm_abs_err(lg.cpu(), lc), "tokens_equal": same,
+          "kernel_launches": launched})
+    if not (close and same and launched == 7):
+        raise SystemExit("the reduced serve path on cuda disagrees with "
+                         "the cpu run")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -890,6 +1172,9 @@ def main() -> int:
     launches["latency_charge"] = check_latency_engine()["latency_charge"]
     check_zoo_engine()
     check_zoo_bench_rows()
+    rec["mlstm_chunkwise"] = check_mlstm_kernel(bw)
+    launches["mlstm_chunkwise"] = check_serve()
+    check_serve_cpu()
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -1,4 +1,6 @@
 """Port of ``repro.kernels``: the bit-packing math, the hand-written CUDA
-kernels that replace the Pallas ``pac_eval`` and ``fused_pac_eval``
-kernels (each beside its plain PyTorch version), and the ``step_eval``
-dispatch."""
+kernels that replace the Pallas kernels (the Monte Carlo's ``pac_eval``,
+``fused_pac_eval``, ``downtime_eval``, ``node_count``,
+``fused_downtime_eval``, ``latency_charge``, and the model's
+``mlstm_chunkwise``), each beside its plain PyTorch version, and the
+``ops`` dispatch."""

@@ -1,0 +1,292 @@
+"""Holding ``mlstm_chunkwise`` against its plain version, and the faults
+that holding must catch.
+
+h is a ratio of two sums, num / max(|den|, e^{-m_t}), and on random
+q, k, v the sum den can cancel: there h is large (|h| reaches 10^4 on
+standard-normal inputs) and ill-conditioned, and a tolerance set by the
+largest |h| is far above the typical value.  So each output is
+held element by element against the scale of its own float32 rounding
+(``mlstm_rounding_scale``): the same sums over absolute values.  Where
+den does not cancel that scale is a small multiple of |h|, so a wrong
+term stands out; where it cancels the scale grows with it.
+
+    PYTHONPATH=src python -m repro_torch.kernels.mlstm_check
+
+builds csrc/mlstm_chunk.cu and copies of it with one planted fault each
+(a dropped or 1 % wrong carry term, the diagonal masked out, one
+64-column slice of v shifted, ...) into a temporary directory, runs every
+case of ``CASES`` through each on the card, and prints per fault and case
+the largest error over what rounding allows, beside the verdict of a
+tolerance scaled by the largest |h|.  It exits 0 when the source passes
+every case and every fault fails at least one.  Needs nvcc and a card.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+from . import _build
+from . import mlstm_chunk as mk
+
+#: the card-side cases: (name, input type, S, with an initial state,
+#: stabilizer stress: log_f near 0 and log_i spread over +-10), at the
+#: xlstm-350m serve width B = 4, H = 4, Dq = Dv = 512, chunk 256
+CASES = (("serve_bf16", torch.bfloat16, 1024, False, False),
+         ("serve_f32", torch.float32, 1024, False, False),
+         ("ragged_1000", torch.bfloat16, 1000, False, False),
+         ("initial", torch.bfloat16, 512, True, False),
+         ("stabilizer", torch.bfloat16, 1024, False, True))
+SHAPE = {"B": 4, "H": 4, "D": 512, "chunk": 256}
+
+
+def mlstm_inputs(gen, B, H, S, Dq, Dv, dtype, *, stress=False,
+                 initial=False):
+    """Random q, k, v in `dtype`, gates in float32 and (with `initial`) a
+    random carried-in (C, n, m), on `gen`'s device."""
+    dev = gen.device
+    q, k = (torch.randn((B, H, S, Dq), generator=gen, device=dev)
+            .to(dtype) for _ in range(2))
+    v = torch.randn((B, H, S, Dv), generator=gen, device=dev).to(dtype)
+    raw = torch.randn((B, H, S), generator=gen, device=dev)
+    if stress:
+        log_f = torch.nn.functional.logsigmoid(raw + 8.0)
+        log_i = torch.rand((B, H, S), generator=gen, device=dev) * 20 - 10
+    else:
+        log_f = torch.nn.functional.logsigmoid(raw * 2 + 2)
+        log_i = torch.randn((B, H, S), generator=gen, device=dev) * 3
+    init = None
+    if initial:
+        init = (torch.randn((B, H, Dq, Dv), generator=gen, device=dev),
+                torch.randn((B, H, Dq), generator=gen, device=dev),
+                torch.randn((B, H), generator=gen, device=dev))
+    return (q, k, v, log_f, log_i), init
+
+
+def mlstm_rounding_scale(q, k, v, log_f, log_i, *, chunk: int = 256,
+                         initial=None):
+    """The scale of float32 rounding in each output of the chunkwise
+    forward: its sums taken over absolute values, the carry included.
+
+    Two orders of the same float32 sums (the kernel's, the plain
+    version's) differ by a small multiple of this, since h is a ratio of
+    two sums: dh ~ (d num + |h| d den) / max(|den|, e^{-m_t}).  Where den
+    cancels, h is ill-conditioned and the scale grows with it; where it
+    does not, the scale is near |h|, so a wrong term stands out.
+    Returns (eh (B, H, S, Dv), (eC, en, em)) float32: eh as above, eC and
+    en the carry of C and n over absolute values, em the gate sums
+    behind m."""
+    B, H, S, Dq = q.shape
+    Dv = v.shape[-1]
+    dev = q.device
+    pad = (-S) % chunk
+    real = torch.ones((B, H, S), dtype=torch.bool, device=dev)
+    if pad:
+        q, k, v = (torch.nn.functional.pad(a, (0, 0, 0, pad))
+                   for a in (q, k, v))
+        log_f = torch.nn.functional.pad(log_f, (0, pad))
+        log_i = torch.nn.functional.pad(log_i, (0, pad), value=mk.NEG)
+        real = torch.nn.functional.pad(real, (0, pad))
+    nC = (S + pad) // chunk
+    if initial is None:
+        C = torch.zeros((B, H, Dq, Dv), dtype=torch.float32, device=dev)
+        n = torch.zeros((B, H, Dq), dtype=torch.float32, device=dev)
+        m = torch.full((B, H), mk.NEG, dtype=torch.float32, device=dev)
+        eC, en, em = C.clone(), n.clone(), torch.zeros_like(m)
+    else:
+        C, n, m = mk._f32(*initial)
+        eC, en, em = C.abs(), n.abs(), m.abs()
+    scale = 1.0 / math.sqrt(Dq)
+    lpos = torch.arange(chunk, device=dev)
+    causal = lpos[:, None] >= lpos[None, :]
+    ehs = []
+    for c in range(nC):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qi, ki, vi = mk._f32(q[:, :, sl], k[:, :, sl], v[:, :, sl])
+        aq, ak, av = qi.abs(), ki.abs(), vi.abs()
+        lf, li = mk._f32(log_f[:, :, sl], log_i[:, :, sl])
+        F = torch.cumsum(lf, dim=-1)
+        g = li - F
+        Mt = torch.maximum(m[..., None], torch.cummax(g, dim=-1).values)
+        m_t = F + Mt
+        w_carry = torch.exp(m[..., None] - Mt)
+        D = torch.where(causal, torch.exp(g[:, :, None, :] - Mt[..., None]),
+                        0.0)
+        W = torch.einsum("bhld,bhsd->bhls", qi, ki) * scale * D
+        aW = torch.einsum("bhld,bhsd->bhls", aq, ak) * scale * D
+        num = w_carry[..., None] * scale * \
+            torch.einsum("bhld,bhdv->bhlv", qi, C) + \
+            torch.einsum("bhls,bhsv->bhlv", W, vi)
+        den = w_carry * scale * torch.einsum("bhld,bhd->bhl", qi, n) + \
+            W.sum(dim=-1)
+        e_num = w_carry[..., None] * scale * \
+            torch.einsum("bhld,bhdv->bhlv", aq, eC) + \
+            torch.einsum("bhls,bhsv->bhlv", aW, av)
+        e_den = w_carry * scale * torch.einsum("bhld,bhd->bhl", aq, en) + \
+            aW.sum(dim=-1)
+        div = torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+        ehs.append((e_num + (num / div).abs() * e_den[..., None]) / div)
+        ML, FL = Mt[..., -1], F[..., -1]
+        wv = torch.exp(g - ML[..., None])[..., None]
+        decay = torch.exp(m - ML)
+        C = decay[..., None, None] * C + \
+            torch.einsum("bhld,bhlv->bhdv", wv * ki, vi)
+        n = decay[..., None] * n + (wv * ki).sum(dim=-2)
+        eC = decay[..., None, None] * eC + \
+            torch.einsum("bhld,bhlv->bhdv", wv * ak, av)
+        en = decay[..., None] * en + (wv * ak).sum(dim=-2)
+        A = torch.cumsum(lf.abs(), dim=-1)
+        gi = torch.where(real[:, :, sl], li.abs() + A, 0.0)
+        em = A[..., -1] + torch.maximum(em, gi.max(dim=-1).values)
+        m = FL + ML
+    return torch.cat(ehs, dim=2)[:, :, :S], (eC, en, em)
+
+
+#: float32 rounding allowed per unit of ``mlstm_rounding_scale``: 2^-16
+#: for h, whose sums hold up to Dq + L terms; 2^-12 for C, n, m, whose
+#: carry weights are exp of gate sums of magnitude ~10^2, a rounding the
+#: scale does not carry.  The plain version in float32 against float64
+#: uses a small part of it (tests/test_torch_mlstm.py), leaving the rest
+#: for the kernel's other order of the same sums.
+GAMMA = {"h": 2.0 ** -16, "C": 2.0 ** -12, "n": 2.0 ** -12, "m": 2.0 ** -12}
+#: what rounding h to its type adds, relative to |h|, against a float32
+#: reference: at most half a step of the last bit, 2^-8 for bfloat16,
+#: allowed twice (f32's own rounding lies inside GAMMA)
+OUT_STEP = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def mlstm_errors(h, state, want_h, want_state, scales):
+    """Each output's largest |got - want| over what rounding allows,
+    GAMMA * scale + OUT_STEP * |want|, with `want` the plain version's in
+    float32 (h unrounded: run it on float32 copies of q, k, v) and the
+    scale from ``mlstm_rounding_scale`` on the same inputs:
+    {"h", "C", "n", "m": x}, every x <= 1 when the two agree."""
+    eh, estate = scales
+    pairs = [("h", h, want_h, eh, OUT_STEP[h.dtype])] + \
+        [(name, g, w, e, 0.0)
+         for name, g, w, e in zip("Cnm", state, want_state, estate)]
+    out = {}
+    for name, got, want, e, step in pairs:
+        want = want.float()
+        allowed = GAMMA[name] * e + step * want.abs()
+        d = (got.float() - want).abs()
+        out[name] = (d / allowed.clamp_min(1e-30)).max().item()
+    return out
+
+
+def reference(args, chunk, initial):
+    """The plain version's outputs in float32 (h unrounded: q, k, v go in
+    as float32 copies, which the plain version casts to anyway) and the
+    rounding scale, on the same inputs."""
+    q, k, v, lf, li = args
+    want = mk.mlstm_chunkwise_plain(q.float(), k.float(), v.float(), lf,
+                                    li, chunk=chunk, initial=initial)
+    return want, mlstm_rounding_scale(*args, chunk=chunk, initial=initial)
+
+
+def max_scaled_ok(h, state, want_h, want_state) -> bool:
+    """The tolerance this module replaces, for the record: h within
+    atol 1e-4 (f32) or 1e-2 (bf16) of the largest |h| plus rtol 1e-3 /
+    1e-2, the state within 1e-4 of its largest magnitude plus rtol
+    1e-3."""
+    def close(got, want, atol, rtol):
+        want = want.to(got.dtype).float()
+        scale = max(1.0, want.abs().max().item())
+        return torch.allclose(got.float(), want, atol=atol * scale,
+                              rtol=rtol)
+    f32 = h.dtype == torch.float32
+    return close(h, want_h, 1e-4 if f32 else 1e-2, 1e-3 if f32 else 1e-2) \
+        and all(close(g, w, 1e-4, 1e-3) for g, w in zip(state, want_state))
+
+
+#: planted faults: (text of csrc/mlstm_chunk.cu, its replacement); each
+#: text occurs once in the source
+FAULTS = {
+    "carry_dropped": ("acc[i][j] *= w;", "acc[i][j] *= 0.f;"),
+    "carry_weight_1pct": ("expf(mprev - Mt[grow + t]) : 0.f;",
+                          "expf(mprev - Mt[grow + t]) * 1.01f : 0.f;"),
+    "den_carry_dropped": ("rden[tid] = wc * (qn * scale);",
+                          "rden[tid] = 0.f * (qn * scale);"),
+    "diagonal_masked": ("if (treal && s <= t)", "if (treal && s < t)"),
+    "v_slice_shifted": ("p = cb + s, j = j0 + cc;",
+                        "p = cb + s, j = j0 + cc + (jt == 3 ? kTile : 0);"),
+    "decay_1pct": ("const float decay = expf(mprev - ML);",
+                   "const float decay = expf(mprev - ML) * 1.01f;"),
+}
+
+
+def build_variants(out_dir: Path) -> dict:
+    """Compile the source and one copy per fault, all at once, into
+    `out_dir`; returns {name: ctypes launcher} ("source" unchanged)."""
+    src = (_build.CSRC / "mlstm_chunk.cu").read_text()
+    texts = {"source": src}
+    for name, (old, new) in FAULTS.items():
+        if src.count(old) != 1:
+            raise RuntimeError(f"fault {name}: {old!r} occurs "
+                               f"{src.count(old)} times in the source")
+        texts[name] = src.replace(old, new)
+    procs = {}
+    for name, text in texts.items():
+        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
+        cu.write_text(text)
+        procs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        fn = ctypes.CDLL(str(so)).mlstm_chunk_launch
+        fn.argtypes, fn.restype = list(mk._ARGTYPES), ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("mlstm_check: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    B, H, D, L = SHAPE["B"], SHAPE["H"], SHAPE["D"], SHAPE["chunk"]
+    caught = {name: [] for name in FAULTS}
+    old_caught = {name: [] for name in FAULTS}
+    source_ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build_variants(Path(tmp))
+        for case, dtype, S, initial, stress in CASES:
+            args, init = mlstm_inputs(gen, B, H, S, D, D, dtype,
+                                      stress=stress, initial=initial)
+            (want_h, want_state), scales = reference(args, L, init)
+            for name, fn in fns.items():
+                h, state = mk.launch_with(fn, *args, L, init)
+                errs = mlstm_errors(h, state, want_h, want_state, scales)
+                ok = all(e <= 1.0 for e in errs.values())
+                old_ok = max_scaled_ok(h, state, want_h, want_state)
+                print(json.dumps({"variant": name, "case": case,
+                                  "errors_over_allowed": errs, "ok": ok,
+                                  "max_scaled_ok": old_ok}), flush=True)
+                if name == "source":
+                    source_ok &= ok
+                else:
+                    if not ok:
+                        caught[name].append(case)
+                    if not old_ok:
+                        old_caught[name].append(case)
+    missed = [name for name, cases in caught.items() if not cases]
+    print(json.dumps({"source_passes": source_ok, "caught_in": caught,
+                      "max_scaled_caught_in": old_caught,
+                      "missed": missed,
+                      "gpu": torch.cuda.get_device_name(0)}), flush=True)
+    return 0 if source_ok and not missed else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -13,7 +13,11 @@ spec onto kernels by metric and layout:
                                                      -> fused_step.fused_downtime_eval
 
 ``client_latency_step`` is the client-latency layer's post-step op, one
-``pac_eval.latency_charge`` call.  Each kernel wrapper dispatches by the
+``pac_eval.latency_charge`` call.  ``mlstm_chunkwise`` and ``mlstm_step``
+are the model half (``ops.py:78-88`` of the reference): the chunkwise
+mLSTM prefill (one ``mlstm_chunk`` kernel launch on a CUDA tensor) and
+its one-step decode recurrence, plain PyTorch on both devices as in the
+reference.  Each kernel wrapper dispatches by the
 tensor's device (CUDA kernel on a CUDA tensor, plain PyTorch on a CPU
 tensor).  The reference's numpy/jax/pallas backend switch and its
 block-size autotuners have no counterpart here.
@@ -23,7 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
-from . import fused_step, pac_eval
+from . import fused_step, mlstm_chunk, pac_eval
 
 STEP_METRICS = ("availability", "downtime")
 STEP_REBUILD_MODELS = ("fixed", "reconfig")
@@ -235,3 +239,10 @@ def step_eval(spec: StepSpec, up, full, *, roster=None, recruit=None,
 #: output shapes — on CUDA tensors one ``latency_charge`` launch, the
 #: decay chain included; on CPU tensors its plain version
 client_latency_step = pac_eval.latency_charge
+
+
+#: the model half: the chunkwise mLSTM prefill (one ``mlstm_chunk`` kernel
+#: launch on CUDA tensors, its plain version on CPU tensors) and the
+#: one-step decode recurrence, plain on both devices as in the reference
+mlstm_chunkwise = mlstm_chunk.mlstm_chunkwise
+mlstm_step = mlstm_chunk.mlstm_step_plain

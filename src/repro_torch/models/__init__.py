@@ -1,0 +1,6 @@
+"""Port of ``repro.models`` for the xLSTM serve path: layers, the mLSTM
+and sLSTM blocks, the per-layer model assembly and its converters from
+the reference's pytrees."""
+from .model import batch_specs, build_model, make_batch
+
+__all__ = ["build_model", "batch_specs", "make_batch"]

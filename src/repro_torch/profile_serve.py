@@ -1,0 +1,124 @@
+"""Where a serve step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.profile_serve \\
+        [--arch xlstm_350m] [--batch 4 --prompt-len 1024 --decode-steps 16] \\
+        [--reduced] [--json OUT]
+
+Builds the model at full width (``--reduced`` for the CPU-test size)
+with random weights from seed 0 on cuda, warms up with one prefill and
+one decode step, then times a prefill and ``--decode-steps`` greedy
+decode steps on the host clock (synchronized), and profiles one more
+prefill under ``torch.profiler``.  Prints one JSON object: prefill and
+decode tokens per second, the prefill's unprofiled wall time, its
+device-busy seconds (the sum of the CUDA kernel events) and idle share,
+device time by kernel group (the mLSTM kernel, GEMMs, the rest) and by
+kernel name, and the host time inside each block kind's range
+(``block:mlstm``, ``block:slstm``; the sLSTM's per-token loop is the
+latter).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .configs import get_config, reduced_config
+from .data import SyntheticLMData
+from .models import build_model
+from .profile_step import _device_self_us
+
+
+def kernel_group(name: str) -> str:
+    """mlstm (the hand-written kernel), gemm (cuBLAS/CUTLASS matrix
+    products) or other (elementwise, reductions, copies)."""
+    low = name.lower()
+    if "mlstm_" in low:
+        return "mlstm"
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv")):
+        return "gemm"
+    return "other"
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="xlstm_350m")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--decode-steps", type=int, default=16)
+    ap.add_argument("--json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card; torch sees none")
+    dev = torch.device("cuda")
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    tokens = torch.from_numpy(SyntheticLMData(cfg, args.batch, args.prompt_len)
+                              .batch_at(0)["tokens"]).to(dev)
+    batch = {"tokens": tokens}
+
+    with torch.no_grad():
+        logits, state = model["prefill"](params, batch)           # warm-up
+        model["decode_step"](params, state, logits.argmax(-1))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, state = model["prefill"](params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        cur = logits.argmax(-1)
+        t0 = time.monotonic()
+        for _ in range(args.decode_steps):
+            logits, state = model["decode_step"](params, state, cur)
+            cur = logits.argmax(-1)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model["prefill"](params, batch)
+            torch.cuda.synchronize()
+
+    kernels, ranges = {}, {}
+    for evt in prof.key_averages():
+        if evt.key.startswith("block:"):
+            # the named ranges also appear as device-side annotations,
+            # which span kernels and are no kernels themselves
+            if evt.device_type == DeviceType.CPU:
+                ranges[evt.key] = {"calls": evt.count,
+                                   "host_ms": evt.cpu_time_total / 1e3}
+        elif evt.device_type == DeviceType.CUDA:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + \
+                _device_self_us(evt)
+    groups = {}
+    for name, us in kernels.items():
+        g = kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    busy = sum(kernels.values()) / 1e6
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:15]
+    out = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "batch": args.batch, "prompt_len": args.prompt_len,
+           "prefill_s": prefill_s,
+           "prefill_tokens_per_s": args.batch * args.prompt_len / prefill_s,
+           "decode_steps": args.decode_steps,
+           "decode_tokens_per_s": args.batch * args.decode_steps / decode_s,
+           "prefill_device_busy_s": busy,
+           "prefill_idle_share": 1.0 - busy / prefill_s,
+           "device_ms_by_group": groups, "host_ranges": ranges,
+           "kernels_ms": [{"name": k[:120], "ms": v / 1e3} for k, v in top]}
+    print(json.dumps(out), flush=True)
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(out, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

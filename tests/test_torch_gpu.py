@@ -1,6 +1,8 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version, bitwise, and the engines (§5.1, §6 with the protocol zoo, and
-client latency) on cuda against the same runs on the CPU.
+version (the Monte Carlo kernels bitwise, ``mlstm_chunkwise`` at a
+stated tolerance), the engines (§5.1, §6 with the protocol zoo, and
+client latency) on cuda against the same runs on the CPU, and the
+reduced xLSTM serve path on cuda against the CPU.
 
 This file imports neither jax nor repro, so it runs on a machine that
 has only torch and a card:
@@ -17,8 +19,12 @@ from repro_torch.core.availability_batched import \
 from repro_torch.core.client_latency import simulate_client_latency
 from repro_torch.core.downtime_batched import (ENGINES,
                                                simulate_downtime_batched)
-from repro_torch.kernels import fused_step, pac_eval
+from repro_torch.configs import reduced_config
+from repro_torch.kernels import fused_step, mlstm_check, mlstm_chunk, pac_eval
 from repro_torch.kernels.latency import decay_pow_tables
+from repro_torch.models import build_model
+from repro_torch.serving import ServeLoop
+from repro_torch.models.transformer import tree_map
 
 pytestmark = pytest.mark.gpu
 
@@ -258,3 +264,89 @@ def test_cuda_zoo_engine_matches_cpu(cuda, packed):
         assert (g["pause"], g["events"]) == (w["pause"], w["events"])
         assert np.array_equal(g["hist"], w["hist"])
     assert want.hermes_events > 0 and want.spinnaker_events > 0
+
+
+def _mlstm_inputs(rng, B, H, S, Dq, Dv, dtype, device):
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                          dtype=dt)
+    q, k = (t(rng.standard_normal((B, H, S, Dq))) for _ in range(2))
+    v = t(rng.standard_normal((B, H, S, Dv)))
+    lf = torch.nn.functional.logsigmoid(
+        t(rng.standard_normal((B, H, S)) * 2 + 2, torch.float32))
+    li = t(rng.standard_normal((B, H, S)) * 3, torch.float32)
+    return q, k, v, lf, li
+
+
+def _logits_close(got, want, atol, rtol):
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(1.0, want.abs().max().item())
+    assert torch.allclose(got, want, atol=atol * scale, rtol=rtol), \
+        (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,S,Dq,Dv,chunk,initial", [
+    (2, 2, 256, 64, 64, 64, False),       # whole chunks
+    (1, 2, 1000, 32, 48, 256, False),     # ragged tail, Dv off the tile
+    (2, 1, 300, 16, 16, 128, True),       # a carried-in state
+    (1, 1, 320, 512, 128, 256, False),    # the full width's head dim
+])
+def test_cuda_mlstm_chunkwise_matches_plain(cuda, dtype, B, H, S, Dq, Dv,
+                                            chunk, initial):
+    """Tolerance: every element of h and of the final (C, n, m) within
+    what float32 rounding allows (``mlstm_check.mlstm_errors``: 2^-16 of
+    h's rounding scale, the same sums over absolute values, plus 2^-7 of
+    |h| for one rounding to bf16; 2^-12 of the state's)."""
+    rng = np.random.default_rng(S + Dq)
+    args = _mlstm_inputs(rng, B, H, S, Dq, Dv, dtype, cuda)
+    init = None
+    if initial:
+        init = (torch.randn(B, H, Dq, Dv, device=cuda),
+                torch.randn(B, H, Dq, device=cuda),
+                torch.randn(B, H, device=cuda))
+    before = mlstm_chunk.mlstm_chunkwise.launches
+    h, state = mlstm_chunk.mlstm_chunkwise(*args, chunk=chunk, initial=init)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.mlstm_chunkwise.launches == before + 1
+    assert h.dtype == dtype and h.shape == (B, H, S, Dv)
+    (want_h, want_state), scales = mlstm_check.reference(args, chunk, init)
+    errs = mlstm_check.mlstm_errors(h, state, want_h, want_state, scales)
+    assert all(e <= 1.0 for e in errs.values()), errs
+    # deterministic: no atomics, so a second launch is bitwise the first
+    h2, state2 = mlstm_chunk.mlstm_chunkwise(*args, chunk=chunk,
+                                             initial=init)
+    assert torch.equal(h, h2) and all(torch.equal(a, b)
+                                      for a, b in zip(state, state2))
+
+
+def test_cuda_mlstm_check_catches_planted_faults(cuda):
+    """The card-side cases at the serve width pass on the kernel's
+    source, and each planted fault of ``mlstm_check.FAULTS`` fails at
+    least one of them."""
+    assert mlstm_check.main() == 0
+
+
+def test_cuda_reduced_serve_matches_cpu(cuda):
+    """The reduced xlstm serve path on cuda (kernel) against the CPU
+    (plain): prefill logits at a 300-token prompt (two chunks, ragged) to
+    rtol 1e-3 / atol 1e-3 of the largest logit, and equal greedy tokens."""
+    cfg = reduced_config("xlstm_350m")
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 300))
+    batch = {"tokens": tok.astype(np.int32)}
+    lc, _ = model["prefill"](params, {"tokens": torch.from_numpy(
+        batch["tokens"])})
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    before = mlstm_chunk.mlstm_chunkwise.launches
+    lg, _ = model["prefill"](gpu_params, {"tokens": torch.from_numpy(
+        batch["tokens"]).to(cuda)})
+    assert mlstm_chunk.mlstm_chunkwise.launches == before + 7
+    _logits_close(lg, lc, 1e-3, 1e-3)
+    got = ServeLoop(cfg, params, device=cuda).generate(batch, steps=8)
+    want = ServeLoop(cfg, params, device="cpu").generate(batch, steps=8)
+    np.testing.assert_array_equal(got, want)

@@ -156,3 +156,15 @@ def test_latency_entry_point_defaults_to_the_card():
     from repro_torch.core.client_latency import simulate_client_latency
     with pytest.raises(RuntimeError, match="cuda"):
         simulate_client_latency(n=7, partitions=8, trials=1, max_steps=2)
+
+
+def test_serve_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeLoop
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeLoop(reduced_config("xlstm_350m"), {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main([])
