@@ -28,7 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 
 #: kernel sources, one shared library each
 SOURCES = ("pac_eval", "fused_step", "downtime_eval", "node_count",
-           "fused_downtime", "latency_charge", "mlstm_chunk")
+           "fused_downtime", "latency_charge", "mlstm_chunk", "rglru_scan",
+           "flash_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -104,6 +105,46 @@ def function(name: str, symbol: str, argtypes):
             fn.restype = ctypes.c_int
             _libs[key] = fn
         return fn
+
+
+def start_variants(name: str, faults: dict, out_dir: Path, *,
+                   with_source: bool = True) -> dict:
+    """Start nvcc, without waiting, on one copy of csrc/<name>.cu per
+    planted fault (and, with `with_source`, on the unchanged file as
+    "source"), into `out_dir`.  `faults` maps a fault's name to (text,
+    replacement), the text occurring once in the source.  Returns the
+    handle ``finish_variants`` takes."""
+    src = (CSRC / f"{name}.cu").read_text()
+    texts = {"source": src} if with_source else {}
+    for fault, (old, new) in faults.items():
+        if src.count(old) != 1:
+            raise RuntimeError(f"fault {fault}: {old!r} occurs "
+                               f"{src.count(old)} times in {name}.cu")
+        texts[fault] = src.replace(old, new)
+    procs = {}
+    for variant, text in texts.items():
+        cu = out_dir / f"{name}-{variant}.cu"
+        so = out_dir / f"lib{name}-{variant}.so"
+        cu.write_text(text)
+        procs[variant] = (subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+    return procs
+
+
+def finish_variants(procs: dict, symbol: str, argtypes) -> dict:
+    """Wait for ``start_variants``' builds; returns {variant: the ctypes
+    function `symbol` of its library}.  Raises with nvcc's output if a
+    build fails."""
+    fns = {}
+    for variant, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {variant}:\n{log}")
+        fn = getattr(ctypes.CDLL(str(so)), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        fns[variant] = fn
+    return fns
 
 
 def check(err: int, what: str):

@@ -22,10 +22,8 @@ every case and every fault fails at least one.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -224,29 +222,9 @@ FAULTS = {
 def build_variants(out_dir: Path) -> dict:
     """Compile the source and one copy per fault, all at once, into
     `out_dir`; returns {name: ctypes launcher} ("source" unchanged)."""
-    src = (_build.CSRC / "mlstm_chunk.cu").read_text()
-    texts = {"source": src}
-    for name, (old, new) in FAULTS.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {name}: {old!r} occurs "
-                               f"{src.count(old)} times in the source")
-        texts[name] = src.replace(old, new)
-    procs = {}
-    for name, text in texts.items():
-        cu, so = out_dir / f"{name}.cu", out_dir / f"lib{name}.so"
-        cu.write_text(text)
-        procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
-    fns = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
-        fn = ctypes.CDLL(str(so)).mlstm_chunk_launch
-        fn.argtypes, fn.restype = list(mk._ARGTYPES), ctypes.c_int
-        fns[name] = fn
-    return fns
+    return _build.finish_variants(
+        _build.start_variants("mlstm_chunk", FAULTS, out_dir),
+        "mlstm_chunk_launch", mk._ARGTYPES)
 
 
 def main() -> int:

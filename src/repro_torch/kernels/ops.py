@@ -13,13 +13,15 @@ spec onto kernels by metric and layout:
                                                      -> fused_step.fused_downtime_eval
 
 ``client_latency_step`` is the client-latency layer's post-step op, one
-``pac_eval.latency_charge`` call.  ``mlstm_chunkwise`` and ``mlstm_step``
-are the model half (``ops.py:78-88`` of the reference): the chunkwise
-mLSTM prefill (one ``mlstm_chunk`` kernel launch on a CUDA tensor) and
-its one-step decode recurrence, plain PyTorch on both devices as in the
-reference.  Each kernel wrapper dispatches by the
-tensor's device (CUDA kernel on a CUDA tensor, plain PyTorch on a CPU
-tensor).  The reference's numpy/jax/pallas backend switch and its
+``pac_eval.latency_charge`` call.  The model half (``ops.py:68-100`` of
+the reference): ``mlstm_chunkwise`` and ``rglru_scan``, the prefill
+recurrences (one kernel launch each on a CUDA tensor), and
+``mlstm_step`` and ``rglru_step``, their one-step decode recurrences,
+plain PyTorch on both devices as in the reference; ``flash_attention``,
+causal / sliding-window attention on (B, H, S, D) through the
+``flash_attention`` kernel, which no model path calls.  Each kernel
+wrapper dispatches by the tensor's device (CUDA kernel on a CUDA tensor,
+plain PyTorch on a CPU tensor).  The reference's numpy/jax/pallas backend switch and its
 block-size autotuners have no counterpart here.
 """
 from __future__ import annotations
@@ -27,7 +29,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
-from . import fused_step, mlstm_chunk, pac_eval
+from . import fused_step, mlstm_chunk, pac_eval, rglru_scan as _rglru
+from . import flash_attention as _flash
 
 STEP_METRICS = ("availability", "downtime")
 STEP_REBUILD_MODELS = ("fixed", "reconfig")
@@ -246,3 +249,16 @@ client_latency_step = pac_eval.latency_charge
 #: one-step decode recurrence, plain on both devices as in the reference
 mlstm_chunkwise = mlstm_chunk.mlstm_chunkwise
 mlstm_step = mlstm_chunk.mlstm_step_plain
+
+#: the RG-LRU recurrence: the prefill scan (one ``rglru_scan`` kernel
+#: launch on CUDA tensors, its plain version on CPU tensors) and the
+#: one-step decode recurrence, plain on both devices as in the reference
+rglru_scan = _rglru.rglru_scan
+rglru_step = _rglru.rglru_step_plain
+
+#: causal / sliding-window attention, q, k, v (B, H, S, D) with one head
+#: count, as the kernel takes them.  The reference's ``ops.flash_attention``
+#: hands that layout to the kernel on the TPU but (B, S, H, D) to its
+#: oracle elsewhere; the port keeps the kernel's layout, left-aligned
+#: causal mask and zero rows on both devices.
+flash_attention = _flash.flash_attention_fwd

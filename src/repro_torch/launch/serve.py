@@ -5,11 +5,13 @@ of ``repro/launch/serve.py``).
       --prompt-len 16 --gen 24 --fail-server
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
       --batch 4 --prompt-len 1024 --gen 32 --fail-server     # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma_9b --device cpu --fail-server
 
-The default arch is ``xlstm_350m``, the one family this slice ports (the
-reference's default, ``smollm_360m``, needs attention: ROADMAP Queue 1
-item 16); other arches raise ``NotImplementedError`` until their slice
-lands.  ``--reduced`` defaults to on as in the reference, but is a
+The default arch is ``xlstm_350m``; ``recurrentgemma_9b`` is the other
+family the port carries (the reference's default, ``smollm_360m``, needs
+global attention: ROADMAP Queue 1 item 16); other arches raise
+``NotImplementedError`` until their slice lands.  ``--reduced`` defaults to on as in the reference, but is a
 ``BooleanOptionalAction``, so ``--no-reduced`` reaches the full config
 (the reference's ``store_true`` with ``default=True`` never can).  Runs on
 the card unless ``--device cpu``; weights are random, from seed 0.

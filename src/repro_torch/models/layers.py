@@ -1,9 +1,11 @@
 """Shared layers (port of ``repro/models/layers.py``, the part the xLSTM
-serve path uses): dtypes, the truncated-normal initializer, norms in
-float32, embedding and the tied unembedding.
+and recurrentgemma serve paths use): dtypes, the truncated-normal
+initializer, norms in float32, rotary position embeddings, the
+feed-forward blocks, embedding and the tied unembedding.
 
-Parameters are nested dicts of tensors, as the reference's pytrees.  RoPE,
-the MLPs and the loss come with the slices that use them (ROADMAP Queue 1).
+Parameters are nested dicts of tensors, as the reference's pytrees.
+M-RoPE, the sinusoidal positions and the loss come with the slices that
+use them (ROADMAP Queue 1 items 17-18).
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
@@ -72,6 +75,62 @@ def rms_norm_headwise(x, scale, eps: float = 1e-6):
     xf = x.to(torch.float32)
     ms = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions, dim: int, theta: float):
+    """cos/sin of shape positions.shape + (dim // 2,), in float32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                             device=positions.device) / dim))
+    ang = positions.to(torch.float32)[..., None] * inv_freq
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x (..., S, H, D); cos/sin (..., S, D // 2), broadcast over heads.
+    The two halves of the head dim rotate as pairs (concatenated, not
+    interleaved), in float32."""
+    d2 = x.shape[-1] // 2
+    c = cos[..., None, :].to(torch.float32)
+    s = sin[..., None, :].to(torch.float32)
+    x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Feed-forward blocks
+# ---------------------------------------------------------------------------
+
+def mlp_init(cfg: ModelConfig, gen: torch.Generator,
+             d_ff: Optional[int] = None):
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    pd = pdtype_of(cfg)
+    if cfg.mlp in ("swiglu", "gelu_glu"):
+        return {"wi_gate": dense_init(gen, (d, ff), pd),
+                "wi_up": dense_init(gen, (d, ff), pd),
+                "wo": dense_init(gen, (ff, d), pd)}
+    return {"wi_up": dense_init(gen, (d, ff), pd),
+            "wo": dense_init(gen, (ff, d), pd)}
+
+
+def apply_mlp(cfg: ModelConfig, params, x):
+    """``gelu`` is the tanh approximation, as ``jax.nn.gelu``'s default
+    (plain ``F.gelu`` is the erf form)."""
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
+    elif cfg.mlp == "gelu_glu":
+        h = F.gelu(x @ params["wi_gate"], approximate="tanh") * \
+            (x @ params["wi_up"])
+    elif cfg.mlp == "relu2":
+        h = torch.square(F.relu(x @ params["wi_up"]))
+    elif cfg.mlp == "gelu":
+        h = F.gelu(x @ params["wi_up"], approximate="tanh")
+    else:
+        raise ValueError(cfg.mlp)
+    return h @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
-"""Recurrent blocks, xLSTM half (port of ``repro/models/ssm.py:30-230``):
-the mLSTM block (matrix memory; prefill through the chunkwise kernel,
-decode through the one-step recurrence) and the sLSTM block (scalar
-memory, strictly sequential).  RG-LRU comes with the recurrentgemma slice
-(ROADMAP Queue 1 item 15).
+"""Recurrent blocks (port of ``repro/models/ssm.py``): the mLSTM block
+(matrix memory; prefill through the chunkwise kernel, decode through the
+one-step recurrence), the sLSTM block (scalar memory, strictly
+sequential) and the RG-LRU block of Griffin / RecurrentGemma (prefill
+through the ``rglru_scan`` kernel, decode through the one-step
+recurrence).
 
 Parameters and states are dicts of tensors under the reference's names,
 so ``repro_torch.models.transformer.params_from_jax`` maps one onto the
@@ -51,7 +52,9 @@ def _conv_tail(cfg: ModelConfig, x):
     tail = x[:, max(S - (cfg.conv_width - 1), 0):]
     if tail.shape[1] < cfg.conv_width - 1:
         tail = F.pad(tail, (0, 0, cfg.conv_width - 1 - tail.shape[1], 0))
-    return tail.to(dtype_of(cfg))
+    # a copy: a view would keep the whole (B, S, ch) input alive in the
+    # decode state
+    return tail.to(dtype_of(cfg)).clone()
 
 
 # ---------------------------------------------------------------------------
@@ -239,3 +242,64 @@ def apply_slstm(cfg: ModelConfig, params, x, *, mode: str, state=None):
             new_state = {"c": carry[0], "n": carry[1], "h": carry[2],
                          "m": carry[3], "conv": _conv_tail(cfg, x)}
     return _slstm_ffn(params, h, x.dtype), new_state
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU block (Griffin recurrent block)
+# ---------------------------------------------------------------------------
+
+_RG_C = 8.0  # RG-LRU decay sharpness constant
+
+
+def rglru_init(cfg: ModelConfig, gen: torch.Generator):
+    d, w = cfg.d_model, cfg.lru_width
+    pd = pdtype_of(cfg)
+    # Lambda init so that a = exp(-8*softplus(L)*r) lands in ~[0.9, 0.999]
+    u = 0.1 + 0.8 * torch.rand((w,), generator=gen, device=gen.device)
+    lam = torch.log(torch.expm1(-torch.log(u) / _RG_C))
+    return {
+        "w_x": dense_init(gen, (d, w), pd),
+        "w_gate": dense_init(gen, (d, w), pd),
+        "conv": dense_init(gen, (cfg.conv_width, w), pd, scale=0.3),
+        "w_rg": dense_init(gen, (w, w), torch.float32),
+        "w_ig": dense_init(gen, (w, w), torch.float32),
+        "lam": lam,
+        "w_out": dense_init(gen, (w, d), pd),
+    }
+
+
+def rglru_state_shape(cfg: ModelConfig, batch: int):
+    """{leaf: (shape, dtype)} of one RG-LRU block's decode state."""
+    w = cfg.lru_width
+    return {"h": ((batch, w), torch.float32),
+            "conv": ((batch, cfg.conv_width - 1, w), dtype_of(cfg))}
+
+
+def _rglru_gates(params, ucf):
+    """The gated input i * u and log a from the conv'd input ucf
+    (float32); the (w, w) gate products stay float32."""
+    r = torch.sigmoid(ucf @ params["w_rg"])
+    i = torch.sigmoid(ucf @ params["w_ig"])
+    log_a = -_RG_C * F.softplus(params["lam"]) * r
+    return i * ucf, log_a
+
+
+def apply_rglru(cfg: ModelConfig, params, x, *, mode: str, state=None):
+    u = x @ params["w_x"]
+    g = F.gelu(x @ params["w_gate"], approximate="tanh")
+
+    if mode == "decode":
+        uc, conv_state = conv_step(u, params["conv"], state["conv"])
+        xin, log_a = _rglru_gates(params, uc[:, 0].to(torch.float32))
+        h = ops.rglru_step(xin, log_a, state["h"])
+        y = h[:, None].to(x.dtype)
+        new_state = {"h": h, "conv": conv_state}
+    else:
+        uc = causal_conv(u, params["conv"])
+        xin, log_a = _rglru_gates(params, uc.to(torch.float32))
+        h = ops.rglru_scan(xin, log_a)                          # (B,S,w) f32
+        y = h.to(x.dtype)
+        new_state = None
+        if mode == "prefill":
+            new_state = {"h": h[:, -1].clone(), "conv": _conv_tail(cfg, u)}
+    return (y * g) @ params["w_out"], new_state

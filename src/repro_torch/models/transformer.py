@@ -1,5 +1,7 @@
 """Model assembly (port of ``repro/models/transformer.py:36-296``) for the
-block kinds this slice carries: MLSTM and SLSTM.
+block kinds the port carries: MLSTM and SLSTM (xlstm), RGLRU and
+LOCAL_ATTN (recurrentgemma), each RG-LRU and local-attention block
+followed by its MLP.
 
 The reference groups layers into segments of (pattern, repeats), stacks
 each pattern position's parameters along a leading ``repeats`` axis and
@@ -16,9 +18,11 @@ Entry points produced by ``build_lm``:
   decode_step(params, state, tok, pos) -> (logits, decode_state)
   decode_state_shape(batch, max_len)   -> [{leaf: (shape, dtype)}] per layer
 
-Attention, local attention, RG-LRU, MoE, MLA, encoder-decoder and
-embeds-input configurations raise ``NotImplementedError`` naming their
-ROADMAP item; ``loss_fn`` and training wait for the training slice.
+``max_len`` sizes the attention caches (a local-attention ring holds
+min(max_len, window) positions) and ``pos`` is the decoded token's
+position.  Global attention, MoE, MLA, encoder-decoder and embeds-input
+configurations raise ``NotImplementedError`` naming their ROADMAP item;
+``loss_fn`` and training wait for the training slice.
 """
 from __future__ import annotations
 
@@ -29,15 +33,16 @@ import torch
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM,
                                       ModelConfig)
+from . import attention as attn
 from . import ssm
-from .layers import apply_norm, embed_init, embed_tokens, norm_init, unembed
+from .layers import (apply_mlp, apply_norm, embed_init, embed_tokens,
+                     mlp_init, norm_init, unembed)
 
+#: the block kinds the port carries
+PORTED = (MLSTM, SLSTM, RGLRU, LOCAL_ATTN)
 #: block kinds and configuration features still to port, by ROADMAP item
 UNPORTED = {
-    RGLRU: "ROADMAP Queue 1 item 15 (recurrentgemma-9b serve)",
-    LOCAL_ATTN: "ROADMAP Queue 1 item 15 (recurrentgemma-9b serve)",
-    ATTN: "ROADMAP Queue 1 item 16 (attention models and "
-          "flash_attention_fwd)",
+    ATTN: "ROADMAP Queue 1 item 16 (global attention models)",
     "moe": "ROADMAP Queue 1 item 17 (the other families)",
     "mla": "ROADMAP Queue 1 item 17 (the other families)",
     "encoder-decoder": "ROADMAP Queue 1 item 17 (the other families)",
@@ -58,7 +63,7 @@ def check_ported(cfg: ModelConfig):
         ("embeds-input", cfg.embeds_input)) if on]
     features += [kind for pattern, _ in cfg.layout for kind in pattern]
     for f in features:
-        if f not in (MLSTM, SLSTM):
+        if f not in PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: {f!r} is not ported yet; see "
                 f"{UNPORTED.get(f, 'ROADMAP Queue 1')}")
@@ -75,26 +80,59 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 # ---------------------------------------------------------------------------
 
 def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator):
+    dev = gen.device
     if kind == MLSTM:
-        return {"ln": norm_init(cfg, gen.device),
-                "cell": ssm.mlstm_init(cfg, gen)}
+        return {"ln": norm_init(cfg, dev), "cell": ssm.mlstm_init(cfg, gen)}
     if kind == SLSTM:
-        return {"ln": norm_init(cfg, gen.device),
-                "cell": ssm.slstm_init(cfg, gen)}
+        return {"ln": norm_init(cfg, dev), "cell": ssm.slstm_init(cfg, gen)}
+    if kind == RGLRU:
+        return {"ln1": norm_init(cfg, dev), "cell": ssm.rglru_init(cfg, gen),
+                "ln2": norm_init(cfg, dev), "mlp": mlp_init(cfg, gen)}
+    if kind == LOCAL_ATTN:
+        p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen)}
+        if cfg.d_ff:
+            p["ln2"] = norm_init(cfg, dev)
+            p["mlp"] = mlp_init(cfg, gen)
+        return p
     raise _unported(kind)
 
 
-def block_state_shape(cfg: ModelConfig, kind: str, batch: int):
+def block_state_shape(cfg: ModelConfig, kind: str, batch: int,
+                      max_len: int = 0):
     if kind == MLSTM:
         return {"cell": ssm.mlstm_state_shape(cfg, batch)}
     if kind == SLSTM:
         return {"cell": ssm.slstm_state_shape(cfg, batch)}
+    if kind == RGLRU:
+        return {"cell": ssm.rglru_state_shape(cfg, batch)}
+    if kind == LOCAL_ATTN:
+        return {"kv": attn.kv_cache_shape(cfg, batch, max_len,
+                                          cfg.local_window)}
     raise _unported(kind)
 
 
 def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
-                state=None):
+                state=None, pos=None, max_len: int = 0):
     """Returns (x, new_state)."""
+    if kind == LOCAL_ATTN:
+        h, kv = attn.apply_attention(
+            cfg, params["attn"], apply_norm(cfg, params["ln1"], x),
+            mode=mode, window=cfg.local_window,
+            cache=None if state is None else state["kv"], pos=pos,
+            max_len=max_len)
+        x = x + h
+        if "mlp" in params:
+            x = x + apply_mlp(cfg, params["mlp"],
+                              apply_norm(cfg, params["ln2"], x))
+        return x, None if kv is None else {"kv": kv}
+    if kind == RGLRU:
+        h, st = ssm.apply_rglru(cfg, params["cell"],
+                                apply_norm(cfg, params["ln1"], x), mode=mode,
+                                state=None if state is None else state["cell"])
+        x = x + h
+        x = x + apply_mlp(cfg, params["mlp"],
+                          apply_norm(cfg, params["ln2"], x))
+        return x, None if st is None else {"cell": st}
     if kind not in (MLSTM, SLSTM):
         raise _unported(kind)
     fn = ssm.apply_mlstm if kind == MLSTM else ssm.apply_slstm
@@ -103,7 +141,8 @@ def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
     return x + h, None if st is None else {"cell": st}
 
 
-def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None):
+def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
+                 pos=None, max_len: int = 0):
     """All layers in order (the reference's segments_apply).  Returns
     (x, new_states) with new_states None in train mode."""
     new_states = []
@@ -111,7 +150,8 @@ def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None):
         # a named range per block kind, for profile_serve's breakdown
         with torch.profiler.record_function(f"block:{kind}"):
             x, ns = block_apply(cfg, kind, blocks[li], x, mode=mode,
-                                state=None if states is None else states[li])
+                                state=None if states is None else states[li],
+                                pos=pos, max_len=max_len)
         new_states.append(ns)
     return x, (new_states if mode != "train" else None)
 
@@ -131,26 +171,30 @@ def build_lm(cfg: ModelConfig):
             "ln_f": norm_init(cfg, gen.device),
         }
 
-    def _backbone(params, x, *, mode, states=None):
+    def _backbone(params, x, *, mode, states=None, pos=None, max_len=0):
         x, new_states = layers_apply(cfg, params["blocks"], x, mode=mode,
-                                     states=states)
+                                     states=states, pos=pos, max_len=max_len)
         return apply_norm(cfg, params["ln_f"], x), new_states
 
     def prefill(params, batch, max_len: int = 0):
+        """max_len sizes the attention caches (recurrent blocks ignore
+        it)."""
         x = embed_tokens(cfg, params["embed"], batch["tokens"])
-        x, states = _backbone(params, x, mode="prefill")
+        x, states = _backbone(params, x, mode="prefill", max_len=max_len)
         logits = unembed(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], states
 
     def decode_step(params, states, tokens, pos=None):
-        """tokens (B,) int; pos is unused by the recurrent blocks."""
+        """tokens (B,) int; pos: the tokens' position (an int or a 0-d
+        tensor), which attention reads and the recurrent blocks ignore."""
         x = embed_tokens(cfg, params["embed"], tokens[:, None])
-        x, states = _backbone(params, x, mode="decode", states=states)
+        x, states = _backbone(params, x, mode="decode", states=states,
+                              pos=pos)
         logits = unembed(cfg, params["embed"], x)
         return logits[:, 0], states
 
     def decode_state_shape(batch: int, max_len: int = 0):
-        return [block_state_shape(cfg, kind, batch)
+        return [block_state_shape(cfg, kind, batch, max_len)
                 for kind in layer_kinds(cfg)]
 
     return dict(config=cfg, init_params=init_params, prefill=prefill,

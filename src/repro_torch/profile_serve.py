@@ -2,19 +2,23 @@
 
     PYTHONPATH=src python -m repro_torch.profile_serve \\
         [--arch xlstm_350m] [--batch 4 --prompt-len 1024 --decode-steps 16] \\
-        [--reduced] [--json OUT]
+        [--reduced | --no-reduced] [--json OUT]
+    PYTHONPATH=src python -m repro_torch.profile_serve \\
+        --arch recurrentgemma_9b --no-reduced --prompt-len 3072
 
-Builds the model at full width (``--reduced`` for the CPU-test size)
-with random weights from seed 0 on cuda, warms up with one prefill and
-one decode step, then times a prefill and ``--decode-steps`` greedy
-decode steps on the host clock (synchronized), and profiles one more
-prefill under ``torch.profiler``.  Prints one JSON object: prefill and
-decode tokens per second, the prefill's unprofiled wall time, its
-device-busy seconds (the sum of the CUDA kernel events) and idle share,
-device time by kernel group (the mLSTM kernel, GEMMs, the rest) and by
-kernel name, and the host time inside each block kind's range
-(``block:mlstm``, ``block:slstm``; the sLSTM's per-token loop is the
-latter).
+Builds the model at full width (the default, ``--no-reduced``;
+``--reduced`` for the CPU-test size) with random weights from seed 0 on
+cuda, warms up with one prefill and one decode step, then times a
+prefill and ``--decode-steps`` greedy decode steps on the host clock
+(synchronized), and profiles one more prefill under ``torch.profiler``.
+The attention caches hold the prompt and the decoded tokens.  Prints one
+JSON object: prefill and decode tokens per second, the prefill's
+unprofiled wall time, its device-busy seconds (the sum of the CUDA
+kernel events) and idle share, device time by kernel group (the mLSTM
+and RG-LRU kernels, GEMMs, the rest) and by kernel name, and the host
+time inside each block kind's range (``block:mlstm``, ``block:slstm``,
+``block:rglru``, ``block:local``; the sLSTM's per-token loop is in the
+second).
 """
 from __future__ import annotations
 
@@ -34,12 +38,14 @@ from .profile_step import _device_self_us
 
 
 def kernel_group(name: str) -> str:
-    """mlstm (the hand-written kernel), gemm (cuBLAS/CUTLASS matrix
-    products) or other (elementwise, reductions, copies)."""
+    """mlstm or rglru (the hand-written kernels), gemm (cuBLAS/CUTLASS
+    matrix products, cuBLASLt's ``nvjet`` kernels included) or other
+    (elementwise, softmax, reductions, copies)."""
     low = name.lower()
-    if "mlstm_" in low:
-        return "mlstm"
-    if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv")):
+    for kernel in ("mlstm", "rglru"):
+        if f"{kernel}_" in low:
+            return kernel
+    if any(k in low for k in ("gemm", "cutlass", "xmma", "gemv", "nvjet")):
         return "gemm"
     return "other"
 
@@ -47,7 +53,8 @@ def kernel_group(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="xlstm_350m")
-    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
+                    default=False)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--decode-steps", type=int, default=16)
@@ -64,25 +71,28 @@ def main(argv=None) -> int:
     tokens = torch.from_numpy(SyntheticLMData(cfg, args.batch, args.prompt_len)
                               .batch_at(0)["tokens"]).to(dev)
     batch = {"tokens": tokens}
+    S = args.prompt_len
+    max_len = S + args.decode_steps
 
     with torch.no_grad():
-        logits, state = model["prefill"](params, batch)           # warm-up
-        model["decode_step"](params, state, logits.argmax(-1))
+        logits, state = model["prefill"](params, batch, max_len)  # warm-up
+        model["decode_step"](params, state, logits.argmax(-1), S)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        logits, state = model["prefill"](params, batch)
+        logits, state = model["prefill"](params, batch, max_len)
         torch.cuda.synchronize()
         prefill_s = time.monotonic() - t0
         cur = logits.argmax(-1)
         t0 = time.monotonic()
-        for _ in range(args.decode_steps):
-            logits, state = model["decode_step"](params, state, cur)
+        for i in range(args.decode_steps):
+            logits, state = model["decode_step"](params, state, cur, S + i)
             cur = logits.argmax(-1)
         torch.cuda.synchronize()
         decode_s = time.monotonic() - t0
+        del logits, state
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            model["prefill"](params, batch)
+            model["prefill"](params, batch, max_len)
             torch.cuda.synchronize()
 
     kernels, ranges = {}, {}

@@ -1,8 +1,9 @@
 """The port on the card: each CUDA kernel against its plain PyTorch
-version (the Monte Carlo kernels bitwise, ``mlstm_chunkwise`` at a
-stated tolerance), the engines (§5.1, §6 with the protocol zoo, and
+version (the Monte Carlo kernels bitwise, ``mlstm_chunkwise``,
+``rglru_scan`` and ``flash_attention_fwd`` at stated tolerances, with
+their planted faults), the engines (§5.1, §6 with the protocol zoo, and
 client latency) on cuda against the same runs on the CPU, and the
-reduced xLSTM serve path on cuda against the CPU.
+reduced xLSTM and recurrentgemma serve paths on cuda against the CPU.
 
 This file imports neither jax nor repro, so it runs on a machine that
 has only torch and a card:
@@ -20,7 +21,9 @@ from repro_torch.core.client_latency import simulate_client_latency
 from repro_torch.core.downtime_batched import (ENGINES,
                                                simulate_downtime_batched)
 from repro_torch.configs import reduced_config
-from repro_torch.kernels import fused_step, mlstm_check, mlstm_chunk, pac_eval
+from repro_torch.kernels import (flash_attention, flash_check, fused_step,
+                                 mlstm_check, mlstm_chunk, pac_eval,
+                                 rglru_check, rglru_scan)
 from repro_torch.kernels.latency import decay_pow_tables
 from repro_torch.models import build_model
 from repro_torch.serving import ServeLoop
@@ -349,4 +352,100 @@ def test_cuda_reduced_serve_matches_cpu(cuda):
     _logits_close(lg, lc, 1e-3, 1e-3)
     got = ServeLoop(cfg, params, device=cuda).generate(batch, steps=8)
     want = ServeLoop(cfg, params, device="cpu").generate(batch, steps=8)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,W,kind", [
+    (2, 256, 128, "uniform"),       # whole chunks
+    (1, 300, 100, "model"),         # ragged S and W
+    (2, 1000, 4096, "long"),        # the full width, a -> 1
+    (1, 77, 33, "short"),           # one ragged chunk, a -> 0
+])
+def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W, kind):
+    """Tolerance: every element within ``rglru_check.rglru_allowance`` of
+    the plain version in float64 (the recurrence over |b|, run over 2^-20
+    of it per step plus b's rounding where 1 - exp(2 log_a) cancels); any
+    input type, output float32; a second launch is bitwise the first."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S + W)
+    x, la = rglru_check.rglru_inputs(gen, B, S, W, kind)
+    x = x.to(dtype)
+    before = rglru_scan.rglru_scan.launches
+    h = rglru_scan.rglru_scan(x, la)
+    torch.cuda.synchronize()
+    assert rglru_scan.rglru_scan.launches == before + 1
+    assert h.dtype == torch.float32 and h.shape == (B, S, W)
+    want, allowed = rglru_check.reference(x, la)
+    assert rglru_check.rglru_error(h, want, allowed) <= 1.0
+    assert torch.equal(h, rglru_scan.rglru_scan(x, la))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,Dv,causal,window", [
+    (1, 2, 128, 128, 64, 64, True, 0),
+    (2, 3, 200, 200, 32, 32, True, 48),      # ragged tiles, a window
+    (1, 2, 64, 192, 64, 32, True, 0),        # Sq < Sk: left-aligned
+    (1, 1, 192, 64, 32, 32, True, 32),       # rows no key may attend
+    (1, 2, 130, 130, 256, 256, False, 0),    # the full head dim, no mask
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, B, H, Sq, Sk, D, Dv,
+                                            causal, window):
+    """Tolerance: every element within ``flash_check``'s allowance of the
+    plain version on float64 copies (2^-16 of the same sums over absolute
+    values, plus 2^-7 |o| for bf16's rounding); rows no key may attend
+    give 0; a second launch is bitwise the first."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(Sq + Sk + D)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((B, H, Sk, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((B, H, Sk, Dv), generator=gen, device=cuda).to(dtype)
+    before = flash_attention.flash_attention_fwd.launches
+    o = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.flash_attention_fwd.launches == before + 1
+    assert o.dtype == dtype and o.shape == (B, H, Sq, Dv)
+    want, allowed = flash_check.reference(q, k, v, causal=causal,
+                                          window=window)
+    assert flash_check.flash_error(o, want, allowed) <= 1.0
+    assert torch.equal(o, flash_attention.flash_attention_fwd(
+        q, k, v, causal=causal, window=window))
+
+
+@pytest.mark.parametrize("check", [rglru_check, flash_check],
+                         ids=["rglru", "flash"])
+def test_cuda_rglru_and_flash_checks_catch_planted_faults(cuda, check):
+    """The card-side cases at the serve width pass on each kernel's
+    source, and each planted fault of ``FAULTS`` fails at least one."""
+    assert check.main() == 0
+
+
+def test_cuda_reduced_recurrentgemma_serve_matches_cpu(cuda):
+    """A 5-layer reduced recurrentgemma (the remainder segment included)
+    on cuda (kernel) against the CPU (plain): prefill logits at a 48-token
+    prompt over the 32-token window to rtol 1e-3 / atol 1e-3 of the
+    largest logit, 4 rglru_scan launches per prefill, and equal greedy
+    tokens."""
+    cfg = reduced_config("recurrentgemma_9b").replace(num_layers=5)
+    model = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    tok = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 48))
+    batch = {"tokens": tok.astype(np.int32)}
+    lc, _ = model["prefill"](params, {"tokens": torch.from_numpy(
+        batch["tokens"])}, 56)
+    gpu_params = tree_map(lambda t: t.to(cuda), params)
+    before = rglru_scan.rglru_scan.launches
+    lg, _ = model["prefill"](gpu_params, {"tokens": torch.from_numpy(
+        batch["tokens"]).to(cuda)}, 56)
+    assert rglru_scan.rglru_scan.launches == before + 4
+    _logits_close(lg, lc, 1e-3, 1e-3)
+    got = ServeLoop(cfg, params, max_len=56, device=cuda).generate(batch,
+                                                                  steps=8)
+    want = ServeLoop(cfg, params, max_len=56, device="cpu").generate(
+        batch, steps=8)
     np.testing.assert_array_equal(got, want)

@@ -168,3 +168,36 @@ def test_serve_entry_points_default_to_the_card():
         ServeLoop(reduced_config("xlstm_350m"), {})
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main([])
+
+
+def test_model_kernel_wrappers_dispatch_by_device_without_fallback():
+    """rglru_scan and flash_attention_fwd run their plain versions on CPU
+    tensors (no launch) and refuse any other device; nothing falls back."""
+    from repro_torch.kernels import flash_attention, rglru_scan
+    x = torch.zeros((1, 5, 3))
+    before = rglru_scan.rglru_scan.launches
+    assert torch.equal(rglru_scan.rglru_scan(x, x - 1.0),
+                       rglru_scan.rglru_scan_plain(x, x - 1.0))
+    assert rglru_scan.rglru_scan.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rglru_scan.rglru_scan(x.to("meta"), x.to("meta"))
+    q = torch.ones((1, 2, 5, 4))
+    before = flash_attention.flash_attention_fwd.launches
+    out = flash_attention.flash_attention_fwd(q, q, q, window=2)
+    assert flash_attention.flash_attention_fwd.launches == before
+    assert torch.equal(out, q)                  # equal values average to 1
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention.flash_attention_fwd(q.to("meta"), q.to("meta"),
+                                            q.to("meta"))
+
+
+def test_recurrentgemma_serve_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import serve
+    from repro_torch.serving import ServeLoop
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeLoop(reduced_config("recurrentgemma_9b"), {})
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--arch", "recurrentgemma_9b"])

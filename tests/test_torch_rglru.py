@@ -1,0 +1,132 @@
+"""The port's RG-LRU recurrence against the reference.
+
+``rglru_scan_plain`` (the CPU path of the CUDA kernel) against the oracle
+``repro.kernels.ref.rglru_scan_ref`` and the Pallas ``rglru_scan`` in
+interpret mode on ``tests/test_kernels.py``'s shapes, against the oracle
+on a ragged S (which the Pallas wrapper rejects) and on bfloat16 input,
+and against the one-step recurrence; ``rglru_step_plain`` against
+``ref.rglru_step``; the wrapper's dispatch on the CPU; and the check the
+card holds the kernel to (``rglru_check``): the float32 plain version
+passes it against float64, each planted fault's arithmetic fails it.
+
+Inputs come from numpy with a seed.  Tolerance: atol 1e-5 / rtol 1e-4,
+``test_kernels.py``'s for this kernel (float32 sums in another order)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as R
+from repro.kernels.rglru_scan import rglru_scan as pallas_rglru
+from repro_torch.kernels import ops as TOPS
+from repro_torch.kernels import rglru_check as RC
+from repro_torch.kernels import rglru_scan as T
+
+torch.set_num_threads(1)
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _inputs(seed, B, S, W, lo=0.01, hi=2.0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, W)).astype(np.float32)
+    la = -rng.uniform(lo, hi, (B, S, W)).astype(np.float32)
+    return x, la
+
+
+def _close(got, want, atol=ATOL, rtol=RTOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("B,S,W,bs,bw", [(1, 256, 128, 64, 128),
+                                         (2, 512, 256, 128, 128)])
+def test_plain_matches_oracle_and_pallas_interpret(B, S, W, bs, bw):
+    x, la = _inputs(B * 1000 + S, B, S, W)
+    h = T.rglru_scan_plain(torch.from_numpy(x), torch.from_numpy(la))
+    assert h.dtype == torch.float32 and h.shape == (B, S, W)
+    _close(h, R.rglru_scan_ref(jnp.asarray(x), jnp.asarray(la)))
+    _close(h, pallas_rglru(jnp.asarray(x), jnp.asarray(la), block_s=bs,
+                           block_w=bw, interpret=True))
+
+
+def test_ragged_length_and_bfloat16_input_match_oracle():
+    """Any S (the Pallas wrapper asserts S % block_s == 0 after clamping
+    the block, so S = 300 fails there) and any float input type."""
+    x, la = _inputs(7, 2, 300, 100)
+    _close(T.rglru_scan_plain(torch.from_numpy(x), torch.from_numpy(la)),
+           R.rglru_scan_ref(jnp.asarray(x), jnp.asarray(la)))
+    with pytest.raises(AssertionError):
+        pallas_rglru(jnp.asarray(x), jnp.asarray(la), interpret=True)
+    xb = np.asarray(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    got = T.rglru_scan_plain(torch.from_numpy(x).to(torch.bfloat16),
+                             torch.from_numpy(la))
+    assert got.dtype == torch.float32
+    _close(got, R.rglru_scan_ref(jnp.asarray(x, jnp.bfloat16),
+                                 jnp.asarray(la)))
+    _close(got, R.rglru_scan_ref(jnp.asarray(xb), jnp.asarray(la)))
+
+
+def test_step_matches_reference_and_scan():
+    x, la = _inputs(3, 2, 64, 8, hi=1.0)
+    xt, lat = torch.from_numpy(x), torch.from_numpy(la)
+    h = torch.zeros((2, 8))
+    hj = jnp.zeros((2, 8))
+    for t in range(64):
+        h = T.rglru_step_plain(xt[:, t], lat[:, t], h)
+        hj = R.rglru_step(jnp.asarray(x[:, t]), jnp.asarray(la[:, t]), hj)
+        _close(h, hj)
+    _close(T.rglru_scan_plain(xt, lat)[:, -1], h)
+
+
+def test_ops_dispatch_by_device_without_fallback():
+    x, la = (torch.from_numpy(a) for a in _inputs(5, 1, 40, 16))
+    calls, launches = T.rglru_scan_plain.calls, T.rglru_scan.launches
+    h = TOPS.rglru_scan(x, la)
+    assert T.rglru_scan_plain.calls == calls + 1
+    assert T.rglru_scan.launches == launches          # plain path: no launch
+    assert torch.equal(h, T.rglru_scan_plain(x, la))
+    assert TOPS.rglru_step is T.rglru_step_plain
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TOPS.rglru_scan(x.to("meta"), la.to("meta"))
+    with pytest.raises(ValueError, match="one shape"):
+        TOPS.rglru_scan(x, la[:, :-1])
+    with pytest.raises(TypeError):
+        TOPS.rglru_scan(x.to(torch.int32), la)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "model", "long", "short"])
+def test_rounding_check_passes_float32_and_catches_the_faults(kind):
+    """The float32 plain version lies within ``rglru_allowance`` of the
+    float64 reference, with room for the kernel's other order; the
+    arithmetic of the planted faults (the carry across 64-position chunks
+    dropped, the decay 1 % high, 1 - a for sqrt(1 - a^2)) does not."""
+    gen = torch.Generator()
+    gen.manual_seed(15)
+    x, la = RC.rglru_inputs(gen, 2, 320, 48, kind)
+    want, allowed = RC.reference(x, la)
+    assert RC.rglru_error(T.rglru_scan_plain(x, la), want, allowed) < 0.25
+    dropped = torch.cat([T.rglru_scan_plain(x[:, c:c + 64], la[:, c:c + 64])
+                         for c in range(0, 320, 64)], dim=1)
+    a = torch.exp(la)
+    b = torch.sqrt(torch.clamp(1 - a * a, min=0)) * x
+    h = torch.zeros_like(x[:, 0])
+    h1 = torch.zeros_like(h)
+    decay, one_minus = [], []
+    for t in range(320):
+        h = 1.01 * a[:, t] * h + b[:, t]
+        h1 = a[:, t] * h1 + (1 - a[:, t]) * x[:, t]
+        decay.append(h)
+        one_minus.append(h1)
+    faults = {"carry_dropped": dropped, "decay_1pct": torch.stack(decay, 1),
+              "one_minus_a": torch.stack(one_minus, 1)}
+    failed = {name: RC.rglru_error(h, want, allowed) > 1.0
+              for name, h in faults.items()}
+    # a -> 0 forgets the carry within a chunk and makes 1 - a equal to
+    # sqrt(1 - a^2); a -> 1 makes the carry error small against what
+    # float32 allows there; each fault fails elsewhere
+    expect = {"uniform": {"carry_dropped", "decay_1pct", "one_minus_a"},
+              "model": {"carry_dropped", "decay_1pct", "one_minus_a"},
+              "long": {"decay_1pct"},
+              "short": {"decay_1pct"}}[kind]
+    assert {n for n, f in failed.items() if f} >= expect, failed

@@ -219,7 +219,8 @@ def test_unported_configs_raise():
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="item 16"):
         build_model(get_config("smollm_360m"))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_model(get_config("recurrentgemma_9b"))
+    # recurrentgemma (RG-LRU and local attention) is ported now
+    assert build_model(get_config("recurrentgemma_9b"))["config"].name == \
+        "recurrentgemma_9b"
     with pytest.raises(NotImplementedError, match="item 17"):
         build_model(get_config("whisper_small"))
