@@ -13,9 +13,11 @@ One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
 2. ``build``: nvcc for sm_90a, one process per source, all at once, and
-   their seconds; beside them, at the same time, the copies of
-   ``rglru_scan.cu`` and ``flash_attention.cu`` with one planted fault
-   each (``rglru_check.FAULTS``, ``flash_check.FAULTS``).
+   their seconds, and the registers and spill bytes of each head dim of
+   ``flash_attention_sm90.cu``; beside them, at the same time, the copies
+   of ``rglru_scan.cu``, ``flash_attention.cu`` and
+   ``flash_attention_sm90.cu`` with one planted fault each
+   (``rglru_check.FAULTS``, ``flash_check.FAULTS``).
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
@@ -80,13 +82,18 @@ One JSON line per phase:
    planted fault must fail at least one case.  Then its time.
 15. ``flash`` / ``kernel_time``: ``ops.flash_attention`` (the kernel's
    entry point; no model path calls it, as in the reference) against
-   ``flash_attention_plain`` at the local-attention shape (B = 4, 16
-   heads, S = 3072, D = 256, bf16, causal, window 2048), window 0, a
-   ragged S = 3000 and scores spread x30: every element within its
-   allowance against the plain version on float64 copies
-   (``flash_check``), a bitwise repeat, and each planted fault failing
-   a case.  Then its time beside ``F.scaled_dot_product_attention``'s
-   with the same mask.
+   ``flash_attention_plain`` on both CUDA sources.  At the local-attention
+   shape (B = 4, 16 heads, S = 3072, D = 256, bf16, causal, window 2048),
+   window 0, a ragged S = 3000 and scores spread x30 the entry point
+   takes the sm90 source (``flash_attention_sm90.cu``); the simt source
+   (``flash_attention.cu``) runs the same cases by its launcher, and a
+   float32 and a D = 32 case through the entry point.  Every element
+   within its allowance against the plain version on float64 copies
+   (``flash_check``), a bitwise repeat, each route's launches counted,
+   the plain version never run, and each planted fault of each source
+   failing a case.  Then both sources' times beside
+   ``F.scaled_dot_product_attention``'s with the same boolean mask and
+   with ``is_causal``.
 16. ``serve_rg``: recurrentgemma-9b at full width and depth (38 layers,
    d_model 4096, vocab 256000, bf16 with float32 RG-LRU gates, random
    weights from seed 0) serves 4 prompts of 3072 tokens (past the 2048
@@ -112,6 +119,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -178,6 +186,9 @@ SOURCES = {
                    "src/repro/kernels/rglru_scan.py:20"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:27"),
+    "flash_attention_fwd_sm90": (
+        "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+        "src/repro/kernels/flash_attention.py:27"),
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
 #: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
@@ -189,11 +200,12 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
 #: the recurrentgemma serve phase: 4 prompts of 3072 tokens (past the
 #: 2048-token window, under mha's dense limit), then as above
 RG_PROMPT = 3072
-#: the kernels whose planted faults the rglru and flash phases run
+#: the sources whose planted faults the rglru and flash phases run:
+#: (faults, C symbol, argtypes)
 FAULT_SOURCES = {"rglru_scan": (rc.FAULTS, "rglru_scan_launch",
                                 rk._ARGTYPES),
-                 "flash_attention": (fc.FAULTS, "flash_attention_launch",
-                                     fa._ARGTYPES)}
+                 **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
+                    for src, faults in fc.FAULTS.items()}}
 
 
 def emit(obj):
@@ -647,7 +659,11 @@ def counters():
             "mlstm_chunkwise_plain": (mk.mlstm_chunkwise_plain, "calls"),
             "rglru_scan": (rk.rglru_scan, "launches"),
             "rglru_scan_plain": (rk.rglru_scan_plain, "calls"),
-            "flash_attention_fwd": (fa.flash_attention_fwd, "launches")}
+            "flash_attention_fwd": (fa.flash_attention_fwd,
+                                    "simt_launches"),
+            "flash_attention_fwd_sm90": (fa.flash_attention_fwd,
+                                         "sm90_launches"),
+            "flash_attention_plain": (fa.flash_attention_plain, "calls")}
 
 
 def reset_counts():
@@ -1298,92 +1314,186 @@ def sdpa_ms(q, k, v, *, window, reps):
     return time_ms(lambda: sdpa(q, k, v, attn_mask=mask), reps)
 
 
+def ptxas_usage(log: str) -> dict:
+    """Per head dim of flash_attention_sm90.cu, from ``-Xptxas -v``: the
+    registers a thread gets at launch (setmaxnreg then gives the consumer
+    warpgroups 240), the spill bytes and the stack frame, and whether
+    ptxas serialized the kernel's wgmma for want of registers."""
+    usage, head = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+?)'", line)
+        if m:
+            d = re.search(r"kernelILi(\d+)E", m.group(1))
+            head = f"D{d.group(1)}" if d else None
+            if head:
+                usage[head] = {"wgmma_serialized": False}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and head:
+            usage[head].update(stack_bytes=int(m.group(1)),
+                               spill_store_bytes=int(m.group(2)),
+                               spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and head:
+            usage[head]["registers"] = int(m.group(1))
+    for line in log.splitlines():
+        if "C7512" in line:
+            d = re.search(r"kernelILi(\d+)E", line)
+            if d and f"D{d.group(1)}" in usage:
+                usage[f"D{d.group(1)}"]["wgmma_serialized"] = True
+    return usage
+
+
 def check_flash_kernel(bw, faults):
     """Phase 15: flash_attention_fwd through its entry point
-    ``ops.flash_attention`` against its plain version on the card, its
-    planted faults, then its time beside SDPA's.  Returns (the timing
-    record, the phase's launches: no model path launches this kernel, in
-    the reference or here, so its launches are this phase's calls).  Each
-    element of o must lie within ``flash_check``'s allowance of the plain
-    version on float64 copies: 2^-16 of the same sums over absolute
-    values (each score's own scale included) plus 2^-7 |o| for the
-    rounding to bf16."""
+    ``ops.flash_attention`` against its plain version on the card, on both
+    sources, their planted faults, then their times beside SDPA's.
+    Returns (the timing records, the phase's launches, both by the
+    kernels line's names: no model path launches this kernel, in the
+    reference or here, so its launches are this phase's entry-point
+    calls).  Each element of o must lie within ``flash_check``'s allowance
+    of the plain version on float64 copies: 2^-16 of the same sums over
+    absolute values (each score's own scale included) plus 2^-7 |o| for
+    the rounding to bf16."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(15)
     B, H, D = fc.SHAPE["B"], fc.SHAPE["H"], fc.SHAPE["D"]
-    worst = 0.0
-    caught = {name: [] for name in faults}
-    reset_counts()
-    for case, S, window, q_scale in fc.CASES:
-        q, k, v = fc.flash_inputs(gen, B, H, S, D, torch.bfloat16, q_scale)
+    names = {"sm90": "flash_attention_fwd_sm90", "simt": "flash_attention_fwd"}
+    worst = {"sm90": 0.0, "simt": 0.0}
+    caught = {src: {name: [] for name in fc.FAULTS[src]} for src in fc.FAULTS}
+    counted = {name: 0 for name in (*names.values(), "flash_attention_plain")}
+    simt_fn = _build.function(*fa.ROUTES["simt"])
+
+    def entry(q, k, v, window, route):
+        """o and its repeat through the entry point, counting launches."""
+        reset_counts()
         o = ops.flash_attention(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
         same = torch.equal(o, ops.flash_attention(q, k, v, causal=True,
                                                   window=window))
-        want, allowed = fc.reference(q, k, v, causal=True, window=window)
+        got = read_counts(counted)
+        for name in counted:
+            counted[name] += got[name]
+        if got[names[route]] != 2 or got["flash_attention_plain"]:
+            raise SystemExit(f"flash: the entry point took the wrong route "
+                             f"({route} expected): {got}")
+        return o, same
+
+    def held(case, route, o, same, want, allowed, **extra):
         err = fc.flash_error(o, want, allowed)
-        ok = o.dtype == q.dtype and o.shape == q.shape and err <= 1.0
+        ok = o.shape == want.shape and err <= 1.0
         abs_err = (o.double() - want).abs().max().item()
-        worst = max(worst, abs_err)
-        fault_errs = {}
-        for name, fn in faults.items():
-            fault_errs[name] = fc.flash_error(
-                fa.launch_with(fn, q, k, v, causal=True, window=window,
-                               scale=None), want, allowed)
-            if fault_errs[name] > 1.0:
-                caught[name].append(case)
-        emit({"phase": "flash", "case": case, "shape": [B, H, S, D],
-              "window": window, "q_scale": q_scale,
+        worst[route] = max(worst[route], abs_err)
+        emit({"phase": "flash", "case": case, "route": route,
+              "source": SOURCES[names[route]][0],
+              "shape": list(o.shape), "dtype": str(o.dtype),
               "error_over_allowed": err, "within_rounding": ok,
               "deterministic": same, "max_abs_err": abs_err,
-              "gamma": fc.GAMMA, "out_step": fc.OUT_STEP[q.dtype],
-              "faults_error_over_allowed": fault_errs})
+              "gamma": fc.GAMMA, "out_step": fc.OUT_STEP[o.dtype], **extra})
         if not (ok and same):
-            raise SystemExit(f"flash_attention_fwd disagrees with its plain "
-                             f"version ({case}): {err}")
+            raise SystemExit(f"flash_attention_fwd ({route}) disagrees with "
+                             f"its plain version ({case}): {err}")
+
+    for case, S, window, q_scale in fc.CASES:
+        q, k, v = fc.flash_inputs(gen, B, H, S, D, torch.bfloat16, q_scale)
+        o, same = entry(q, k, v, window, "sm90")
+        want, allowed = fc.reference(q, k, v, causal=True, window=window)
+        fault_errs = {}
+        for src in fc.FAULTS:
+            route = fc.SOURCE_ROUTE[src]
+            for name, fn in faults[src].items():
+                err = fc.flash_error(fa.launch_with(
+                    fn, q, k, v, causal=True, window=window, scale=None,
+                    route=route), want, allowed)
+                fault_errs[f"{src}:{name}"] = err
+                if err > 1.0:
+                    caught[src][name].append(case)
+        held(case, "sm90", o, same, want, allowed, window=window,
+             q_scale=q_scale, faults_error_over_allowed=fault_errs)
+        # the simt source on the same case, by its launcher
+        o = fa.launch_with(simt_fn, q, k, v, causal=True, window=window,
+                           scale=None, route="simt")
+        torch.cuda.synchronize()
+        same = torch.equal(o, fa.launch_with(simt_fn, q, k, v, causal=True,
+                                             window=window, scale=None,
+                                             route="simt"))
+        held(case, "simt", o, same, want, allowed, window=window,
+             q_scale=q_scale, by="launcher")
         del q, k, v, o, want, allowed
-    launches = read_counts(["flash_attention_fwd"])["flash_attention_fwd"]
-    held_faults("flash_attention_fwd", caught)
+    for case, dtype, Dc, S, window, q_scale in fc.SIMT_CASES:
+        q, k, v = fc.flash_inputs(gen, B, H, S, Dc, dtype, q_scale)
+        o, same = entry(q, k, v, window, "simt")
+        want, allowed = fc.reference(q, k, v, causal=True, window=window)
+        held(case, "simt", o, same, want, allowed, window=window,
+             q_scale=q_scale, by="entry point")
+        del q, k, v, o, want, allowed
+    for src in fc.FAULTS:
+        held_faults(f"flash_attention_fwd ({src}.cu)", caught[src])
+    emit({"phase": "flash", "launches": counted})
 
     S, window = RG_PROMPT, 2048
     q, k, v = fc.flash_inputs(gen, B, H, S, D, torch.bfloat16)
-    fn = _build.function("flash_attention", "flash_attention_launch",
-                         fa._ARGTYPES)
+    sm90_fn = _build.function(*fa.ROUTES["sm90"])
     o = torch.empty_like(q)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (q, k, v, o)]
     scale = 1.0 / math.sqrt(D)
-    ms = time_ms(lambda: fn(*ptrs, B * H, S, S, D, D, scale, 1, window, 1,
-                            stream), 10)
+    ms = {w: time_ms(lambda: sm90_fn(*ptrs, B * H, S, S, D, scale, 1, w,
+                                     stream), 20) for w in (window, 0)}
+    simt_ms = {w: time_ms(lambda: simt_fn(*ptrs, B * H, S, S, D, D, scale, 1,
+                                          w, 1, stream), 5)
+               for w in (window, 0)}
     wrap_ms = time_ms(lambda: fa.flash_attention_fwd(
-        q, k, v, causal=True, window=window), 10)
+        q, k, v, causal=True, window=window), 20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(
         q, k, v, causal=True, window=window), 3)
-    lib_ms = sdpa_ms(q, k, v, window=window, reps=10)
+    lib_ms = {w: sdpa_ms(q, k, v, window=w, reps=20) for w in (window, 0)}
+    causal_mask = fa.attention_mask(S, S, causal=True, window=0, device=dev)
+    lib_mask_causal_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=causal_mask), 20)
+    mask = fa.attention_mask(S, S, causal=True, window=window, device=dev)
+    sm90_fn(*ptrs, B * H, S, S, D, scale, 1, window, stream)
     sdpa_err = (torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=fa.attention_mask(S, S, causal=True,
-                                             window=window, device=dev))
-        .float() - o.float()).abs().max().item()
-    pairs = flash_pairs(S, S, True, window)
-    flops = 4 * D * pairs * B * H
-    rec = record("flash_attention_fwd", 4 * 2 * B * H * S * D, 0, ms,
-                 wrap_ms, plain_ms, worst, bw, ops=flops,
-                 rate=FLOAT_PEAK[torch.bfloat16])
-    rec["library_ms"] = lib_ms
-    causal_ms = time_ms(lambda: fn(*ptrs, B * H, S, S, D, D, scale, 1, 0,
-                                   1, stream), 10)
+        q, k, v, attn_mask=mask).float() - o.float()).abs().max().item()
+    pairs = {w: flash_pairs(S, S, True, w) * B * H for w in (window, 0)}
+    # the function's work: 4 D float ops per kept pair; the sm90 kernel's
+    # tensor-core mix: q k^T (2 D) and p v twice (4 D) per kept pair
+    flops = {w: 4 * D * pairs[w] for w in (window, 0)}
+    mix = {w: 6 * D * pairs[w] for w in (window, 0)}
+    nbytes = 4 * 2 * B * H * S * D
+    rec = {
+        "sm90": record(names["sm90"], nbytes, 0, ms[window], wrap_ms,
+                       plain_ms, worst["sm90"], bw, ops=flops[window],
+                       rate=FLOAT_PEAK[torch.bfloat16]),
+        "simt": record(names["simt"], nbytes, 0, simt_ms[window], None,
+                       plain_ms, worst["simt"], bw, ops=flops[window],
+                       rate=FLOAT_PEAK[torch.bfloat16])}
+    for r in rec.values():
+        r["library_ms"] = lib_ms[window]
     emit({"phase": "kernel_time", "kernel": "flash_attention_fwd",
-          "library_ms": lib_ms, "library": "F.scaled_dot_product_attention"
-          " (boolean mask)", "library_vs_kernel_max_abs": sdpa_err,
-          "pairs": pairs * B * H, "flops": flops,
-          "tflops_achieved": flops / ms / 1e9,
-          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3,
-          "causal_no_window_ms": causal_ms,
-          "causal_no_window_library_ms": sdpa_ms(q, k, v, window=0,
-                                                 reps=10),
-          "shape": [B, H, S, D], "window": window})
-    return rec, launches
+          "shape": [B, H, S, D], "dtype": "bfloat16", "window": window,
+          "sm90_ms": ms[window], "simt_ms": simt_ms[window],
+          "library_ms": lib_ms[window],
+          "library": "F.scaled_dot_product_attention (boolean mask)",
+          "library_vs_sm90_max_abs": sdpa_err,
+          "pairs": pairs[window], "function_flops": flops[window],
+          "tensor_core_flops": mix[window],
+          "sm90_tflops_function": flops[window] / ms[window] / 1e9,
+          "sm90_tflops_mix": mix[window] / ms[window] / 1e9,
+          "simt_tflops_function": flops[window] / simt_ms[window] / 1e9,
+          "mix_bound_ms": mix[window] / FLOAT_PEAK[torch.bfloat16] * 1e3,
+          "causal_no_window": {
+              "sm90_ms": ms[0], "simt_ms": simt_ms[0],
+              "library_is_causal_ms": lib_ms[0],
+              "library_boolean_mask_ms": lib_mask_causal_ms,
+              "sm90_tflops_function": flops[0] / ms[0] / 1e9,
+              "sm90_tflops_mix": mix[0] / ms[0] / 1e9,
+              "bound_ms": flops[0] / FLOAT_PEAK[torch.bfloat16] * 1e3}})
+    launches = {names[r]: counted[names[r]] for r in names}
+    return {names[r]: rec[r] for r in names}, launches
 
 
 def keep_decode_logits(loop, kept):
@@ -1559,10 +1669,13 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     fault_procs = start_fault_builds()
-    secs = _build.build(verbose=True)
+    logs = {}
+    secs = _build.build(verbose=True, logs=logs)
     faults = finish_fault_builds(fault_procs)
     emit({"phase": "build", "seconds": secs,
           "flags": " ".join(_build.NVCC_FLAGS),
+          "flash_attention_sm90_ptxas": ptxas_usage(
+              logs.get("flash_attention_sm90", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -1580,8 +1693,9 @@ def main() -> int:
     launches["mlstm_chunkwise"] = check_serve()
     check_serve_cpu()
     rec["rglru_scan"] = check_rglru_kernel(bw, faults["rglru_scan"])
-    rec["flash_attention_fwd"], launches["flash_attention_fwd"] = \
-        check_flash_kernel(bw, faults["flash_attention"])
+    flash_rec, flash_launches = check_flash_kernel(bw, faults)
+    rec.update(flash_rec)
+    launches.update(flash_launches)
     launches["rglru_scan"] = check_serve_rg()
     check_serve_rg_cpu()
 

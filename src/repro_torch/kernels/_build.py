@@ -5,8 +5,10 @@ library with a plain C interface, loaded through ctypes: pointers and the
 stream go in as ``c_void_p``, sizes as ``c_int``, and every launcher
 returns the ``cudaError_t`` of its launch.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root (``build/`` is
-git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads from disk.  ``build()``
+git-ignored), named by a hash of the source, the ``csrc/`` headers it
+includes and the flags, so an edited source or header rebuilds and an
+unchanged one loads from disk.  nvcc gets ``-I csrc/``, so the copies that
+``start_variants`` writes elsewhere find the same headers.  ``build()``
 starts one ``nvcc`` per missing source, all at once, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: kernel sources, one shared library each
 SOURCES = ("pac_eval", "fused_step", "downtime_eval", "node_count",
            "fused_downtime", "latency_charge", "mlstm_chunk", "rglru_scan",
-           "flash_attention")
+           "flash_attention", "flash_attention_sm90")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -50,16 +53,46 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(text: bytes) -> list:
+    """The csrc/ headers that `text` includes with quotes, and theirs, in
+    the order first met."""
+    found, todo = [], [text]
+    while todo:
+        for inc in _INCLUDE.findall(todo.pop()):
+            path = CSRC / inc.decode()
+            if path.exists() and path not in found:
+                found.append(path)
+                todo.append(path.read_bytes())
+    return found
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src)
+    for header in local_headers(src):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES, *, verbose: bool = False) -> dict:
+def _nvcc(out, src, *, verbose=False):
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC)]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    return subprocess.Popen(cmd + ["-o", str(out), str(src)],
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
+def build(names=SOURCES, *, verbose: bool = False, logs=None) -> dict:
     """Compile every missing library of `names` in parallel.  Returns
     {name: seconds spent compiling it} (0.0 for one already on disk);
-    raises with nvcc's output if any compile fails."""
+    raises with nvcc's output if any compile fails.  With `verbose`, nvcc
+    runs with ``-Xptxas -v`` and its output is printed and, when `logs`
+    is a dict, kept there by name."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs, secs = {}, {}
     for name in names:
@@ -68,12 +101,7 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict:
             secs[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
+        procs[name] = (_nvcc(tmp, CSRC / f"{name}.cu", verbose=verbose),
                        tmp, out, time.monotonic())
     failed = []
     for name, (proc, tmp, out, t0) in procs.items():
@@ -84,6 +112,8 @@ def build(names=SOURCES, *, verbose: bool = False) -> dict:
             continue
         if verbose and log:
             print(log, end="")
+            if logs is not None:
+                logs[name] = log
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -126,9 +156,7 @@ def start_variants(name: str, faults: dict, out_dir: Path, *,
         cu = out_dir / f"{name}-{variant}.cu"
         so = out_dir / f"lib{name}-{variant}.so"
         cu.write_text(text)
-        procs[variant] = (subprocess.Popen(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(so), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
+        procs[variant] = (_nvcc(so, cu), so)
     return procs
 
 

@@ -1,6 +1,5 @@
 """Causal / sliding-window attention, forward: the CUDA kernel
-``flash_attention_fwd`` (csrc/flash_attention.cu) beside its plain
-PyTorch version.
+``flash_attention_fwd`` beside its plain PyTorch version.
 
 ``flash_attention_fwd`` replaces ``repro/kernels/flash_attention.py:
 flash_attention_fwd`` (Pallas body ``_flash_kernel``) and keeps that
@@ -14,17 +13,26 @@ kernel's semantics where they differ from the oracle
   (the kernel's max(l, 1e-30) guard; the oracle's softmax would average).
 
 It takes any Sq and Sk (the Pallas wrapper asserts that the blocks
-divide them).  Bound by operations at the recurrentgemma-9b local
-attention shape (B = 4, 16 heads, S = 3072, D = 256, window 2048, bf16):
-268.5 M kept (q, k) pairs at 4 D float ops each, 278 us at the bf16
-tensor-core peak; the kernel runs on the float32 CUDA cores.
-``flash_check`` holds it against the plain version.
+divide them).  Two CUDA sources compute it; ``_route`` picks one from the
+dtype and the head dims alone:
+
+* ``sm90`` (csrc/flash_attention_sm90.cu): bf16 with D == Dv in
+  ``SM90_HEAD_DIMS`` (the head dims of smollm, internlm2 and
+  recurrentgemma).  bf16 wgmma on TMA-fed tiles; the softmax weights p
+  stay float32 through a hi/lo split into two bf16 products.
+* ``simt`` (csrc/flash_attention.cu): float32, and every other D or Dv up
+  to 256.  Float32 on the CUDA cores.
+
+Bound by operations at the recurrentgemma-9b local attention shape (B =
+4, 16 heads, S = 3072, D = 256, window 2048, bf16): 268.5 M kept (q, k)
+pairs at 4 D float ops each, 278 us at the bf16 tensor-core peak.
+``flash_check`` holds both sources against the plain version.
 
 No model path calls it, as in the reference: the local attention of
 ``models/attention.py`` is the reference's own masked softmax.  Its entry
 point is ``ops.flash_attention``.  Dispatch follows the tensor: a CUDA
-tensor launches the kernel (or raises), a CPU tensor runs the plain
-version.  There is no fallback.
+tensor launches the kernel of its route (or raises), a CPU tensor runs
+the plain version.  There is no fallback.
 """
 from __future__ import annotations
 
@@ -37,9 +45,11 @@ import torch
 from . import _build
 
 NEG = -1e30
-#: the largest head dims the kernel takes (its accumulator is 16 columns
-#: per thread of a 16-wide grid)
+#: the largest head dims the simt kernel takes (its accumulator is 16
+#: columns per thread of a 16-wide grid)
 MAX_D = 256
+#: the head dims of the sm90 kernel (one template instantiation each)
+SM90_HEAD_DIMS = (64, 128, 256)
 
 
 def attention_mask(Sq: int, Sk: int, *, causal: bool, window: int,
@@ -60,6 +70,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     """The Pallas kernel's function, one dense masked softmax: q (B, H, Sq,
     D), k (B, H, Sk, D), v (B, H, Sk, Dv).  Computes in float32 (float64
     when q is float64) and returns (B, H, Sq, Dv) in q's type."""
+    flash_attention_plain.calls += 1
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     dt = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -74,12 +85,33 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
     return (torch.einsum("bhqk,bhkd->bhqd", p, vf) / den).to(q.dtype)
 
 
+#: calls since the last reset (the plain version must not run on the card)
+flash_attention_plain.calls = 0
+
+
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
+#: csrc/flash_attention.cu: flash_attention_launch
 _ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + \
     (ctypes.c_float,) + (ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+#: csrc/flash_attention_sm90.cu: flash_attention_sm90_launch
+_ARGTYPES_SM90 = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 4 + \
+    (ctypes.c_float,) + (ctypes.c_int,) * 2 + (ctypes.c_void_p,)
+#: route: (source, C symbol, argtypes)
+ROUTES = {"sm90": ("flash_attention_sm90", "flash_attention_sm90_launch",
+                   _ARGTYPES_SM90),
+          "simt": ("flash_attention", "flash_attention_launch", _ARGTYPES)}
+
+
+def _route(dtype, D: int, Dv: int) -> str:
+    """The CUDA source that computes attention on these inputs, from the
+    dtype and the head dims alone: "sm90" for bf16 with D == Dv in
+    ``SM90_HEAD_DIMS``, else "simt"."""
+    if dtype == torch.bfloat16 and D == Dv and D in SM90_HEAD_DIMS:
+        return "sm90"
+    return "simt"
 
 
 def _check(q, k, v):
@@ -101,9 +133,10 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
                         scale: Optional[float] = None):
     """q (B, H, Sq, D), k (B, H, Sk, D), v (B, H, Sk, Dv).  Returns
     (B, H, Sq, Dv) in q's type, as ``flash_attention_plain``.  CUDA tensors
-    (float32 or bfloat16, D and Dv <= 256) launch the kernel
-    (``flash_attention_fwd.launches`` counts the calls); CPU tensors run
-    the plain version."""
+    (float32 or bfloat16, D and Dv <= 256) launch the kernel of
+    ``_route`` (``flash_attention_fwd.launches`` counts all launches,
+    ``.sm90_launches`` and ``.simt_launches`` each route's); CPU tensors
+    run the plain version."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -111,18 +144,22 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
                          f"{q.device}")
-    launch = _build.function("flash_attention", "flash_attention_launch",
-                             _ARGTYPES)
+    route = _route(q.dtype, q.shape[3], v.shape[3])
+    launch = _build.function(*ROUTES[route])
     out = launch_with(launch, q, k, v, causal=causal, window=window,
-                      scale=scale)
+                      scale=scale, route=route)
     flash_attention_fwd.launches += 1
+    if route == "sm90":
+        flash_attention_fwd.sm90_launches += 1
+    else:
+        flash_attention_fwd.simt_launches += 1
     return out
 
 
-def launch_with(launch, q, k, v, *, causal, window, scale):
-    """Allocate the output and call `launch`, a ctypes function of
-    csrc/flash_attention.cu's C interface, on checked CUDA tensors; raises
-    on a launch error.  Counts nothing."""
+def launch_with(launch, q, k, v, *, causal, window, scale, route):
+    """Allocate the output and call `launch`, a ctypes function of the C
+    interface of `route`'s source (``ROUTES``), on checked CUDA tensors;
+    raises on a launch error.  Counts nothing."""
     B, H, Sq, D = q.shape
     Sk, Dv = k.shape[2], v.shape[3]
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -137,13 +174,30 @@ def launch_with(launch, q, k, v, *, causal, window, scale):
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     q, k, v = (t.contiguous() for t in (q, k, v))
     o = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "sm90":
+        if _route(q.dtype, D, Dv) != "sm90" or (Sq + 127) // 128 * B * H \
+                >= 2 ** 31:
+            raise ValueError(f"the sm90 kernel takes bf16 with D == Dv in "
+                             f"{SM90_HEAD_DIMS} and (Sq / 128) B H < 2^31; "
+                             f"got {q.dtype}, D={D}, Dv={Dv}, "
+                             f"{tuple(q.shape)}")
+        # TMA reads from 16-byte aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     B * H, Sq, Sk, D, scale, int(causal), int(window),
+                     stream)
+        _build.check(err, "flash_attention_fwd (sm90)")
+        return o
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B * H, Sq, Sk, D, Dv, scale, int(causal), int(window),
-                 int(q.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_fwd")
+                 int(q.dtype == torch.bfloat16), stream)
+    _build.check(err, "flash_attention_fwd (simt)")
     return o
 
 
-#: kernel launches since the last reset
+#: kernel launches since the last reset: all, and by route
 flash_attention_fwd.launches = 0
+flash_attention_fwd.sm90_launches = 0
+flash_attention_fwd.simt_launches = 0

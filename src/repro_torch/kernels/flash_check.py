@@ -15,13 +15,14 @@ version on float64 copies of the same inputs.
 
     PYTHONPATH=src python -m repro_torch.kernels.flash_check
 
-builds csrc/flash_attention.cu and copies of it with one planted fault
-each (the window one key too wide, the rescale of the accumulator by
-exp(m_old - m_new) dropped, the last k tile skipped) under ``build/``,
-runs every case of ``CASES`` through each on the card, and prints per
-variant and case the largest error over its allowance.  It exits 0 when
-the source passes every case and every fault fails at least one.  Needs
-nvcc and a card.
+builds both CUDA sources of the kernel (``flash_attention.ROUTES``) and
+copies of each with one planted fault (``FAULTS``: the window one key
+too wide, the rescale of the accumulator by exp(m_old - m_new) dropped,
+the last k tile skipped; and for the sm90 source p_lo dropped, so that
+p v multiplies by p rounded to bf16) under ``build/``, runs every case of
+``CASES`` through each on the card, and prints per variant and case the
+largest error over its allowance.  It exits 0 when each source passes
+every case and every fault fails at least one.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ CASES = (("local_3072", 3072, 2048, 1.0),
          ("ragged_3000", 3000, 2048, 1.0),
          ("spread_x30", 3072, 2048, 30.0))
 SHAPE = {"B": 4, "H": 16, "D": 256}
+#: cases that the simt route takes through the entry point (float32, and
+#: a head dim the sm90 kernel has no instantiation for), at the same B
+#: and H: (name, dtype, D, S, window, q scale)
+SIMT_CASES = (("f32_local_3072", torch.float32, 256, 3072, 2048, 1.0),
+              ("d32_ragged_3000", torch.bfloat16, 32, 3000, 2048, 1.0))
 
 #: float32 rounding allowed per unit of the scale above: 2^-16 (256
 #: units), as the scores sum D <= 256 products and the two row sums run
@@ -99,13 +105,28 @@ def flash_error(o, want, allowed) -> float:
     return (d / allowed.clamp_min(1e-300)).max().item()
 
 
-#: planted faults: (text of csrc/flash_attention.cu, its replacement)
+#: planted faults per source (csrc/<source>.cu): {fault: (text, its
+#: replacement)}, each text once in its source
 FAULTS = {
-    "window_off_by_one": ("ok = ok && kp > qp - window;",
-                          "ok = ok && kp >= qp - window;"),
-    "rescale_dropped": ("acc[i][c] *= al;", "acc[i][c] *= 1.f;"),
-    "last_tile_skipped": ("kt < kt1; ++kt", "kt < kt1 - 1; ++kt"),
+    "flash_attention": {
+        "window_off_by_one": ("ok = ok && kp > qp - window;",
+                              "ok = ok && kp >= qp - window;"),
+        "rescale_dropped": ("acc[i][c] *= al;", "acc[i][c] *= 1.f;"),
+        "last_tile_skipped": ("kt < kt1; ++kt", "kt < kt1 - 1; ++kt"),
+    },
+    "flash_attention_sm90": {
+        "window_off_by_one": ("ok = ok && kp > qp - window;",
+                              "ok = ok && kp >= qp - window;"),
+        "rescale_dropped": ("acc[j] *= (j & 2) ? al1 : al0;",
+                            "acc[j] *= 1.f;"),
+        "last_tile_skipped": ("const int nt = kt1 - kt0;",
+                              "const int nt = kt1 - kt0 - 1;"),
+        "p_lo_dropped": ("pa - __low2float(hi), pb - __high2float(hi)",
+                         "0.f, 0.f"),
+    },
 }
+#: each source's route (``flash_attention.ROUTES``)
+SOURCE_ROUTE = {"flash_attention": "simt", "flash_attention_sm90": "sm90"}
 
 
 def main() -> int:
@@ -114,31 +135,36 @@ def main() -> int:
         return 2
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    fns = _build.finish_variants(
-        _build.start_variants("flash_attention", FAULTS, out_dir),
-        "flash_attention_launch", fa._ARGTYPES)
+    procs = {src: _build.start_variants(src, faults, out_dir)
+             for src, faults in FAULTS.items()}
+    fns = {src: _build.finish_variants(
+        procs[src], *fa.ROUTES[SOURCE_ROUTE[src]][1:]) for src in FAULTS}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     B, H, D = SHAPE["B"], SHAPE["H"], SHAPE["D"]
-    caught = {name: [] for name in FAULTS}
+    caught = {src: {name: [] for name in faults}
+              for src, faults in FAULTS.items()}
     source_ok = True
     for case, S, window, q_scale in CASES:
         q, k, v = flash_inputs(gen, B, H, S, D, torch.bfloat16, q_scale)
         want, allowed = reference(q, k, v, causal=True, window=window)
-        for name, fn in fns.items():
-            o = fa.launch_with(fn, q, k, v, causal=True, window=window,
-                               scale=None)
-            err = flash_error(o, want, allowed)
-            ok = err <= 1.0
-            print(json.dumps({"variant": name, "case": case,
-                              "error_over_allowed": err, "ok": ok}),
-                  flush=True)
-            if name == "source":
-                source_ok &= ok
-            elif not ok:
-                caught[name].append(case)
-    missed = [name for name, cases in caught.items() if not cases]
-    print(json.dumps({"source_passes": source_ok, "caught_in": caught,
+        for src, variants in fns.items():
+            for name, fn in variants.items():
+                o = fa.launch_with(fn, q, k, v, causal=True, window=window,
+                                   scale=None, route=SOURCE_ROUTE[src])
+                err = flash_error(o, want, allowed)
+                ok = err <= 1.0
+                print(json.dumps({"source": src, "variant": name,
+                                  "case": case, "error_over_allowed": err,
+                                  "ok": ok}), flush=True)
+                if name == "source":
+                    source_ok &= ok
+                elif not ok:
+                    caught[src][name].append(case)
+        del q, k, v, want, allowed
+    missed = [f"{src}:{name}" for src, faults in caught.items()
+              for name, cases in faults.items() if not cases]
+    print(json.dumps({"sources_pass": source_ok, "caught_in": caught,
                       "missed": missed,
                       "gpu": torch.cuda.get_device_name(0)}), flush=True)
     return 0 if source_ok and not missed else 1

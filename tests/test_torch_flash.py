@@ -8,11 +8,15 @@ Pallas ``flash_attention`` in interpret mode and the oracle
 (Sq != Sk: the kernel's causal mask is left-aligned, the oracle's right-
 aligned; rows no key may attend: 0 against an average) the port follows
 the kernel; a ragged S, which the Pallas wrapper rejects; the wrapper's
-dispatch on the CPU; and the check the card holds the kernel to
-(``flash_check``): the plain version passes it against float64, a window
-one key too wide fails it.
+dispatch on the CPU and its choice of CUDA source (``_route``); and the
+check the card holds the kernel to (``flash_check``): the plain version
+passes it against float64, a window one key too wide fails it, p rounded
+to bf16 before p v fails it and the sm90 kernel's hi/lo split of p passes
+it; every planted fault's text occurs once in its source.
 
 Inputs come from numpy with a seed."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 
 from repro.kernels import ref as R
 from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as T
 from repro_torch.kernels import flash_check as FC
 from repro_torch.kernels import ops as TOPS
@@ -139,3 +144,102 @@ def test_rounding_check_passes_plain_and_catches_a_wide_window(case):
         wide = T.flash_attention_plain(q, k, v, causal=True,
                                        window=window + 1)
         assert FC.flash_error(wide, want, allowed) > 1.0
+
+
+@pytest.mark.parametrize("dtype,D,Dv,route", [
+    (torch.bfloat16, 64, 64, "sm90"), (torch.bfloat16, 128, 128, "sm90"),
+    (torch.bfloat16, 256, 256, "sm90"), (torch.float32, 256, 256, "simt"),
+    (torch.float32, 64, 64, "simt"), (torch.bfloat16, 32, 32, "simt"),
+    (torch.bfloat16, 96, 96, "simt"), (torch.bfloat16, 256, 128, "simt"),
+    (torch.bfloat16, 64, 32, "simt"), (torch.float16, 128, 128, "simt"),
+])
+def test_route_is_fixed_by_dtype_and_head_dims(dtype, D, Dv, route):
+    """bf16 with D == Dv in {64, 128, 256} goes to the sm90 source, every
+    other case to the simt one; each route names a source of csrc/."""
+    assert T._route(dtype, D, Dv) == route
+    source, symbol, _ = T.ROUTES[route]
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    assert f"int {symbol}(" in text
+
+
+@pytest.mark.parametrize("source,fault", [
+    (src, name) for src, faults in FC.FAULTS.items() for name in faults])
+def test_each_planted_fault_occurs_once_in_its_source(source, fault):
+    """``_build.start_variants`` plants a fault by replacing its text,
+    which must occur exactly once in the source (and not be a no-op)."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    old, new = FC.FAULTS[source][fault]
+    assert text.count(old) == 1 and old != new
+    assert FC.SOURCE_ROUTE[source] in T.ROUTES
+
+
+def _p_into_bf16(q, k, v, *, window, split):
+    """The sm90 kernel's arithmetic in plain torch over one tile: scores of
+    the bf16 q and k in float32 (each product exact), p = exp(s - m) and l
+    in float32, and p v with p entering as bf16: rounded (split False), or
+    p_hi + p_lo, two products into one float32 sum (split True)."""
+    mask = T.attention_mask(q.shape[2], k.shape[2], causal=True,
+                            window=window)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / \
+        math.sqrt(q.shape[-1])
+    s = torch.where(mask, s, T.NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    hi = p.bfloat16().float()
+    parts = [hi, (p - hi).bfloat16().float()] if split else [hi]
+    o = sum(torch.einsum("bhqk,bhkd->bhqd", t, v.float()) for t in parts)
+    return (o / l).bfloat16()
+
+
+@pytest.mark.parametrize("D", T.SM90_HEAD_DIMS)
+@pytest.mark.parametrize("case", [c for c in FC.CASES if c[3] == 1.0],
+                         ids=[c[0] for c in FC.CASES if c[3] == 1.0])
+def test_check_rejects_bf16_p_and_accepts_the_hi_lo_split(case, D):
+    """Why the sm90 kernel splits p: with the unchanged allowance, p
+    rounded to bf16 before p v fails (by about 10x), p_hi + p_lo passes,
+    at 512 positions (S / 6) and the cases' windows / 8."""
+    _, S, window, q_scale = case
+    gen = torch.Generator()
+    gen.manual_seed(15)
+    q, k, v = FC.flash_inputs(gen, 1, 2, S // 6, D, torch.bfloat16, q_scale)
+    want, allowed = FC.reference(q, k, v, causal=True, window=window // 8)
+    rounded = _p_into_bf16(q, k, v, window=window // 8, split=False)
+    split = _p_into_bf16(q, k, v, window=window // 8, split=True)
+    assert FC.flash_error(rounded, want, allowed) > 1.0
+    assert FC.flash_error(split, want, allowed) <= 1.0
+
+
+def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):
+    """An edited csrc/ header, or one it includes, renames the library, so
+    a stale build is never loaded; a header nobody includes does not."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <cuda.h>\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    assert _build.local_headers((tmp_path / "k.cu").read_bytes()) == [
+        tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build.library_path("k") != first
+
+
+def test_nvcc_finds_csrc_headers_from_any_directory(monkeypatch):
+    """Every compile, the planted-fault copies written under build/
+    included, passes -I csrc/; the sm90 source includes sm90.cuh."""
+    seen = []
+
+    class Proc:
+        def __init__(self, cmd, **kw):
+            seen.append(cmd)
+
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", Proc)
+    _build._nvcc("/elsewhere/lib.so", "/elsewhere/copy.cu")
+    cmd = seen[0]
+    assert cmd[cmd.index("-I") + 1] == str(_build.CSRC)
+    assert cmd[-1] == "/elsewhere/copy.cu"
+    sm90 = (_build.CSRC / "flash_attention_sm90.cu").read_bytes()
+    assert _build.local_headers(sm90) == [_build.CSRC / "sm90.cuh"]

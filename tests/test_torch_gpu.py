@@ -390,23 +390,34 @@ def test_cuda_rglru_scan_matches_plain(cuda, dtype, B, S, W, kind):
     (1, 2, 64, 192, 64, 32, True, 0),        # Sq < Sk: left-aligned
     (1, 1, 192, 64, 32, 32, True, 32),       # rows no key may attend
     (1, 2, 130, 130, 256, 256, False, 0),    # the full head dim, no mask
+    # bf16 of these takes the sm90 source
+    (1, 2, 200, 200, 128, 128, True, 48),    # ragged tiles, a window
+    (1, 2, 64, 300, 128, 128, True, 0),      # Sq < Sk: left-aligned
+    (1, 2, 300, 64, 256, 256, True, 32),     # rows no key may attend
+    (2, 2, 333, 333, 256, 256, True, 100),   # ragged q and k tiles
+    (1, 2, 700, 700, 64, 64, False, 300),    # a window, not causal
+    (1, 1, 1, 1, 64, 64, True, 0),           # one position
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, B, H, Sq, Sk, D, Dv,
                                             causal, window):
     """Tolerance: every element within ``flash_check``'s allowance of the
     plain version on float64 copies (2^-16 of the same sums over absolute
     values, plus 2^-7 |o| for bf16's rounding); rows no key may attend
-    give 0; a second launch is bitwise the first."""
+    give 0; a second launch is bitwise the first; the launch went to the
+    source that ``_route`` names for the dtype and head dims."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(Sq + Sk + D)
     q = torch.randn((B, H, Sq, D), generator=gen, device=cuda).to(dtype)
     k = torch.randn((B, H, Sk, D), generator=gen, device=cuda).to(dtype)
     v = torch.randn((B, H, Sk, Dv), generator=gen, device=cuda).to(dtype)
-    before = flash_attention.flash_attention_fwd.launches
-    o = flash_attention.flash_attention_fwd(q, k, v, causal=causal,
-                                            window=window)
+    fwd = flash_attention.flash_attention_fwd
+    route = flash_attention._route(dtype, D, Dv)
+    counts = (fwd.launches, fwd.sm90_launches, fwd.simt_launches)
+    o = fwd(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.flash_attention_fwd.launches == before + 1
+    assert (fwd.launches, fwd.sm90_launches, fwd.simt_launches) == (
+        counts[0] + 1, counts[1] + (route == "sm90"),
+        counts[2] + (route == "simt"))
     assert o.dtype == dtype and o.shape == (B, H, Sq, Dv)
     want, allowed = flash_check.reference(q, k, v, causal=causal,
                                           window=window)
