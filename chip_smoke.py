@@ -13,11 +13,13 @@ One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
 2. ``build``: nvcc for sm_90a, one process per source, all at once, and
-   their seconds, and the registers and spill bytes of each head dim of
-   ``flash_attention_sm90.cu``; beside them, at the same time, the copies
-   of ``rglru_scan.cu``, ``flash_attention.cu`` and
-   ``flash_attention_sm90.cu`` with one planted fault each
-   (``rglru_check.FAULTS``, ``flash_check.FAULTS``).
+   their seconds, and the registers, spill bytes and serialized-wgmma
+   flag of each instantiation of ``flash_attention_sm90.cu`` (per head
+   dim) and ``mlstm_chunk_sm90.cu`` (per kernel and Dv block); beside
+   them, at the same time, the copies of ``rglru_scan.cu``, both flash
+   sources and both mLSTM sources with one planted fault each
+   (``rglru_check.FAULTS``, ``flash_check.FAULTS``,
+   ``mlstm_check.FAULTS``).
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
@@ -55,24 +57,31 @@ One JSON line per phase:
    BENCH_shootout.json (downtime, hermes, spinnaker), rebuilt on cuda,
    packed and unpacked, byte for byte.
 11. ``mlstm`` / ``kernel_time``: ``mlstm_chunkwise`` against
-   ``mlstm_chunkwise_plain`` on the card at the xlstm-350m serve shape
-   (B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256) in bf16 and f32,
-   a ragged S = 1000, a carried-in state, and gates that make the
+   ``mlstm_chunkwise_plain`` on both CUDA sources at the xlstm-350m serve
+   shape (B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256) in bf16 and
+   f32, a ragged S = 1000, a carried-in state, and gates that make the
    stabilizer matter (log_f near 0, log_i over +-10): h and the final
    (C, n, m), element by element within what float32 rounding allows
-   (``repro_torch.kernels.mlstm_check``); then its time.
+   (``repro_torch.kernels.mlstm_check``), and a bitwise repeat.  The
+   entry point takes the bf16 cases on the sm90 source
+   (``mlstm_chunk_sm90.cu``) and the f32 case on the simt source
+   (``mlstm_chunk.cu``), each route's launches counted; the simt source
+   also runs the bf16 cases by its launcher; each planted fault of each
+   source must fail a case.  Then both sources' times, and each kernel of
+   the sm90 source on its own.
 12. ``serve``: xlstm-350m at full width (24 layers, d_model 1024, vocab
    50304, bf16, random weights from seed 0) serves 4 prompts of 1024
    tokens from ``SyntheticLMData`` through ``ServeLoop``: 32 tokens with
    a session checkpoint every 8 into a ``LarkSessionStore`` (4 nodes,
    rf 2), ``fail_server(0)``, 8 more from the store; the resumed tokens
    must equal an uninterrupted 40-token run bitwise, every logit must be
-   finite, and ``mlstm_chunkwise`` must launch 21 times per prefill
-   with the plain version never run.  Prints prefill and decode tokens/s
+   finite, and ``mlstm_chunkwise`` must launch 21 times per prefill on
+   the sm90 route, never on the simt route, with the plain version
+   never run.  Prints prefill and decode tokens/s
    (one of each warms up first).
-13. ``serve_cpu``: the reduced xlstm config through the same path on the
-   CPU (plain) and on the card (kernel): prefill logits within a stated
-   tolerance, and equal tokens.
+13. ``serve_cpu``: the reduced xlstm config (float32: the simt route)
+   through the same path on the CPU (plain) and on the card (kernel):
+   prefill logits within a stated tolerance, and equal tokens.
 14. ``rglru`` / ``kernel_time``: ``rglru_scan`` against
    ``rglru_scan_plain`` on the card at the recurrentgemma-9b serve shape
    (B = 4, S = 3072, W = 4096), a ragged S = 3000 with W = 4000, the
@@ -182,6 +191,9 @@ SOURCES = {
                        "src/repro/kernels/pac_eval.py:263"),
     "mlstm_chunkwise": ("src/repro_torch/kernels/csrc/mlstm_chunk.cu",
                         "src/repro/kernels/mlstm_chunk.py:22"),
+    "mlstm_chunkwise_sm90": (
+        "src/repro_torch/kernels/csrc/mlstm_chunk_sm90.cu",
+        "src/repro/kernels/mlstm_chunk.py:22"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:20"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -200,12 +212,14 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
 #: the recurrentgemma serve phase: 4 prompts of 3072 tokens (past the
 #: 2048-token window, under mha's dense limit), then as above
 RG_PROMPT = 3072
-#: the sources whose planted faults the rglru and flash phases run:
-#: (faults, C symbol, argtypes)
+#: the sources whose planted faults the mlstm, rglru and flash phases
+#: run: (faults, C symbol, argtypes)
 FAULT_SOURCES = {"rglru_scan": (rc.FAULTS, "rglru_scan_launch",
                                 rk._ARGTYPES),
                  **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
-                    for src, faults in fc.FAULTS.items()}}
+                    for src, faults in fc.FAULTS.items()},
+                 **{src: (faults, *mk.ROUTES[mc.SOURCE_ROUTE[src]][1:])
+                    for src, faults in mc.FAULTS.items()}}
 
 
 def emit(obj):
@@ -655,7 +669,8 @@ def counters():
             "node_count": (pk.node_count, "launches"),
             "fused_downtime_eval": (fk.fused_downtime_eval, "launches"),
             "latency_charge": (pk.latency_charge, "launches"),
-            "mlstm_chunkwise": (mk.mlstm_chunkwise, "launches"),
+            "mlstm_chunkwise": (mk.mlstm_chunkwise, "simt_launches"),
+            "mlstm_chunkwise_sm90": (mk.mlstm_chunkwise, "sm90_launches"),
             "mlstm_chunkwise_plain": (mk.mlstm_chunkwise_plain, "calls"),
             "rglru_scan": (rk.rglru_scan, "launches"),
             "rglru_scan_plain": (rk.rglru_scan_plain, "calls"),
@@ -997,73 +1012,143 @@ def mlstm_bytes(B, H, S, Dq, Dv, dtype, initial=False):
         state * (2 if initial else 1)
 
 
-def check_mlstm_kernel(bw):
-    """Phase 11: mlstm_chunkwise against its plain version on the card,
-    then its time at the serve shape.  Each output is held element by
-    element against the scale of its own float32 rounding (the same sums
-    over absolute values, ``mlstm_check.mlstm_rounding_scale``): h within
+def mlstm_sm90_mix(B, H, S, Dq, Dv, chunk) -> int:
+    """Tensor-core float ops that csrc/mlstm_chunk_sm90.cu issues at these
+    shapes without an initial state, S a multiple of the chunk: the
+    states kernel's (wv k)^T v over every position and q C_c for every
+    chunk after the first, each split in two; per 64-row warpgroup of a
+    chunk, q k^T (once per Dv block) and the split W v over its key tiles
+    up to the diagonal."""
+    nC, n = S // chunk, chunk // 64
+    nv = 256 if Dv % 256 == 0 else 128 if Dv % 128 == 0 else 64
+    tiles = n * (n + 1) // 2
+    per_chunk = tiles * 64 * 64 * 2 * (Dq * (Dv // nv) + 2 * Dv)
+    return B * H * (4 * nC * chunk * Dq * Dv + 4 * (nC - 1) * chunk * Dq *
+                    Dv + nC * per_chunk)
+
+
+def check_mlstm_kernel(bw, faults):
+    """Phase 11: mlstm_chunkwise through its entry point against its plain
+    version on the card, on both sources, their planted faults, then their
+    times at the serve shape.  Each output is held element by element
+    against the scale of its own float32 rounding (the same sums over
+    absolute values, ``mlstm_check.mlstm_rounding_scale``): h within
     2^-16 of it plus 2^-7 of |h| for one rounding of h to bf16; C, n, m
-    within 2^-12 (their carry weights are exp of gate sums ~10^2)."""
+    within 2^-12 (their carry weights are exp of gate sums ~10^2).
+    Returns the timing records by the kernels line's names."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(14)
     B, H, S, D, L = SERVE_BATCH, 4, SERVE_PROMPT, 512, 256
-    worst = 0.0
-    for name, dtype, s, initial, stress in mc.CASES:
-        args, init = mc.mlstm_inputs(gen, B, H, s, D, D, dtype,
-                                     stress=stress, initial=initial)
-        h, state = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
-        torch.cuda.synchronize()
-        (want_h, want_state), scales = mc.reference(args, L, init)
+    names = {"sm90": "mlstm_chunkwise_sm90", "simt": "mlstm_chunkwise"}
+    worst = {"sm90": 0.0, "simt": 0.0}
+    caught = {src: {name: [] for name in mc.FAULTS[src]} for src in mc.FAULTS}
+    simt_fn = _build.function(*mk.ROUTES["simt"])
+
+    def held(name, route, dtype, s, h, state, same, want, scales, **extra):
+        want_h, want_state = want
         errs = mc.mlstm_errors(h, state, want_h, want_state, scales)
         ok = h.dtype == dtype and h.shape == want_h.shape and \
             all(e <= 1.0 for e in errs.values())
-        h2, state2 = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
-        same = torch.equal(h, h2) and all(
-            torch.equal(a, b) for a, b in zip(state, state2))
         abs_err = {"h": mlstm_abs_err(h, want_h.to(dtype))}
         abs_err.update({n: mlstm_abs_err(g, w)
                         for n, g, w in zip("Cnm", state, want_state)})
-        worst = max(worst, abs_err["h"])
+        worst[route] = max(worst[route], abs_err["h"])
         emit({"phase": "kernel", "kernel": "mlstm_chunkwise", "case": name,
+              "route": route, "source": SOURCES[names[route]][0],
               "dtype": str(dtype), "S": s, "within_rounding": ok,
               "deterministic": same, "errors_over_allowed": errs,
               "gamma": mc.GAMMA, "out_step": mc.OUT_STEP[dtype],
-              "max_abs_err": abs_err})
+              "max_abs_err": abs_err, **extra})
         if not (ok and same):
-            raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
-                             f"version ({name}): {errs}")
+            raise SystemExit(f"mlstm_chunkwise ({route}) disagrees with its "
+                             f"plain version ({name}): {errs}")
+
+    for name, dtype, s, initial, stress in mc.CASES:
+        args, init = mc.mlstm_inputs(gen, B, H, s, D, D, dtype,
+                                     stress=stress, initial=initial)
+        route = mk._route(dtype, D, D, L)
+        reset_counts()
+        h, state = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
+        torch.cuda.synchronize()
+        h2, state2 = mk.mlstm_chunkwise(*args, chunk=L, initial=init)
+        same = torch.equal(h, h2) and all(
+            torch.equal(a, b) for a, b in zip(state, state2))
+        got = read_counts((*names.values(), "mlstm_chunkwise_plain"))
+        if got[names[route]] != 2 or sum(got.values()) != 2:
+            raise SystemExit(f"mlstm: the entry point took the wrong route "
+                             f"({route} expected): {got}")
+        want, scales = mc.reference(args, L, init)
+        fault_errs = {}
+        for src in mc.FAULTS:
+            if not mc.takes(src, dtype):
+                continue
+            for fname, fn in faults[src].items():
+                fh, fstate = mk.launch_with(fn, *args, L, init,
+                                            route=mc.SOURCE_ROUTE[src])
+                errs = mc.mlstm_errors(fh, fstate, *want, scales)
+                fault_errs[f"{src}:{fname}"] = max(errs.values())
+                if not all(e <= 1.0 for e in errs.values()):
+                    caught[src][fname].append(name)
+        held(name, route, dtype, s, h, state, same, want, scales,
+             by="entry point", faults_error_over_allowed=fault_errs)
+        if route == "sm90":
+            # the simt source on the same case, by its launcher
+            h, state = mk.launch_with(simt_fn, *args, L, init)
+            torch.cuda.synchronize()
+            h2, state2 = mk.launch_with(simt_fn, *args, L, init)
+            same = torch.equal(h, h2) and all(
+                torch.equal(a, b) for a, b in zip(state, state2))
+            held(name, "simt", dtype, s, h, state, same, want, scales,
+                 by="launcher")
+        del args, init, h, state, h2, state2, want, scales
+    for src in mc.FAULTS:
+        held_faults(f"mlstm_chunkwise ({src}.cu)", caught[src])
+
+    # times at the serve shape: both sources' raw launchers, in turns, and
+    # each kernel of the sm90 source alone (on the scratch a full launch
+    # left)
     (q, k, v, lf, li), _ = mc.mlstm_inputs(gen, B, H, S, D, D,
                                            torch.bfloat16)
-    libfn = _build.function("mlstm_chunk", "mlstm_chunk_launch",
-                            mk._ARGTYPES)
-    nC, Lp, BH = S // L, L, B * H
-    outs = [torch.empty((B, H, S, D), dtype=torch.bfloat16, device=dev)] + \
-        [torch.empty(sh, device=dev) for sh in
-         ((B, H, D, D), (B, H, D), (B, H), (BH, S), (BH, S), (BH, S),
-          (BH, nC + 1), (BH * nC, Lp, Lp))]
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def raw():
-        libfn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
-              li.data_ptr(), None, None, None,
-              *[t.data_ptr() for t in outs], BH, S, D, D, L, 1, stream)
-
-    ms = time_ms(raw, 20)
+    sm90_fn = _build.function(*mk.ROUTES["sm90"])
+    a90, _, keep90 = mk.launch_args(q, k, v, lf, li, L, None, route="sm90")
+    asimt, _, keepsimt = mk.launch_args(q, k, v, lf, li, L, None)
+    simt_ms = time_ms(lambda: simt_fn(*asimt), 10)
+    ms = time_ms(lambda: sm90_fn(*a90), 50)
+    parts_ms = {part: time_ms(lambda: sm90_fn(*a90[:-2], bit, a90[-1]), 50)
+                for part, bit in mk.PARTS.items()}
+    ms_again = time_ms(lambda: sm90_fn(*a90), 50)
+    simt_ms_again = time_ms(lambda: simt_fn(*asimt), 10)
     wrap_ms = time_ms(lambda: mk.mlstm_chunkwise(q, k, v, lf, li, chunk=L),
-                      20)
+                      50)
     plain_ms = time_ms(lambda: mk.mlstm_chunkwise_plain(q, k, v, lf, li,
                                                         chunk=L), 5)
     flops = mlstm_flops(B, H, S, D, D, L)
-    rec = record("mlstm_chunkwise", mlstm_bytes(B, H, S, D, D,
-                                                torch.bfloat16),
-                 0, ms, wrap_ms, plain_ms, worst, bw, ops=flops,
-                 rate=FLOAT_PEAK[torch.bfloat16])
+    mix = mlstm_sm90_mix(B, H, S, D, D, L)
+    nbytes = mlstm_bytes(B, H, S, D, D, torch.bfloat16)
+    rec = {route: record(names[route], nbytes, 0, t, wt, plain_ms,
+                         worst[route], bw, ops=flops,
+                         rate=FLOAT_PEAK[torch.bfloat16])
+           for route, t, wt in (("sm90", ms, wrap_ms),
+                                ("simt", simt_ms, None))}
+    # the C_c hi and lo (BH, nC - 1 chunks, Dq, Dv) the states kernel
+    # writes and the output kernel reads, and the n_c
+    scratch_bytes = 2 * 2 * B * H * (S // L - 1) * D * D + \
+        4 * B * H * (S // L) * D
     emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise",
-          "flops": flops, "tflops_achieved": flops / ms / 1e9,
-          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3,
-          "shape": [B, H, S, D, D, L]})
-    return rec
+          "shape": [B, H, S, D, D, L], "dtype": "bfloat16",
+          "sm90_ms": ms, "sm90_ms_again": ms_again,
+          "sm90_parts_ms": parts_ms, "simt_ms": simt_ms,
+          "simt_ms_again": simt_ms_again, "wrapper_ms": wrap_ms,
+          "plain_ms": plain_ms, "flops": flops, "tensor_core_flops": mix,
+          "sm90_tflops_function": flops / ms / 1e9,
+          "sm90_tflops_mix": mix / ms / 1e9,
+          "simt_tflops_function": flops / simt_ms / 1e9,
+          "mix_bound_ms": mix / FLOAT_PEAK[torch.bfloat16] * 1e3,
+          "chunk_state_bytes": scratch_bytes,
+          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3})
+    del keep90, keepsimt
+    return {names[route]: r for route, r in rec.items()}
 
 
 def watch_logits(loop, finite):
@@ -1132,7 +1217,8 @@ def check_serve():
     finite = []
     watch_logits(loop, finite)
     watch_logits(whole, finite)
-    names = ("mlstm_chunkwise", "mlstm_chunkwise_plain")
+    names = ("mlstm_chunkwise_sm90", "mlstm_chunkwise",
+             "mlstm_chunkwise_plain")
     reset_counts()
     t0 = time.monotonic()
     toks = loop.generate(batch, steps=SERVE_GEN, session_id="req-0")
@@ -1154,9 +1240,11 @@ def check_serve():
         "resume_equals_uninterrupted": resumed is not None and
         np.array_equal(resumed, uninterrupted),
         "logits_finite": all_finite,
-        "launches_per_prefill": first["mlstm_chunkwise"] == n_layers_mlstm
-        and after_resume["mlstm_chunkwise"] == n_layers_mlstm
-        and launches["mlstm_chunkwise"] == 2 * n_layers_mlstm,
+        "launches_per_prefill":
+        first["mlstm_chunkwise_sm90"] == n_layers_mlstm
+        and after_resume["mlstm_chunkwise_sm90"] == n_layers_mlstm
+        and launches["mlstm_chunkwise_sm90"] == 2 * n_layers_mlstm,
+        "simt_never_ran": launches["mlstm_chunkwise"] == 0,
         "plain_never_ran": launches["mlstm_chunkwise_plain"] == 0}
     emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
@@ -1172,14 +1260,15 @@ def check_serve():
           "wall_s": time.monotonic() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"the serve phase failed: {checks}")
-    return launches["mlstm_chunkwise"]
+    return launches["mlstm_chunkwise_sm90"]
 
 
 def check_serve_cpu():
     """Phase 13: the reduced xlstm config on the CPU (plain) and on the
     card (kernel).  Logit tolerance: rtol 1e-3 and atol 1e-3 of the
     largest logit (float32 on both sides; each of the 8 layers amplifies
-    an input difference, as tests/test_torch_xlstm.py measures)."""
+    an input difference, as tests/test_torch_xlstm.py measures).  Returns
+    the simt route's launches over the phase (the config is float32)."""
     cfg = reduced_config("xlstm_350m")
     model = build_model(cfg)
     gen = torch.Generator()
@@ -1188,11 +1277,11 @@ def check_serve_cpu():
     gpu_params = tree_map(lambda t: t.to(DEVICE), params)
     prompt = SyntheticLMData(cfg, 2, 300).batch_at(0)["tokens"]
     tok = torch.from_numpy(prompt)
+    reset_counts()
     with torch.no_grad():
         lc, _ = model["prefill"](params, {"tokens": tok})
-        before = mk.mlstm_chunkwise.launches
         lg, _ = model["prefill"](gpu_params, {"tokens": tok.to(DEVICE)})
-        launched = mk.mlstm_chunkwise.launches - before
+        launched = mk.mlstm_chunkwise.simt_launches
     scale = max(1.0, lc.abs().max().item())
     close = torch.allclose(lg.cpu(), lc, atol=1e-3 * scale, rtol=1e-3)
     got = ServeLoop(cfg, params, device=DEVICE).generate(
@@ -1200,12 +1289,16 @@ def check_serve_cpu():
     want = ServeLoop(cfg, params, device="cpu").generate(
         {"tokens": prompt}, steps=8)
     same = np.array_equal(got, want)
+    counts = read_counts(("mlstm_chunkwise", "mlstm_chunkwise_sm90",
+                          "mlstm_chunkwise_plain"))
     emit({"phase": "serve_cpu", "prompt_len": 300, "logits_close": close,
           "max_abs_err": mlstm_abs_err(lg.cpu(), lc), "tokens_equal": same,
-          "kernel_launches": launched})
-    if not (close and same and launched == 7):
+          "kernel_launches": launched, "launches": counts})
+    if not (close and same and launched == 7 and
+            counts["mlstm_chunkwise_sm90"] == 0):
         raise SystemExit("the reduced serve path on cuda disagrees with "
                          "the cpu run")
+    return counts["mlstm_chunkwise"]
 
 
 # ---------------------------------------------------------------------------
@@ -1213,8 +1306,8 @@ def check_serve_cpu():
 # ---------------------------------------------------------------------------
 
 def start_fault_builds():
-    """nvcc on each planted-fault copy of the rglru and flash sources,
-    started now and awaited by ``finish_fault_builds``."""
+    """nvcc on each planted-fault copy of the mlstm, rglru and flash
+    sources, started now and awaited by ``finish_fault_builds``."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     return {name: _build.start_variants(name, faults, out_dir,
@@ -1314,17 +1407,32 @@ def sdpa_ms(q, k, v, *, window, reps):
     return time_ms(lambda: sdpa(q, k, v, attn_mask=mask), reps)
 
 
+#: the instantiations whose registers the build phase reports: the
+#: mangled name's kernel and template argument, to a label
+PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
+                "mlstm_output_kernel": "output_NV"}
+
+
 def ptxas_usage(log: str) -> dict:
-    """Per head dim of flash_attention_sm90.cu, from ``-Xptxas -v``: the
-    registers a thread gets at launch (setmaxnreg then gives the consumer
-    warpgroups 240), the spill bytes and the stack frame, and whether
-    ptxas serialized the kernel's wgmma for want of registers."""
+    """Per template instantiation of a source, from ``-Xptxas -v``: the
+    registers a thread gets, the spill bytes and the stack frame, and
+    whether ptxas serialized the kernel's wgmma (its "wgmma.mma_async
+    instructions are serialized" notes, C7510-C7520: for want of
+    registers, or an accumulator live across divergent paths).  Labels:
+    ``PTXAS_LABELS`` and the template argument (``D256``,
+    ``states_NV256``)."""
+    def label(text):
+        for kernel, tag in PTXAS_LABELS.items():
+            m = re.search(kernel + r"ILi(\d+)E", text)
+            if m:
+                return tag + m.group(1)
+        return None
+
     usage, head = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+?)'", line)
         if m:
-            d = re.search(r"kernelILi(\d+)E", m.group(1))
-            head = f"D{d.group(1)}" if d else None
+            head = label(m.group(1))
             if head:
                 usage[head] = {"wgmma_serialized": False}
             continue
@@ -1338,10 +1446,10 @@ def ptxas_usage(log: str) -> dict:
         if m and head:
             usage[head]["registers"] = int(m.group(1))
     for line in log.splitlines():
-        if "C7512" in line:
-            d = re.search(r"kernelILi(\d+)E", line)
-            if d and f"D{d.group(1)}" in usage:
-                usage[f"D{d.group(1)}"]["wgmma_serialized"] = True
+        if "wgmma.mma_async instructions are serialized" in line:
+            key = label(line)
+            if key in usage:
+                usage[key]["wgmma_serialized"] = True
     return usage
 
 
@@ -1676,6 +1784,8 @@ def main() -> int:
           "flags": " ".join(_build.NVCC_FLAGS),
           "flash_attention_sm90_ptxas": ptxas_usage(
               logs.get("flash_attention_sm90", "")),
+          "mlstm_chunk_sm90_ptxas": ptxas_usage(
+              logs.get("mlstm_chunk_sm90", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -1689,9 +1799,9 @@ def main() -> int:
     launches["latency_charge"] = check_latency_engine()["latency_charge"]
     check_zoo_engine()
     check_zoo_bench_rows()
-    rec["mlstm_chunkwise"] = check_mlstm_kernel(bw)
-    launches["mlstm_chunkwise"] = check_serve()
-    check_serve_cpu()
+    rec.update(check_mlstm_kernel(bw, faults))
+    launches["mlstm_chunkwise_sm90"] = check_serve()
+    launches["mlstm_chunkwise"] = check_serve_cpu()
     rec["rglru_scan"] = check_rglru_kernel(bw, faults["rglru_scan"])
     flash_rec, flash_launches = check_flash_kernel(bw, faults)
     rec.update(flash_rec)

@@ -1,8 +1,9 @@
 // sm90.cuh — the Hopper (sm_90a) building blocks of the hand-written
 // kernels: mbarriers, TMA tile loads through tensor maps, wgmma shared-
 // memory descriptors for 128-byte-swizzled tiles, bf16 wgmma with float32
-// accumulators (A from shared memory or from registers), and the
-// host-side encoding of a tensor map.
+// accumulators (A from shared memory or from registers, B K-major or
+// MN-major), transposed ldmatrix, and the host-side encoding of a tensor
+// map.
 //
 // Everything is inline PTX or a plain C++ inline function: the including
 // source stays a plain C interface built by nvcc alone (no PyTorch
@@ -291,6 +292,58 @@ __device__ __forceinline__ void wgmma_m64k16_rs_tb<256>(float* d,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (64 x N, float32) += A B for N in {64, 128, 256}: A 64 x 16 bf16 in
+// shared memory, K-major (as wgmma_m64n64k16_ss's), B 16 x N (K x N) bf16
+// in shared memory, MN-major (the transpose bit, as wgmma_m64k16_rs_tb's).
+// d in the layout above.
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_ss_tb(float* d, uint64_t da,
+                                                   uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_tb<64>(float* d, uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
+      ", %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_OUT32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_tb<128>(float* d,
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64
+      ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_tb<256>(float* d,
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
+      ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_OUT128(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 #undef SM90_ACC32
 #undef SM90_OUT32
 #undef SM90_ACC64
@@ -302,6 +355,26 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
   uint32_t u;
   memcpy(&u, &h, sizeof(u));
   return u;
+}
+
+__device__ __forceinline__ __nv_bfloat162 bits_bf16x2(uint32_t u) {
+  __nv_bfloat162 h;
+  memcpy(&h, &u, sizeof(h));
+  return h;
+}
+
+// four 8 x 8 bf16 matrices from shared memory, transposed: lane i gives
+// the address of row i % 8 of matrix i / 8 (16 bytes), and r[m] receives
+// matrix m's elements (2 (lane % 4), lane / 4) and (2 (lane % 4) + 1,
+// lane / 4), the first in the low half
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -12,13 +12,17 @@ term stands out; where it cancels the scale grows with it.
 
     PYTHONPATH=src python -m repro_torch.kernels.mlstm_check
 
-builds csrc/mlstm_chunk.cu and copies of it with one planted fault each
-(a dropped or 1 % wrong carry term, the diagonal masked out, one
-64-column slice of v shifted, ...) into a temporary directory, runs every
-case of ``CASES`` through each on the card, and prints per fault and case
-the largest error over what rounding allows, beside the verdict of a
-tolerance scaled by the largest |h|.  It exits 0 when the source passes
-every case and every fault fails at least one.  Needs nvcc and a card.
+builds both CUDA sources of the kernel (``mlstm_chunk.ROUTES``) and
+copies of each with one planted fault (``FAULTS``: a dropped or 1 % wrong
+carry term, the diagonal masked out, one 64-column slice of v shifted;
+for the sm90 source also the lo half of each hi/lo split dropped, and the
+previous chunk's state read in place of the chunk's own) into a
+temporary directory, runs every case of ``CASES`` through each by its
+launcher (the float32 case on the simt source alone: the sm90 route
+takes bf16 only), and prints per source, variant and case the largest
+error over what rounding allows, beside the verdict of a tolerance scaled
+by the largest |h|.  It exits 0 when each source passes every case it
+takes and every fault fails at least one.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -203,28 +207,57 @@ def max_scaled_ok(h, state, want_h, want_state) -> bool:
         and all(close(g, w, 1e-4, 1e-3) for g, w in zip(state, want_state))
 
 
-#: planted faults: (text of csrc/mlstm_chunk.cu, its replacement); each
-#: text occurs once in the source
+#: planted faults per source (csrc/<source>.cu): {fault: (text, its
+#: replacement)}, each text once in its source
 FAULTS = {
-    "carry_dropped": ("acc[i][j] *= w;", "acc[i][j] *= 0.f;"),
-    "carry_weight_1pct": ("expf(mprev - Mt[grow + t]) : 0.f;",
-                          "expf(mprev - Mt[grow + t]) * 1.01f : 0.f;"),
-    "den_carry_dropped": ("rden[tid] = wc * (qn * scale);",
-                          "rden[tid] = 0.f * (qn * scale);"),
-    "diagonal_masked": ("if (treal && s <= t)", "if (treal && s < t)"),
-    "v_slice_shifted": ("p = cb + s, j = j0 + cc;",
-                        "p = cb + s, j = j0 + cc + (jt == 3 ? kTile : 0);"),
-    "decay_1pct": ("const float decay = expf(mprev - ML);",
-                   "const float decay = expf(mprev - ML) * 1.01f;"),
+    "mlstm_chunk": {
+        "carry_dropped": ("acc[i][j] *= w;", "acc[i][j] *= 0.f;"),
+        "carry_weight_1pct": ("expf(mprev - Mt[grow + t]) : 0.f;",
+                              "expf(mprev - Mt[grow + t]) * 1.01f : 0.f;"),
+        "den_carry_dropped": ("rden[tid] = wc * (qn * scale);",
+                              "rden[tid] = 0.f * (qn * scale);"),
+        "diagonal_masked": ("if (treal && s <= t)", "if (treal && s < t)"),
+        "v_slice_shifted": (
+            "p = cb + s, j = j0 + cc;",
+            "p = cb + s, j = j0 + cc + (jt == 3 ? kTile : 0);"),
+        "decay_1pct": ("const float decay = expf(mprev - ML);",
+                       "const float decay = expf(mprev - ML) * 1.01f;"),
+    },
+    "mlstm_chunk_sm90": {
+        "w_lo_dropped": ("wa - __low2float(whi), wb - __high2float(whi)",
+                         "0.f, 0.f"),
+        "c_lo_dropped": ("a - __low2float(chi), b - __high2float(chi)",
+                         "0.f, 0.f"),
+        "wk_lo_dropped": ("xa - __low2float(khi), xb - __high2float(khi)",
+                          "0.f, 0.f"),
+        "previous_chunk_state": ("64 * (i >> 1), cslot);",
+                                 "64 * (i >> 1), cslot - (c > 1));"),
+        "diagonal_masked": ("if (!diag || key <= row)",
+                            "if (!diag || key < row)"),
+        "decay_1pct": ("const float decay = expf(mprev - ML);",
+                       "const float decay = expf(mprev - ML) * 1.01f;"),
+        "carry_dropped": ("acc[jj] *= (jj & 2) ? f1 : f0;",
+                          "acc[jj] *= 0.f;"),
+    },
 }
+#: each source's route (``mlstm_chunk.ROUTES``)
+SOURCE_ROUTE = {"mlstm_chunk": "simt", "mlstm_chunk_sm90": "sm90"}
 
 
 def build_variants(out_dir: Path) -> dict:
-    """Compile the source and one copy per fault, all at once, into
-    `out_dir`; returns {name: ctypes launcher} ("source" unchanged)."""
-    return _build.finish_variants(
-        _build.start_variants("mlstm_chunk", FAULTS, out_dir),
-        "mlstm_chunk_launch", mk._ARGTYPES)
+    """Compile both sources and one copy per fault of each, all at once,
+    into `out_dir`; returns {source: {variant: ctypes launcher}}
+    ("source" unchanged)."""
+    procs = {src: _build.start_variants(src, faults, out_dir)
+             for src, faults in FAULTS.items()}
+    return {src: _build.finish_variants(
+        procs[src], *mk.ROUTES[SOURCE_ROUTE[src]][1:]) for src in FAULTS}
+
+
+def takes(src: str, dtype) -> bool:
+    """Whether `src`'s route takes q, k, v of `dtype` (at the cases'
+    shape): the sm90 source bf16 only."""
+    return SOURCE_ROUTE[src] == "simt" or dtype == torch.bfloat16
 
 
 def main() -> int:
@@ -234,8 +267,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(14)
     B, H, D, L = SHAPE["B"], SHAPE["H"], SHAPE["D"], SHAPE["chunk"]
-    caught = {name: [] for name in FAULTS}
-    old_caught = {name: [] for name in FAULTS}
+    caught = {src: {name: [] for name in faults}
+              for src, faults in FAULTS.items()}
+    old_caught = {src: {name: [] for name in faults}
+                  for src, faults in FAULTS.items()}
     source_ok = True
     with tempfile.TemporaryDirectory() as tmp:
         fns = build_variants(Path(tmp))
@@ -243,23 +278,31 @@ def main() -> int:
             args, init = mlstm_inputs(gen, B, H, S, D, D, dtype,
                                       stress=stress, initial=initial)
             (want_h, want_state), scales = reference(args, L, init)
-            for name, fn in fns.items():
-                h, state = mk.launch_with(fn, *args, L, init)
-                errs = mlstm_errors(h, state, want_h, want_state, scales)
-                ok = all(e <= 1.0 for e in errs.values())
-                old_ok = max_scaled_ok(h, state, want_h, want_state)
-                print(json.dumps({"variant": name, "case": case,
-                                  "errors_over_allowed": errs, "ok": ok,
-                                  "max_scaled_ok": old_ok}), flush=True)
-                if name == "source":
-                    source_ok &= ok
-                else:
-                    if not ok:
-                        caught[name].append(case)
-                    if not old_ok:
-                        old_caught[name].append(case)
-    missed = [name for name, cases in caught.items() if not cases]
-    print(json.dumps({"source_passes": source_ok, "caught_in": caught,
+            for src, variants in fns.items():
+                if not takes(src, dtype):
+                    continue
+                for name, fn in variants.items():
+                    h, state = mk.launch_with(fn, *args, L, init,
+                                              route=SOURCE_ROUTE[src])
+                    errs = mlstm_errors(h, state, want_h, want_state,
+                                        scales)
+                    ok = all(e <= 1.0 for e in errs.values())
+                    old_ok = max_scaled_ok(h, state, want_h, want_state)
+                    print(json.dumps({"source": src, "variant": name,
+                                      "case": case,
+                                      "errors_over_allowed": errs,
+                                      "ok": ok, "max_scaled_ok": old_ok}),
+                          flush=True)
+                    if name == "source":
+                        source_ok &= ok
+                    else:
+                        if not ok:
+                            caught[src][name].append(case)
+                        if not old_ok:
+                            old_caught[src][name].append(case)
+    missed = [f"{src}:{name}" for src, faults in caught.items()
+              for name, cases in faults.items() if not cases]
+    print(json.dumps({"sources_pass": source_ok, "caught_in": caught,
                       "max_scaled_caught_in": old_caught,
                       "missed": missed,
                       "gpu": torch.cuda.get_device_name(0)}), flush=True)

@@ -1,7 +1,6 @@
 """The chunkwise mLSTM forward (xLSTM matrix memory): the CUDA kernel
-``mlstm_chunkwise`` (csrc/mlstm_chunk.cu) beside its plain PyTorch
-version, and the one-step recurrence ``mlstm_step_plain`` that decode
-uses.
+``mlstm_chunkwise`` beside its plain PyTorch version, and the one-step
+recurrence ``mlstm_step_plain`` that decode uses.
 
 * ``mlstm_chunkwise`` replaces ``repro/kernels/mlstm_chunk.py:
   mlstm_chunkwise`` (Pallas body ``_mlstm_kernel``).  It follows the
@@ -11,13 +10,29 @@ uses.
   state taken from the kernel's own carry.  Bound by bytes: at the
   xlstm-350m serve shape (B = 4, H = 4, S = 1024, Dq = Dv = 512,
   chunk 256, bf16) a call moves 84 MB and needs 21.5 GFLOP (the causal
-  half of each chunk's L x L block).  ``mlstm_check`` holds it against
-  the plain version.
+  half of each chunk's L x L block).  Two CUDA sources compute it;
+  ``_route`` picks one from the dtype, the head dims and the chunk alone:
+
+  - ``sm90`` (csrc/mlstm_chunk_sm90.cu): bf16 with Dq and Dv multiples of
+    64 in [64, 512] and a chunk that is a multiple of 64, whose kernels
+    fit a block's shared memory (``sm90_smem_bytes``; at Dq = 512 a chunk
+    up to 448).  bf16 wgmma on TMA-fed tiles; the gated keys, the
+    chunk-start states and the gated scores stay float32 through hi/lo
+    splits into two bf16 products.  The bounds are the kernel's tiles:
+    64-row panels and 64-position slabs, and the q rows of one block
+    (128 x Dq bf16) beside a 96 KB ring in shared memory, which caps Dq
+    at 512.
+  - ``simt`` (csrc/mlstm_chunk.cu): float32, and every other shape whose
+    (Dq, 64) slice of C fits a block's shared memory.  Float32 on the
+    CUDA cores.
+
+  ``mlstm_check`` holds both against the plain version.
 * ``mlstm_step_plain`` is ``ref.py: mlstm_step``; the reference has no
   kernel for it, and neither has the port.
 
-Dispatch follows the tensor: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs the plain version.  There is no fallback.
+Dispatch follows the tensor: a CUDA tensor launches the kernel of its
+route (or raises), a CPU tensor runs the plain version.  There is no
+fallback.
 """
 from __future__ import annotations
 
@@ -34,6 +49,28 @@ NEG = -1e30
 #: block of it may use on Hopper (bytes)
 TILE = 64
 SMEM_LIMIT = 232448
+
+
+#: the sm90 kernels' tiles: rows of q per output block, the slots of the
+#: output kernel's ring (bytes) and of the states kernel's; and the static
+#: shared memory (mbarriers) beside the dynamic
+SM90_ROWS = 128
+SM90_OUT_RING = 3 * 32768
+SM90_STATE_STAGES = 4
+SM90_STATIC = 64
+
+
+def sm90_smem_bytes(Dq: int, Dv: int, chunk: int) -> int:
+    """Dynamic shared memory of csrc/mlstm_chunk_sm90.cu's larger kernel:
+    the output kernel's q rows (128 x Dq bf16), ring and the chunk's g
+    (chunk floats), or the states kernel's ring of k (64 positions x 128
+    d) and v (64 x NV) slabs and two chunks' wv; each with 1024 bytes to
+    align the swizzled tiles.  NV = 256, 128 or 64 as Dv divides."""
+    nv = 256 if Dv % 256 == 0 else 128 if Dv % 128 == 0 else 64
+    out = Dq // 64 * SM90_ROWS * 128 + SM90_OUT_RING + 4 * chunk + 1024
+    states = SM90_STATE_STAGES * (2 + nv // 64) * 64 * 128 + 8 * chunk + \
+        1024
+    return max(out, states)
 
 
 def columns_smem_bytes(Dq: int, chunk: int) -> int:
@@ -137,11 +174,34 @@ def mlstm_step_plain(q, k, v, log_f, log_i, state):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel
+# the CUDA kernels
 # ---------------------------------------------------------------------------
 
+#: csrc/mlstm_chunk.cu: mlstm_chunk_launch
 _ARGTYPES = (ctypes.c_void_p,) * 17 + (ctypes.c_int,) * 6 + \
     (ctypes.c_void_p,)
+#: csrc/mlstm_chunk_sm90.cu: mlstm_chunk_sm90_launch
+_ARGTYPES_SM90 = (ctypes.c_void_p,) * 19 + (ctypes.c_int,) * 6 + \
+    (ctypes.c_void_p,)
+#: route: (source, C symbol, argtypes)
+ROUTES = {"sm90": ("mlstm_chunk_sm90", "mlstm_chunk_sm90_launch",
+                   _ARGTYPES_SM90),
+          "simt": ("mlstm_chunk", "mlstm_chunk_launch", _ARGTYPES)}
+#: the sm90 kernels' parts (``launch_args``' `parts`): the stabilizer
+#: chain, the chunk-start states, h; all three are the function
+PARTS = {"gates": 1, "states": 2, "output": 4}
+
+
+def _route(dtype, Dq: int, Dv: int, chunk: int) -> str:
+    """The CUDA source that computes the forward on these inputs, from the
+    dtype, the head dims and the chunk alone: "sm90" for bf16 with Dq and
+    Dv multiples of 64 in [64, 512] and chunk a multiple of 64 whose
+    kernels fit a block's shared memory, else "simt"."""
+    if dtype == torch.bfloat16 and chunk % 64 == 0 and chunk >= 64 and \
+            all(d % 64 == 0 and 64 <= d <= 512 for d in (Dq, Dv)) and \
+            sm90_smem_bytes(Dq, Dv, chunk) + SM90_STATIC <= SMEM_LIMIT:
+        return "sm90"
+    return "simt"
 
 
 def _check(q, k, v, log_f, log_i, chunk, initial):
@@ -181,9 +241,10 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, *, chunk: int = 256,
                     initial=None):
     """q, k (B, H, S, Dq), v (B, H, S, Dv) float32 or bfloat16; log_f,
     log_i (B, H, S); optional initial (C, n, m).  Returns (h, (C, n, m))
-    as ``mlstm_chunkwise_plain``.  CUDA tensors launch the kernel
-    (``mlstm_chunkwise.launches`` counts the calls); CPU tensors run the
-    plain version."""
+    as ``mlstm_chunkwise_plain``.  CUDA tensors launch the kernel of
+    ``_route`` (``mlstm_chunkwise.launches`` counts all launches,
+    ``.sm90_launches`` and ``.simt_launches`` each route's); CPU tensors
+    run the plain version."""
     _check(q, k, v, log_f, log_i, chunk, initial)
     if q.device.type == "cpu":
         return mlstm_chunkwise_plain(q, k, v, log_f, log_i, chunk=chunk,
@@ -191,23 +252,26 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, *, chunk: int = 256,
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunkwise runs on cuda or cpu, not "
                          f"{q.device}")
-    launch = _build.function("mlstm_chunk", "mlstm_chunk_launch", _ARGTYPES)
-    out = launch_with(launch, q, k, v, log_f, log_i, chunk, initial)
+    route = _route(q.dtype, q.shape[3], v.shape[3], chunk)
+    launch = _build.function(*ROUTES[route])
+    out = launch_with(launch, q, k, v, log_f, log_i, chunk, initial,
+                      route=route)
     mlstm_chunkwise.launches += 1
+    if route == "sm90":
+        mlstm_chunkwise.sm90_launches += 1
+    else:
+        mlstm_chunkwise.simt_launches += 1
     return out
 
 
-def launch_with(launch, q, k, v, log_f, log_i, chunk, initial):
-    """Allocate the outputs and scratch and call `launch`, a ctypes
-    function of csrc/mlstm_chunk.cu's C interface, on checked CUDA
-    tensors; raises on a launch error.  Counts nothing."""
+def launch_args(q, k, v, log_f, log_i, chunk, initial, *, route="simt",
+                parts=7):
+    """The arguments of one call of `route`'s C launcher (``ROUTES``) on
+    checked CUDA tensors, the stream last, with the outputs and scratch
+    allocated; `parts` (sm90 only) picks its kernels (``PARTS``).  Returns
+    (args, (h, (C, n, m)), the tensors the pointers refer to)."""
     B, H, S, Dq = q.shape
     Dv = v.shape[-1]
-    if columns_smem_bytes(Dq, chunk) > SMEM_LIMIT:
-        raise ValueError(f"the kernel keeps a (Dq, {TILE}) slice of C in "
-                         f"shared memory: Dq={Dq}, chunk={chunk} need "
-                         f"{columns_smem_bytes(Dq, chunk)} bytes > "
-                         f"{SMEM_LIMIT}")
     dev = q.device
     q, k, v = (a.contiguous() for a in (q, k, v))
     lf, li = (a.to(torch.float32).contiguous() for a in (log_f, log_i))
@@ -215,7 +279,6 @@ def launch_with(launch, q, k, v, log_f, log_i, chunk, initial):
     if initial is not None:
         C0, n0, m0 = (a.to(torch.float32).contiguous() for a in initial)
     nC = -(-S // chunk)
-    Lp = -(-chunk // TILE) * TILE
     BH = B * H
 
     def f32(*shape):
@@ -223,23 +286,53 @@ def launch_with(launch, q, k, v, log_f, log_i, chunk, initial):
 
     h = torch.empty((B, H, S, Dv), dtype=q.dtype, device=dev)
     C, n, m = f32(B, H, Dq, Dv), f32(B, H, Dq), f32(B, H)
-    # scratch: per-position gates, the stabilizer chain, the masked scores
+    # scratch: per-position gates, the stabilizer chain
     g, Mt, mt = f32(BH, nC * chunk), f32(BH, nC * chunk), f32(BH, nC * chunk)
-    mchain, W = f32(BH, nC + 1), f32(BH * nC, Lp, Lp)
+    mchain = f32(BH, nC + 1)
+    if route == "sm90":
+        if _route(q.dtype, Dq, Dv, chunk) != "sm90" or \
+                BH * nC * -(-chunk // SM90_ROWS) * Dv // 64 >= 2 ** 31:
+            raise ValueError(f"the sm90 kernel takes bf16 with Dq, Dv "
+                             f"multiples of 64 in [64, 512] and chunk a "
+                             f"multiple of 64 within its shared memory; "
+                             f"got {q.dtype}, Dq={Dq}, Dv={Dv}, "
+                             f"chunk={chunk}")
+        # TMA reads from 16-byte aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+        # the chunk-start states C_c as bf16 hi and lo, and n_c
+        Chi, Clo = (torch.empty((BH, nC, Dq, Dv), dtype=torch.bfloat16,
+                                device=dev) for _ in range(2))
+        scratch = (g, Mt, mt, mchain, Chi, Clo, f32(BH, nC, Dq))
+        tail = (BH, S, Dq, Dv, chunk, parts)
+    else:
+        if columns_smem_bytes(Dq, chunk) > SMEM_LIMIT:
+            raise ValueError(f"the kernel keeps a (Dq, {TILE}) slice of C "
+                             f"in shared memory: Dq={Dq}, chunk={chunk} "
+                             f"need {columns_smem_bytes(Dq, chunk)} bytes "
+                             f"> {SMEM_LIMIT}")
+        Lp = -(-chunk // TILE) * TILE
+        # and the masked scores
+        scratch = (g, Mt, mt, mchain, f32(BH * nC, Lp, Lp))
+        tail = (BH, S, Dq, Dv, chunk, int(q.dtype == torch.bfloat16))
+    tensors = (q, k, v, lf, li, C0, n0, m0, h, C, n, m, *scratch)
+    ptrs = tuple(None if t is None else t.data_ptr() for t in tensors)
+    args = ptrs + tail + (torch.cuda.current_stream(dev).cuda_stream,)
+    return args, (h, (C, n, m)), tensors
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), lf.data_ptr(),
-                 li.data_ptr(), ptr(C0), ptr(n0), ptr(m0), h.data_ptr(),
-                 C.data_ptr(), n.data_ptr(), m.data_ptr(), g.data_ptr(),
-                 Mt.data_ptr(), mt.data_ptr(), mchain.data_ptr(),
-                 W.data_ptr(), BH, S, Dq, Dv, chunk,
-                 int(q.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mlstm_chunkwise")
-    return h, (C, n, m)
+def launch_with(launch, q, k, v, log_f, log_i, chunk, initial, *,
+                route="simt"):
+    """Allocate the outputs and scratch and call `launch`, a ctypes
+    function of the C interface of `route`'s source (``ROUTES``), on
+    checked CUDA tensors; raises on a launch error.  Counts nothing."""
+    args, out, _ = launch_args(q, k, v, log_f, log_i, chunk, initial,
+                               route=route)
+    _build.check(launch(*args), f"mlstm_chunkwise ({route})")
+    return out
 
 
-#: kernel launches since the last reset
+#: kernel launches since the last reset: all, and by route
 mlstm_chunkwise.launches = 0
+mlstm_chunkwise.sm90_launches = 0
+mlstm_chunkwise.simt_launches = 0

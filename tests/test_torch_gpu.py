@@ -295,13 +295,16 @@ def _logits_close(got, want, atol, rtol):
     (1, 2, 1000, 32, 48, 256, False),     # ragged tail, Dv off the tile
     (2, 1, 300, 16, 16, 128, True),       # a carried-in state
     (1, 1, 320, 512, 128, 256, False),    # the full width's head dim
+    (1, 2, 300, 192, 192, 64, True),      # sm90: Dq off 128, ragged, initial
+    (2, 1, 400, 128, 320, 128, False),    # sm90: 64-column Dv blocks
 ])
 def test_cuda_mlstm_chunkwise_matches_plain(cuda, dtype, B, H, S, Dq, Dv,
                                             chunk, initial):
     """Tolerance: every element of h and of the final (C, n, m) within
     what float32 rounding allows (``mlstm_check.mlstm_errors``: 2^-16 of
     h's rounding scale, the same sums over absolute values, plus 2^-7 of
-    |h| for one rounding to bf16; 2^-12 of the state's)."""
+    |h| for one rounding to bf16; 2^-12 of the state's).  The launch goes
+    to ``_route``'s source and is counted on that route alone."""
     rng = np.random.default_rng(S + Dq)
     args = _mlstm_inputs(rng, B, H, S, Dq, Dv, dtype, cuda)
     init = None
@@ -309,25 +312,28 @@ def test_cuda_mlstm_chunkwise_matches_plain(cuda, dtype, B, H, S, Dq, Dv,
         init = (torch.randn(B, H, Dq, Dv, device=cuda),
                 torch.randn(B, H, Dq, device=cuda),
                 torch.randn(B, H, device=cuda))
-    before = mlstm_chunk.mlstm_chunkwise.launches
-    h, state = mlstm_chunk.mlstm_chunkwise(*args, chunk=chunk, initial=init)
+    fn = mlstm_chunk.mlstm_chunkwise
+    route = mlstm_chunk._route(dtype, Dq, Dv, chunk)
+    before = (fn.launches, fn.sm90_launches, fn.simt_launches)
+    h, state = fn(*args, chunk=chunk, initial=init)
     torch.cuda.synchronize()
-    assert mlstm_chunk.mlstm_chunkwise.launches == before + 1
+    assert (fn.launches, fn.sm90_launches, fn.simt_launches) == (
+        before[0] + 1, before[1] + (route == "sm90"),
+        before[2] + (route == "simt"))
     assert h.dtype == dtype and h.shape == (B, H, S, Dv)
     (want_h, want_state), scales = mlstm_check.reference(args, chunk, init)
     errs = mlstm_check.mlstm_errors(h, state, want_h, want_state, scales)
     assert all(e <= 1.0 for e in errs.values()), errs
     # deterministic: no atomics, so a second launch is bitwise the first
-    h2, state2 = mlstm_chunk.mlstm_chunkwise(*args, chunk=chunk,
-                                             initial=init)
+    h2, state2 = fn(*args, chunk=chunk, initial=init)
     assert torch.equal(h, h2) and all(torch.equal(a, b)
                                       for a, b in zip(state, state2))
 
 
 def test_cuda_mlstm_check_catches_planted_faults(cuda):
-    """The card-side cases at the serve width pass on the kernel's
-    source, and each planted fault of ``mlstm_check.FAULTS`` fails at
-    least one of them."""
+    """The card-side cases at the serve width pass on both of the
+    kernel's sources, and each planted fault of ``mlstm_check.FAULTS``
+    fails at least one of them."""
     assert mlstm_check.main() == 0
 
 
@@ -345,10 +351,12 @@ def test_cuda_reduced_serve_matches_cpu(cuda):
     lc, _ = model["prefill"](params, {"tokens": torch.from_numpy(
         batch["tokens"])})
     gpu_params = tree_map(lambda t: t.to(cuda), params)
-    before = mlstm_chunk.mlstm_chunkwise.launches
+    fn = mlstm_chunk.mlstm_chunkwise
+    before = (fn.launches, fn.simt_launches)
     lg, _ = model["prefill"](gpu_params, {"tokens": torch.from_numpy(
         batch["tokens"]).to(cuda)})
-    assert mlstm_chunk.mlstm_chunkwise.launches == before + 7
+    # the reduced config is float32: the simt route
+    assert (fn.launches, fn.simt_launches) == (before[0] + 7, before[1] + 7)
     _logits_close(lg, lc, 1e-3, 1e-3)
     got = ServeLoop(cfg, params, device=cuda).generate(batch, steps=8)
     want = ServeLoop(cfg, params, device="cpu").generate(batch, steps=8)
