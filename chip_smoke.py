@@ -16,15 +16,23 @@ One JSON line per phase:
    their seconds, and the registers, spill bytes and serialized-wgmma
    flag of each instantiation of ``flash_attention_sm90.cu`` (per head
    dim) and ``mlstm_chunk_sm90.cu`` (per kernel and Dv block); beside
-   them, at the same time, the copies of ``rglru_scan.cu``, both flash
-   sources and both mLSTM sources with one planted fault each
-   (``rglru_check.FAULTS``, ``flash_check.FAULTS``,
+   them, at the same time, the copies of ``downtime_eval.cu``,
+   ``latency_charge.cu``, ``rglru_scan.cu``, both flash sources and both
+   mLSTM sources with one planted fault each (``mc_check.FAULTS``,
+   ``rglru_check.FAULTS``, ``flash_check.FAULTS``,
    ``mlstm_check.FAULTS``).
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
-   kernels against the unpacked ones on the same state, plus each
-   kernel's time per call beside the plain version's (``kernel_time``).
+   kernels against the unpacked ones on the same state; ``downtime_eval``
+   and ``latency_charge`` also on the edges of their tiling (ragged last
+   tiles and blocks, n_pad 31 and 63, inputs as views at a byte offset;
+   ``mc_check``), where each planted fault of their sources must fail a
+   case; plus each kernel's time per call beside the plain version's
+   (``kernel_time``: ``ms`` back-to-back launches by CUDA events, and for
+   the seven Monte Carlo kernels ``device_ms`` from the profiler's kernel
+   durations, ``graph_ms`` from a CUDA graph's replay and ``cold_ms``
+   with the L2 cold).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
    packed, 2048 steps with the trajectory kept.  The two runs must
    agree exactly, the first 128 steps must equal a ``device="cpu"`` run,
@@ -150,6 +158,7 @@ from repro_torch.kernels import fused_step as fk  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_check as fc  # noqa: E402
+from repro_torch.kernels import mc_check as mcc  # noqa: E402
 from repro_torch.kernels import mlstm_check as mc  # noqa: E402
 from repro_torch.kernels import mlstm_chunk as mk  # noqa: E402
 from repro_torch.kernels import pac_eval as pk  # noqa: E402
@@ -212,9 +221,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
 #: the recurrentgemma serve phase: 4 prompts of 3072 tokens (past the
 #: 2048-token window, under mha's dense limit), then as above
 RG_PROMPT = 3072
-#: the sources whose planted faults the mlstm, rglru and flash phases
-#: run: (faults, C symbol, argtypes)
-FAULT_SOURCES = {"rglru_scan": (rc.FAULTS, "rglru_scan_launch",
+#: the sources whose planted faults the kernel, mlstm, rglru and flash
+#: phases run: (faults, C symbol or symbols, argtypes)
+FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
+                    for src, faults in mcc.FAULTS.items()},
+                 "rglru_scan": (rc.FAULTS, "rglru_scan_launch",
                                 rk._ARGTYPES),
                  **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
                     for src, faults in fc.FAULTS.items()},
@@ -325,11 +336,14 @@ def check_kernels(bw):
     upw = bitpack.pack_words(up.reshape(B, P, N)).movedim(-1, 1).contiguous()
     fullw = bitpack.pack_words(full.reshape(B, P, N)) \
         .movedim(-1, 1).contiguous()
-    stream = torch.cuda.current_stream().cuda_stream
     outs = pk.pac_eval(up, full, rf=rf, voters=voters, n_real=N)
     raw = _build.function("pac_eval", "pac_eval_launch", pk._ARGTYPES)
     ptrs = [t.data_ptr() for t in (up, full, *outs)]
-    pac_ms = time_ms(lambda: raw(*ptrs, R, N, N, rf, voters, stream), 200)
+
+    def pac_launch(stream):
+        raw(*ptrs, R, N, N, rf, voters, stream)
+
+    pac_ms = mcc.event_ms(pac_launch)
     pac_wrap_ms = time_ms(lambda: pk.pac_eval(up, full, rf=rf,
                                               voters=voters, n_real=N), 200)
     pac_plain_ms = time_ms(lambda: pk.pac_eval_plain(
@@ -338,8 +352,11 @@ def check_kernels(bw):
     fraw = _build.function("fused_step", "fused_pac_eval_launch",
                            fk._ARGTYPES)
     fptrs = [t.data_ptr() for t in (upw, fullw, *fouts)]
-    fused_ms = time_ms(lambda: fraw(*fptrs, B, W, P, N, rf, voters, stream),
-                       200)
+
+    def fused_launch(stream):
+        fraw(*fptrs, B, W, P, N, rf, voters, stream)
+
+    fused_ms = mcc.event_ms(fused_launch)
     fused_wrap_ms = time_ms(lambda: fk.fused_pac_eval(
         upw, fullw, rf=rf, voters=voters, n_real=N), 200)
     fused_plain_ms = time_ms(lambda: fk.fused_pac_eval_plain(
@@ -349,17 +366,23 @@ def check_kernels(bw):
     fused_bytes = 3 * B * W * P * 4 + 2 * B * P
     return {
         "pac_eval": record("pac_eval", pac_bytes, R * N, pac_ms, pac_wrap_ms,
-                           pac_plain_ms, worst["pac_eval"], bw),
+                           pac_plain_ms, worst["pac_eval"], bw,
+                           launch=pac_launch),
         "fused_pac_eval": record("fused_pac_eval", fused_bytes, B * W * P,
                                  fused_ms, fused_wrap_ms, fused_plain_ms,
-                                 worst["fused_pac_eval"], bw)}
+                                 worst["fused_pac_eval"], bw,
+                                 launch=fused_launch)}
 
 
 def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
-           rate=INT_OPS):
+           rate=INT_OPS, launch=None):
     """One kernel's timing record: its bound is the larger of its bytes
     over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
-    `rate` (the 32-bit lane rate unless given)."""
+    `rate` (the 32-bit lane rate unless given).  `ms` is back-to-back
+    launches by CUDA events, launch rate and device time together; with
+    `launch` (one raw launch on a given stream) the record adds
+    ``mc_check.device_times``: device_ms (the profiler's kernel duration),
+    graph_ms (a CUDA graph's replay) and cold_ms (L2 cold)."""
     bytes_ms = nbytes / bw * 1e3
     if ops is None:
         ops = lanes * OPS_PER_LANE[name]
@@ -368,6 +391,8 @@ def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
            "max_abs_err": err, "bytes": nbytes,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if launch is not None:
+        rec.update(mcc.device_times(launch))
     emit({"phase": "kernel_time", "kernel": name, **rec})
     return rec
 
@@ -381,10 +406,14 @@ def random_rosters(gen, R, rf, dev):
     return ro.contiguous()
 
 
-def check_downtime_kernels(bw):
+def check_downtime_kernels(bw, faults):
     """Phase 3 for the §6 kernels: bitwise agreement with the plain
-    versions at the paper tile, packed against unpacked, and times at the
-    §6 main path's shapes.  Returns the timing/bound records."""
+    versions at the paper tile, packed against unpacked, then
+    ``downtime_eval`` on the edges of its tiling (``mc_check.
+    DOWNTIME_CASES``: a ragged last tile, n_pad 31 and 63, views at a byte
+    offset) with each planted fault of its source (`faults`) failing a
+    case, and times at the §6 main path's shapes.  Returns the
+    timing/bound records."""
     dev = torch.device(DEVICE)
     names = ("downtime_eval", "downtime_eval_roster", "node_count",
              "fused_downtime_eval")
@@ -475,6 +504,16 @@ def check_downtime_kernels(bw):
                           fk.fused_downtime_eval_plain(upw, fullw, **kw),
                           rf=rf, roster=with_roster, counts=counts,
                           extras=extras)
+    caught = {name: [] for name in faults}
+    for rec in mcc.downtime_checks(gen, faults):
+        emit({"phase": "kernel", **rec})
+        worst[rec["kernel"]] = max(worst[rec["kernel"]], rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"{rec['kernel']} disagrees ({rec['case']}, "
+                             f"rf={rec['rf']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(f"{rec['kernel']}:{rec['case']}:rf{rec['rf']}")
+    held_faults("downtime_eval", caught)
 
     # times at the §6 main path's shapes: rf = 2, n_pad = n = 155, the
     # state of a mostly-up cluster; the raw launchers are timed (the
@@ -490,32 +529,28 @@ def check_downtime_kernels(bw):
     fullw = bitpack.pack_words(full.reshape(B, P, N)) \
         .movedim(-1, 1).contiguous()
     rost3 = roster.reshape(B, P, rf)
-    stream = torch.cuda.current_stream().cuda_stream
-    times = {}
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    times, launches = {}, {}
     for name, ro in (("downtime_eval", None),
                      ("downtime_eval_roster", roster)):
-        outs = pk.downtime_eval(up, full, rf=rf, n_real=N, roster=ro)
         sym = "downtime_eval_launch" if ro is None \
             else "downtime_roster_launch"
         raw = _build.function("downtime_eval", sym, pk._DT_ARGTYPES)
-        args = (up.data_ptr(), full.data_ptr(), ptr(ro),
-                *(o.data_ptr() for o in outs[:5]), None, None,
-                outs[5].data_ptr(), R, N, N, rf, stream)
+        launches[name], _ = mcc.downtime_launch(raw, up, full, ro, rf=rf)
         times[name] = (
-            time_ms(lambda: raw(*args), 200),
+            mcc.event_ms(launches[name]),
             time_ms(lambda: pk.downtime_eval(up, full, rf=rf, n_real=N,
                                              roster=ro), 200),
             time_ms(lambda: pk.downtime_eval_plain(up, full, rf=rf,
                                                    n_real=N, roster=ro), 20))
     cnt = pk.node_count(rec, act, n_real=N)
     raw = _build.function("node_count", "node_count_launch", pk._NC_ARGTYPES)
+
+    def count_launch(stream):
+        raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(), B, P, N, stream)
+
+    launches["node_count"] = count_launch
     times["node_count"] = (
-        time_ms(lambda: raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(),
-                            B, P, N, stream), 200),
+        mcc.event_ms(count_launch),
         time_ms(lambda: pk.node_count(rec, act, n_real=N), 200),
         time_ms(lambda: pk.node_count_plain(rec, act, n_real=N), 20))
     # the fused kernel at the reconfig-with-bandwidth shape (roster and
@@ -528,9 +563,14 @@ def check_downtime_kernels(bw):
     fargs = (upw.data_ptr(), fullw.data_ptr(), rost3.data_ptr(),
              rec.data_ptr(), act.data_ptr(),
              *(o.data_ptr() for o in fouts[:5]), None, None,
-             fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf, stream)
+             fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf)
+
+    def fused_launch(stream):
+        fraw(*fargs, stream)
+
+    launches["fused_downtime_eval"] = fused_launch
     times["fused_downtime_eval"] = (
-        time_ms(lambda: fraw(*fargs), 200),
+        mcc.event_ms(fused_launch),
         time_ms(lambda: fk.fused_downtime_eval(
             upw, fullw, rf=rf, n_real=N, roster=rost3, recruit=rec,
             active=act), 200),
@@ -539,15 +579,19 @@ def check_downtime_kernels(bw):
             active=act), 20))
     fixed_args = fargs[:2] + (None, None, None) + fargs[5:13] + (None,) + \
         fargs[14:]
-    fixed_ms = time_ms(lambda: fraw(*fixed_args), 200)
+
+    def fixed_launch(stream):
+        fraw(*fixed_args, stream)
+
     fixed_bytes = 3 * B * W * P * 4 + 11 * B * P
     emit({"phase": "kernel_time", "kernel": "fused_downtime_eval",
-          "shape": "fixed (no roster, no counts)", "ms": fixed_ms,
+          "shape": "fixed (no roster, no counts)",
+          "ms": mcc.event_ms(fixed_launch), **mcc.device_times(fixed_launch),
           "bytes": fixed_bytes, "bound_ms": fixed_bytes / bw * 1e3})
 
     nbytes = {
-        "downtime_eval": 3 * R * N + 11 * R,
-        "downtime_eval_roster": 3 * R * N + 11 * R + 4 * R * rf,
+        "downtime_eval": mcc.downtime_bytes(R, N),
+        "downtime_eval_roster": mcc.downtime_bytes(R, N, rf),
         "node_count": 5 * B * P + 4 * B * N,
         "fused_downtime_eval": 3 * B * W * P * 4 + 11 * B * P
         + 4 * B * P * rf + 5 * B * P + 4 * B * N,
@@ -555,90 +599,39 @@ def check_downtime_kernels(bw):
     lanes = {"downtime_eval": R * N, "downtime_eval_roster": R * N,
              "node_count": B * P, "fused_downtime_eval": B * W * P}
     return {name: record(name, nbytes[name], lanes[name], *times[name],
-                         worst[name], bw) for name in names}
+                         worst[name], bw, launch=launches[name])
+            for name in names}
 
 
-def latency_inputs(gen, dev, *, slo_ticks=8):
-    """latency_charge arguments at the paper tile: the decay tables of
-    the paper workload (zipf keys, 32 requests/tick, 3M-tick horizon: 22
-    tables), then adversarial state — dt with many bits set and 0, rem
-    below 0, inside and beyond dt, mixed flags, dirty fractions a few ulps
-    around the 1e-30 flush floor."""
-    plan = cl.make_latency_plan(0, P, db.DowntimeParams(
-        key_zipf=1.0, read_frac=0.8, requests_per_tick=32.0,
-        slo_ticks=slo_ticks), 3_000_000)
-    NB = plan.kf.shape[0]
-    dirty = torch.rand((B, P, NB), generator=gen, device=dev)
-    floor = torch.tensor(1e-30, dtype=torch.float32, device=dev)
-    ulps = torch.randint(-4, 5, (B, P, NB), generator=gen, device=dev)
-    near = (floor.view(torch.int32) + ulps.to(torch.int32)) \
-        .view(torch.float32)
-    dirty = torch.where(torch.rand((B, P, NB), generator=gen, device=dev)
-                        < 0.3, near, dirty)
-    dt = torch.randint(0, 3_000_001, (B,), generator=gen, device=dev,
-                       dtype=torch.int32)
-    dt[:4] = torch.tensor([0, 0x2AAAAA, 0x155555, 2 ** 21 - 1],
-                          dtype=torch.int32, device=dev)
-    rem = torch.randint(0, 9_000_000, (B, P), generator=gen, device=dev,
-                        dtype=torch.int32)
-    inside = (dt[:, None] * torch.rand((B, P), generator=gen, device=dev)) \
-        .to(torch.int32)
-    below = torch.randint(-50, 0, (B, P), generator=gen, device=dev,
-                          dtype=torch.int32)
-    col = torch.arange(P, device=dev) % 3
-    rem = torch.where(col == 0, inside, torch.where(col == 1, below, rem))
-    return dict(dirty=dirty, dt_i=dt,
-                avail=torch.rand((B, P), generator=gen, device=dev) < 0.7,
-                qok=torch.rand((B, P), generator=gen, device=dev) < 0.7,
-                rem=rem,
-                pow_tables=torch.as_tensor(plan.pow_tables, device=dev),
-                kf=torch.as_tensor(plan.kf, device=dev),
-                lamw=torch.as_tensor(plan.lamw, device=dev)), plan
-
-
-def check_latency_kernel(bw):
+def check_latency_kernel(bw, faults):
     """Phase 3 for latency_charge: bitwise agreement with the plain
-    version at the paper tile for slo_ticks 0 and 8, then times at the
-    main path's shape (the paper workload's tables, state as the engine
-    carries it).  Returns the timing/bound record."""
+    version on adversarial state (``mc_check.LATENCY_CASES``: the paper
+    tile at slo_ticks 0 and 8, a ragged last block, dirty and the decay
+    tables as views at a byte offset), each planted fault of its source
+    (`faults`) failing a case, then times at the main path's shape (the
+    paper workload's tables, state as the engine carries it).  Returns
+    the timing/bound record."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     worst = 0.0
     nbins = 16
-    for slo in (0, 8):
-        args, _ = latency_inputs(gen, dev, slo_ticks=slo)
-        got = pk.latency_charge(**args, nbins=nbins, slo_ticks=slo)
-        torch.cuda.synchronize()
-        want = pk.latency_charge_plain(**args, nbins=nbins, slo_ticks=slo)
-        ok = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max(float((g.double() - w.double()).abs().max().item())
-                  for g, w in zip(got, want))
-        worst = max(worst, err)
-        emit({"phase": "kernel", "kernel": "latency_charge", "slo_ticks": slo,
-              "equal": ok, "max_abs_err": err,
-              "dup_sum": got[1].double().sum().item(),
-              "qsum_sum": got[4].double().sum().item(),
-              "flushed": int((got[0] == 0).sum().item())})
-        if not ok:
-            raise SystemExit(f"latency_charge disagrees (slo_ticks={slo})")
+    caught = {name: [] for name in faults}
+    for rec in mcc.latency_checks(gen, faults, nbins=nbins):
+        emit({"phase": "kernel", **rec})
+        worst = max(worst, rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"latency_charge disagrees ({rec['case']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(rec["case"])
+    held_faults("latency_charge", caught)
 
-    # times at the main path's shape: dirty fractions in [0, 1), event
-    # intervals of a few to a few hundred ticks, rebuilds under 128 ticks
-    args, plan = latency_inputs(gen, dev)
-    args["dt_i"] = torch.randint(1, 400, (B,), generator=gen, device=dev,
-                                 dtype=torch.int32)
-    args["rem"] = torch.randint(0, 128, (B, P), generator=gen, device=dev,
-                                dtype=torch.int32)
-    NB, nbits = plan.kf.shape[0], plan.pow_tables.shape[0]
-    outs = pk.latency_charge(**args, nbins=nbins, slo_ticks=8)
+    args = mcc.paper_latency(gen)
+    NB, nbits = args["kf"].shape[0], args["pow_tables"].shape[0]
     raw = _build.function("latency_charge", "latency_charge_launch",
                           pk._LC_ARGTYPES)
-    ptrs = [args[k].data_ptr() for k in ("dirty", "dt_i", "avail", "qok",
-                                         "rem", "pow_tables", "kf", "lamw")]
-    ptrs += [o.data_ptr() for o in outs]
-    stream = torch.cuda.current_stream().cuda_stream
-    ms = time_ms(lambda: raw(*ptrs, B, P, NB, nbits, nbins, 8, stream), 200)
+    launch, _ = mcc.latency_launch(raw, args, nbins=nbins)
+    ms = mcc.event_ms(launch)
     wrap_ms = time_ms(lambda: pk.latency_charge(**args, nbins=nbins,
                                                 slo_ticks=8), 200)
     plain_ms = time_ms(lambda: pk.latency_charge_plain(
@@ -646,18 +639,15 @@ def check_latency_kernel(bw):
     # bytes this call must move: each input once (only the pow tables of
     # the bits some trial's dt sets), each output once
     R = B * P
-    bits = 0
-    for d in args["dt_i"].tolist():
-        bits |= d
-    tables = bin(bits).count("1")
-    nbytes = (R * NB * 4 + 4 * B + 2 * R + 4 * R + tables * P * NB * 4
-              + NB * 4 + P * 4) + (2 * R * NB * 4 + R * nbins * 4 + 2 * R * 4)
+    dts = args["dt_i"].tolist()
+    nbytes = mcc.latency_bytes(B, P, NB, nbins,
+                               mcc.tables_touched(dts, nbits))
     # ops per row: the chain's multiplies for each set bit, ~6 per bucket,
     # ~10 per histogram lane, ~20 for the scalars
-    per_row = sum(bin(d).count("1") for d in args["dt_i"].tolist()) / B * NB \
+    per_row = sum(bin(d).count("1") for d in dts) / B * NB \
         + 6 * NB + 10 * nbins + 20
     return record("latency_charge", nbytes, R, ms, wrap_ms, plain_ms, worst,
-                  bw, ops=R * per_row)
+                  bw, ops=R * per_row, launch=launch)
 
 
 def counters():
@@ -1790,8 +1780,8 @@ def main() -> int:
 
     bw = hbm_bw(name)
     rec = check_kernels(bw)
-    rec.update(check_downtime_kernels(bw))
-    rec["latency_charge"] = check_latency_kernel(bw)
+    rec.update(check_downtime_kernels(bw, faults["downtime_eval"]))
+    rec["latency_charge"] = check_latency_kernel(bw, faults["latency_charge"])
     launches = check_engine()
     check_bench_rows()
     launches.update(check_downtime_engine())

@@ -143,15 +143,18 @@ def start_variants(name: str, faults: dict, out_dir: Path, *,
     """Start nvcc, without waiting, on one copy of csrc/<name>.cu per
     planted fault (and, with `with_source`, on the unchanged file as
     "source"), into `out_dir`.  `faults` maps a fault's name to (text,
-    replacement), the text occurring once in the source.  Returns the
-    handle ``finish_variants`` takes."""
+    replacement), or to a list of such pairs, each text occurring once in
+    the source.  Returns the handle ``finish_variants`` takes."""
     src = (CSRC / f"{name}.cu").read_text()
     texts = {"source": src} if with_source else {}
-    for fault, (old, new) in faults.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {fault}: {old!r} occurs "
-                               f"{src.count(old)} times in {name}.cu")
-        texts[fault] = src.replace(old, new)
+    for fault, edits in faults.items():
+        text = src
+        for old, new in [edits] if isinstance(edits[0], str) else edits:
+            if src.count(old) != 1:
+                raise RuntimeError(f"fault {fault}: {old!r} occurs "
+                                   f"{src.count(old)} times in {name}.cu")
+            text = text.replace(old, new)
+        texts[fault] = text
     procs = {}
     for variant, text in texts.items():
         cu = out_dir / f"{name}-{variant}.cu"
@@ -161,18 +164,22 @@ def start_variants(name: str, faults: dict, out_dir: Path, *,
     return procs
 
 
-def finish_variants(procs: dict, symbol: str, argtypes) -> dict:
+def finish_variants(procs: dict, symbol, argtypes) -> dict:
     """Wait for ``start_variants``' builds; returns {variant: the ctypes
-    function `symbol` of its library}.  Raises with nvcc's output if a
-    build fails."""
+    function `symbol` of its library}, or a tuple of them when `symbol`
+    is a tuple of names.  Raises with nvcc's output if a build fails."""
     fns = {}
     for variant, (proc, so) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {variant}:\n{log}")
-        fn = getattr(ctypes.CDLL(str(so)), symbol)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        fns[variant] = fn
+        lib = ctypes.CDLL(str(so))
+        found = []
+        for sym in (symbol,) if isinstance(symbol, str) else symbol:
+            fn = getattr(lib, sym)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            found.append(fn)
+        fns[variant] = found[0] if isinstance(symbol, str) else tuple(found)
     return fns
 
 

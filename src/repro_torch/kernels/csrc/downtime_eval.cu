@@ -20,35 +20,249 @@
 //   creps  = the first rf up lanes (the refreshed holder mask)
 //
 // Bound: bytes.  Each row is read once (2 * n_pad bytes, + 4 * rf roster
-// bytes) and written once (n_pad + 11 bytes, + 4 per extra); the
-// arithmetic is a few integer ops per byte.
-// Design: one warp per row, as pac_eval.cu.  Each 32-column chunk becomes
-// a word by __ballot_sync (up, and up & full); __popc of the word under
-// prefix masks gives the up count and the first-rf count, __ffs of the
-// first non-zero word gives the leader, and a lane's cumsum rank is
-// running + popc(word & lanemask_lt) + 1.  The roster variant has lanes
-// j < rf read rank roster[row, j] and its up byte (the row was just read,
-// so the byte comes from L1), then reduces count and minimum over the warp
-// with __reduce_add_sync / __reduce_min_sync.  The reference's 128-lane
-// node and roster padding is TPU layout and is not carried over.  Integer
-// and bit math only: exact.
+// bytes) and written once (n_pad + 11 bytes, + 4 per extra):
+// 3 R n_pad + 11 R (+ 4 R rf) bytes, 15,597,568 (15,859,712 with an
+// rf = 2 roster) at the paper tile (R = 8 * 4096, n_pad = 155), 4.66
+// (4.73) us at 3.35 TB/s.  The arithmetic is a few integer ops per byte.
+// Design: a block owns a tile of T consecutive rows (64; four consecutive
+// lanes to a row, 256 threads), T a multiple of 16 so that the tile's
+// bytes start 16-byte aligned whatever n_pad is (when the tensor's base
+// is).  The tile's up and full bytes are each one contiguous range; they
+// come into shared memory in 16-byte cp.async pieces, the range widened to
+// 16-byte boundaries so that a view at any byte offset, or a ragged last
+// tile, needs nothing else (a widened piece holds a byte of the range, so
+// it lies in the same allocation page; the bytes outside the range are
+// never used).  The roster slice comes along the same way.  A row is read
+// in 4-byte words at its own alignment (__funnelshift_r of two aligned
+// shared words), each byte turned into one flag bit by a carry-free add.
+// The row's four lanes each count a quarter of its words (up lanes, up
+// lanes holding the latest copy) and reduce with __shfl_xor_sync; its
+// first lane walks from the first column for the ordered facts (leader,
+// creps, the lanes below rf), mostly one word.  The roster seats, split
+// over the four lanes, read their up byte from shared memory.  creps is
+// zeroed in shared memory, each row sets its first rf up lanes, and the
+// tile goes out as 16-byte stores over the same contiguous range (single
+// bytes at an unaligned head or ragged tail).  Per-row outputs go out from
+// each row's first lane.  T comes from n_pad at launch so that the tile
+// fits in shared memory (and halves while that leaves SMs without a
+// tile); a row too wide for 16 rows is walked in column passes, one range
+// per row segment.  The reference's 128-lane node and roster padding is
+// TPU layout and is not carried over.  Integer and bit math only: exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;               // 8 warps = 8 rows per block
+constexpr int kLanes = 4;           // threads per row, consecutive lanes
+constexpr int kMaxRows = 64;        // rows of a tile (256 threads)
+constexpr int kMinRows = 16;        // 16 * n_pad is a multiple of 16
+constexpr int kMinBlocks = 132;     // shrink T until the tiles fill the SMs
+constexpr int kBudget = 100 * 1024; // dynamic shared memory of one block
+constexpr int kRosterCap = 16 * 1024;  // largest staged roster slice
+// widening to 16-byte boundaries (< 32 bytes) and the word walk's read of
+// one aligned word past a row (< 8 bytes) fit in this many extra bytes
+constexpr int kSlop = 32;
 
-__device__ __forceinline__ unsigned prefix_mask(int count, int base) {
-  const int bits = count - base;
-  if (bits <= 0) return 0u;
-  if (bits >= 32) return 0xFFFFFFFFu;
-  return (1u << bits) - 1u;
+// shared-memory plan of a launch
+struct Plan {
+  int rows;    // T, rows of a tile (= threads of a block)
+  int chunk;   // columns per pass: n_pad when one pass holds the rows
+  int stride;  // bytes per row segment in column passes, 0 in one pass
+  int buf;     // bytes of each of the up, full and creps buffers
+  int ro_buf;  // bytes of the staged roster slice (0: read from global)
+};
+
+__host__ __device__ inline long long align16(long long x) {
+  return (x + 15) & ~15LL;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, uintptr_t src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying the bytes [src, src + n) into shared memory at dst in
+// 16-byte pieces, widened to 16-byte boundaries: src[i] lands at
+// dst[head + i], head = src & 15, which is returned.  n >= 1.
+__device__ __forceinline__ int load_range(uint8_t* dst, const void* src,
+                                          long long n, int tid, int nthr) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+  const uintptr_t a1 = (a + n + 15) & ~static_cast<uintptr_t>(15);
+  const int pieces = static_cast<int>((a1 - a0) >> 4);
+  for (int i = tid; i < pieces; i += nthr)
+    cp_async16(dst + 16 * i, a0 + 16 * static_cast<uintptr_t>(i));
+  return static_cast<int>(a - a0);
+}
+
+// Zero the first `bytes` (a multiple of 16) of dst.
+__device__ __forceinline__ void zero_smem(uint8_t* dst, int bytes, int tid,
+                                          int nthr) {
+  for (int i = tid; i < bytes / 16; i += nthr)
+    reinterpret_cast<uint4*>(dst)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Store shared bytes to [dst, dst + n), where src[(dst & 15) + i] holds
+// dst[i] (src 16-byte aligned): 16-byte stores where a whole aligned
+// piece lies inside the range, single bytes at an unaligned head and at a
+// ragged tail.
+__device__ __forceinline__ void store_range(uint8_t* dst, const uint8_t* src,
+                                            long long n, int tid, int nthr) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  const uintptr_t b = a + n;
+  const uintptr_t a0 = a & ~static_cast<uintptr_t>(15);
+  uintptr_t lo = (a + 15) & ~static_cast<uintptr_t>(15);
+  uintptr_t hi = b & ~static_cast<uintptr_t>(15);
+  if (lo > hi) lo = hi = b;                 // no whole piece: all bytes
+  for (uintptr_t x = a + tid; x < lo; x += nthr)
+    *reinterpret_cast<uint8_t*>(x) = src[x - a0];
+  for (uintptr_t x = lo + 16 * static_cast<uintptr_t>(tid); x < hi;
+       x += 16 * static_cast<uintptr_t>(nthr))
+    *reinterpret_cast<uint4*>(x) =
+        *reinterpret_cast<const uint4*>(src + (x - a0));
+  for (uintptr_t x = hi + tid; x < b; x += nthr)    // the ragged tail
+    *reinterpret_cast<uint8_t*>(x) = src[x - a0];
+}
+
+// 0x80 in each byte of x that is not 0 (a bool byte reads as set when it
+// is not 0, as the first port's `!= 0`); no carry crosses a byte
+__device__ __forceinline__ uint32_t set_lanes(uint32_t x) {
+  return (((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x) & 0x80808080u;
+}
+
+// 0x80 in bytes [0, n) of a word (n <= 0: none, n >= 4: all)
+__device__ __forceinline__ uint32_t low_lanes(int n) {
+  if (n <= 0) return 0u;
+  if (n >= 4) return 0x80808080u;
+  return 0x80808080u & ((1u << (8 * n)) - 1u);
+}
+
+// word k of a byte run p at any alignment (bytes p[4k] .. p[4k + 3]), from
+// the aligned words a = p & ~3 and the shift sh = 8 (p & 3)
+__device__ __forceinline__ uint32_t word_at(const uint32_t* a, int sh,
+                                            int k) {
+  return __funnelshift_r(a[k], a[k + 1], sh);
+}
+
+__device__ __forceinline__ const uint32_t* aligned_words(const uint8_t* p) {
+  return reinterpret_cast<const uint32_t*>(reinterpret_cast<uintptr_t>(p) &
+                                           ~static_cast<uintptr_t>(3));
+}
+
+__device__ __forceinline__ int word_shift(const uint8_t* p) {
+  return 8 * static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+}
+
+// one row's running evaluation over its column passes (the ordered facts
+// in the row's first lane; n_rep and r_lead per lane until reduced)
+struct RowState {
+  int n_up = 0, n_first = 0, ldr = -1, n_rep = 0, r_lead = 0;
+  bool full_up = false, ldr_full = false;
+  uint32_t repmask = 0u;
+};
+
+// The ordered facts of columns [c0, c0 + wv) of one row, from the first
+// column on: the leader, creps (the first rf up lanes, set in sc) and the
+// lanes j < rf; mostly settled by the first word.  su, sf, sc point at the
+// segment's up, full and zeroed creps bytes in shared memory.
+__device__ __forceinline__ void ordered_facts(RowState& st,
+                                              const uint8_t* su,
+                                              const uint8_t* sf, uint8_t* sc,
+                                              int c0, int wv, int rf) {
+  const uint32_t* au = aligned_words(su);
+  const int shu = word_shift(su);
+  const int nw = (wv + 3) >> 2;
+  int seen = st.n_up;                       // up lanes before word k
+  for (int k = 0; k < nw; ++k) {
+    const int col = c0 + 4 * k;
+    if (seen >= rf && col >= rf) break;
+    const uint32_t U = set_lanes(word_at(au, shu, k)) & low_lanes(wv - 4 * k);
+    if (U == 0u) continue;
+    if (st.ldr < 0) {
+      const int byte = (__ffs(U) - 1) >> 3;
+      st.ldr = col + byte;
+      st.ldr_full = ((set_lanes(word_at(aligned_words(sf), word_shift(sf),
+                                        k)) >> (8 * byte)) & 0x80u) != 0u;
+    }
+    if (seen < rf) {
+      int rank = seen;
+      for (uint32_t m = U; m != 0u; m &= m - 1u) {
+        const int byte = (__ffs(m) - 1) >> 3;
+        ++rank;
+        if (rank <= rf) sc[4 * k + byte] = 1;
+      }
+    }
+    seen += __popc(U);
+    if (col < rf) {
+      const uint32_t mine = U & low_lanes(rf - col);
+      st.n_first += __popc(mine);
+      if (col < 32) st.repmask |= (((mine >> 7) * 0x01020408u) >> 24) << col;
+    }
+  }
+}
+
+// This lane's share of the order-free facts of a segment of wv real
+// columns: the lane takes its quarter of the words, and counts the up
+// lanes and the up lanes that hold the latest copy.
+__device__ __forceinline__ void count_share(const uint8_t* su,
+                                            const uint8_t* sf, int wv,
+                                            int part, int& n_up,
+                                            uint32_t& held) {
+  const int nw = (wv + 3) >> 2;
+  const int per = (nw + kLanes - 1) / kLanes;
+  const int k0 = part * per, k1 = min(nw, k0 + per);
+  if (k0 >= k1) return;
+  const uint32_t* au = aligned_words(su);
+  const uint32_t* af = aligned_words(sf);
+  const int shu = word_shift(su), shf = word_shift(sf);
+  uint32_t pu = au[k0], pf = af[k0];
+  for (int k = k0; k < k1; ++k) {
+    const uint32_t nu = au[k + 1], nf = af[k + 1];
+    const uint32_t U = set_lanes(__funnelshift_r(pu, nu, shu)) &
+                       low_lanes(wv - 4 * k);
+    n_up += __popc(U);
+    held |= set_lanes(__funnelshift_r(pf, nf, shf)) & U;
+    pu = nu;
+    pf = nf;
+  }
+}
+
+// reductions over the kLanes consecutive lanes of a row; every lane of the
+// warp takes part, and every lane of the row gets the result
+__device__ __forceinline__ int row_sum(int v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2)
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t row_or(uint32_t v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2)
+    v |= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ int row_min(int v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o /= 2)
+    v = min(v, __shfl_xor_sync(0xFFFFFFFFu, v, o));
+  return v;
 }
 
 template <bool kRoster>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxRows * kLanes)
 downtime_eval_kernel(const uint8_t* __restrict__ up,
                      const uint8_t* __restrict__ full,
                      const int32_t* __restrict__ roster,
@@ -59,59 +273,136 @@ downtime_eval_kernel(const uint8_t* __restrict__ up,
                      int32_t* __restrict__ repmask,
                      int32_t* __restrict__ rleader,
                      uint8_t* __restrict__ creps, int R, int n_pad,
-                     int n_real, int rf) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= R) return;                     // warp-uniform
-  const long long base = (long long)row * n_pad;
-  const unsigned lanemask_lt = (1u << lane) - 1u;
-  int n_up = 0, n_first = 0, ldr = -1;
-  bool full_up = false, ldr_full = false;
-  unsigned first_word = 0u;
-  for (int c0 = 0; c0 < n_pad; c0 += 32) {
-    const int col = c0 + lane;
-    bool u = false, f = false;
-    if (col < n_real) {                     // n_real <= n_pad
-      u = up[base + col] != 0;
-      f = full[base + col] != 0;
-    }
-    const unsigned word = __ballot_sync(0xFFFFFFFFu, u);
-    const unsigned both = __ballot_sync(0xFFFFFFFFu, u && f);
-    const int rank = n_up + __popc(word & lanemask_lt) + 1;
-    if (col < n_pad) creps[base + col] = (u && rank <= rf) ? 1 : 0;
-    if (c0 == 0) first_word = word;
-    if (ldr < 0 && word != 0u) {            // warp-uniform
-      const int bit = __ffs(word) - 1;
-      ldr = c0 + bit;
-      ldr_full = ((both >> bit) & 1u) != 0u;
-    }
-    n_up += __popc(word);
-    n_first += __popc(word & prefix_mask(rf, c0));
-    full_up = full_up || both != 0u;
-  }
-  int n_rep = n_first, r_lead = n_real;
+                     int n_real, int rf, Plan plan) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* s_up = smem;
+  uint8_t* s_full = smem + plan.buf;
+  uint8_t* s_creps = smem + 2 * plan.buf;
+  uint8_t* s_ro = smem + 3 * plan.buf;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lr = tid / kLanes, part = tid % kLanes;  // row in tile, lane
+  const long long row0 = static_cast<long long>(blockIdx.x) * plan.rows;
+  const int rows = static_cast<int>(min(static_cast<long long>(plan.rows),
+                                        R - row0));
+  const long long row = row0 + lr;
+  const bool live = lr < rows;
+  const bool one_pass = plan.stride == 0;
+
+  const int32_t* seats = nullptr;           // this row's roster ranks
   if (kRoster) {
-    int cnt = 0, lo = n_real;
-    for (int j = lane; j < rf; j += 32) {
-      const int r = roster[(long long)row * rf + j];
-      if (r >= 0 && r < n_real && up[base + r] != 0) {
-        ++cnt;
-        lo = min(lo, r);
+    if (plan.ro_buf > 0) {
+      const int h = load_range(s_ro, roster + row0 * rf,
+                               4LL * rows * rf, tid, nthr);
+      seats = reinterpret_cast<const int32_t*>(s_ro + h) + lr * rf;
+    } else {
+      seats = roster + row * rf;
+    }
+  }
+
+  RowState st;
+  st.r_lead = n_real;
+  for (int c0 = 0; c0 < n_pad; c0 += plan.chunk) {
+    const int w = min(plan.chunk, n_pad - c0);
+    int ou, of, oc;                         // this row's segment offsets
+    if (one_pass) {                         // the tile: one range each
+      const long long base = row0 * n_pad, n = 1LL * rows * n_pad;
+      ou = load_range(s_up, up + base, n, tid, nthr) + lr * n_pad;
+      of = load_range(s_full, full + base, n, tid, nthr) + lr * n_pad;
+      oc = static_cast<int>(reinterpret_cast<uintptr_t>(creps + base) & 15)
+           + lr * n_pad;
+      zero_smem(s_creps, static_cast<int>(align16(oc - lr * n_pad + n)),
+                tid, nthr);
+    } else {                                // one range per row segment
+      __syncthreads();                      // the last pass is stored
+      for (int r = 0; r < rows; ++r) {
+        const long long g = (row0 + r) * n_pad + c0;
+        load_range(s_up + r * plan.stride, up + g, w, tid, nthr);
+        load_range(s_full + r * plan.stride, full + g, w, tid, nthr);
+      }
+      const long long g = row * n_pad + c0;
+      ou = lr * plan.stride +
+           static_cast<int>(reinterpret_cast<uintptr_t>(up + g) & 15);
+      of = lr * plan.stride +
+           static_cast<int>(reinterpret_cast<uintptr_t>(full + g) & 15);
+      oc = lr * plan.stride +
+           static_cast<int>(reinterpret_cast<uintptr_t>(creps + g) & 15);
+      zero_smem(s_creps, plan.buf, tid, nthr);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int wv = min(w, n_real - c0);     // real columns of the segment
+    int n_up = 0;
+    uint32_t held = 0u;
+    if (live && wv > 0) {
+      if (part == 0)
+        ordered_facts(st, s_up + ou, s_full + of, s_creps + oc, c0, wv, rf);
+      count_share(s_up + ou, s_full + of, wv, part, n_up, held);
+    }
+    if (live && kRoster) {
+      for (int j = part; j < rf; j += kLanes) {
+        const int r = seats[j];
+        if (r < 0 || r >= n_real) continue;   // out of range: reads down
+        if (r >= c0 && r < c0 + w && s_up[ou + r - c0] != 0) {
+          ++st.n_rep;
+          st.r_lead = min(st.r_lead, r);
+        }
       }
     }
-    n_rep = (int)__reduce_add_sync(0xFFFFFFFFu, (unsigned)cnt);
-    r_lead = __reduce_min_sync(0xFFFFFFFFu, lo);
+    st.n_up += row_sum(n_up);
+    const uint32_t any_held = row_or(held);   // every lane shuffles
+    st.full_up = st.full_up || any_held != 0u;
+    __syncthreads();
+
+    if (one_pass) {
+      store_range(creps + row0 * n_pad, s_creps, 1LL * rows * n_pad, tid,
+                  nthr);
+    } else {
+      for (int r = 0; r < rows; ++r) {
+        const long long g = (row0 + r) * n_pad + c0;
+        store_range(creps + g, s_creps + r * plan.stride, w, tid, nthr);
+      }
+    }
   }
-  if (lane == 0) {
-    lark[row] = (2 * n_up > n_real && n_first > 0 && full_up) ? 1 : 0;
+
+  const int n_rep = kRoster ? row_sum(st.n_rep) : st.n_first;
+  const int r_lead = kRoster ? row_min(st.r_lead) : n_real;
+  if (live && part == 0) {
+    lark[row] = (2 * st.n_up > n_real && st.n_first > 0 && st.full_up)
+                    ? 1 : 0;
     qmaj[row] = (2 * n_rep > rf) ? 1 : 0;
     nrep[row] = n_rep;
-    leader[row] = ldr < 0 ? n_real : min(ldr, n_real);
-    lfull[row] = (ldr >= 0 && ldr_full) ? 1 : 0;
+    leader[row] = st.ldr < 0 ? n_real : st.ldr;
+    lfull[row] = (st.ldr >= 0 && st.ldr_full) ? 1 : 0;
     if (repmask != nullptr)                 // rf <= 30, checked by caller
-      repmask[row] = (int32_t)(first_word & ((1u << rf) - 1u));
+      repmask[row] = static_cast<int32_t>(st.repmask);
     if (kRoster && rleader != nullptr) rleader[row] = r_lead;
   }
+}
+
+// The tile: the most rows (128 down to 16) whose three row buffers and
+// roster slice fit the budget, halved while that leaves SMs without a
+// tile; rows too wide even for 16 go in column passes.  A roster slice
+// larger than kRosterCap is read from global memory.
+Plan make_plan(int R, int n_pad, int rf, bool roster) {
+  auto ro_bytes = [&](int T) -> int {
+    if (!roster) return 0;
+    const long long b = align16(4LL * T * rf + kSlop);
+    return b <= kRosterCap ? static_cast<int>(b) : 0;
+  };
+  auto buf = [&](int T) { return align16(1LL * T * n_pad + kSlop); };
+  auto tile = [&](int T) { return 3 * buf(T) + ro_bytes(T); };
+  if (tile(kMinRows) <= kBudget) {
+    int T = kMaxRows;
+    while (T > kMinRows &&
+           (tile(T) > kBudget || (R + T - 1) / T < kMinBlocks))
+      T /= 2;
+    return Plan{T, n_pad, 0, static_cast<int>(buf(T)), ro_bytes(T)};
+  }
+  const int T = kMinRows;
+  const int chunk = ((kBudget - ro_bytes(T)) / (3 * T) - kSlop) & ~15;
+  const int stride = chunk + kSlop;
+  return Plan{T, chunk, stride, T * stride, ro_bytes(T)};
 }
 
 template <bool kRoster>
@@ -120,15 +411,22 @@ int launch(const void* up, const void* full, const void* roster,
            void* repmask, void* rleader, void* creps, int R, int n_pad,
            int n_real, int rf, void* stream) {
   if (R <= 0) return 0;
-  const int rows_per_block = kThreads / 32;
-  const int blocks = (R + rows_per_block - 1) / rows_per_block;
-  downtime_eval_kernel<kRoster><<<blocks, kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      (const uint8_t*)up, (const uint8_t*)full, (const int32_t*)roster,
-      (uint8_t*)lark, (uint8_t*)qmaj, (int32_t*)leader, (uint8_t*)lfull,
-      (int32_t*)nrep, (int32_t*)repmask, (int32_t*)rleader,
-      (uint8_t*)creps, R, n_pad, n_real, rf);
-  return (int)cudaGetLastError();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      downtime_eval_kernel<kRoster>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const Plan plan = make_plan(R, n_pad, rf, kRoster);
+  const int blocks = (R + plan.rows - 1) / plan.rows;
+  const int smem = 3 * plan.buf + plan.ro_buf;
+  downtime_eval_kernel<kRoster><<<blocks, plan.rows * kLanes, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(up), static_cast<const uint8_t*>(full),
+      static_cast<const int32_t*>(roster), static_cast<uint8_t*>(lark),
+      static_cast<uint8_t*>(qmaj), static_cast<int32_t*>(leader),
+      static_cast<uint8_t*>(lfull), static_cast<int32_t*>(nrep),
+      static_cast<int32_t*>(repmask), static_cast<int32_t*>(rleader),
+      static_cast<uint8_t*>(creps), R, n_pad, n_real, rf, plan);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

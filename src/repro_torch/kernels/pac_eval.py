@@ -20,12 +20,15 @@ each beside its plain PyTorch version.
   ``repro/kernels/pac_eval.py:latency_charge`` (body ``_latency_kernel``)
   and the ``decay_from_dt`` chain before it: one interval of the §6
   client-latency layer, one thread per (trial, partition) row, float32
-  math held bitwise.  Bound by bytes: about 5.6 MB per call at the paper
-  tile (B = 8, P = 4096, NB = 4, nbins = 16, nbits = 22).
+  math held bitwise.  Bound by bytes: 4,735,024 bytes per call at the
+  timed shape (B = 8, P = 4096, NB = 4, nbins = 16, 9 of the 22 tables).
 
-The row kernels give one warp to each row and turn each 32-column chunk
-into a word with ``__ballot_sync``, so every byte is read or written
-once and the counts are ``__popc`` of those words; see the sources.
+``pac_eval`` gives one warp to each row and turns each 32-column chunk
+into a word with ``__ballot_sync``.  ``downtime_eval`` stages tiles of
+whole rows in shared memory in 16-byte pieces and walks each row in
+4-byte words, four lanes to a row; ``latency_charge`` issues every table
+load of a row before its decay chain and writes its histogram rows as
+16-byte stores.  Every byte is read or written once; see the sources.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs the plain version.  There is no fallback.
@@ -157,9 +160,10 @@ def downtime_eval_plain(up, full, *, rf: int, n_real: int, roster=None,
         .any(dim=1)
     extras = ()
     if want_repmask:
-        bits = torch.tensor([1 << j for j in range(rf)], dtype=torch.int32,
-                            device=up.device)
-        extras = extras + ((up[:, :rf].to(torch.int32) * bits[None, :])
+        first = up[:, :rf]                      # rf may exceed n_pad
+        bits = torch.tensor([1 << j for j in range(first.shape[1])],
+                            dtype=torch.int32, device=up.device)
+        extras = extras + ((first.to(torch.int32) * bits[None, :])
                            .sum(dim=1, dtype=torch.int32),)
     if want_rleader:
         extras = extras + (torch.where(rup, roster.to(torch.int32), n_real)

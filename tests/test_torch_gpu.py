@@ -22,8 +22,8 @@ from repro_torch.core.downtime_batched import (ENGINES,
                                                simulate_downtime_batched)
 from repro_torch.configs import reduced_config
 from repro_torch.kernels import (flash_attention, flash_check, fused_step,
-                                 mlstm_check, mlstm_chunk, pac_eval,
-                                 rglru_check, rglru_scan)
+                                 mc_check, mlstm_check, mlstm_chunk,
+                                 pac_eval, rglru_check, rglru_scan)
 from repro_torch.kernels.latency import decay_pow_tables
 from repro_torch.models import build_model
 from repro_torch.serving import ServeLoop
@@ -98,33 +98,49 @@ def _rosters(rng, R, rf, n):
     return torch.from_numpy(ro.astype(np.int32))
 
 
-@pytest.mark.parametrize("extras", [False, True], ids=["base", "extras"])
-@pytest.mark.parametrize("with_roster", [False, True],
-                         ids=["first-rf", "roster"])
-@pytest.mark.parametrize("rf", [2, 3, 4])
-@pytest.mark.parametrize("n_pad", [155, 160])
-def test_cuda_downtime_eval_matches_plain(cuda, n_pad, rf, with_roster,
-                                          extras):
-    rng = np.random.default_rng(rf + n_pad + 10 * with_roster)
-    R = 8 * 64
-    up = torch.from_numpy(rng.random((R, n_pad)) < 0.9)
-    up[0] = False
-    full = torch.from_numpy(rng.random((R, n_pad)) < 0.3)
-    roster = _rosters(rng, R, rf, 155) if with_roster else None
-    kw = dict(rf=rf, n_real=155, want_repmask=extras,
-              want_rleader=extras and with_roster)
-    before = (pac_eval.downtime_eval.launches,
-              pac_eval.downtime_eval.roster_launches)
-    got = pac_eval.downtime_eval(
-        up.to(cuda), full.to(cuda),
-        roster=None if roster is None else roster.to(cuda), **kw)
-    torch.cuda.synchronize()
-    after = (pac_eval.downtime_eval.launches,
-             pac_eval.downtime_eval.roster_launches)
-    assert after[int(with_roster)] == before[int(with_roster)] + 1
-    want = pac_eval.downtime_eval_plain(up, full, roster=roster, **kw)
-    assert len(got) == len(want)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+@pytest.mark.parametrize("layout", ["aligned", "unaligned"])
+@pytest.mark.parametrize("rf", [2, 4, 30])
+@pytest.mark.parametrize("n_pad", [1, 15, 16, 17, 31, 32, 33, 155, 160, 257])
+def test_cuda_downtime_eval_matches_plain(cuda, n_pad, rf, layout):
+    """Both launchers on the edges of the kernel's tiling: row widths
+    around 16-byte and word boundaries, 8 * 131 rows (not a multiple of
+    any tile), inputs as views at a byte offset, rf above n_pad, rosters
+    with seats out of range, and every want_repmask / want_rleader
+    combination, against the plain version bit for bit."""
+    rng = np.random.default_rng(rf + 7 * n_pad + (layout == "unaligned"))
+    R = 8 * 131
+    n_real = max(1, n_pad - 3) if n_pad > 16 else n_pad
+    up = torch.from_numpy(rng.random((R, n_pad)) < 0.6)
+    up[:3] = False
+    full = torch.from_numpy(rng.random((R, n_pad)) < 0.4)
+    roster = torch.from_numpy(
+        rng.integers(-2, n_pad + 3, (R, rf)).astype(np.int32))
+    on_card = [up.to(cuda), full.to(cuda), roster.to(cuda)]
+    if layout == "unaligned":
+        on_card = [mc_check.view_at(t, o) for t, o in zip(on_card, (3, 9, 4))]
+        assert all(t.data_ptr() % 16 != 0 for t in on_card)
+    combos = [(False, False, False), (False, True, False),
+              (True, False, False), (True, True, False),
+              (True, False, True), (True, True, True)]
+    for with_roster, repmask, rleader in combos:
+        if repmask and rf > 30:
+            continue
+        kw = dict(rf=rf, n_real=n_real, want_repmask=repmask,
+                  want_rleader=rleader)
+        before = (pac_eval.downtime_eval.launches,
+                  pac_eval.downtime_eval.roster_launches)
+        got = pac_eval.downtime_eval(
+            on_card[0], on_card[1],
+            roster=on_card[2] if with_roster else None, **kw)
+        torch.cuda.synchronize()
+        after = (pac_eval.downtime_eval.launches,
+                 pac_eval.downtime_eval.roster_launches)
+        assert after[int(with_roster)] == before[int(with_roster)] + 1
+        want = pac_eval.downtime_eval_plain(
+            up, full, roster=roster if with_roster else None, **kw)
+        assert len(got) == len(want)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+            (with_roster, repmask, rleader)
 
 
 def test_cuda_node_count_matches_plain(cuda):
@@ -193,18 +209,23 @@ def test_cuda_downtime_engine_matches_cpu(cuda, config, packed):
 def _latency_inputs(rng, B, P, NB=4, max_ticks=3_000_000):
     """Adversarial latency_charge inputs: dt with many bits set and 0,
     rem below 0, inside and beyond dt, mixed flags, dirty fractions a few
-    ulps around the 1e-30 flush floor."""
+    ulps around the 1e-30 flush floor.  max_ticks sets the tables (its
+    bit length) and caps dt."""
     lam = rng.uniform(0.0, 4.0, P)
-    f = np.array([0.001, 0.01, 0.2, 0.789])[:NB]
+    f = np.geomspace(0.001, 1.0, NB)
+    f = f / f.sum()
     tabs = decay_pow_tables(lam, np.full(NB, 1.0 / NB), f, 1024, max_ticks)
     dirty = rng.uniform(0.0, 1.0, (B, P, NB)).astype(np.float32)
     near = np.float32(1e-30) + rng.integers(-4, 5, dirty.shape) * \
         np.spacing(np.float32(1e-30))
     dirty = np.where(rng.random(dirty.shape) < 0.3, near, dirty) \
         .astype(np.float32)
-    dt = rng.integers(0, max_ticks + 1, B).astype(np.int32)
-    dt[:4] = 0, 0x2AAAAA, 0x155555, 2 ** 21 - 1        # 0, many bits set
-    rem = rng.integers(0, 3 * max_ticks, (B, P)).astype(np.int32)
+    dt = rng.integers(0, max_ticks + 1, B).astype(np.int64)
+    dt[:4] = [d & max_ticks for d in
+              (0, 0x2AAAAAAA, 0x55555555, 2 ** 21 - 1)]  # 0, many bits set
+    dt = dt.astype(np.int32)
+    rem = rng.integers(0, min(3 * max_ticks, 2 ** 31 - 1),
+                       (B, P)).astype(np.int32)
     rem[:, ::3] = (dt[:, None] * rng.random((B, (P + 2) // 3))) \
         .astype(np.int32)
     rem[:, 1::3] = rng.integers(-50, 0, (B, (P + 1) // 3))
@@ -214,19 +235,36 @@ def _latency_inputs(rng, B, P, NB=4, max_ticks=3_000_000):
                 lamw=rng.uniform(0.0, 8.0, P).astype(np.float32))
 
 
-@pytest.mark.parametrize("slo_ticks", [0, 8])
-def test_cuda_latency_charge_matches_plain(cuda, slo_ticks):
+@pytest.mark.parametrize("nbits", [1, 22, 31])
+@pytest.mark.parametrize("nbins", [2, 16, 30])
+@pytest.mark.parametrize("NB", [1, 3, 4, 8])
+def test_cuda_latency_charge_matches_plain(cuda, NB, nbins, nbits):
+    """Every bucket count the kernel instantiates around its 16-byte
+    paths, histogram widths, decay chains up to dt with bit 30 set, 4 *
+    1031 rows (a ragged last block), dirty and the tables as views at a
+    byte offset, both slo_ticks; bit for bit."""
+    rng = np.random.default_rng(100 * NB + 10 * nbins + nbits)
     args = {k: torch.from_numpy(v) for k, v in
-            _latency_inputs(np.random.default_rng(slo_ticks), 8,
-                            512).items()}
-    on_card = {k: v.to(cuda) for k, v in args.items()}
-    before = pac_eval.latency_charge.launches
-    got = pac_eval.latency_charge(**on_card, nbins=16, slo_ticks=slo_ticks)
-    torch.cuda.synchronize()
-    assert pac_eval.latency_charge.launches == before + 1
-    want = pac_eval.latency_charge_plain(**args, nbins=16,
-                                         slo_ticks=slo_ticks)
-    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+            _latency_inputs(rng, 4, 1031, NB=NB,
+                            max_ticks=2 ** nbits - 1).items()}
+    assert args["pow_tables"].shape[0] == nbits
+    if nbits == 31:
+        assert (args["dt_i"] >> 30).any()
+    for layout in ("aligned", "unaligned"):
+        on_card = {k: v.to(cuda) for k, v in args.items()}
+        if layout == "unaligned":
+            for k in ("dirty", "pow_tables"):
+                on_card[k] = mc_check.view_at(on_card[k], 4)
+        for slo_ticks in (0, 8):
+            before = pac_eval.latency_charge.launches
+            got = pac_eval.latency_charge(**on_card, nbins=nbins,
+                                          slo_ticks=slo_ticks)
+            torch.cuda.synchronize()
+            assert pac_eval.latency_charge.launches == before + 1
+            want = pac_eval.latency_charge_plain(**args, nbins=nbins,
+                                                 slo_ticks=slo_ticks)
+            assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), \
+                (layout, slo_ticks)
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
