@@ -17,18 +17,23 @@ One JSON line per phase:
    flag of each instantiation of ``flash_attention_sm90.cu`` (per head
    dim) and ``mlstm_chunk_sm90.cu`` (per kernel and Dv block); beside
    them, at the same time, the copies of ``downtime_eval.cu``,
-   ``latency_charge.cu``, ``rglru_scan.cu``, both flash sources and both
-   mLSTM sources with one planted fault each (``mc_check.FAULTS``,
+   ``latency_charge.cu``, ``fused_downtime.cu``, ``rglru_scan.cu``, both
+   flash sources and both mLSTM sources with one planted fault each
+   (``mc_check.FAULTS``,
    ``rglru_check.FAULTS``, ``flash_check.FAULTS``,
    ``mlstm_check.FAULTS``).
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
-   kernels against the unpacked ones on the same state; ``downtime_eval``
-   and ``latency_charge`` also on the edges of their tiling (ragged last
-   tiles and blocks, n_pad 31 and 63, inputs as views at a byte offset;
-   ``mc_check``), where each planted fault of their sources must fail a
-   case; plus each kernel's time per call beside the plain version's
+   kernels against the unpacked ones on the same state; ``pac_eval``,
+   ``downtime_eval``, ``latency_charge`` and ``fused_downtime_eval``
+   also on the edges of their tiling (``mc_check``: ragged last tiles and
+   blocks, n_pad 31 and 63, inputs as views at a byte offset, voters
+   across a word and past n_real, W 1 / 5 / 8 / 9 with a ragged P and
+   active all false or all true), where each planted fault of their
+   sources must fail a case (``pac_eval`` its own, ``mc_check.
+   PAC_FAULTS``); plus each kernel's time per call beside the plain
+   version's
    (``kernel_time``: ``ms`` back-to-back launches by CUDA events, and for
    the seven Monte Carlo kernels ``device_ms`` from the profiler's kernel
    durations, ``graph_ms`` from a CUDA graph's replay and ``cold_ms``
@@ -184,7 +189,7 @@ OPS_PER_LANE = {"pac_eval": 10, "fused_pac_eval": 16, "downtime_eval": 12,
                 "fused_downtime_eval": 20}
 #: where each kernel's source lives and which TPU kernel body it replaces
 SOURCES = {
-    "pac_eval": ("src/repro_torch/kernels/csrc/pac_eval.cu",
+    "pac_eval": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
                  "src/repro/kernels/pac_eval.py:23"),
     "fused_pac_eval": ("src/repro_torch/kernels/csrc/fused_step.cu",
                        "src/repro/kernels/fused_step.py:62"),
@@ -266,9 +271,12 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def check_kernels(bw):
+def check_kernels(bw, faults):
     """Phase 3: bitwise agreement with the plain versions at the paper
-    tile, and per-call times.  Returns the timing/bound records."""
+    tile, ``pac_eval`` on the edges of its tiling (``mc_check.
+    pac_checks``) with each of ``mc_check.PAC_FAULTS`` (copies of
+    downtime_eval.cu in `faults`) failing a case, and per-call times.
+    Returns the timing/bound records."""
     dev = torch.device(DEVICE)
     worst = {"pac_eval": 0.0, "fused_pac_eval": 0.0}
     gen = torch.Generator(device=dev)
@@ -326,6 +334,16 @@ def check_kernels(bw):
               "lark_frac": got[0].float().mean().item()})
         if not ok:
             raise SystemExit(f"fused_pac_eval disagrees (rf={rf})")
+    caught = {name: [] for name in mcc.PAC_FAULTS}
+    for rec in mcc.pac_checks(gen, {f: faults[f] for f in caught}):
+        emit({"phase": "kernel", **rec})
+        worst["pac_eval"] = max(worst["pac_eval"], rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"pac_eval disagrees ({rec['case']}, "
+                             f"rf={rec['rf']}, voters={rec['voters']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(f"{rec['case']}:rf{rec['rf']}:v{rec['voters']}")
+    held_faults("pac_eval", caught)
 
     # times at the main path's shapes: rf = 2, n_pad = n = 155 unpacked,
     # (8, 5, 4096) words packed.  The raw launcher is timed (the kernel),
@@ -337,11 +355,11 @@ def check_kernels(bw):
     fullw = bitpack.pack_words(full.reshape(B, P, N)) \
         .movedim(-1, 1).contiguous()
     outs = pk.pac_eval(up, full, rf=rf, voters=voters, n_real=N)
-    raw = _build.function("pac_eval", "pac_eval_launch", pk._ARGTYPES)
+    raw = _build.function("downtime_eval", "pac_eval_launch", pk._ARGTYPES)
     ptrs = [t.data_ptr() for t in (up, full, *outs)]
 
     def pac_launch(stream):
-        raw(*ptrs, R, N, N, rf, voters, stream)
+        return raw(*ptrs, R, N, N, rf, voters, stream)
 
     pac_ms = mcc.event_ms(pac_launch)
     pac_wrap_ms = time_ms(lambda: pk.pac_eval(up, full, rf=rf,
@@ -354,7 +372,7 @@ def check_kernels(bw):
     fptrs = [t.data_ptr() for t in (upw, fullw, *fouts)]
 
     def fused_launch(stream):
-        fraw(*fptrs, B, W, P, N, rf, voters, stream)
+        return fraw(*fptrs, B, W, P, N, rf, voters, stream)
 
     fused_ms = mcc.event_ms(fused_launch)
     fused_wrap_ms = time_ms(lambda: fk.fused_pac_eval(
@@ -362,7 +380,7 @@ def check_kernels(bw):
     fused_plain_ms = time_ms(lambda: fk.fused_pac_eval_plain(
         upw, fullw, rf=rf, voters=voters, n_real=N), 20)
 
-    pac_bytes = 3 * R * N + 2 * R
+    pac_bytes = mcc.pac_bytes(R, N)
     fused_bytes = 3 * B * W * P * 4 + 2 * B * P
     return {
         "pac_eval": record("pac_eval", pac_bytes, R * N, pac_ms, pac_wrap_ms,
@@ -406,14 +424,16 @@ def random_rosters(gen, R, rf, dev):
     return ro.contiguous()
 
 
-def check_downtime_kernels(bw, faults):
+def check_downtime_kernels(bw, faults, fused_faults):
     """Phase 3 for the §6 kernels: bitwise agreement with the plain
     versions at the paper tile, packed against unpacked, then
     ``downtime_eval`` on the edges of its tiling (``mc_check.
     DOWNTIME_CASES``: a ragged last tile, n_pad 31 and 63, views at a byte
     offset) with each planted fault of its source (`faults`) failing a
-    case, and times at the §6 main path's shapes.  Returns the
-    timing/bound records."""
+    case, ``fused_downtime_eval`` on ``mc_check.FUSED_CASES`` (W 1, 5, 8
+    and 9, a ragged P, rosters at an offset, active all false and all
+    true) with each of its source's (`fused_faults`), and times at the §6
+    main path's shapes.  Returns the timing/bound records."""
     dev = torch.device(DEVICE)
     names = ("downtime_eval", "downtime_eval_roster", "node_count",
              "fused_downtime_eval")
@@ -504,8 +524,8 @@ def check_downtime_kernels(bw, faults):
                           fk.fused_downtime_eval_plain(upw, fullw, **kw),
                           rf=rf, roster=with_roster, counts=counts,
                           extras=extras)
-    caught = {name: [] for name in faults}
-    for rec in mcc.downtime_checks(gen, faults):
+    caught = {name: [] for name in mcc.DOWNTIME_FAULTS}
+    for rec in mcc.downtime_checks(gen, {f: faults[f] for f in caught}):
         emit({"phase": "kernel", **rec})
         worst[rec["kernel"]] = max(worst[rec["kernel"]], rec["max_abs_err"])
         if not rec["equal"]:
@@ -514,6 +534,17 @@ def check_downtime_kernels(bw, faults):
         for f in rec["faults_failed"]:
             caught[f].append(f"{rec['kernel']}:{rec['case']}:rf{rec['rf']}")
     held_faults("downtime_eval", caught)
+    caught = {name: [] for name in fused_faults}
+    for rec in mcc.fused_checks(gen, fused_faults):
+        emit({"phase": "kernel", **rec})
+        worst[rec["kernel"]] = max(worst[rec["kernel"]], rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"fused_downtime_eval disagrees ({rec['case']}, "
+                             f"rf={rec['rf']}, roster={rec['roster']}, "
+                             f"counts={rec['counts']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(f"{rec['case']}:rf{rec['rf']}")
+    held_faults("fused_downtime_eval", caught)
 
     # times at the §6 main path's shapes: rf = 2, n_pad = n = 155, the
     # state of a mostly-up cluster; the raw launchers are timed (the
@@ -546,7 +577,8 @@ def check_downtime_kernels(bw, faults):
     raw = _build.function("node_count", "node_count_launch", pk._NC_ARGTYPES)
 
     def count_launch(stream):
-        raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(), B, P, N, stream)
+        return raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(), B, P, N,
+                   stream)
 
     launches["node_count"] = count_launch
     times["node_count"] = (
@@ -566,7 +598,7 @@ def check_downtime_kernels(bw, faults):
              fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf)
 
     def fused_launch(stream):
-        fraw(*fargs, stream)
+        return fraw(*fargs, stream)
 
     launches["fused_downtime_eval"] = fused_launch
     times["fused_downtime_eval"] = (
@@ -581,9 +613,9 @@ def check_downtime_kernels(bw, faults):
         fargs[14:]
 
     def fixed_launch(stream):
-        fraw(*fixed_args, stream)
+        return fraw(*fixed_args, stream)
 
-    fixed_bytes = 3 * B * W * P * 4 + 11 * B * P
+    fixed_bytes = mcc.fused_bytes(B, W, P)
     emit({"phase": "kernel_time", "kernel": "fused_downtime_eval",
           "shape": "fixed (no roster, no counts)",
           "ms": mcc.event_ms(fixed_launch), **mcc.device_times(fixed_launch),
@@ -593,8 +625,8 @@ def check_downtime_kernels(bw, faults):
         "downtime_eval": mcc.downtime_bytes(R, N),
         "downtime_eval_roster": mcc.downtime_bytes(R, N, rf),
         "node_count": 5 * B * P + 4 * B * N,
-        "fused_downtime_eval": 3 * B * W * P * 4 + 11 * B * P
-        + 4 * B * P * rf + 5 * B * P + 4 * B * N,
+        "fused_downtime_eval": mcc.fused_bytes(B, W, P, rf=rf, n_real=N,
+                                               counts=True),
     }
     lanes = {"downtime_eval": R * N, "downtime_eval_roster": R * N,
              "node_count": B * P, "fused_downtime_eval": B * W * P}
@@ -1779,8 +1811,9 @@ def main() -> int:
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
-    rec = check_kernels(bw)
-    rec.update(check_downtime_kernels(bw, faults["downtime_eval"]))
+    rec = check_kernels(bw, faults["downtime_eval"])
+    rec.update(check_downtime_kernels(bw, faults["downtime_eval"],
+                                      faults["fused_downtime"]))
     rec["latency_charge"] = check_latency_kernel(bw, faults["latency_charge"])
     launches = check_engine()
     check_bench_rows()

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: kernel sources, one shared library each
-SOURCES = ("pac_eval", "fused_step", "downtime_eval", "node_count",
+SOURCES = ("fused_step", "downtime_eval", "node_count",
            "fused_downtime", "latency_charge", "mlstm_chunk", "rglru_scan",
            "flash_attention", "flash_attention_sm90",
            "mlstm_chunk_sm90")
@@ -167,7 +167,11 @@ def start_variants(name: str, faults: dict, out_dir: Path, *,
 def finish_variants(procs: dict, symbol, argtypes) -> dict:
     """Wait for ``start_variants``' builds; returns {variant: the ctypes
     function `symbol` of its library}, or a tuple of them when `symbol`
-    is a tuple of names.  Raises with nvcc's output if a build fails."""
+    is a tuple of names; `argtypes` is then one list for all of them, or
+    a tuple of lists, one per name.  Raises with nvcc's output if a build
+    fails."""
+    symbols = (symbol,) if isinstance(symbol, str) else tuple(symbol)
+    per_symbol = isinstance(argtypes[0], (list, tuple))
     fns = {}
     for variant, (proc, so) in procs.items():
         log, _ = proc.communicate()
@@ -175,9 +179,10 @@ def finish_variants(procs: dict, symbol, argtypes) -> dict:
             raise RuntimeError(f"nvcc failed on {variant}:\n{log}")
         lib = ctypes.CDLL(str(so))
         found = []
-        for sym in (symbol,) if isinstance(symbol, str) else symbol:
+        for i, sym in enumerate(symbols):
             fn = getattr(lib, sym)
-            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            fn.argtypes = list(argtypes[i] if per_symbol else argtypes)
+            fn.restype = ctypes.c_int
             found.append(fn)
         fns[variant] = found[0] if isinstance(symbol, str) else tuple(found)
     return fns

@@ -1,7 +1,8 @@
-// downtime_eval — §6 per-row evaluation on boolean rank-space tiles,
-// plain and roster variants.
+// downtime_eval and pac_eval — per-row evaluation on boolean rank-space
+// tiles: the §6 evaluation (plain and roster variants) and §5.1 PAC.
 //
-// Replaces the Pallas TPU kernels of repro/kernels/pac_eval.py:
+// Replaces three Pallas TPU kernel bodies of repro/kernels/pac_eval.py:
+// _pac_kernel (:23, wrapper pac_eval, pallas_call at :64),
 // _downtime_kernel (:87) and _downtime_roster_kernel (:131), both called
 // by downtime_eval (pallas_call at :405).  Inputs are (R, n_pad) bool
 // tiles in succession-rank space (R = trials * partitions); columns
@@ -9,6 +10,11 @@
 //   lark   = cluster majority up AND some first-rf lane up AND some
 //            latest-copy holder up (PAC; the first rf lanes even in the
 //            roster variant, as the reference)
+//   creps  = the first rf up lanes (the refreshed holder mask)
+// pac_eval adds
+//   maj    = 2 * (up lanes below voters) > voters, the 2f+1 baseline
+//            (voters may exceed 32 and n_real; padding reads as down)
+// and downtime_eval
 //   nrep   = up count of the replica set: the first rf lanes, or the
 //            roster's rf ranks (a rank outside [0, n_real) reads as down);
 //            qmaj = 2 * nrep > rf
@@ -17,42 +23,54 @@
 //   repmask (optional) = bit j set iff lane j < rf is up
 //   rleader (optional, roster only) = lowest up roster rank, n_real when
 //            none
-//   creps  = the first rf up lanes (the refreshed holder mask)
 //
 // Bound: bytes.  Each row is read once (2 * n_pad bytes, + 4 * rf roster
-// bytes) and written once (n_pad + 11 bytes, + 4 per extra):
-// 3 R n_pad + 11 R (+ 4 R rf) bytes, 15,597,568 (15,859,712 with an
-// rf = 2 roster) at the paper tile (R = 8 * 4096, n_pad = 155), 4.66
-// (4.73) us at 3.35 TB/s.  The arithmetic is a few integer ops per byte.
-// Design: a block owns a tile of T consecutive rows (64; four consecutive
-// lanes to a row, 256 threads), T a multiple of 16 so that the tile's
-// bytes start 16-byte aligned whatever n_pad is (when the tensor's base
-// is).  The tile's up and full bytes are each one contiguous range; they
-// come into shared memory in 16-byte cp.async pieces, the range widened to
-// 16-byte boundaries so that a view at any byte offset, or a ragged last
-// tile, needs nothing else (a widened piece holds a byte of the range, so
-// it lies in the same allocation page; the bytes outside the range are
-// never used).  The roster slice comes along the same way.  A row is read
-// in 4-byte words at its own alignment (__funnelshift_r of two aligned
+// bytes) and written once (n_pad bytes of creps and 2 bytes for pac_eval;
+// n_pad + 11 bytes, + 4 per extra, for downtime_eval).  At the paper tile
+// (R = 8 * 4096, n_pad = 155), at 3.35 TB/s: pac_eval 3 R n_pad + 2 R =
+// 15,302,656 bytes, 4.57 us; downtime_eval 3 R n_pad + 11 R = 15,597,568
+// bytes, 4.66 us, and 15,859,712 (4.73 us) with an rf = 2 roster.  The
+// arithmetic is a few integer ops per byte.
+// Design: one kernel body, templated on the mode (pac, plain, roster), so
+// that each launcher's instantiation carries only its own work.  A block
+// owns a tile of T consecutive rows (64; four consecutive lanes to a row,
+// 256 threads), T a multiple of 16 so that the tile's bytes start 16-byte
+// aligned whatever n_pad is (when the tensor's base is).  The tile's up
+// and full bytes are each one contiguous range; they come into shared
+// memory in 16-byte cp.async pieces, the range widened to 16-byte
+// boundaries so that a view at any byte offset, or a ragged last tile,
+// needs nothing else (a widened piece holds a byte of the range, so it
+// lies in the same allocation page; the bytes outside the range are never
+// used).  The roster slice comes along the same way.  A row is read in
+// 4-byte words at its own alignment (__funnelshift_r of two aligned
 // shared words), each byte turned into one flag bit by a carry-free add.
 // The row's four lanes each count a quarter of its words (up lanes, up
 // lanes holding the latest copy) and reduce with __shfl_xor_sync; its
-// first lane walks from the first column for the ordered facts (leader,
-// creps, the lanes below rf), mostly one word.  The roster seats, split
+// first lane walks from the first column for the ordered facts (creps,
+// the lanes below rf and, for pac_eval, the up lanes below voters; the
+// leader for downtime_eval), mostly one word.  The roster seats, split
 // over the four lanes, read their up byte from shared memory.  creps is
 // zeroed in shared memory, each row sets its first rf up lanes, and the
 // tile goes out as 16-byte stores over the same contiguous range (single
-// bytes at an unaligned head or ragged tail).  Per-row outputs go out from
-// each row's first lane.  T comes from n_pad at launch so that the tile
-// fits in shared memory (and halves while that leaves SMs without a
-// tile); a row too wide for 16 rows is walked in column passes, one range
-// per row segment.  The reference's 128-lane node and roster padding is
-// TPU layout and is not carried over.  Integer and bit math only: exact.
+// bytes at an unaligned head or ragged tail).  Per-row outputs go out as
+// bytes and words from each row's first lane.  T comes from n_pad at
+// launch so that the tile fits in shared memory (and halves while that
+// leaves SMs without a tile); a row too wide for 16 rows is walked in
+// column passes, one range per row segment.  The reference's 128-lane
+// node and roster padding is TPU layout and is not carried over.  Integer
+// and bit math only: exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// what a launch evaluates: the instantiation of the kernel body
+enum Mode : int {
+  kPac = 0,     // pac_eval: lark, maj, creps
+  kPlain = 1,   // downtime_eval: the replica set is the first rf lanes
+  kRoster = 2,  // downtime_eval: the replica set is the roster's ranks
+};
 
 constexpr int kLanes = 4;           // threads per row, consecutive lanes
 constexpr int kMaxRows = 64;        // rows of a tile (256 threads)
@@ -167,29 +185,33 @@ __device__ __forceinline__ int word_shift(const uint8_t* p) {
 // one row's running evaluation over its column passes (the ordered facts
 // in the row's first lane; n_rep and r_lead per lane until reduced)
 struct RowState {
-  int n_up = 0, n_first = 0, ldr = -1, n_rep = 0, r_lead = 0;
+  int n_up = 0, n_first = 0, n_vote = 0, ldr = -1, n_rep = 0, r_lead = 0;
   bool full_up = false, ldr_full = false;
   uint32_t repmask = 0u;
 };
 
 // The ordered facts of columns [c0, c0 + wv) of one row, from the first
-// column on: the leader, creps (the first rf up lanes, set in sc) and the
-// lanes j < rf; mostly settled by the first word.  su, sf, sc point at the
-// segment's up, full and zeroed creps bytes in shared memory.
+// column on: creps (the first rf up lanes, set in sc), the lanes j < rf,
+// and the leader (downtime_eval) or the up lanes j < voters (pac_eval);
+// mostly settled by the first word.  su, sf, sc point at the segment's
+// up, full and zeroed creps bytes in shared memory.
+template <int kMode>
 __device__ __forceinline__ void ordered_facts(RowState& st,
                                               const uint8_t* su,
                                               const uint8_t* sf, uint8_t* sc,
-                                              int c0, int wv, int rf) {
+                                              int c0, int wv, int rf,
+                                              int voters) {
   const uint32_t* au = aligned_words(su);
   const int shu = word_shift(su);
   const int nw = (wv + 3) >> 2;
+  const int last = kMode == kPac ? max(rf, voters) : rf;  // ordered lanes
   int seen = st.n_up;                       // up lanes before word k
   for (int k = 0; k < nw; ++k) {
     const int col = c0 + 4 * k;
-    if (seen >= rf && col >= rf) break;
+    if (seen >= rf && col >= last) break;
     const uint32_t U = set_lanes(word_at(au, shu, k)) & low_lanes(wv - 4 * k);
     if (U == 0u) continue;
-    if (st.ldr < 0) {
+    if (kMode != kPac && st.ldr < 0) {
       const int byte = (__ffs(U) - 1) >> 3;
       st.ldr = col + byte;
       st.ldr_full = ((set_lanes(word_at(aligned_words(sf), word_shift(sf),
@@ -207,8 +229,11 @@ __device__ __forceinline__ void ordered_facts(RowState& st,
     if (col < rf) {
       const uint32_t mine = U & low_lanes(rf - col);
       st.n_first += __popc(mine);
-      if (col < 32) st.repmask |= (((mine >> 7) * 0x01020408u) >> 24) << col;
+      if (kMode != kPac && col < 32)
+        st.repmask |= (((mine >> 7) * 0x01020408u) >> 24) << col;
     }
+    if (kMode == kPac && col < voters)
+      st.n_vote += __popc(U & low_lanes(voters - col));
   }
 }
 
@@ -261,9 +286,9 @@ __device__ __forceinline__ int row_min(int v) {
   return v;
 }
 
-template <bool kRoster>
+template <int kMode>
 __global__ void __launch_bounds__(kMaxRows * kLanes)
-downtime_eval_kernel(const uint8_t* __restrict__ up,
+row_eval_kernel(const uint8_t* __restrict__ up,
                      const uint8_t* __restrict__ full,
                      const int32_t* __restrict__ roster,
                      uint8_t* __restrict__ lark, uint8_t* __restrict__ qmaj,
@@ -273,7 +298,8 @@ downtime_eval_kernel(const uint8_t* __restrict__ up,
                      int32_t* __restrict__ repmask,
                      int32_t* __restrict__ rleader,
                      uint8_t* __restrict__ creps, int R, int n_pad,
-                     int n_real, int rf, Plan plan) {
+                     int n_real, int rf, int voters, Plan plan) {
+  constexpr bool kWithRoster = kMode == kRoster;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* s_up = smem;
   uint8_t* s_full = smem + plan.buf;
@@ -289,7 +315,7 @@ downtime_eval_kernel(const uint8_t* __restrict__ up,
   const bool one_pass = plan.stride == 0;
 
   const int32_t* seats = nullptr;           // this row's roster ranks
-  if (kRoster) {
+  if (kWithRoster) {
     if (plan.ro_buf > 0) {
       const int h = load_range(s_ro, roster + row0 * rf,
                                4LL * rows * rf, tid, nthr);
@@ -336,10 +362,11 @@ downtime_eval_kernel(const uint8_t* __restrict__ up,
     uint32_t held = 0u;
     if (live && wv > 0) {
       if (part == 0)
-        ordered_facts(st, s_up + ou, s_full + of, s_creps + oc, c0, wv, rf);
+        ordered_facts<kMode>(st, s_up + ou, s_full + of, s_creps + oc, c0,
+                             wv, rf, voters);
       count_share(s_up + ou, s_full + of, wv, part, n_up, held);
     }
-    if (live && kRoster) {
+    if (live && kWithRoster) {
       for (int j = part; j < rf; j += kLanes) {
         const int r = seats[j];
         if (r < 0 || r >= n_real) continue;   // out of range: reads down
@@ -365,18 +392,22 @@ downtime_eval_kernel(const uint8_t* __restrict__ up,
     }
   }
 
-  const int n_rep = kRoster ? row_sum(st.n_rep) : st.n_first;
-  const int r_lead = kRoster ? row_min(st.r_lead) : n_real;
+  const int n_rep = kWithRoster ? row_sum(st.n_rep) : st.n_first;
+  const int r_lead = kWithRoster ? row_min(st.r_lead) : n_real;
   if (live && part == 0) {
     lark[row] = (2 * st.n_up > n_real && st.n_first > 0 && st.full_up)
                     ? 1 : 0;
+    if (kMode == kPac) {                    // qmaj holds maj
+      qmaj[row] = (2 * st.n_vote > voters) ? 1 : 0;
+      return;
+    }
     qmaj[row] = (2 * n_rep > rf) ? 1 : 0;
     nrep[row] = n_rep;
     leader[row] = st.ldr < 0 ? n_real : st.ldr;
     lfull[row] = (st.ldr >= 0 && st.ldr_full) ? 1 : 0;
     if (repmask != nullptr)                 // rf <= 30, checked by caller
       repmask[row] = static_cast<int32_t>(st.repmask);
-    if (kRoster && rleader != nullptr) rleader[row] = r_lead;
+    if (kWithRoster && rleader != nullptr) rleader[row] = r_lead;
   }
 }
 
@@ -405,31 +436,40 @@ Plan make_plan(int R, int n_pad, int rf, bool roster) {
   return Plan{T, chunk, stride, T * stride, ro_bytes(T)};
 }
 
-template <bool kRoster>
+template <int kMode>
 int launch(const void* up, const void* full, const void* roster,
            void* lark, void* qmaj, void* leader, void* lfull, void* nrep,
            void* repmask, void* rleader, void* creps, int R, int n_pad,
-           int n_real, int rf, void* stream) {
+           int n_real, int rf, int voters, void* stream) {
   if (R <= 0) return 0;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      downtime_eval_kernel<kRoster>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget);
+      row_eval_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kBudget);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const Plan plan = make_plan(R, n_pad, rf, kRoster);
+  const Plan plan = make_plan(R, n_pad, rf, kMode == kRoster);
   const int blocks = (R + plan.rows - 1) / plan.rows;
   const int smem = 3 * plan.buf + plan.ro_buf;
-  downtime_eval_kernel<kRoster><<<blocks, plan.rows * kLanes, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  row_eval_kernel<kMode><<<blocks, plan.rows * kLanes, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(up), static_cast<const uint8_t*>(full),
       static_cast<const int32_t*>(roster), static_cast<uint8_t*>(lark),
       static_cast<uint8_t*>(qmaj), static_cast<int32_t*>(leader),
       static_cast<uint8_t*>(lfull), static_cast<int32_t*>(nrep),
       static_cast<int32_t*>(repmask), static_cast<int32_t*>(rleader),
-      static_cast<uint8_t*>(creps), R, n_pad, n_real, rf, plan);
+      static_cast<uint8_t*>(creps), R, n_pad, n_real, rf, voters, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+extern "C" int pac_eval_launch(const void* up, const void* full, void* lark,
+                               void* maj, void* creps, int R, int n_pad,
+                               int n_real, int rf, int voters,
+                               void* stream) {
+  return launch<kPac>(up, full, nullptr, lark, maj, nullptr, nullptr,
+                      nullptr, nullptr, nullptr, creps, R, n_pad, n_real,
+                      rf, voters, stream);
+}
 
 extern "C" int downtime_eval_launch(const void* up, const void* full,
                                     const void* roster, void* lark,
@@ -438,9 +478,9 @@ extern "C" int downtime_eval_launch(const void* up, const void* full,
                                     void* rleader, void* creps, int R,
                                     int n_pad, int n_real, int rf,
                                     void* stream) {
-  return launch<false>(up, full, roster, lark, qmaj, leader, lfull, nrep,
-                       repmask, rleader, creps, R, n_pad, n_real, rf,
-                       stream);
+  return launch<kPlain>(up, full, roster, lark, qmaj, leader, lfull, nrep,
+                        repmask, rleader, creps, R, n_pad, n_real, rf, 0,
+                        stream);
 }
 
 extern "C" int downtime_roster_launch(const void* up, const void* full,
@@ -450,7 +490,7 @@ extern "C" int downtime_roster_launch(const void* up, const void* full,
                                       void* rleader, void* creps, int R,
                                       int n_pad, int n_real, int rf,
                                       void* stream) {
-  return launch<true>(up, full, roster, lark, qmaj, leader, lfull, nrep,
-                      repmask, rleader, creps, R, n_pad, n_real, rf,
-                      stream);
+  return launch<kRoster>(up, full, roster, lark, qmaj, leader, lfull, nrep,
+                         repmask, rleader, creps, R, n_pad, n_real, rf, 0,
+                         stream);
 }

@@ -14,21 +14,34 @@
 // as the engine carries them, (B, P, rf) int32.
 //
 // Bound: bytes.  Each thread reads 2W words (+ rf roster ranks, a recruit
-// id and an active byte) and writes W words + 11 bytes (+ 4 per extra);
-// per word it does a few popcounts and masks.
+// id and an active byte) and writes W words + 11 bytes (+ 4 per extra):
+// 12 B W P + 11 B P (+ 4 B P rf + 5 B P + 4 B n_real) bytes, 2,757,472
+// with an rf = 2 roster and the counts at the paper tile (B = 8, W = 5,
+// P = 4096), 0.82 us at 3.35 TB/s; per word it does a few popcounts and
+// masks.  So a launch is its latency: the grid's ramp and one chain of
+// dependent memory round trips per thread.
 // Design: one thread per (trial, partition), as fused_step.cu: word k of
 // neighbouring partitions is contiguous, so loads and stores coalesce.
-// The leader is 32k + __ffs(w) - 1 of the first non-zero word, its
-// latest-copy bit that bit of the full word.  A roster rank r selects bit
-// r & 31 of word r >> 5 (re-read from global memory, where L1 holds it),
-// and reads 0 outside [0, n_real), as bitpack.select_bit does on masked
-// words.  The creps walk keeps the lowest `remaining` set bits of each
-// word in order, as fused_pac_eval.  The counts: the grid's y axis is the
-// trial, so every block's partitions belong to one trial; the block fills
-// an n_real-entry shared histogram with shared atomicAdds and flushes its
-// non-zero entries with global atomicAdds — the CUDA form of the
-// reference's accumulation across the partition tiles of a trial block.
-// Integer atomics commute: exact.
+// The kernel is templated on W for 1 <= W <= 8 (n <= 256): a thread
+// issues every load it needs before any arithmetic that depends on one —
+// its 2W words into register arrays, its roster ranks (one int2 at
+// rf = 2 where aligned, else the first kSeats as separate loads), its
+// recruit id and active byte — so the whole thread waits on one round
+// trip.  A roster rank r selects bit r & 31 of register word r >> 5 by an
+// unrolled compare-select over the W words, and reads 0 outside
+// [0, n_real), as bitpack.select_bit does on masked words.  W > 8 walks
+// the words in a loop (the generic instantiation), reading a roster
+// rank's word from global memory.  The leader is 32k + __ffs(w) - 1 of
+// the first non-zero word, its latest-copy bit that bit of the full word.
+// The creps walk keeps the lowest `remaining` set bits of each word in
+// order, as fused_pac_eval.  The counts: the grid's y axis is the trial,
+// so every block's partitions belong to one trial; the lanes of a warp
+// that count the same node find each other with __match_any_sync, and
+// the lowest of them adds their number with one global atomicAdd — the
+// CUDA form of the reference's accumulation across the partition tiles
+// of a trial block.  No shared histogram: its zeroing, two barriers and
+// flush took 0.51 us of a 2.60 us launch at the paper tile on an H100
+// (kernels/mc_check.py --ablate).  Integer atomics commute: exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -36,6 +49,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kSeats = 4;   // roster ranks loaded up front
 
 __device__ __forceinline__ uint32_t prefix_mask(int count, int base) {
   const int bits = count - base;
@@ -44,87 +58,208 @@ __device__ __forceinline__ uint32_t prefix_mask(int count, int base) {
   return (1u << bits) - 1u;
 }
 
+// the per-(trial, partition) outputs of one launch
+struct Outs {
+  uint8_t* lark;
+  uint8_t* qmaj;
+  int32_t* leader;
+  uint8_t* lfull;
+  int32_t* nrep;
+  int32_t* repmask;   // optional
+  int32_t* rleader;   // optional, roster only
+  uint32_t* crepsw;
+};
+
+// the lowest `remaining` set bits of u, lowest first; remaining counts down
+__device__ __forceinline__ uint32_t first_set(uint32_t u, int& remaining) {
+  uint32_t keep = 0u;
+  while (remaining > 0 && u != 0u) {
+    keep |= u & (0u - u);
+    u &= u - 1u;
+    --remaining;
+  }
+  return keep;
+}
+
+__device__ __forceinline__ void store_row(const Outs& o, long long row,
+                                          int n_up, int n_first, int n_rep,
+                                          bool full_up, int ldr,
+                                          bool ldr_full, uint32_t first_word,
+                                          int lo_rank, int n_real, int rf) {
+  o.lark[row] = (2 * n_up > n_real && n_first > 0 && full_up) ? 1 : 0;
+  o.qmaj[row] = (2 * n_rep > rf) ? 1 : 0;
+  o.nrep[row] = n_rep;
+  o.leader[row] = ldr < 0 ? n_real : ldr;
+  o.lfull[row] = (ldr >= 0 && ldr_full) ? 1 : 0;
+  if (o.repmask != nullptr)               // rf <= 30, checked by caller
+    o.repmask[row] = static_cast<int32_t>(first_word & ((1u << rf) - 1u));
+  if (o.rleader != nullptr) o.rleader[row] = lo_rank;
+}
+
+// One (trial, partition) with its kW words in registers; returns the node
+// this row adds to the counts, or -1.
+template <int kW>
+__device__ __forceinline__ int eval_registers(
+    const uint32_t* __restrict__ upw, const uint32_t* __restrict__ fullw,
+    const int32_t* __restrict__ roster, const int32_t* __restrict__ recruit,
+    const uint8_t* __restrict__ active, bool counting, const Outs& o,
+    long long b, int p, int P, int n_real, int rf) {
+  const long long row = b * P + p;
+  const long long base = b * kW * P + p;
+  uint32_t u[kW], f[kW];
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    u[k] = __ldg(upw + base + static_cast<long long>(k) * P);
+    f[k] = __ldg(fullw + base + static_cast<long long>(k) * P);
+  }
+  const int32_t* seats = roster != nullptr ? roster + row * rf : nullptr;
+  int seat[kSeats];                         // -1 (reads down) past rf
+  if (roster != nullptr && rf == 2 &&
+      (reinterpret_cast<uintptr_t>(seats) & 7) == 0) {
+    const int2 v = __ldg(reinterpret_cast<const int2*>(seats));
+    seat[0] = v.x;
+    seat[1] = v.y;
+#pragma unroll
+    for (int j = 2; j < kSeats; ++j) seat[j] = -1;
+  } else {
+#pragma unroll
+    for (int j = 0; j < kSeats; ++j)
+      seat[j] = (seats != nullptr && j < rf) ? __ldg(seats + j) : -1;
+  }
+  int rc = -1;
+  bool act = false;
+  if (counting) {
+    rc = __ldg(recruit + row);
+    act = active[row] != 0;
+  }
+
+  int n_up = 0, n_first = 0, ldr = -1, remaining = rf;
+  bool full_up = false, ldr_full = false;
+#pragma unroll
+  for (int k = 0; k < kW; ++k) {
+    u[k] &= prefix_mask(n_real, 32 * k);
+    n_up += __popc(u[k]);
+    n_first += __popc(u[k] & prefix_mask(rf, 32 * k));
+    full_up = full_up || (u[k] & f[k]) != 0u;
+    if (ldr < 0 && u[k] != 0u) {
+      const int bit = __ffs(u[k]) - 1;
+      ldr = 32 * k + bit;
+      ldr_full = ((f[k] >> bit) & 1u) != 0u;
+    }
+    o.crepsw[base + static_cast<long long>(k) * P] = first_set(u[k],
+                                                               remaining);
+  }
+  int n_rep = n_first, lo_rank = n_real;
+  if (seats != nullptr) {
+    n_rep = 0;
+    auto take = [&](int r) {                // bit r of the words in u
+      if (r < 0 || r >= n_real) return;     // out of range: reads down
+      const int wi = r >> 5;
+      uint32_t w = 0u;
+#pragma unroll
+      for (int k = 0; k < kW; ++k) w = k == wi ? u[k] : w;
+      if ((w >> (r & 31)) & 1u) {
+        ++n_rep;
+        lo_rank = min(lo_rank, r);
+      }
+    };
+#pragma unroll
+    for (int j = 0; j < kSeats; ++j) take(seat[j]);
+    for (int j = kSeats; j < rf; ++j) take(__ldg(seats + j));
+  }
+  store_row(o, row, n_up, n_first, n_rep, full_up, ldr, ldr_full, u[0],
+            lo_rank, n_real, rf);
+  return (act && rc >= 0 && rc < n_real) ? rc : -1;
+}
+
+// The same for any W, the words walked in a loop and a roster rank's word
+// read from global memory.
+__device__ __forceinline__ int eval_loop(
+    const uint32_t* __restrict__ upw, const uint32_t* __restrict__ fullw,
+    const int32_t* __restrict__ roster, const int32_t* __restrict__ recruit,
+    const uint8_t* __restrict__ active, bool counting, const Outs& o,
+    long long b, int p, int W, int P, int n_real, int rf) {
+  const long long row = b * P + p;
+  const long long ws = P;                   // word stride
+  const long long base = b * W * ws + p;
+  int n_up = 0, n_first = 0, ldr = -1, remaining = rf;
+  bool full_up = false, ldr_full = false;
+  uint32_t first_word = 0u;
+  for (int k = 0; k < W; ++k) {
+    const int lo = 32 * k;
+    const uint32_t u = upw[base + k * ws] & prefix_mask(n_real, lo);
+    const uint32_t f = fullw[base + k * ws];
+    if (k == 0) first_word = u;
+    n_up += __popc(u);
+    n_first += __popc(u & prefix_mask(rf, lo));
+    full_up = full_up || (u & f) != 0u;
+    if (ldr < 0 && u != 0u) {
+      const int bit = __ffs(u) - 1;
+      ldr = lo + bit;
+      ldr_full = ((f >> bit) & 1u) != 0u;
+    }
+    o.crepsw[base + k * ws] = first_set(u, remaining);
+  }
+  int n_rep = n_first, lo_rank = n_real;
+  if (roster != nullptr) {
+    n_rep = 0;
+    for (int j = 0; j < rf; ++j) {
+      const int r = roster[row * rf + j];
+      if (r >= 0 && r < n_real &&
+          ((upw[base + (r >> 5) * ws] >> (r & 31)) & 1u)) {
+        ++n_rep;
+        lo_rank = min(lo_rank, r);
+      }
+    }
+  }
+  store_row(o, row, n_up, n_first, n_rep, full_up, ldr, ldr_full,
+            first_word, lo_rank, n_real, rf);
+  const int rc = counting ? recruit[row] : -1;
+  return (counting && active[row] != 0 && rc >= 0 && rc < n_real) ? rc : -1;
+}
+
+// kW: words per (trial, partition) held in registers; 0 walks W in a loop
+template <int kW>
 __global__ void __launch_bounds__(kThreads)
 fused_downtime_kernel(const uint32_t* __restrict__ upw,
                       const uint32_t* __restrict__ fullw,
                       const int32_t* __restrict__ roster,
                       const int32_t* __restrict__ recruit,
-                      const uint8_t* __restrict__ active,
-                      uint8_t* __restrict__ lark, uint8_t* __restrict__ qmaj,
-                      int32_t* __restrict__ leader,
-                      uint8_t* __restrict__ lfull,
-                      int32_t* __restrict__ nrep,
-                      int32_t* __restrict__ repmask,
-                      int32_t* __restrict__ rleader,
-                      uint32_t* __restrict__ crepsw,
+                      const uint8_t* __restrict__ active, Outs o,
                       int32_t* __restrict__ cnt, int W, int P, int n_real,
                       int rf) {
-  extern __shared__ int hist[];
   const long long b = blockIdx.y;
   const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (cnt != nullptr) {                     // block-uniform
-    for (int i = threadIdx.x; i < n_real; i += kThreads) hist[i] = 0;
-    __syncthreads();
-  }
+  const bool counting = cnt != nullptr;     // block-uniform
+  int node = -1;                            // the node this row counts
   if (p < P) {
-    const long long row = b * P + p;
-    const long long base = b * W * P + p;
-    int n_up = 0, n_first = 0, ldr = -1, remaining = rf;
-    bool full_up = false, ldr_full = false;
-    uint32_t first_word = 0u;
-    for (int k = 0; k < W; ++k) {
-      const int lo = 32 * k;
-      const uint32_t real = prefix_mask(n_real, lo);
-      const uint32_t u = upw[base + (long long)k * P] & real;
-      const uint32_t f = fullw[base + (long long)k * P] & real;
-      if (k == 0) first_word = u;
-      n_up += __popc(u);
-      n_first += __popc(u & prefix_mask(rf, lo));
-      full_up = full_up || (u & f) != 0u;
-      if (ldr < 0 && u != 0u) {
-        const int bit = __ffs(u) - 1;
-        ldr = lo + bit;
-        ldr_full = ((f >> bit) & 1u) != 0u;
-      }
-      uint32_t keep = 0u, v = u;
-      while (remaining > 0 && v != 0u) {    // lowest set bits, lane order
-        keep |= v & (0u - v);
-        v &= v - 1u;
-        --remaining;
-      }
-      crepsw[base + (long long)k * P] = keep;
-    }
-    int n_rep = n_first;
-    if (roster != nullptr) {
-      int lo_rank = n_real;
-      n_rep = 0;
-      for (int j = 0; j < rf; ++j) {
-        const int r = roster[row * rf + j];
-        if (r >= 0 && r < n_real &&
-            ((upw[base + (long long)(r >> 5) * P] >> (r & 31)) & 1u)) {
-          ++n_rep;
-          lo_rank = min(lo_rank, r);
-        }
-      }
-      if (rleader != nullptr) rleader[row] = lo_rank;
-    }
-    lark[row] = (2 * n_up > n_real && n_first > 0 && full_up) ? 1 : 0;
-    qmaj[row] = (2 * n_rep > rf) ? 1 : 0;
-    nrep[row] = n_rep;
-    leader[row] = ldr < 0 ? n_real : ldr;
-    lfull[row] = (ldr >= 0 && ldr_full) ? 1 : 0;
-    if (repmask != nullptr)                 // rf <= 30, checked by caller
-      repmask[row] = (int32_t)(first_word & ((1u << rf) - 1u));
-    if (cnt != nullptr) {
-      const int r = recruit[row];
-      if (active[row] != 0 && r >= 0 && r < n_real) atomicAdd(&hist[r], 1);
-    }
+    if constexpr (kW > 0)
+      node = eval_registers<kW>(upw, fullw, roster, recruit, active,
+                                counting, o, b, p, P, n_real, rf);
+    else
+      node = eval_loop(upw, fullw, roster, recruit, active, counting, o, b,
+                       p, W, P, n_real, rf);
   }
-  if (cnt != nullptr) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < n_real; i += kThreads)
-      if (hist[i] != 0) atomicAdd(&cnt[b * n_real + i], hist[i]);
+  if (counting) {                           // every lane of the warp
+    const unsigned peers = __match_any_sync(0xFFFFFFFFu, node);
+    if (node >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+      atomicAdd(&cnt[b * n_real + node], __popc(peers));
   }
+}
+
+template <int kW>
+int launch(const void* upw, const void* fullw, const void* roster,
+           const void* recruit, const void* active, const Outs& o, void* cnt,
+           int B, int W, int P, int n_real, int rf, void* stream) {
+  const dim3 grid((P + kThreads - 1) / kThreads, B);
+  fused_downtime_kernel<kW><<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(upw), static_cast<const uint32_t*>(fullw),
+      static_cast<const int32_t*>(roster),
+      static_cast<const int32_t*>(recruit),
+      static_cast<const uint8_t*>(active), o, static_cast<int32_t*>(cnt), W,
+      P, n_real, rf);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -136,13 +271,21 @@ extern "C" int fused_downtime_eval_launch(
     void* crepsw, void* cnt, int B, int W, int P, int n_real, int rf,
     void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
-  const size_t smem = cnt != nullptr ? n_real * sizeof(int) : 0;
-  fused_downtime_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)upw, (const uint32_t*)fullw, (const int32_t*)roster,
-      (const int32_t*)recruit, (const uint8_t*)active, (uint8_t*)lark,
-      (uint8_t*)qmaj, (int32_t*)leader, (uint8_t*)lfull, (int32_t*)nrep,
-      (int32_t*)repmask, (int32_t*)rleader, (uint32_t*)crepsw,
-      (int32_t*)cnt, W, P, n_real, rf);
-  return (int)cudaGetLastError();
+  const Outs o{static_cast<uint8_t*>(lark), static_cast<uint8_t*>(qmaj),
+               static_cast<int32_t*>(leader), static_cast<uint8_t*>(lfull),
+               static_cast<int32_t*>(nrep), static_cast<int32_t*>(repmask),
+               static_cast<int32_t*>(rleader),
+               static_cast<uint32_t*>(crepsw)};
+  switch (W) {
+#define FDT_CASE(w)                                                        \
+  case w:                                                                  \
+    return launch<w>(upw, fullw, roster, recruit, active, o, cnt, B, W, P, \
+                     n_real, rf, stream);
+    FDT_CASE(1) FDT_CASE(2) FDT_CASE(3) FDT_CASE(4)
+    FDT_CASE(5) FDT_CASE(6) FDT_CASE(7) FDT_CASE(8)
+#undef FDT_CASE
+    default:
+      return launch<0>(upw, fullw, roster, recruit, active, o, cnt, B, W, P,
+                       n_real, rf, stream);
+  }
 }

@@ -15,10 +15,11 @@ PyTorch version.
 
 Both kernels give one thread to each (trial, partition); word k of
 neighbouring partitions is contiguous, so every load and store is
-coalesced.  Words are carried as int32 (the reference's uint32 bit
-patterns).  Dispatch follows the tensor: a CUDA tensor launches the
-kernel (or raises), a CPU tensor runs the plain version.  There is no
-fallback.
+coalesced.  ``fused_downtime_eval`` holds a thread's words in registers
+for W <= 8, every load issued before the arithmetic.  Words are carried
+as int32 (the reference's uint32 bit patterns).  Dispatch follows the
+tensor: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+the plain version.  There is no fallback.
 """
 from __future__ import annotations
 

@@ -1,26 +1,36 @@
-"""Holding the Monte Carlo row kernels ``downtime_eval`` (plain and roster)
-and ``latency_charge`` against their plain versions bit for bit, the
-faults that holding must catch, their bytes, and their times on the card.
+"""Holding the Monte Carlo row kernels ``pac_eval``, ``downtime_eval``
+(plain and roster), ``latency_charge`` and ``fused_downtime_eval``
+against their plain versions bit for bit, the faults that holding must
+catch, their bytes, and their times on the card.
 
-Both kernels stage whole row tiles in 16-byte pieces, so the cases reach
-the edges of that tiling: a row count that is not a multiple of a tile,
-narrow rows (n_pad 31 and 63, n_real < n_pad), inputs that are contiguous
-views at a byte offset (``data_ptr() % 16 != 0``), roster seats outside
-[0, n_real), and latency rows whose last block is ragged.  Every output is
+The row kernels stage whole row tiles in 16-byte pieces, so the cases
+reach the edges of that tiling: a row count that is not a multiple of a
+tile, narrow rows (n_pad 31 and 63, n_real < n_pad), inputs that are
+contiguous views at a byte offset (``data_ptr() % 16 != 0``), roster
+seats outside [0, n_real), pac_eval's voters across a word and past
+n_real, and latency rows whose last block is ragged.
+``fused_downtime_eval`` holds W <= 8 words in registers and walks more
+in a loop, so its cases take W 1, 5, 8 and 9, n_real not a multiple of
+32, P not a multiple of a block, rosters at an offset, recruit ids
+outside [0, n_real) and active all false and all true.  Every output is
 held with ``torch.equal``.  A planted fault's copy of a source is run on
 outputs filled with a sentinel first, so that a row or byte it leaves
 unwritten cannot pass by holding an earlier call's value.
 
     PYTHONPATH=src python -m repro_torch.kernels.mc_check [--parent DIR]
+        [--ablate]
 
-builds csrc/downtime_eval.cu and csrc/latency_charge.cu and a copy of
-each per planted fault (``FAULTS``) under ``build/``, runs every case
-through the kernels and the copies, and prints one JSON line per case.
-With ``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
-archive`` of it) it also builds that commit's two sources and times both
-versions' three launchers at the paper tile in turns, parent, change,
-change, parent (``device_times``).  Exits 0 when the kernels pass every
-case and every fault fails at least one.  Needs nvcc and a card.
+builds csrc/downtime_eval.cu, csrc/latency_charge.cu and
+csrc/fused_downtime.cu and a copy of each per planted fault (``FAULTS``)
+under ``build/``, runs every case through the kernels and the copies,
+and prints one JSON line per case.  With ``--parent DIR`` (a checkout of
+an earlier commit, e.g. a ``git archive`` of it) it also builds that
+commit's sources of the same launchers and times both versions at the
+paper tile in turns, parent, change, change, parent (``device_times``);
+``--ablate`` times copies with one part taken out (``ABLATIONS``).
+Exits 0 when the kernels pass every case and every fault fails at least
+one (pac_eval's own, ``PAC_FAULTS``, a pac_eval case).  Needs nvcc and a
+card.
 """
 from __future__ import annotations
 
@@ -31,16 +41,23 @@ from pathlib import Path
 
 import torch
 
-from . import _build
+from . import _build, bitpack
+from . import fused_step as fk
 from . import pac_eval as pk
 
 #: the paper tile: nodes, partitions, trials
 N, P, B = 155, 4096, 8
-#: launcher symbols by source
-SYMBOLS = {"downtime_eval": ("downtime_eval_launch", "downtime_roster_launch"),
-           "latency_charge": ("latency_charge_launch",)}
-ARGTYPES = {"downtime_eval": pk._DT_ARGTYPES,
-            "latency_charge": pk._LC_ARGTYPES}
+#: launcher symbols by source, and their ctypes argtypes in that order
+SYMBOLS = {"downtime_eval": ("downtime_eval_launch", "downtime_roster_launch",
+                             "pac_eval_launch"),
+           "latency_charge": ("latency_charge_launch",),
+           "fused_downtime": ("fused_downtime_eval_launch",)}
+ARGTYPES = {"downtime_eval": (pk._DT_ARGTYPES, pk._DT_ARGTYPES, pk._ARGTYPES),
+            "latency_charge": (pk._LC_ARGTYPES,),
+            "fused_downtime": (fk._FDT_ARGTYPES,)}
+#: index of the pac_eval launcher in downtime_eval.cu's SYMBOLS tuple
+#: (the plain and roster launchers are 0 and 1)
+PAC = 2
 
 #: planted faults: (text that occurs once in the source, replacement)
 FAULTS = {
@@ -64,6 +81,10 @@ FAULTS = {
         "creps_tail_dropped": (
             "for (uintptr_t x = hi + tid; x < b; x += nthr)    // the ragged tail",
             "for (uintptr_t x = b + tid; x < b; x += nthr)    // the ragged tail"),
+        # pac_eval's voters prefix one lane too long
+        "voters_off_by_one": (
+            "st.n_vote += __popc(U & low_lanes(voters - col));",
+            "st.n_vote += __popc(U & low_lanes(voters + 1 - col));"),
     },
     "latency_charge": {
         # qsum's pay * rem contracted into an FMA with the subtraction
@@ -82,10 +103,34 @@ FAULTS = {
             "static_cast<unsigned>((R + kRows - 1) / kRows);",
             "static_cast<unsigned>(R / kRows);"),
     },
+    "fused_downtime": {
+        # a roster rank's bit taken from the next register word
+        "word_select_next": ("const int wi = r >> 5;",
+                             "const int wi = (r >> 5) + 1;"),
+        # the last word's padding bits (ranks >= n_real) not masked
+        "last_word_unmasked": (
+            "u[k] &= prefix_mask(n_real, 32 * k);",
+            "u[k] &= k + 1 < kW ? prefix_mask(n_real, 32 * k) : ~0u;"),
+        # a row that is not active counted
+        "inactive_row_counted": (
+            "return (act && rc >= 0 && rc < n_real) ? rc : -1;",
+            "return (rc >= 0 && rc < n_real) ? rc : -1;"),
+        # the W > 8 loop's word stride one word short
+        "loop_word_stride": (
+            "const long long ws = P;                   // word stride",
+            "const long long ws = P - 1;               // word stride"),
+    },
 }
+#: downtime_eval.cu faults that a pac_eval case must fail (the rest are
+#: the roster's), and those a downtime_eval case must (the rest pac_eval's)
+PAC_FAULTS = ("creps_rank_lt", "unaligned_head_dropped", "ragged_tail_dropped",
+              "creps_tail_dropped", "voters_off_by_one")
+DOWNTIME_FAULTS = tuple(f for f in FAULTS["downtime_eval"]
+                        if f != "voters_off_by_one")
 
 #: copies timed by --ablate: one part of the work taken out, or one size
-#: changed, each a list of (text, replacement)
+#: or design choice changed (``probe_*``), each a list of (text,
+#: replacement)
 ABLATIONS = {
     "downtime_eval": {
         "empty": [("  const bool one_pass = plan.stride == 0;\n",
@@ -125,6 +170,28 @@ ABLATIONS = {
         **{f"rows_{t}": [("constexpr int kRows = 128;",
                           f"constexpr int kRows = {t};")] for t in (64, 256)},
     },
+    "fused_downtime": {
+        "empty": [("  const bool counting = cnt != nullptr;     // block-uniform\n",
+                   "  const bool counting = cnt != nullptr;     // block-uniform\n"
+                   "  if (P > 0) return;\n")],
+        "no_word_loads": [
+            ("    u[k] = __ldg(upw + base + static_cast<long long>(k) * P);\n"
+             "    f[k] = __ldg(fullw + base + static_cast<long long>(k) * P);\n",
+             "    u[k] = static_cast<uint32_t>(base) * 0x9E3779B9u + k;\n"
+             "    f[k] = u[k] * 0x85EBCA6Bu;\n")],
+        "no_counts": [("  const bool counting = cnt != nullptr;     // block-uniform",
+                       "  const bool counting = false;")],
+        "no_roster": [("  if (seats != nullptr) {\n    n_rep = 0;",
+                       "  if (seats != nullptr && P < 0) {\n    n_rep = 0;")],
+        # each counted row its own global atomicAdd, no warp aggregation
+        "probe_row_atomics": [
+            ("    const unsigned peers = __match_any_sync(0xFFFFFFFFu, node);\n"
+             "    if (node >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)\n"
+             "      atomicAdd(&cnt[b * n_real + node], __popc(peers));\n",
+             "    if (node >= 0) atomicAdd(&cnt[b * n_real + node], 1);\n")],
+        **{f"rows_{t}": [("constexpr int kThreads = 128;",
+                          f"constexpr int kThreads = {t};")] for t in (64, 256)},
+    },
 }
 
 #: downtime cases beside chip_smoke's dense paper-tile ones: (name, R,
@@ -137,6 +204,20 @@ DOWNTIME_CASES = (("ragged_155", 8 * 4093, 155, 155, 0.5, (0, 0, 0)),
                   ("n63_pad", 1029, 63, 60, 0.5, (0, 0, 0)),
                   ("unaligned_155", 8 * 4093, 155, 155, 0.5, (3, 9, 4)),
                   ("sparse_unaligned_160", 4099, 160, 155, 0.03, (7, 1, 12)))
+#: pac_eval's (rf, voters) on each DOWNTIME_CASES case: voters within the
+#: first word, at the edge of the first 32 lanes and across it, past
+#: n_real (below n_pad where n_pad > n_real + 1) and past n_pad
+PAC_KNOBS = ((2, 3), (3, 31), (4, 33), (30, 62), (2, 200))
+#: fused_downtime_eval cases: (name, trials, W, partitions, n_real, words
+#: ANDed into each up word (1: half the bits set), active ("mixed", "all"
+#: or "none"), byte offset of the roster)
+FUSED_CASES = (("w1_n31", 3, 1, 1000, 31, 1, "mixed", 0),
+               ("w5_n155_ragged", 8, 5, 4093, 155, 1, "mixed", 0),
+               ("w5_sparse_all_active", 8, 5, 4096, 155, 3, "all", 4),
+               ("w5_n150_none_active", 8, 5, 1000, 150, 2, "none", 0),
+               ("w8_n250", 4, 8, 777, 250, 2, "mixed", 0),
+               ("w9_n270", 4, 9, 777, 270, 1, "mixed", 0),
+               ("w9_n257_sparse", 2, 9, 300, 257, 4, "mixed", 4))
 #: latency cases beside the paper tile's: (name, trials, partitions, byte
 #: offset of dirty and the decay tables, slo_ticks)
 LATENCY_CASES = (("paper_slo0", 8, 4096, 0, 0),
@@ -153,6 +234,21 @@ def downtime_bytes(R: int, n_pad: int, rf: int = 0) -> int:
     """downtime_eval on (R, n_pad) tiles: up and full read, creps written,
     11 bytes of row outputs; with a roster (rf > 0) its 4 R rf bytes."""
     return 3 * R * n_pad + 11 * R + 4 * R * rf
+
+
+def pac_bytes(R: int, n_pad: int) -> int:
+    """pac_eval on (R, n_pad) tiles: up and full read, creps written,
+    lark and maj a byte each."""
+    return 3 * R * n_pad + 2 * R
+
+
+def fused_bytes(B: int, W: int, P: int, *, rf: int = 0, n_real: int = 0,
+                counts: bool = False) -> int:
+    """fused_downtime_eval on (B, W, P) words: upw and fullw read, crepsw
+    written, 11 bytes of row outputs; a roster's 4 B P rf bytes (rf > 0);
+    with the counts, recruit and active read and (B, n_real) written."""
+    nbytes = 12 * B * W * P + 11 * B * P + 4 * B * P * rf
+    return nbytes + (5 * B * P + 4 * B * n_real if counts else 0)
 
 
 def tables_touched(dt, nbits: int) -> int:
@@ -207,6 +303,38 @@ def downtime_inputs(gen, case, rf, dev):
     up[:5] = False                            # rows with no node up
     roster = rosters(gen, R, rf, n_real, dev)
     return view_at(up, ou), view_at(full, of), view_at(roster, orr)
+
+
+def words(gen, shape, dens=1):
+    """int32-carried words over the whole uint32 range, `dens` of them
+    ANDed (about 2^-dens of the bits set)."""
+    out = None
+    for _ in range(dens):
+        w = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                          device=gen.device, dtype=torch.int64) \
+            .to(torch.int32)
+        out = w if out is None else out & w
+    return out
+
+
+def fused_inputs(gen, case, rf):
+    """(upw, fullw, roster, recruit, active) of a FUSED_CASES entry: no
+    node up in the first partitions of trial 0, the roster at its byte
+    offset with seats out of range, recruit ids in [-2, n_real + 3)."""
+    _, Bq, W, Pq, n_real, dens, act, off = case
+    dev = gen.device
+    upw = words(gen, (Bq, W, Pq), dens)
+    upw[0, :, :5] = 0
+    fullw = words(gen, (Bq, W, Pq))
+    roster = view_at(rosters(gen, Bq * Pq, rf, n_real, dev)
+                     .reshape(Bq, Pq, rf), off)
+    recruit = torch.randint(-2, n_real + 3, (Bq, Pq), generator=gen,
+                            device=dev, dtype=torch.int32)
+    active = {"mixed": torch.rand((Bq, Pq), generator=gen, device=dev) < 0.5,
+              "all": torch.ones((Bq, Pq), dtype=torch.bool, device=dev),
+              "none": torch.zeros((Bq, Pq), dtype=torch.bool,
+                                  device=dev)}[act]
+    return upw, fullw, roster, recruit, active
 
 
 def latency_inputs(gen, B, P, *, slo_ticks=8):
@@ -286,6 +414,52 @@ def run_downtime(fn, up, full, *, rf, n_real, roster=None,
     return (lark, qmaj, leader, lfull, nrep) + extras + (creps,)
 
 
+def run_pac(fn, up, full, *, rf, voters, n_real):
+    """One raw launch of a pac_eval launcher `fn` on outputs that start
+    True; returns (lark, maj, creps)."""
+    R, n_pad = up.shape
+    outs = (torch.ones(R, dtype=torch.bool, device=up.device),
+            torch.ones(R, dtype=torch.bool, device=up.device),
+            torch.ones((R, n_pad), dtype=torch.bool, device=up.device))
+    err = fn(up.data_ptr(), full.data_ptr(), *(o.data_ptr() for o in outs),
+             R, n_pad, n_real, rf, voters,
+             torch.cuda.current_stream(up.device).cuda_stream)
+    _build.check(err, "pac_eval (raw)")
+    return outs
+
+
+def run_fused(fn, upw, fullw, *, rf, n_real, roster=None, recruit=None,
+              active=None, want_repmask=False, want_rleader=False):
+    """One raw launch of a fused_downtime_eval launcher `fn`; the outputs
+    start as True / -7 (the counts, which the kernel adds to, as 0), and
+    come back in the wrapper's order."""
+    Bq, W, Pq = upw.shape
+    dev = upw.device
+
+    def rows(dtype):
+        if dtype == torch.bool:
+            return torch.ones((Bq, Pq), dtype=dtype, device=dev)
+        return torch.full((Bq, Pq), -7, dtype=dtype, device=dev)
+
+    lark, qmaj, lfull = (rows(torch.bool) for _ in range(3))
+    leader, nrep = rows(torch.int32), rows(torch.int32)
+    repmask = rows(torch.int32) if want_repmask else None
+    rleader = rows(torch.int32) if want_rleader else None
+    crepsw = torch.full((Bq, W, Pq), -7, dtype=torch.int32, device=dev)
+    counts = None if recruit is None else \
+        torch.zeros((Bq, n_real), dtype=torch.int32, device=dev)
+    err = fn(upw.data_ptr(), fullw.data_ptr(), _ptr(roster), _ptr(recruit),
+             _ptr(active), lark.data_ptr(), qmaj.data_ptr(),
+             leader.data_ptr(), lfull.data_ptr(), nrep.data_ptr(),
+             _ptr(repmask), _ptr(rleader), crepsw.data_ptr(), _ptr(counts),
+             Bq, W, Pq, n_real, rf,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_downtime_eval (raw)")
+    extras = tuple(t for t in (repmask, rleader) if t is not None)
+    outs = (lark, qmaj, leader, lfull, nrep) + extras + (crepsw,)
+    return outs + ((counts,) if counts is not None else ())
+
+
 _LC_IN = ("dirty", "dt_i", "avail", "qok", "rem", "pow_tables", "kf", "lamw")
 
 
@@ -357,6 +531,62 @@ def downtime_checks(gen, faults, *, entry=None):
                        "faults_failed": failed}
 
 
+def pac_checks(gen, faults, *, entry=None):
+    """Run every DOWNTIME_CASES case with each PAC_KNOBS (rf, voters)
+    through ``entry`` (the wrapper by default, else downtime_eval.cu's
+    launchers) and each fault's pac launcher; yields one record per case,
+    as ``downtime_checks``."""
+    dev = gen.device
+    for case in DOWNTIME_CASES:
+        name, R, n_pad, n_real = case[:4]
+        up, full, _ = downtime_inputs(gen, case, 2, dev)
+        for rf, voters in PAC_KNOBS:
+            kw = dict(rf=rf, voters=voters, n_real=n_real)
+            want = pk.pac_eval_plain(up, full, **kw)
+            got = pk.pac_eval(up, full, **kw) if entry is None \
+                else run_pac(entry[PAC], up, full, **kw)
+            failed = [f for f, fns in faults.items()
+                      if not same(run_pac(fns[PAC], up, full, **kw), want)]
+            torch.cuda.synchronize()
+            yield {"kernel": "pac_eval", "case": name, "R": R,
+                   "n_pad": n_pad, "n_real": n_real, "rf": rf,
+                   "voters": voters, "offsets": list(case[5][:2]),
+                   "equal": same(got, want), "max_abs_err": int_err(got, want),
+                   "faults_failed": failed}
+
+
+def fused_checks(gen, faults, *, entry=None):
+    """Run every FUSED_CASES case (rf 2 and 3; first-rf and roster, each
+    with and without the counts; the extras on) through ``entry`` (the
+    wrapper by default, else a raw launcher) and each fault's launcher;
+    yields one record per case, as ``downtime_checks``."""
+    for case in FUSED_CASES:
+        name, Bq, W, Pq, n_real = case[:5]
+        for rf in (2, 3):
+            upw, fullw, roster, recruit, active = fused_inputs(gen, case, rf)
+            for with_roster in (False, True):
+                for counts in (False, True):
+                    kw = dict(rf=rf, n_real=n_real, want_repmask=True,
+                              want_rleader=with_roster,
+                              roster=roster if with_roster else None)
+                    if counts:
+                        kw.update(recruit=recruit, active=active)
+                    want = fk.fused_downtime_eval_plain(upw, fullw, **kw)
+                    got = fk.fused_downtime_eval(upw, fullw, **kw) \
+                        if entry is None else run_fused(entry[0], upw, fullw,
+                                                        **kw)
+                    failed = [f for f, fns in faults.items()
+                              if not same(run_fused(fns[0], upw, fullw, **kw),
+                                          want)]
+                    torch.cuda.synchronize()
+                    yield {"kernel": "fused_downtime_eval", "case": name,
+                           "B": Bq, "W": W, "P": Pq, "n_real": n_real,
+                           "rf": rf, "roster": with_roster, "counts": counts,
+                           "active": case[6], "equal": same(got, want),
+                           "max_abs_err": int_err(got, want),
+                           "faults_failed": failed}
+
+
 def latency_checks(gen, faults, *, entry=None, nbins=16):
     """Run every LATENCY_CASES case through ``entry`` (the wrapper by
     default, else a raw launcher) and each fault's launcher; yields one
@@ -389,7 +619,8 @@ def latency_checks(gen, faults, *, entry=None, nbins=16):
 
 def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
     """Times of one raw launch; ``launch(stream)`` makes it on the CUDA
-    stream whose handle it is given.
+    stream whose handle it is given and returns its cudaError_t (the
+    first launch's is checked).
 
     device_ms: the mean duration of the kernel under torch.profiler over
     `reps` back-to-back launches (the card's time, no launch gaps);
@@ -408,7 +639,7 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
-    launch(stream())
+    _build.check(launch(stream()), "timed launch")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -520,9 +751,61 @@ def latency_launch(fn, args, nbins=16, slo_ticks=8):
     return (lambda s: fn(*ptrs, s)), outs
 
 
+def pac_launch(fn, up, full, rf=2, voters=3):
+    """launch(stream) for a raw pac_eval launcher on fresh outputs, and
+    those outputs."""
+    outs = pk.pac_eval(up, full, rf=rf, voters=voters, n_real=N)
+    ptrs = (up.data_ptr(), full.data_ptr(), *(o.data_ptr() for o in outs),
+            up.shape[0], up.shape[1], N, rf, voters)
+    return (lambda s: fn(*ptrs, s)), outs
+
+
+def paper_fused(gen, roster):
+    """(upw, fullw, roster, recruit, active) at the paper tile: the words
+    of a mostly-up cluster, `roster` (B * P, rf) as the engine carries it,
+    5 % of the partitions catching up on a node in [0, N]."""
+    dev = gen.device
+    up = torch.rand((B, P, N), generator=gen, device=dev) < 0.99
+    full = torch.rand((B, P, N), generator=gen, device=dev) < 0.02
+    upw = bitpack.pack_words(up).movedim(-1, 1).contiguous()
+    fullw = bitpack.pack_words(full).movedim(-1, 1).contiguous()
+    recruit = torch.randint(0, N + 1, (B, P), generator=gen, device=dev,
+                            dtype=torch.int32)
+    active = torch.rand((B, P), generator=gen, device=dev) < 0.05
+    return upw, fullw, roster.reshape(B, P, -1), recruit, active
+
+
+def fused_launch(fn, upw, fullw, roster=None, recruit=None, active=None):
+    """launch(stream) for a raw fused_downtime_eval launcher on fresh
+    outputs (no extras; the counts when recruit is given), and those
+    outputs."""
+    rf = 2 if roster is None else roster.shape[-1]
+    outs = fk.fused_downtime_eval(upw, fullw, rf=rf, n_real=N, roster=roster,
+                                  recruit=recruit, active=active)
+    Bq, W, Pq = upw.shape
+    ptrs = (upw.data_ptr(), fullw.data_ptr(), _ptr(roster), _ptr(recruit),
+            _ptr(active), *(o.data_ptr() for o in outs[:5]), None, None,
+            outs[5].data_ptr(), outs[6].data_ptr() if recruit is not None
+            else None, Bq, W, Pq, N, rf)
+    return (lambda s: fn(*ptrs, s)), outs
+
+
 # ---------------------------------------------------------------------------
 # the command
 # ---------------------------------------------------------------------------
+
+#: the launches timed at the paper tile: label -> launcher symbol; the
+#: fused kernel at the reconfig-with-bandwidth shape (rf = 2 roster and
+#: the counts), at the fixed model's (neither), and at the first with
+#: every row counting node 0 (the counts' worst contention)
+TIMED = {"pac_eval": "pac_eval_launch",
+         "downtime_eval": "downtime_eval_launch",
+         "downtime_eval_roster": "downtime_roster_launch",
+         "latency_charge": "latency_charge_launch",
+         "fused_downtime_eval": "fused_downtime_eval_launch",
+         "fused_downtime_eval_fixed": "fused_downtime_eval_launch",
+         "fused_downtime_eval_hot": "fused_downtime_eval_launch"}
+
 
 def build_fault_copies(out_dir: Path) -> dict:
     """{source: {fault: tuple of its launchers}}: one built copy of each
@@ -534,24 +817,51 @@ def build_fault_copies(out_dir: Path) -> dict:
                                         ARGTYPES[src]) for src in FAULTS}
 
 
-def ab_times(parent: dict, change: dict) -> list:
-    """Each launcher at the paper tile, parent and change in turns
-    (parent, change, change, parent); one record per turn."""
+def paper_state(seed: int) -> dict:
+    """The inputs of every TIMED launch at the paper tile."""
     gen = torch.Generator(device="cuda")
-    gen.manual_seed(3)
+    gen.manual_seed(seed)
     up, full, roster = paper_downtime(gen)
-    largs = paper_latency(gen)
+    fused = paper_fused(gen, roster)
+    return {"up": up, "full": full, "roster": roster,
+            "latency": paper_latency(gen), "fused": fused,
+            "hot": (torch.zeros_like(fused[3]), torch.ones_like(fused[4]))}
+
+
+def paper_launches(state: dict, fns: dict) -> dict:
+    """{label: (launch(stream), outputs)} for each TIMED label whose
+    symbol `fns` ({symbol: ctypes launcher}) holds."""
+    up, full, roster = state["up"], state["full"], state["roster"]
+    upw, fullw, rost3, recruit, active = state["fused"]
+    make = {
+        "pac_eval": lambda fn: pac_launch(fn, up, full),
+        "downtime_eval": lambda fn: downtime_launch(fn, up, full),
+        "downtime_eval_roster": lambda fn: downtime_launch(fn, up, full,
+                                                           roster),
+        "latency_charge": lambda fn: latency_launch(fn, state["latency"]),
+        "fused_downtime_eval": lambda fn: fused_launch(
+            fn, upw, fullw, rost3, recruit, active),
+        "fused_downtime_eval_fixed": lambda fn: fused_launch(fn, upw, fullw),
+        "fused_downtime_eval_hot": lambda fn: fused_launch(
+            fn, upw, fullw, rost3, *state["hot"]),
+    }
+    return {label: make[label](fns[sym]) for label, sym in TIMED.items()
+            if sym in fns}
+
+
+def ab_times(parent: dict, change: dict) -> list:
+    """Each TIMED launch at the paper tile, parent and change in turns
+    (parent, change, change, parent); `parent` and `change` map a
+    launcher symbol to its ctypes function.  One record per turn."""
+    state = paper_state(3)
+    sides = {"parent": paper_launches(state, parent),
+             "change": paper_launches(state, change)}
     out = []
-    for label, src, k in (("downtime_eval", "downtime_eval", 0),
-                          ("downtime_eval_roster", "downtime_eval", 1),
-                          ("latency_charge", "latency_charge", 0)):
+    for label in TIMED:
+        if label not in sides["parent"]:
+            continue
         for side in ("parent", "change", "change", "parent"):
-            fn = (parent if side == "parent" else change)[src][k]
-            if src == "downtime_eval":
-                launch, _ = downtime_launch(fn, up, full,
-                                            roster if k else None)
-            else:
-                launch, _ = latency_launch(fn, largs)
+            launch, _ = sides[side][label]
             out.append({"kernel": label, "side": side,
                         "ms": event_ms(launch), **device_times(launch)})
     return out
@@ -560,30 +870,56 @@ def ab_times(parent: dict, change: dict) -> list:
 def ablate(procs: dict, change: dict) -> list:
     """device_times of each ABLATIONS copy (`procs`: {source: the handle
     of ``_build.start_variants``}) at the paper tile, beside the unchanged
-    source's; the downtime copies on both launchers."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(4)
-    up, full, roster = paper_downtime(gen)
-    largs = paper_latency(gen)
-    fns = {(src, "source"): change[src] for src in SYMBOLS}
+    source's, on each of the source's TIMED launches; a copy that cannot
+    be timed gets an "error" in place of its times."""
+    state = paper_state(4)
+    fns = {(src, "source"): {sym: change[sym] for sym in SYMBOLS[src]}
+           for src in SYMBOLS}
     for src, handle in procs.items():
-        for name, pair in _build.finish_variants(handle, SYMBOLS[src],
-                                                 ARGTYPES[src]).items():
-            fns[(src, name)] = pair
+        for name, found in _build.finish_variants(
+                handle, SYMBOLS[src], ARGTYPES[src]).items():
+            fns[(src, name)] = dict(zip(SYMBOLS[src], found))
     out = []
-    for (src, name), pair in sorted(fns.items()):
-        if src == "downtime_eval":
-            for k, label in enumerate(("downtime_eval",
-                                       "downtime_eval_roster")):
-                launch, _ = downtime_launch(pair[k], up, full,
-                                            roster if k else None)
-                out.append({"kernel": label, "variant": name,
-                            **device_times(launch)})
-        else:
-            launch, _ = latency_launch(pair[0], largs)
-            out.append({"kernel": src, "variant": name,
-                        **device_times(launch)})
+    for (src, name), by_symbol in sorted(fns.items()):
+        for label, (launch, _) in paper_launches(state, by_symbol).items():
+            try:
+                times = device_times(launch)
+            except RuntimeError as err:
+                times = {"error": str(err)}
+            out.append({"kernel": label, "variant": name, **times})
     return out
+
+
+def parent_sources(csrc: Path) -> dict:
+    """{source name: its launcher symbols} of an earlier checkout's csrc/
+    for the symbols TIMED names (pac_eval had a source of its own)."""
+    found = {}
+    for cu in sorted(csrc.glob("*.cu")):
+        text = cu.read_text()
+        syms = tuple(sym for sym in dict.fromkeys(TIMED.values())
+                     if f'extern "C" int {sym}(' in text)
+        if syms:
+            found[cu.stem] = syms
+    return found
+
+
+def argtypes_of(symbol: str):
+    """The ctypes argtypes of a launcher symbol of SYMBOLS."""
+    for src, syms in SYMBOLS.items():
+        if symbol in syms:
+            return ARGTYPES[src][syms.index(symbol)]
+    raise KeyError(symbol)
+
+
+def missed_faults(caught: dict) -> list:
+    """Faults that failed no case, and PAC_FAULTS that failed no pac_eval
+    case (`caught`: {source: {fault: ["kernel:case", ...]}})."""
+    missed = [f for fl in caught.values() for f, cases in fl.items()
+              if not cases]
+    return missed + [f"{f} (pac_eval)" for f in PAC_FAULTS
+                     if f not in missed and not any(
+                         c.startswith("pac_eval:")
+                         for c in caught["downtime_eval"][f])]
 
 
 def main(argv=None) -> int:
@@ -601,37 +937,40 @@ def main(argv=None) -> int:
     parent_procs = {}
     if args.parent:
         csrc = Path(args.parent) / "src" / "repro_torch" / "kernels" / "csrc"
-        for src in SYMBOLS:
+        for src, syms in parent_sources(csrc).items():
             so = out_dir / f"lib{src}-parent.so"
-            parent_procs[src] = {
-                "parent": (_build._nvcc(so, csrc / f"{src}.cu"), so)}
+            parent_procs[src] = (syms, {"parent": (
+                _build._nvcc(so, csrc / f"{src}.cu"), so)})
     ablation_procs = {src: _build.start_variants(src, variants, out_dir,
                                                  with_source=False)
                       for src, variants in ABLATIONS.items()} \
         if args.ablate else {}
     faults = build_fault_copies(out_dir)
     _build.build(tuple(SYMBOLS))
-    change = {src: tuple(_build.function(src, sym, ARGTYPES[src])
-                         for sym in SYMBOLS[src]) for src in SYMBOLS}
+    change = {sym: _build.function(src, sym, argtypes_of(sym))
+              for src, syms in SYMBOLS.items() for sym in syms}
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     ok = True
     caught = {src: {f: [] for f in fl} for src, fl in FAULTS.items()}
     for src, checks in (("downtime_eval", downtime_checks),
-                        ("latency_charge", latency_checks)):
+                        ("downtime_eval", pac_checks),
+                        ("latency_charge", latency_checks),
+                        ("fused_downtime", fused_checks)):
         for rec in checks(gen, faults[src]):
             print(json.dumps(rec), flush=True)
             ok = ok and rec["equal"]
             for f in rec["faults_failed"]:
                 caught[src][f].append(f"{rec['kernel']}:{rec['case']}")
-    missed = [f for fl in caught.values() for f, cases in fl.items()
-              if not cases]
+    missed = missed_faults(caught)
     print(json.dumps({"faults_caught_in": caught, "missed": missed}),
           flush=True)
     if parent_procs:
-        parent = {src: _build.finish_variants(handle, SYMBOLS[src],
-                                              ARGTYPES[src])["parent"]
-                  for src, handle in parent_procs.items()}
+        parent = {}
+        for syms, handle in parent_procs.values():
+            found = _build.finish_variants(
+                handle, syms, tuple(argtypes_of(s) for s in syms))["parent"]
+            parent.update(zip(syms, found))
         for rec in ab_times(parent, change):
             print(json.dumps({"ab": rec}), flush=True)
     for rec in ablate(ablation_procs, change) if ablation_procs else ():

@@ -1,7 +1,7 @@
 """Per-row evaluation on boolean rank-space tiles: the CUDA kernels
-``pac_eval`` (csrc/pac_eval.cu), ``downtime_eval`` and its roster
-variant (csrc/downtime_eval.cu) and ``node_count`` (csrc/node_count.cu),
-each beside its plain PyTorch version.
+``pac_eval``, ``downtime_eval`` and its roster variant (three launchers
+of csrc/downtime_eval.cu) and ``node_count`` (csrc/node_count.cu), each
+beside its plain PyTorch version.
 
 * ``pac_eval`` replaces ``repro/kernels/pac_eval.py:pac_eval`` (Pallas
   body ``_pac_kernel``): §5.1 PAC.  Bound by bytes: 2·R·n_pad read,
@@ -23,12 +23,12 @@ each beside its plain PyTorch version.
   math held bitwise.  Bound by bytes: 4,735,024 bytes per call at the
   timed shape (B = 8, P = 4096, NB = 4, nbins = 16, 9 of the 22 tables).
 
-``pac_eval`` gives one warp to each row and turns each 32-column chunk
-into a word with ``__ballot_sync``.  ``downtime_eval`` stages tiles of
-whole rows in shared memory in 16-byte pieces and walks each row in
-4-byte words, four lanes to a row; ``latency_charge`` issues every table
-load of a row before its decay chain and writes its histogram rows as
-16-byte stores.  Every byte is read or written once; see the sources.
+``pac_eval`` and ``downtime_eval`` are one kernel body, templated on
+what it evaluates: it stages tiles of whole rows in shared memory in
+16-byte pieces and walks each row in 4-byte words, four lanes to a row.
+``latency_charge`` issues every table load of a row before its decay
+chain and writes its histogram rows as 16-byte stores.  Every byte is
+read or written once; see the sources.
 
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
 raises), a CPU tensor runs the plain version.  There is no fallback.
@@ -98,7 +98,7 @@ def pac_eval(up, full, *, rf: int, voters: int, n_real: int):
     lark = torch.empty(R, dtype=torch.bool, device=up.device)
     maj = torch.empty(R, dtype=torch.bool, device=up.device)
     creps = torch.empty((R, n_pad), dtype=torch.bool, device=up.device)
-    launch = _build.function("pac_eval", "pac_eval_launch", _ARGTYPES)
+    launch = _build.function("downtime_eval", "pac_eval_launch", _ARGTYPES)
     err = launch(up.data_ptr(), full.data_ptr(), lark.data_ptr(),
                  maj.data_ptr(), creps.data_ptr(), R, n_pad, n_real, rf,
                  voters, torch.cuda.current_stream(up.device).cuda_stream)

@@ -228,7 +228,7 @@ def test_step_eval_downtime_dispatch_and_argument_checks(packed):
 
 
 @pytest.mark.parametrize("source,symbol,argtypes", [
-    ("pac_eval", "pac_eval_launch", pac_eval._ARGTYPES),
+    ("downtime_eval", "pac_eval_launch", pac_eval._ARGTYPES),
     ("fused_step", "fused_pac_eval_launch", fused_step._ARGTYPES),
     ("downtime_eval", "downtime_eval_launch", pac_eval._DT_ARGTYPES),
     ("downtime_eval", "downtime_roster_launch", pac_eval._DT_ARGTYPES),

@@ -75,6 +75,25 @@ def test_cuda_fused_pac_eval_matches_plain(cuda, rf):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("rf,voters", mc_check.PAC_KNOBS,
+                         ids=[f"rf{r}-v{v}" for r, v in mc_check.PAC_KNOBS])
+@pytest.mark.parametrize("case", mc_check.DOWNTIME_CASES,
+                         ids=[c[0] for c in mc_check.DOWNTIME_CASES])
+def test_cuda_pac_eval_edge_cases_match_plain(cuda, case, rf, voters):
+    """pac_eval on the edges of downtime_eval.cu's tiling (ragged last
+    tiles, n_pad 31 / 63 / 160, views at byte offsets) with voters within
+    the first word, across the 32nd lane and past n_real and n_pad."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000 * rf + voters)
+    up, full, _ = mc_check.downtime_inputs(gen, case, 2, cuda)
+    kw = dict(rf=rf, voters=voters, n_real=case[3])
+    before = pac_eval.pac_eval.launches
+    got = pac_eval.pac_eval(up, full, **kw)
+    torch.cuda.synchronize()
+    assert pac_eval.pac_eval.launches == before + 1
+    assert mc_check.same(got, pac_eval.pac_eval_plain(up, full, **kw))
+
+
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])
 def test_cuda_engine_matches_cpu(cuda, packed):
     n = 40
@@ -185,6 +204,42 @@ def test_cuda_fused_downtime_eval_matches_plain(cuda, rf, with_roster,
                                                 **cnt, **kw)
     assert len(got) == len(want)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("rf", [2, 3])
+@pytest.mark.parametrize("case", mc_check.FUSED_CASES,
+                         ids=[c[0] for c in mc_check.FUSED_CASES])
+def test_cuda_fused_downtime_eval_edge_cases_match_plain(cuda, case, rf):
+    """fused_downtime_eval at W 1, 5 and 8 (words in registers) and 9 (the
+    loop), n_real not a multiple of 32, a ragged P, rosters at an offset
+    that rules out the int2 load, recruit ids outside [0, n_real), active
+    mixed, all true and all false; first-rf and roster, with and without
+    the counts."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(rf)
+    upw, fullw, roster, recruit, active = mc_check.fused_inputs(gen, case,
+                                                                rf)
+    for with_roster in (False, True):
+        for counts in (False, True):
+            kw = dict(rf=rf, n_real=case[4], want_repmask=True,
+                      want_rleader=with_roster,
+                      roster=roster if with_roster else None)
+            if counts:
+                kw.update(recruit=recruit, active=active)
+            before = fused_step.fused_downtime_eval.launches
+            got = fused_step.fused_downtime_eval(upw, fullw, **kw)
+            torch.cuda.synchronize()
+            assert fused_step.fused_downtime_eval.launches == before + 1
+            assert mc_check.same(
+                got, fused_step.fused_downtime_eval_plain(upw, fullw, **kw)), \
+                (with_roster, counts)
+
+
+def test_cuda_mc_check_catches_planted_faults(cuda):
+    """Every mc_check case passes on the four Monte Carlo row kernels,
+    and each planted fault of their sources fails at least one (pac_eval's
+    own a pac_eval case)."""
+    assert mc_check.main([]) == 0
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])

@@ -1,17 +1,22 @@
 """The check of the Monte Carlo row kernels, repro_torch.kernels.mc_check,
 on the CPU: its planted faults and timing copies name text that occurs
-once in the CUDA sources, its byte counts at the paper tile, the cases it
-gives the card, and the bit tricks of csrc/downtime_eval.cu in plain
-Python.  Also the plain downtime_eval's repmask when rf exceeds n_pad,
-against the Pallas kernel in interpret mode.  tests/test_torch_gpu.py
-runs the kernels themselves."""
+once in the CUDA sources, its launchers' ctypes argtypes, its byte counts
+at the paper tile, the cases it gives the card, and the bit tricks of
+csrc/downtime_eval.cu in plain Python.  Also the plain downtime_eval's
+repmask when rf exceeds n_pad, and the plain fused_downtime_eval at the
+W of mc_check's cases, against the Pallas kernels in interpret mode.
+tests/test_torch_gpu.py runs the kernels themselves."""
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import fused_step as ref_fused
 from repro.kernels import pac_eval as ref_pac
-from repro_torch.kernels import _build, mc_check, pac_eval
+from repro_torch.kernels import _build, fused_step, mc_check, pac_eval
 
 FAULT_CASES = [(src, f) for src, faults in mc_check.FAULTS.items()
                for f in faults]
@@ -43,20 +48,95 @@ def test_each_ablation_text_occurs_once_in_its_source(src, variant):
 def test_every_source_has_its_launchers():
     for src, symbols in mc_check.SYMBOLS.items():
         assert src in _build.SOURCES
+        assert len(mc_check.ARGTYPES[src]) == len(symbols)
         for sym in symbols:
             assert f'extern "C" int {sym}(' in _source(src)
+
+
+LAUNCHERS = [(src, sym) for src, syms in mc_check.SYMBOLS.items()
+             for sym in syms]
+
+
+@pytest.mark.parametrize("src,symbol", LAUNCHERS,
+                         ids=[s for _, s in LAUNCHERS])
+def test_launcher_argtypes_name_the_c_parameters(src, symbol):
+    """mc_check's argtypes of each launcher are its C parameters one for
+    one (pointers and the stream c_void_p, ints c_int)."""
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", _source(src),
+                  re.S)
+    want = tuple(ctypes.c_void_p if "*" in prm else ctypes.c_int
+                 for prm in m.group(1).split(","))
+    assert tuple(mc_check.argtypes_of(symbol)) == want
+
+
+def test_pac_eval_launch_lives_in_downtime_eval_with_the_wrapper_argtypes():
+    assert not (_build.CSRC / "pac_eval.cu").exists()
+    assert "pac_eval" not in _build.SOURCES
+    assert mc_check.argtypes_of("pac_eval_launch") == pac_eval._ARGTYPES
+    assert 'extern "C" int pac_eval_launch(' in _source("downtime_eval")
+
+
+def test_parent_sources_find_each_timed_launcher(tmp_path):
+    """A checkout where pac_eval had a source of its own times that
+    source's launcher; this tree's finds all three in downtime_eval.cu."""
+    here = mc_check.parent_sources(_build.CSRC)
+    assert here["downtime_eval"] == ("pac_eval_launch",
+                                     "downtime_eval_launch",
+                                     "downtime_roster_launch")
+    assert here["fused_downtime"] == ("fused_downtime_eval_launch",)
+    assert "fused_step" not in here and "node_count" not in here
+    (tmp_path / "pac_eval.cu").write_text(
+        'extern "C" int pac_eval_launch(const void* up);\n')
+    (tmp_path / "downtime_eval.cu").write_text(
+        'extern "C" int downtime_eval_launch(int R);\n'
+        'extern "C" int downtime_roster_launch(int R);\n')
+    assert mc_check.parent_sources(tmp_path) == {
+        "downtime_eval": ("downtime_eval_launch", "downtime_roster_launch"),
+        "pac_eval": ("pac_eval_launch",)}
+
+
+def test_pac_faults_are_downtime_eval_faults_a_pac_case_can_fail():
+    assert set(mc_check.PAC_FAULTS) < set(mc_check.FAULTS["downtime_eval"])
+    assert "seat_out_of_range_up" not in mc_check.PAC_FAULTS
+    assert "voters_off_by_one" in mc_check.PAC_FAULTS
+    assert set(mc_check.DOWNTIME_FAULTS) | set(mc_check.PAC_FAULTS) == \
+        set(mc_check.FAULTS["downtime_eval"])
+    assert "voters_off_by_one" not in mc_check.DOWNTIME_FAULTS
+
+
+def test_missed_faults_names_pac_faults_no_pac_case_failed():
+    caught = {"downtime_eval": {f: ["downtime_eval:n31"]
+                                for f in mc_check.FAULTS["downtime_eval"]},
+              "fused_downtime": {"loop_word_stride": ["fused_downtime_eval:"
+                                                      "w9_n270"],
+                                 "word_select_next": []}}
+    caught["downtime_eval"]["voters_off_by_one"] = ["pac_eval:n31"]
+    caught["downtime_eval"]["seat_out_of_range_up"] = []
+    missed = mc_check.missed_faults(caught)
+    assert "word_select_next" in missed
+    assert "seat_out_of_range_up" in missed
+    assert "voters_off_by_one (pac_eval)" not in missed
+    assert "creps_rank_lt (pac_eval)" in missed
+    assert "seat_out_of_range_up (pac_eval)" not in missed
 
 
 @pytest.mark.parametrize("what,want", [
     ("downtime_eval", 15_597_568),
     ("downtime_eval_roster", 15_859_712),
     ("latency_charge", 4_735_024),
+    ("pac_eval", 15_302_656),
+    ("fused_downtime_eval", 2_757_472),
+    ("fused_downtime_eval_fixed", 2_326_528),
 ])
 def test_byte_counts_at_the_paper_tile(what, want):
     R = 8 * 4096
     got = {"downtime_eval": mc_check.downtime_bytes(R, 155),
            "downtime_eval_roster": mc_check.downtime_bytes(R, 155, 2),
-           "latency_charge": mc_check.latency_bytes(8, 4096, 4, 16, 9)}
+           "latency_charge": mc_check.latency_bytes(8, 4096, 4, 16, 9),
+           "pac_eval": mc_check.pac_bytes(R, 155),
+           "fused_downtime_eval": mc_check.fused_bytes(
+               8, 5, 4096, rf=2, n_real=155, counts=True),
+           "fused_downtime_eval_fixed": mc_check.fused_bytes(8, 5, 4096)}
     assert got[what] == want
 
 
@@ -79,6 +159,85 @@ def test_cases_reach_the_edges_of_the_tiling():
     assert any((b * p) % 128 for _, b, p, _, _ in lat)
     assert any(off % 16 for _, _, _, off, _ in lat)
     assert {0, 8} <= {slo for *_, slo in lat}
+
+
+def test_pac_knobs_reach_the_voters_edges():
+    knobs = mc_check.PAC_KNOBS
+    voters = {v for _, v in knobs}
+    assert {3, 31, 33} <= voters                        # in, at, across 32
+    assert {2, 3, 4, 30} <= {rf for rf, _ in knobs}
+    cases = mc_check.DOWNTIME_CASES
+    # voters past n_real but inside n_pad, and past n_pad
+    assert any(c[3] < v < c[2] for c in cases for v in voters)
+    assert any(v > c[2] for c in cases for v in voters)
+    assert any(v > 32 and v < c[3] for c in cases for v in voters)
+    assert any(c[5][0] % 16 and c[5][1] % 16 for c in cases)  # unaligned
+
+
+def test_fused_cases_reach_the_edges_of_the_register_path():
+    cases = mc_check.FUSED_CASES
+    assert {1, 5, 8, 9} <= {c[2] for c in cases}        # W; 9 is the loop
+    assert any(c[2] > 8 for c in cases)
+    assert all(c[4] <= 32 * c[2] for c in cases)
+    assert any(c[4] % 32 for c in cases if c[2] <= 8)   # a padded last word
+    assert any(c[4] % 32 for c in cases if c[2] > 8)
+    assert any(c[3] % 128 for c in cases)               # ragged P
+    assert {"mixed", "all", "none"} <= {c[6] for c in cases}
+    assert any(c[7] % 8 for c in cases)                 # no int2 rosters
+
+
+@pytest.mark.parametrize("case", mc_check.FUSED_CASES[:2],
+                         ids=[c[0] for c in mc_check.FUSED_CASES[:2]])
+def test_fused_inputs_hold_what_the_case_names(case):
+    gen = torch.Generator()
+    gen.manual_seed(1)
+    name, Bq, W, Pq, n_real, dens, act, off = case
+    upw, fullw, roster, recruit, active = mc_check.fused_inputs(gen, case, 3)
+    assert upw.shape == fullw.shape == (Bq, W, Pq)
+    assert upw.dtype == torch.int32
+    assert not upw[0, :, :5].any()
+    assert roster.shape == (Bq, Pq, 3) and roster.data_ptr() % 16 == off
+    assert ((recruit < 0) | (recruit >= n_real)).any()
+    assert active.any() and not active.all()
+    assert (upw < 0).any()                              # bit 31 set
+
+
+@pytest.mark.parametrize("W,n_real", [(1, 31), (9, 270)])
+def test_plain_fused_downtime_eval_at_the_cases_w_matches_pallas(W, n_real):
+    """The plain version that mc_check holds the kernel against, at a
+    one-word and a loop-path W, against the Pallas kernel in interpret
+    mode: roster, counts and extras on."""
+    B, P, rf = 2, 16, 3
+    rng = np.random.default_rng(W)
+    upw = rng.integers(0, 2 ** 32, (B, W, P), dtype=np.uint64) \
+        .astype(np.uint32)
+    fullw = rng.integers(0, 2 ** 32, (B, W, P), dtype=np.uint64) \
+        .astype(np.uint32)
+    upw[0, :, :3] = 0
+    roster = rng.integers(-2, n_real + 3, (B, P, rf)).astype(np.int32)
+    recruit = rng.integers(-2, n_real + 3, (B, P)).astype(np.int32)
+    active = rng.random((B, P)) < 0.5
+    want = ref_fused.fused_downtime_eval(
+        jnp.asarray(upw), jnp.asarray(fullw), rf=rf, n_real=n_real,
+        block_t=1, block_p=16, interpret=True,
+        roster=jnp.asarray(np.moveaxis(roster, -1, 1)),
+        recruit=jnp.asarray(recruit), active=jnp.asarray(active),
+        want_repmask=True, want_rleader=True)
+    got = fused_step.fused_downtime_eval(
+        torch.from_numpy(upw.view(np.int32)),
+        torch.from_numpy(fullw.view(np.int32)), rf=rf, n_real=n_real,
+        roster=torch.from_numpy(roster), recruit=torch.from_numpy(recruit),
+        active=torch.from_numpy(active), want_repmask=True,
+        want_rleader=True)
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        if i == 7:                                      # crepsw
+            assert np.array_equal(g.numpy().view(np.uint32), w)
+        elif i == 8:                                    # counts, padded
+            assert np.array_equal(g.numpy(), w[:, :n_real])
+        else:
+            assert np.array_equal(g.numpy(), w)
 
 
 @pytest.mark.parametrize("dtype,offset", [(torch.bool, 3), (torch.int32, 4),

@@ -51,6 +51,25 @@ def test_plain_pac_eval_matches_pallas_interpret_and_numpy(rf, n_real,
     assert got[0].any() and not got[0].all()  # both outcomes exercised
 
 
+@pytest.mark.parametrize("rf,voters", [(2, 31), (3, 33), (30, 40), (2, 70)])
+def test_plain_pac_eval_voters_across_a_word_and_past_n_real(rf, voters):
+    """maj counts the up lanes below voters: across the 32nd lane, past
+    n_real (padding reads as down) and past n_pad, as the Pallas kernel
+    in interpret mode does."""
+    R, n_real, n_pad = 64, 37, 64
+    up, full = _state(R, n_pad, seed=rf + voters, density=0.5)
+    up[::2] = _state(R // 2, n_pad, seed=voters, density=0.97)[0]
+    up[:, n_real:] = True                     # padding that must not count
+    want = ref_pac.pac_eval(jnp.asarray(up), jnp.asarray(full), rf=rf,
+                            voters=voters, n_real=n_real, block_p=32,
+                            interpret=True)
+    got = pac_eval.pac_eval(torch.from_numpy(up), torch.from_numpy(full),
+                            rf=rf, voters=voters, n_real=n_real)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+    assert got[1].any() and not got[1].all()  # both outcomes of maj
+
+
 @pytest.mark.parametrize("rf,voters", [(2, 3), (3, 5), (4, 7), (3, 3)])
 def test_plain_fused_pac_eval_matches_pallas_interpret(rf, voters):
     B, P, n_real = 2, 32, 37
