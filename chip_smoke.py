@@ -26,18 +26,20 @@ One JSON line per phase:
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
    kernels against the unpacked ones on the same state; ``pac_eval``,
-   ``downtime_eval``, ``latency_charge`` and ``fused_downtime_eval``
-   also on the edges of their tiling (``mc_check``: ragged last tiles and
-   blocks, n_pad 31 and 63, inputs as views at a byte offset, voters
-   across a word and past n_real, W 1 / 5 / 8 / 9 with a ragged P and
-   active all false or all true), where each planted fault of their
-   sources must fail a case (``pac_eval`` its own, ``mc_check.
-   PAC_FAULTS``); plus each kernel's time per call beside the plain
-   version's
+   ``downtime_eval``, ``latency_charge``, ``fused_downtime_eval`` and
+   ``fused_pac_eval`` also on the edges of their tiling
+   (``mc_check``: ragged last tiles and blocks, n_pad 31 and 63, inputs
+   as views at a byte offset, voters across a word and past n_real, W 1 /
+   5 / 8 / 9 with a ragged P and active all false or all true), where
+   each planted fault of their sources must fail a case (``pac_eval``
+   its own, ``mc_check.PAC_FAULTS``; ``fused_pac_eval`` the
+   ``fused_downtime.cu`` faults of its code, ``mc_check.
+   FUSED_PAC_FAULTS``); plus each kernel's time per call beside the
+   plain version's
    (``kernel_time``: ``ms`` back-to-back launches by CUDA events, and for
-   the seven Monte Carlo kernels ``device_ms`` from the profiler's kernel
-   durations, ``graph_ms`` from a CUDA graph's replay and ``cold_ms``
-   with the L2 cold).
+   the seven Monte Carlo kernels and ``rglru_scan`` ``device_ms`` from
+   the profiler's kernel durations, ``graph_ms`` from a CUDA graph's
+   replay and ``cold_ms`` with the L2 cold).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
    packed, 2048 steps with the trajectory kept.  The two runs must
    agree exactly, the first 128 steps must equal a ``device="cpu"`` run,
@@ -101,7 +103,9 @@ One JSON line per phase:
    RG-LRU block's own gate range, and log_a near 0 and far below it:
    every element within its float32 rounding allowance against the
    plain version in float64 (``rglru_check``), and a bitwise repeat; each
-   planted fault must fail at least one case.  Then its time.
+   planted fault (run on outputs filled with NaN) must fail at least one
+   case.  Then its time: ``ms``, and the device and L2-cold times of the
+   launch that ``rglru_check --parent`` times.
 15. ``flash`` / ``kernel_time``: ``ops.flash_attention`` (the kernel's
    entry point; no model path calls it, as in the reference) against
    ``flash_attention_plain`` on both CUDA sources.  At the local-attention
@@ -191,7 +195,7 @@ OPS_PER_LANE = {"pac_eval": 10, "fused_pac_eval": 16, "downtime_eval": 12,
 SOURCES = {
     "pac_eval": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
                  "src/repro/kernels/pac_eval.py:23"),
-    "fused_pac_eval": ("src/repro_torch/kernels/csrc/fused_step.cu",
+    "fused_pac_eval": ("src/repro_torch/kernels/csrc/fused_downtime.cu",
                        "src/repro/kernels/fused_step.py:62"),
     "downtime_eval": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
                       "src/repro/kernels/pac_eval.py:87"),
@@ -271,12 +275,15 @@ def max_abs_err(got, want) -> float:
     return err
 
 
-def check_kernels(bw, faults):
+def check_kernels(bw, faults, fused_faults):
     """Phase 3: bitwise agreement with the plain versions at the paper
     tile, ``pac_eval`` on the edges of its tiling (``mc_check.
     pac_checks``) with each of ``mc_check.PAC_FAULTS`` (copies of
-    downtime_eval.cu in `faults`) failing a case, and per-call times.
-    Returns the timing/bound records."""
+    downtime_eval.cu in `faults`) failing a case, ``fused_pac_eval`` on
+    ``mc_check.FUSED_PAC_CASES`` (W 1, 5, 8 and 9, voters across a word
+    and past n_real) with each of ``mc_check.FUSED_PAC_FAULTS`` (copies
+    of fused_downtime.cu in `fused_faults`) failing one, and per-call
+    times.  Returns the timing/bound records."""
     dev = torch.device(DEVICE)
     worst = {"pac_eval": 0.0, "fused_pac_eval": 0.0}
     gen = torch.Generator(device=dev)
@@ -344,6 +351,18 @@ def check_kernels(bw, faults):
         for f in rec["faults_failed"]:
             caught[f].append(f"{rec['case']}:rf{rec['rf']}:v{rec['voters']}")
     held_faults("pac_eval", caught)
+    caught = {name: [] for name in mcc.FUSED_PAC_FAULTS}
+    for rec in mcc.fused_pac_checks(gen, {f: fused_faults[f]
+                                          for f in caught}):
+        emit({"phase": "kernel", **rec})
+        worst["fused_pac_eval"] = max(worst["fused_pac_eval"],
+                                      rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"fused_pac_eval disagrees ({rec['case']}, "
+                             f"rf={rec['rf']}, voters={rec['voters']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(f"{rec['case']}:rf{rec['rf']}:v{rec['voters']}")
+    held_faults("fused_pac_eval", caught)
 
     # times at the main path's shapes: rf = 2, n_pad = n = 155 unpacked,
     # (8, 5, 4096) words packed.  The raw launcher is timed (the kernel),
@@ -367,7 +386,7 @@ def check_kernels(bw, faults):
     pac_plain_ms = time_ms(lambda: pk.pac_eval_plain(
         up, full, rf=rf, voters=voters, n_real=N), 20)
     fouts = fk.fused_pac_eval(upw, fullw, rf=rf, voters=voters, n_real=N)
-    fraw = _build.function("fused_step", "fused_pac_eval_launch",
+    fraw = _build.function("fused_downtime", "fused_pac_eval_launch",
                            fk._ARGTYPES)
     fptrs = [t.data_ptr() for t in (upw, fullw, *fouts)]
 
@@ -381,7 +400,7 @@ def check_kernels(bw, faults):
         upw, fullw, rf=rf, voters=voters, n_real=N), 20)
 
     pac_bytes = mcc.pac_bytes(R, N)
-    fused_bytes = 3 * B * W * P * 4 + 2 * B * P
+    fused_bytes = mcc.fused_pac_bytes(B, W, P)
     return {
         "pac_eval": record("pac_eval", pac_bytes, R * N, pac_ms, pac_wrap_ms,
                            pac_plain_ms, worst["pac_eval"], bw,
@@ -534,8 +553,8 @@ def check_downtime_kernels(bw, faults, fused_faults):
         for f in rec["faults_failed"]:
             caught[f].append(f"{rec['kernel']}:{rec['case']}:rf{rec['rf']}")
     held_faults("downtime_eval", caught)
-    caught = {name: [] for name in fused_faults}
-    for rec in mcc.fused_checks(gen, fused_faults):
+    caught = {name: [] for name in mcc.FUSED_DOWNTIME_FAULTS}
+    for rec in mcc.fused_checks(gen, {f: fused_faults[f] for f in caught}):
         emit({"phase": "kernel", **rec})
         worst[rec["kernel"]] = max(worst[rec["kernel"]], rec["max_abs_err"])
         if not rec["equal"]:
@@ -1378,8 +1397,8 @@ def check_rglru_kernel(bw, faults):
         worst = max(worst, abs_err)
         fault_errs = {}
         for name, fn in faults.items():
-            fault_errs[name] = rc.rglru_error(rk.launch_with(fn, x, la),
-                                              want, allowed)
+            fault_errs[name] = rc.rglru_error(
+                rc.run(fn, rk.launch_args, x, la), want, allowed)
             if fault_errs[name] > 1.0:
                 caught[name].append(case)
         emit({"phase": "rglru", "case": case, "shape": [rc.BATCH, S, W],
@@ -1392,22 +1411,26 @@ def check_rglru_kernel(bw, faults):
         del x, la, h, want, allowed
     held_faults("rglru_scan", caught)
 
-    Bq, S, W = rc.BATCH, 3072, 4096
+    Bq, S, W = rc.TIMED_SHAPE
     x, la = rc.rglru_inputs(gen, Bq, S, W, "uniform")
     fn = _build.function("rglru_scan", "rglru_scan_launch", rk._ARGTYPES)
-    nc = -(-S // rk.CHUNK)
-    h = torch.empty_like(x)
-    scratch = [torch.empty((Bq, nc, W), device=dev) for _ in range(3)]
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [t.data_ptr() for t in (x, la, h, *scratch)]
-    ms = time_ms(lambda: fn(*ptrs, Bq, S, W, stream), 50)
+    _, args, keep = rk.launch_args(x, la)     # the call rglru_check times
+
+    def launch(stream):
+        return fn(*args, stream)
+
+    ms = mcc.event_ms(launch, reps=50)
     wrap_ms = time_ms(lambda: rk.rglru_scan(x, la), 50)
     plain_ms = time_ms(lambda: rk.rglru_scan_plain(x, la), 3)
     n = Bq * S * W
     # x and log_a in, h out, float32; two exp, a sqrt and ~7 other float
-    # ops per element on the float32 CUDA cores
-    return record("rglru_scan", 3 * 4 * n, 0, ms, wrap_ms, plain_ms, worst,
-                  bw, ops=10 * n, rate=FLOAT_PEAK[torch.float32])
+    # ops per element on the float32 CUDA cores.  The record adds device
+    # and L2-cold times (mc_check.device_times) of the same launch.
+    rec = record("rglru_scan", 3 * 4 * n, 0, ms, wrap_ms, plain_ms, worst,
+                 bw, ops=10 * n, rate=FLOAT_PEAK[torch.float32],
+                 launch=launch)
+    del keep
+    return rec
 
 
 def flash_pairs(Sq, Sk, causal, window) -> int:
@@ -1430,9 +1453,11 @@ def sdpa_ms(q, k, v, *, window, reps):
 
 
 #: the instantiations whose registers the build phase reports: the
-#: mangled name's kernel and template argument, to a label
+#: mangled name's kernel and first template argument (and "_pac" for the
+#: pac mode of fused_downtime_kernel), to a label
 PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
-                "mlstm_output_kernel": "output_NV"}
+                "mlstm_output_kernel": "output_NV",
+                "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained"}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1442,12 +1467,13 @@ def ptxas_usage(log: str) -> dict:
     instructions are serialized" notes, C7510-C7520: for want of
     registers, or an accumulator live across divergent paths).  Labels:
     ``PTXAS_LABELS`` and the template argument (``D256``,
-    ``states_NV256``)."""
+    ``states_NV256``, ``W5_pac``; ``W0`` is the loop)."""
     def label(text):
         for kernel, tag in PTXAS_LABELS.items():
-            m = re.search(kernel + r"ILi(\d+)E", text)
+            m = re.search(kernel + r"(?:ILi(\d+)E(Lb1E)?)?", text)
             if m:
-                return tag + m.group(1)
+                return tag + (m.group(1) or "") + \
+                    ("_pac" if m.group(2) else "")
         return None
 
     usage, head = {}, None
@@ -1808,10 +1834,13 @@ def main() -> int:
               logs.get("flash_attention_sm90", "")),
           "mlstm_chunk_sm90_ptxas": ptxas_usage(
               logs.get("mlstm_chunk_sm90", "")),
+          "rglru_scan_ptxas": ptxas_usage(logs.get("rglru_scan", "")),
+          "fused_downtime_ptxas": ptxas_usage(
+              logs.get("fused_downtime", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
-    rec = check_kernels(bw, faults["downtime_eval"])
+    rec = check_kernels(bw, faults["downtime_eval"], faults["fused_downtime"])
     rec.update(check_downtime_kernels(bw, faults["downtime_eval"],
                                       faults["fused_downtime"]))
     rec["latency_charge"] = check_latency_kernel(bw, faults["latency_charge"])

@@ -30,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: kernel sources, one shared library each
-SOURCES = ("fused_step", "downtime_eval", "node_count",
+SOURCES = ("downtime_eval", "node_count",
            "fused_downtime", "latency_charge", "mlstm_chunk", "rglru_scan",
            "flash_attention", "flash_attention_sm90",
            "mlstm_chunk_sm90")

@@ -1,7 +1,7 @@
 """Per-step evaluation on bit-packed (B, W, P) word planes: the CUDA
-kernels ``fused_pac_eval`` (csrc/fused_step.cu) and
-``fused_downtime_eval`` (csrc/fused_downtime.cu), each beside its plain
-PyTorch version.
+kernels ``fused_pac_eval`` and ``fused_downtime_eval``, two launchers of
+one kernel body (csrc/fused_downtime.cu, templated on the mode), each
+beside its plain PyTorch version.
 
 * ``fused_pac_eval`` replaces ``repro/kernels/fused_step.py:
   fused_pac_eval`` (Pallas body ``_fused_pac_kernel``): §5.1 PAC.
@@ -13,13 +13,13 @@ PyTorch version.
   in-flight node counts in one launch.  Bound by bytes: 3·B·W·P·4 +
   11·B·P (about 2.33 MB), 2.76 MB with a rf = 2 roster and the counts.
 
-Both kernels give one thread to each (trial, partition); word k of
+The kernel gives one thread to each (trial, partition); word k of
 neighbouring partitions is contiguous, so every load and store is
-coalesced.  ``fused_downtime_eval`` holds a thread's words in registers
-for W <= 8, every load issued before the arithmetic.  Words are carried
-as int32 (the reference's uint32 bit patterns).  Dispatch follows the
-tensor: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-the plain version.  There is no fallback.
+coalesced.  It holds a thread's words in registers for W <= 8, every
+load issued before the arithmetic, and walks more in a loop.  Words are
+carried as int32 (the reference's uint32 bit patterns).  Dispatch follows
+the tensor: a CUDA tensor launches the kernel (or raises), a CPU tensor
+runs the plain version.  There is no fallback.
 """
 from __future__ import annotations
 
@@ -75,10 +75,13 @@ def fused_pac_eval(upw, fullw, *, rf: int, voters: int, n_real: int):
         raise ValueError(f"fused_pac_eval runs on cuda or cpu, not "
                          f"{upw.device}")
     B, W, P = upw.shape
+    if B > 65535:
+        raise ValueError(f"fused_pac_eval takes at most 65535 trials (the "
+                         f"grid's y axis); got {B}")
     lark = torch.empty((B, P), dtype=torch.bool, device=upw.device)
     maj = torch.empty((B, P), dtype=torch.bool, device=upw.device)
     crepsw = torch.empty((B, W, P), dtype=torch.int32, device=upw.device)
-    launch = _build.function("fused_step", "fused_pac_eval_launch",
+    launch = _build.function("fused_downtime", "fused_pac_eval_launch",
                              _ARGTYPES)
     err = launch(upw.data_ptr(), fullw.data_ptr(), lark.data_ptr(),
                  maj.data_ptr(), crepsw.data_ptr(), B, W, P, n_real, rf,

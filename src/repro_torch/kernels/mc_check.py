@@ -1,7 +1,7 @@
 """Holding the Monte Carlo row kernels ``pac_eval``, ``downtime_eval``
-(plain and roster), ``latency_charge`` and ``fused_downtime_eval``
-against their plain versions bit for bit, the faults that holding must
-catch, their bytes, and their times on the card.
+(plain and roster), ``latency_charge``, ``fused_downtime_eval`` and
+``fused_pac_eval`` against their plain versions bit for bit, the faults
+that holding must catch, their bytes, and their times on the card.
 
 The row kernels stage whole row tiles in 16-byte pieces, so the cases
 reach the edges of that tiling: a row count that is not a multiple of a
@@ -12,7 +12,9 @@ n_real, and latency rows whose last block is ragged.
 ``fused_downtime_eval`` holds W <= 8 words in registers and walks more
 in a loop, so its cases take W 1, 5, 8 and 9, n_real not a multiple of
 32, P not a multiple of a block, rosters at an offset, recruit ids
-outside [0, n_real) and active all false and all true.  Every output is
+outside [0, n_real) and active all false and all true; ``fused_pac_eval``,
+the same kernel body in its pac mode, takes W 1, 5, 8 and 9 with voters
+within the first word, across it and past n_real.  Every output is
 held with ``torch.equal``.  A planted fault's copy of a source is run on
 outputs filled with a sentinel first, so that a row or byte it leaves
 unwritten cannot pass by holding an earlier call's value.
@@ -25,11 +27,13 @@ csrc/fused_downtime.cu and a copy of each per planted fault (``FAULTS``)
 under ``build/``, runs every case through the kernels and the copies,
 and prints one JSON line per case.  With ``--parent DIR`` (a checkout of
 an earlier commit, e.g. a ``git archive`` of it) it also builds that
-commit's sources of the same launchers and times both versions at the
-paper tile in turns, parent, change, change, parent (``device_times``);
-``--ablate`` times copies with one part taken out (``ABLATIONS``).
-Exits 0 when the kernels pass every case and every fault fails at least
-one (pac_eval's own, ``PAC_FAULTS``, a pac_eval case).  Needs nvcc and a
+commit's sources of the same launchers (found by symbol, so a source
+that a launcher has since left is found too) and times both versions at
+the paper tile in turns, parent, change, change, parent
+(``device_times``); ``--ablate`` times copies with one part taken out
+(``ABLATIONS``).  Exits 0 when the kernels pass every case and every
+fault fails at least one (pac_eval's own, ``PAC_FAULTS``, a pac_eval
+case; ``FUSED_PAC_FAULTS`` a fused_pac_eval case).  Needs nvcc and a
 card.
 """
 from __future__ import annotations
@@ -51,13 +55,16 @@ N, P, B = 155, 4096, 8
 SYMBOLS = {"downtime_eval": ("downtime_eval_launch", "downtime_roster_launch",
                              "pac_eval_launch"),
            "latency_charge": ("latency_charge_launch",),
-           "fused_downtime": ("fused_downtime_eval_launch",)}
+           "fused_downtime": ("fused_downtime_eval_launch",
+                              "fused_pac_eval_launch")}
 ARGTYPES = {"downtime_eval": (pk._DT_ARGTYPES, pk._DT_ARGTYPES, pk._ARGTYPES),
             "latency_charge": (pk._LC_ARGTYPES,),
-            "fused_downtime": (fk._FDT_ARGTYPES,)}
+            "fused_downtime": (fk._FDT_ARGTYPES, fk._ARGTYPES)}
 #: index of the pac_eval launcher in downtime_eval.cu's SYMBOLS tuple
-#: (the plain and roster launchers are 0 and 1)
+#: (the plain and roster launchers are 0 and 1), and of the
+#: fused_pac_eval launcher in fused_downtime.cu's
 PAC = 2
+FUSED_PAC = 1
 
 #: planted faults: (text that occurs once in the source, replacement)
 FAULTS = {
@@ -119,6 +126,10 @@ FAULTS = {
         "loop_word_stride": (
             "const long long ws = P;                   // word stride",
             "const long long ws = P - 1;               // word stride"),
+        # fused_pac_eval's voters prefix one lane too long
+        "voters_one_lane_long": (
+            "n_vote += __popc(u[k] & prefix_mask(voters, 32 * k));",
+            "n_vote += __popc(u[k] & prefix_mask(voters + 1, 32 * k));"),
     },
 }
 #: downtime_eval.cu faults that a pac_eval case must fail (the rest are
@@ -127,6 +138,13 @@ PAC_FAULTS = ("creps_rank_lt", "unaligned_head_dropped", "ragged_tail_dropped",
               "creps_tail_dropped", "voters_off_by_one")
 DOWNTIME_FAULTS = tuple(f for f in FAULTS["downtime_eval"]
                         if f != "voters_off_by_one")
+#: fused_downtime.cu faults that a fused_pac_eval case must fail (code the
+#: pac mode shares, and its own), and those a fused_downtime_eval case
+#: must (all but the pac mode's own)
+FUSED_PAC_FAULTS = ("last_word_unmasked", "loop_word_stride",
+                    "voters_one_lane_long")
+FUSED_DOWNTIME_FAULTS = tuple(f for f in FAULTS["fused_downtime"]
+                              if f != "voters_one_lane_long")
 
 #: copies timed by --ablate: one part of the work taken out, or one size
 #: or design choice changed (``probe_*``), each a list of (text,
@@ -171,15 +189,15 @@ ABLATIONS = {
                           f"constexpr int kRows = {t};")] for t in (64, 256)},
     },
     "fused_downtime": {
-        "empty": [("  const bool counting = cnt != nullptr;     // block-uniform\n",
-                   "  const bool counting = cnt != nullptr;     // block-uniform\n"
+        "empty": [("  const bool counting = !kPac && cnt != nullptr;   // block-uniform\n",
+                   "  const bool counting = !kPac && cnt != nullptr;   // block-uniform\n"
                    "  if (P > 0) return;\n")],
         "no_word_loads": [
             ("    u[k] = __ldg(upw + base + static_cast<long long>(k) * P);\n"
              "    f[k] = __ldg(fullw + base + static_cast<long long>(k) * P);\n",
              "    u[k] = static_cast<uint32_t>(base) * 0x9E3779B9u + k;\n"
              "    f[k] = u[k] * 0x85EBCA6Bu;\n")],
-        "no_counts": [("  const bool counting = cnt != nullptr;     // block-uniform",
+        "no_counts": [("  const bool counting = !kPac && cnt != nullptr;   // block-uniform",
                        "  const bool counting = false;")],
         "no_roster": [("  if (seats != nullptr) {\n    n_rep = 0;",
                        "  if (seats != nullptr && P < 0) {\n    n_rep = 0;")],
@@ -218,6 +236,18 @@ FUSED_CASES = (("w1_n31", 3, 1, 1000, 31, 1, "mixed", 0),
                ("w8_n250", 4, 8, 777, 250, 2, "mixed", 0),
                ("w9_n270", 4, 9, 777, 270, 1, "mixed", 0),
                ("w9_n257_sparse", 2, 9, 300, 257, 4, "mixed", 4))
+#: fused_pac_eval cases: (name, trials, W, partitions, n_real, words
+#: ANDed into each up word); each runs with every FUSED_PAC_KNOBS
+FUSED_PAC_CASES = (("w1_n31", 3, 1, 1000, 31, 1),
+                   ("w5_n155_ragged", 8, 5, 4093, 155, 1),
+                   ("w5_n150_sparse", 4, 5, 1000, 150, 3),
+                   ("w8_n250", 4, 8, 777, 250, 1),
+                   ("w9_n270", 4, 9, 777, 270, 1),
+                   ("w9_n257_sparse", 2, 9, 300, 257, 3))
+#: fused_pac_eval's (rf, voters): voters within the first word, at its
+#: edge, across it (33), past n_real on the narrow cases, and past n_real
+#: and every word on all
+FUSED_PAC_KNOBS = ((2, 3), (3, 31), (4, 33), (30, 62), (2, 200), (5, 300))
 #: latency cases beside the paper tile's: (name, trials, partitions, byte
 #: offset of dirty and the decay tables, slo_ticks)
 LATENCY_CASES = (("paper_slo0", 8, 4096, 0, 0),
@@ -249,6 +279,12 @@ def fused_bytes(B: int, W: int, P: int, *, rf: int = 0, n_real: int = 0,
     with the counts, recruit and active read and (B, n_real) written."""
     nbytes = 12 * B * W * P + 11 * B * P + 4 * B * P * rf
     return nbytes + (5 * B * P + 4 * B * n_real if counts else 0)
+
+
+def fused_pac_bytes(B: int, W: int, P: int) -> int:
+    """fused_pac_eval on (B, W, P) words: upw and fullw read, crepsw
+    written, lark and maj a byte each."""
+    return 12 * B * W * P + 2 * B * P
 
 
 def tables_touched(dt, nbits: int) -> int:
@@ -460,6 +496,21 @@ def run_fused(fn, upw, fullw, *, rf, n_real, roster=None, recruit=None,
     return outs + ((counts,) if counts is not None else ())
 
 
+def run_fused_pac(fn, upw, fullw, *, rf, voters, n_real):
+    """One raw launch of a fused_pac_eval launcher `fn`; lark and maj
+    start True, crepsw -7.  Returns (lark, maj, crepsw)."""
+    Bq, W, Pq = upw.shape
+    dev = upw.device
+    outs = (torch.ones((Bq, Pq), dtype=torch.bool, device=dev),
+            torch.ones((Bq, Pq), dtype=torch.bool, device=dev),
+            torch.full((Bq, W, Pq), -7, dtype=torch.int32, device=dev))
+    err = fn(upw.data_ptr(), fullw.data_ptr(), *(o.data_ptr() for o in outs),
+             Bq, W, Pq, n_real, rf, voters,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_pac_eval (raw)")
+    return outs
+
+
 _LC_IN = ("dirty", "dt_i", "avail", "qok", "rem", "pow_tables", "kf", "lamw")
 
 
@@ -587,6 +638,32 @@ def fused_checks(gen, faults, *, entry=None):
                            "faults_failed": failed}
 
 
+def fused_pac_checks(gen, faults, *, entry=None):
+    """Run every FUSED_PAC_CASES case with each FUSED_PAC_KNOBS (rf,
+    voters) through ``entry`` (the wrapper by default, else
+    fused_downtime.cu's launchers) and each fault's fused_pac_eval
+    launcher; yields one record per case, as ``downtime_checks``."""
+    for case in FUSED_PAC_CASES:
+        name, Bq, W, Pq, n_real, dens = case
+        upw = words(gen, (Bq, W, Pq), dens)
+        upw[0, :, :5] = 0
+        fullw = words(gen, (Bq, W, Pq))
+        for rf, voters in FUSED_PAC_KNOBS:
+            kw = dict(rf=rf, voters=voters, n_real=n_real)
+            want = fk.fused_pac_eval_plain(upw, fullw, **kw)
+            got = fk.fused_pac_eval(upw, fullw, **kw) if entry is None \
+                else run_fused_pac(entry[FUSED_PAC], upw, fullw, **kw)
+            failed = [f for f, fns in faults.items()
+                      if not same(run_fused_pac(fns[FUSED_PAC], upw, fullw,
+                                                **kw), want)]
+            torch.cuda.synchronize()
+            yield {"kernel": "fused_pac_eval", "case": name, "B": Bq,
+                   "W": W, "P": Pq, "n_real": n_real, "rf": rf,
+                   "voters": voters, "equal": same(got, want),
+                   "max_abs_err": int_err(got, want),
+                   "faults_failed": failed}
+
+
 def latency_checks(gen, faults, *, entry=None, nbins=16):
     """Run every LATENCY_CASES case through ``entry`` (the wrapper by
     default, else a raw launcher) and each fault's launcher; yields one
@@ -622,8 +699,10 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
     stream whose handle it is given and returns its cudaError_t (the
     first launch's is checked).
 
-    device_ms: the mean duration of the kernel under torch.profiler over
-    `reps` back-to-back launches (the card's time, no launch gaps);
+    device_ms: the device time per launch under torch.profiler over
+    `reps` back-to-back launches (the card's time, no launch gaps: the
+    durations of all its kernels and memsets, ``device_ops`` of them a
+    launch);
     graph_ms: per launch, replaying a CUDA graph of `reps` launches (the
     handle is read inside the capture, so they land on its stream);
     cold_ms: the mean time of one launch right after 128 MiB were written
@@ -653,6 +732,7 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
             count += evt.count
     if count == 0 or total <= 0:
         raise RuntimeError("torch.profiler saw no kernel of the launches")
+    device_ops = count / reps
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -688,8 +768,8 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
         pairs.append((a, b))
     torch.cuda.synchronize()
     cold_ms = sum(a.elapsed_time(b) for a, b in pairs) / cold_reps
-    return {"device_ms": total / count / 1e3, "graph_ms": graph_ms,
-            "cold_ms": cold_ms}
+    return {"device_ms": total / reps / 1e3, "device_ops": device_ops,
+            "graph_ms": graph_ms, "cold_ms": cold_ms}
 
 
 def event_ms(launch, reps: int = 200) -> float:
@@ -760,6 +840,16 @@ def pac_launch(fn, up, full, rf=2, voters=3):
     return (lambda s: fn(*ptrs, s)), outs
 
 
+def fused_pac_launch(fn, upw, fullw, rf=2, voters=3):
+    """launch(stream) for a raw fused_pac_eval launcher on fresh outputs
+    (the §5.1 main path's rf = 2, voters = 3), and those outputs."""
+    outs = fk.fused_pac_eval(upw, fullw, rf=rf, voters=voters, n_real=N)
+    Bq, W, Pq = upw.shape
+    ptrs = (upw.data_ptr(), fullw.data_ptr(), *(o.data_ptr() for o in outs),
+            Bq, W, Pq, N, rf, voters)
+    return (lambda s: fn(*ptrs, s)), outs
+
+
 def paper_fused(gen, roster):
     """(upw, fullw, roster, recruit, active) at the paper tile: the words
     of a mostly-up cluster, `roster` (B * P, rf) as the engine carries it,
@@ -797,8 +887,10 @@ def fused_launch(fn, upw, fullw, roster=None, recruit=None, active=None):
 #: the launches timed at the paper tile: label -> launcher symbol; the
 #: fused kernel at the reconfig-with-bandwidth shape (rf = 2 roster and
 #: the counts), at the fixed model's (neither), and at the first with
-#: every row counting node 0 (the counts' worst contention)
+#: every row counting node 0 (the counts' worst contention); its pac mode
+#: on the same words
 TIMED = {"pac_eval": "pac_eval_launch",
+         "fused_pac_eval": "fused_pac_eval_launch",
          "downtime_eval": "downtime_eval_launch",
          "downtime_eval_roster": "downtime_roster_launch",
          "latency_charge": "latency_charge_launch",
@@ -835,6 +927,7 @@ def paper_launches(state: dict, fns: dict) -> dict:
     upw, fullw, rost3, recruit, active = state["fused"]
     make = {
         "pac_eval": lambda fn: pac_launch(fn, up, full),
+        "fused_pac_eval": lambda fn: fused_pac_launch(fn, upw, fullw),
         "downtime_eval": lambda fn: downtime_launch(fn, up, full),
         "downtime_eval_roster": lambda fn: downtime_launch(fn, up, full,
                                                            roster),
@@ -892,7 +985,8 @@ def ablate(procs: dict, change: dict) -> list:
 
 def parent_sources(csrc: Path) -> dict:
     """{source name: its launcher symbols} of an earlier checkout's csrc/
-    for the symbols TIMED names (pac_eval had a source of its own)."""
+    for the symbols TIMED names (pac_eval and fused_pac_eval had sources
+    of their own)."""
     found = {}
     for cu in sorted(csrc.glob("*.cu")):
         text = cu.read_text()
@@ -912,14 +1006,20 @@ def argtypes_of(symbol: str):
 
 
 def missed_faults(caught: dict) -> list:
-    """Faults that failed no case, and PAC_FAULTS that failed no pac_eval
-    case (`caught`: {source: {fault: ["kernel:case", ...]}})."""
+    """Faults that failed no case, PAC_FAULTS that failed no pac_eval case
+    and FUSED_PAC_FAULTS no fused_pac_eval case (`caught`: {source:
+    {fault: ["kernel:case", ...]}})."""
     missed = [f for fl in caught.values() for f, cases in fl.items()
               if not cases]
-    return missed + [f"{f} (pac_eval)" for f in PAC_FAULTS
-                     if f not in missed and not any(
-                         c.startswith("pac_eval:")
-                         for c in caught["downtime_eval"][f])]
+    for src, kernel, faults in (("downtime_eval", "pac_eval", PAC_FAULTS),
+                                ("fused_downtime", "fused_pac_eval",
+                                 FUSED_PAC_FAULTS)):
+        if src not in caught:
+            continue
+        missed += [f"{f} ({kernel})" for f in faults
+                   if f in caught[src] and f not in missed and not any(
+                       c.startswith(f"{kernel}:") for c in caught[src][f])]
+    return missed
 
 
 def main(argv=None) -> int:
@@ -956,7 +1056,8 @@ def main(argv=None) -> int:
     for src, checks in (("downtime_eval", downtime_checks),
                         ("downtime_eval", pac_checks),
                         ("latency_charge", latency_checks),
-                        ("fused_downtime", fused_checks)):
+                        ("fused_downtime", fused_checks),
+                        ("fused_downtime", fused_pac_checks)):
         for rec in checks(gen, faults[src]):
             print(json.dumps(rec), flush=True)
             ok = ok and rec["equal"]

@@ -14,23 +14,38 @@ where 1 - exp(2 log_a) cancels, and ``ETA`` for underflow below float32's
 subnormals.  The reference is the plain version in float64 on the same
 inputs.
 
-    PYTHONPATH=src python -m repro_torch.kernels.rglru_check
+    PYTHONPATH=src python -m repro_torch.kernels.rglru_check [--parent DIR]
+        [--ablate]
 
 builds csrc/rglru_scan.cu and copies of it with one planted fault each
-(the carry between chunks dropped, the decay 1 % high, sqrt(1 - a^2)
-replaced by 1 - a) under ``build/``, runs every case of ``CASES`` through
-each on the card, and prints per variant and case the largest error over
-its allowance.  It exits 0 when the source passes every case and every
-fault fails at least one.  Needs nvcc and a card.
+(``FAULTS``: the chain's incoming carry read as 0 or one chunk late, the
+ragged last chunk not stored, the decay 1 % high, sqrt(1 - a^2) replaced
+by 1 - a) under ``build/``, runs every case of ``CASES`` through each on
+the card, on outputs filled with NaN first (so a value left unwritten
+fails), and prints per variant and case the largest error over its
+allowance.  With ``--parent DIR`` (a checkout of an earlier commit, e.g.
+a ``git archive`` of it, whose rglru_scan.cu has the three-launch
+interface ``PARENT_ARGTYPES``) it also runs that source on every case and
+prints whether its h equals this source's bit for bit (else the first
+element that differs), then times both at the serve shape in turns,
+parent, change, change, parent (``mc_check.device_times``: device, graph
+and L2-cold); ``--ablate`` times copies with one part of the work taken
+out (``ABLATIONS``) beside the source at that shape.  It exits 0 when the
+source passes every case and every fault fails at least one.  Needs nvcc
+and a card.
 """
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import math
 import sys
+from pathlib import Path
 
 import torch
 
-from . import _build
+from . import _build, mc_check
 from . import rglru_scan as rk
 
 #: the card-side cases at the recurrentgemma-9b serve width (B = 4):
@@ -113,52 +128,225 @@ def reference(x, log_a):
 
 def rglru_error(h, want, allowed) -> float:
     """The largest |h - want| over its allowance (<= 1 when they
-    agree)."""
+    agree; infinite where h holds a NaN)."""
     d = (h.double() - want).abs()
-    return (d / allowed.clamp_min(1e-300)).max().item()
+    err = (d / allowed.clamp_min(1e-300)).max().item()
+    return math.inf if math.isnan(err) else err
 
 
 #: planted faults: (text of csrc/rglru_scan.cu, its replacement)
 FAULTS = {
-    "carry_dropped": ("Hin[o] = h;", "Hin[o] = 0.f;"),
+    # the chain's incoming carry H_{c-1} read as 0: every chunk from h = 0
+    "carry_dropped": ("hin = __uint_as_float(static_cast<uint32_t>(word));",
+                      "hin = 0.f;"),
+    # H_{c-2} taken for H_{c-1}: the chain one chunk late
+    "carry_one_chunk_late": ("const int p = c - 1;", "const int p = c - 2;"),
+    # the last chunk's h not stored where S is not a multiple of the chunk
+    "ragged_chunk_dropped": (
+        "__stcs(out + base + static_cast<size_t>(j) * W, h);",
+        "if (n == kChunk) __stcs(out + base + static_cast<size_t>(j) * W, h);"),
     "decay_1pct": ("{ return expf(la); }", "{ return expf(la) * 1.01f; }"),
     "one_minus_a": ("sqrtf(fmaxf(1.f - expf(2.f * la), 0.f))",
                     "(1.f - expf(la))"),
 }
 
+#: copies timed by --ablate, one part of the work taken out: (text,
+#: replacement) pairs; their h is not checked
+ABLATIONS = {
+    # the launch, the memset and one ticket a block, nothing else
+    "empty": [("  if (mine >= units) return;                // block-uniform",
+               "  if (mine < units + 1u) return;           // block-uniform")],
+    # a_t = log_a_t, b_t = x_t: no expf, no sqrtf
+    "no_coefficients": [("{ return expf(la); }", "{ return la; }"),
+                        ("return sqrtf(fmaxf(1.f - expf(2.f * la), 0.f)) * x;",
+                         "return x;")],
+    # no chunk waits for its predecessor's carry
+    "no_chain_wait": [("const int p = c - 1;", "const int p = -1;")],
+    # h computed but not stored
+    "no_stores": [("__stcs(out + base + static_cast<size_t>(j) * W, h);",
+                   "if (h == 1234.5f) __stcs(out + base + j, h);")],
+    # the next unit's copies started before the coefficients, not after
+    "probe_prefetch_first": [
+        ("    // the next unit's loads fly while this one runs (the stage's values\n"
+         "    // are all in registers and used above)\n"
+         "    if (threadIdx.x == 0) s_ticket[round & 1] = atomicAdd(ticket, 1u);\n"
+         "    __syncthreads();\n"
+         "    const unsigned next = s_ticket[round & 1];\n"
+         "    if (next < units) prefetch(unit_of(next, B, S, W), col, x, log_a, W);\n",
+         ""),
+        ("#pragma unroll\n    for (int j = 0; j < kChunk; ++j) {\n"
+         "      const float la = a[j];\n",
+         "    if (threadIdx.x == 0) s_ticket[round & 1] = atomicAdd(ticket, 1u);\n"
+         "    __syncthreads();\n"
+         "    const unsigned next = s_ticket[round & 1];\n"
+         "    if (next < units) prefetch(unit_of(next, B, S, W), col, x, log_a, W);\n"
+         "#pragma unroll\n    for (int j = 0; j < kChunk; ++j) {\n"
+         "      const float la = a[j];\n")],
+}
 
-def main() -> int:
+#: the C interface of the three-launch source this kernel replaced:
+#: (x, log_a, h, Ac, Bc, Hin, B, S, W, stream), Ac, Bc and Hin scratch of
+#: (B, ceil(S / 64), W) float32 each
+PARENT_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + \
+    (ctypes.c_void_p,)
+#: the serve shape both sources are timed at: (B, S, W)
+TIMED_SHAPE = (BATCH, 3072, 4096)
+
+
+def parent_args(x, log_a, *, fill=None):
+    """``rglru_scan.launch_args`` for ``PARENT_ARGTYPES``: (h, args,
+    keep)."""
+    B, S, W = x.shape
+    NC = -(-S // 64)
+    x, la = (t.to(torch.float32).contiguous() for t in (x, log_a))
+    h = torch.empty_like(x)
+    if fill is not None:
+        h.fill_(fill)
+    scratch = [torch.empty((B, NC, W), dtype=torch.float32, device=x.device)
+               for _ in range(3)]
+    args = (x.data_ptr(), la.data_ptr(), h.data_ptr(),
+            *(t.data_ptr() for t in scratch), B, S, W)
+    return h, args, (x, la, *scratch)
+
+
+def run(fn, make_args, x, log_a):
+    """h of one raw launch of `fn` on `make_args`' arguments, h filled
+    with NaN first."""
+    h, args, _ = make_args(x, log_a, fill=float("nan"))
+    _build.check(fn(*args, torch.cuda.current_stream().cuda_stream),
+                 "rglru_scan (raw)")
+    return h
+
+
+def first_difference(parent, change):
+    """None when float32 tensors `parent` and `change` are equal bit for
+    bit, else the first element (in memory order) whose bits differ, its
+    two values, and how many elements differ."""
+    ne = (parent.view(torch.int32) != change.view(torch.int32)).flatten()
+    count = int(ne.sum().item())
+    if count == 0:
+        return None
+    i = int(ne.nonzero()[0].item())
+    index = []
+    for dim in reversed(parent.shape):
+        index.append(i % dim)
+        i //= dim
+    index = index[::-1]
+    return {"index": index, "parent": parent[tuple(index)].item(),
+            "change": change[tuple(index)].item(), "count": count}
+
+
+def ablation_times(fns: dict) -> list:
+    """``mc_check.device_times`` of each copy in `fns` ({variant: ctypes
+    launcher}, the unchanged "source" among them) at ``TIMED_SHAPE``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    x, la = rglru_inputs(gen, *TIMED_SHAPE, "uniform")
+    # keep h and the scratch alive: device_times captures a CUDA graph,
+    # which first frees PyTorch's cached blocks (torch.cuda.empty_cache)
+    _, args, keep = rk.launch_args(x, la)
+    out = []
+    for name, fn in fns.items():
+        def launch(stream, fn=fn):
+            return fn(*args, stream)
+
+        out.append({"variant": name, "shape": list(TIMED_SHAPE),
+                    **mc_check.device_times(launch, reps=50, cold_reps=10)})
+    del keep
+    return out
+
+
+def timed_turns(parent, change) -> list:
+    """Both sources at ``TIMED_SHAPE`` (uniform gates) in turns parent,
+    change, change, parent: CUDA-event ms and ``mc_check.device_times``
+    per turn."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    x, la = rglru_inputs(gen, *TIMED_SHAPE, "uniform")
+    sides = {"parent": (parent, parent_args(x, la)),
+             "change": (change, rk.launch_args(x, la))}
+    out = []
+    for side in ("parent", "change", "change", "parent"):
+        fn, (_, args, _) = sides[side]
+
+        def launch(stream, fn=fn, args=args):
+            return fn(*args, stream)
+
+        out.append({"side": side, "shape": list(TIMED_SHAPE),
+                    "ms": mc_check.event_ms(launch, reps=50),
+                    **mc_check.device_times(launch, reps=50, cold_reps=10)})
+    return out
+
+
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="checkout of the commit to compare "
+                    "with (its src/repro_torch/kernels/csrc/rglru_scan.cu)")
+    ap.add_argument("--ablate", action="store_true",
+                    help="also time the ABLATIONS copies")
+    args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("rglru_check: needs an NVIDIA card", file=sys.stderr)
         return 2
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    fns = _build.finish_variants(
-        _build.start_variants("rglru_scan", FAULTS, out_dir),
-        "rglru_scan_launch", rk._ARGTYPES)
+    procs = _build.start_variants("rglru_scan", FAULTS, out_dir)
+    ablated = _build.start_variants(
+        "rglru_scan", {f"ablate_{k}": v for k, v in ABLATIONS.items()},
+        out_dir, with_source=False) if args.ablate else None
+    parent = None
+    if args.parent:
+        src = Path(args.parent) / "src" / "repro_torch" / "kernels" / \
+            "csrc" / "rglru_scan.cu"
+        so = out_dir / "librglru_scan-parent.so"
+        parent = {"parent": (_build._nvcc(so, src), so)}
+    fns = _build.finish_variants(procs, "rglru_scan_launch", rk._ARGTYPES)
+    if parent is not None:
+        parent = _build.finish_variants(parent, "rglru_scan_launch",
+                                        PARENT_ARGTYPES)["parent"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     caught = {name: [] for name in FAULTS}
     source_ok = True
+    all_equal = True
     for case, S, W, kind in CASES:
         x, la = rglru_inputs(gen, BATCH, S, W, kind)
         want, allowed = reference(x, la)
         for name, fn in fns.items():
-            err = rglru_error(rk.launch_with(fn, x, la), want, allowed)
+            h = run(fn, rk.launch_args, x, la)
+            err = rglru_error(h, want, allowed)
             ok = err <= 1.0
             print(json.dumps({"variant": name, "case": case,
                               "error_over_allowed": err, "ok": ok}),
                   flush=True)
             if name == "source":
                 source_ok &= ok
+                source_h = h
             elif not ok:
                 caught[name].append(case)
+            del h
+        if parent is not None:
+            diff = first_difference(run(parent, parent_args, x, la),
+                                    source_h)
+            all_equal &= diff is None
+            print(json.dumps({"parent": case, "bitwise_equal": diff is None,
+                              "first_difference": diff}), flush=True)
+        del x, la, want, allowed, source_h
     missed = [name for name, cases in caught.items() if not cases]
-    print(json.dumps({"source_passes": source_ok, "caught_in": caught,
-                      "missed": missed,
-                      "gpu": torch.cuda.get_device_name(0)}), flush=True)
+    summary = {"source_passes": source_ok, "caught_in": caught,
+               "missed": missed, "gpu": torch.cuda.get_device_name(0)}
+    if parent is not None:
+        for rec in timed_turns(parent, fns["source"]):
+            print(json.dumps({"ab": rec}), flush=True)
+        summary["parent_bitwise_equal_on_every_case"] = all_equal
+    if ablated is not None:
+        copies = {"source": fns["source"], **_build.finish_variants(
+            ablated, "rglru_scan_launch", rk._ARGTYPES)}
+        for rec in ablation_times(copies):
+            print(json.dumps({"ablate": rec}), flush=True)
+    print(json.dumps(summary), flush=True)
     return 0 if source_ok and not missed else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,8 +10,9 @@ uses.
   ``repro/kernels/ref.py: rglru_scan_ref`` (b_t = sqrt(max(1 -
   exp(2 log_a_t), 0)) x_t) where the Pallas wrapper falls short: any S and
   W.  Bound by bytes: at the recurrentgemma-9b serve shape (B = 4,
-  S = 3072, W = 4096) a call moves 604 MB.  ``rglru_check`` holds it
-  against the plain version.
+  S = 3072, W = 4096) a call moves 604 MB, and the kernel reads x and
+  log_a once: one launch, a chain of chunks across its blocks.
+  ``rglru_check`` holds it against the plain version.
 * ``rglru_step_plain`` is ``ref.py: rglru_step``, which takes
   b = sqrt(max(1 - a a, 0)) x, another expression of the same term; the
   reference has no kernel for it, and neither has the port.
@@ -27,9 +28,10 @@ import torch
 
 from . import _build
 
-#: the kernel's chunk of positions (csrc/rglru_scan.cu kChunk); the
-#: scratch of a call is 3 (B, ceil(S / CHUNK), W) float32 arrays
-CHUNK = 64
+#: the kernel's chunk of positions and tile of channels (csrc/rglru_scan.cu
+#: kChunk, kThreads); the scratch of a call is one 64-bit carry word per
+#: (b, chunk, channel) and the ticket
+CHUNK, TILE = 64, 128
 
 
 def _work_dtype(*xs):
@@ -80,7 +82,7 @@ def rglru_step_plain(x, log_a, h):
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + \
+_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 3 + \
     (ctypes.c_void_p,)
 
 
@@ -107,30 +109,34 @@ def rglru_scan(x, log_a):
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {x.device}")
     launch = _build.function("rglru_scan", "rglru_scan_launch", _ARGTYPES)
-    out = launch_with(launch, x, log_a)
+    h, args, _ = launch_args(x, log_a)
+    _build.check(launch(*args, torch.cuda.current_stream(x.device)
+                        .cuda_stream), "rglru_scan")
     rglru_scan.launches += 1
-    return out
+    return h
 
 
-def launch_with(launch, x, log_a):
-    """Allocate the output and scratch and call `launch`, a ctypes
-    function of csrc/rglru_scan.cu's C interface, on checked CUDA
-    tensors (cast to contiguous float32); raises on a launch error.
-    Counts nothing."""
+def launch_args(x, log_a, *, fill=None):
+    """One launch of csrc/rglru_scan.cu's C interface on checked CUDA
+    tensors: returns (h, args, keep), where ``launch(*args, stream)``
+    writes h (B, S, W) float32 (``torch.empty``, or filled with `fill`)
+    and `keep` holds the tensors behind the pointers of `args` (x and
+    log_a cast to contiguous float32, the carry scratch) alive."""
     B, S, W = x.shape
-    NC = -(-S // CHUNK)
-    if S < 1 or W < 1 or B > 65535 or NC > 65535:
-        raise ValueError(f"rglru_scan: need S, W >= 1, B and S / {CHUNK} "
-                         f"<= 65535; got {(B, S, W)}")
+    units = B * -(-S // CHUNK) * -(-W // TILE)
+    if S < 1 or W < 1 or units >= 2 ** 31:
+        raise ValueError(f"rglru_scan: need S, W >= 1 and B * ceil(S / "
+                         f"{CHUNK}) * ceil(W / {TILE}) < 2^31; got "
+                         f"{(B, S, W)}")
     x, la = (t.to(torch.float32).contiguous() for t in (x, log_a))
     h = torch.empty((B, S, W), dtype=torch.float32, device=x.device)
-    Ac, Bc, Hin = (torch.empty((B, NC, W), dtype=torch.float32,
-                               device=x.device) for _ in range(3))
-    err = launch(x.data_ptr(), la.data_ptr(), h.data_ptr(), Ac.data_ptr(),
-                 Bc.data_ptr(), Hin.data_ptr(), B, S, W,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "rglru_scan")
-    return h
+    if fill is not None:
+        h.fill_(fill)
+    carry = torch.empty(B * -(-S // CHUNK) * W + 1, dtype=torch.int64,
+                        device=x.device)
+    args = (x.data_ptr(), la.data_ptr(), h.data_ptr(), carry.data_ptr(), B,
+            S, W)
+    return h, args, (x, la, carry)
 
 
 #: kernel launches since the last reset

@@ -229,7 +229,7 @@ def test_step_eval_downtime_dispatch_and_argument_checks(packed):
 
 @pytest.mark.parametrize("source,symbol,argtypes", [
     ("downtime_eval", "pac_eval_launch", pac_eval._ARGTYPES),
-    ("fused_step", "fused_pac_eval_launch", fused_step._ARGTYPES),
+    ("fused_downtime", "fused_pac_eval_launch", fused_step._ARGTYPES),
     ("downtime_eval", "downtime_eval_launch", pac_eval._DT_ARGTYPES),
     ("downtime_eval", "downtime_roster_launch", pac_eval._DT_ARGTYPES),
     ("node_count", "node_count_launch", pac_eval._NC_ARGTYPES),

@@ -235,6 +235,28 @@ def test_cuda_fused_downtime_eval_edge_cases_match_plain(cuda, case, rf):
                 (with_roster, counts)
 
 
+@pytest.mark.parametrize("case", mc_check.FUSED_PAC_CASES,
+                         ids=[c[0] for c in mc_check.FUSED_PAC_CASES])
+def test_cuda_fused_pac_eval_edge_cases_match_plain(cuda, case):
+    """fused_pac_eval, fused_downtime.cu's pac mode, at W 1, 5 and 8
+    (words in registers) and 9 (the loop), n_real not a multiple of 32, a
+    ragged P, with voters within the first word, across it and past
+    n_real and every word."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(case[2])
+    name, Bq, W, Pq, n_real, dens = case
+    upw = mc_check.words(gen, (Bq, W, Pq), dens)
+    fullw = mc_check.words(gen, (Bq, W, Pq))
+    for rf, voters in mc_check.FUSED_PAC_KNOBS:
+        kw = dict(rf=rf, voters=voters, n_real=n_real)
+        before = fused_step.fused_pac_eval.launches
+        got = fused_step.fused_pac_eval(upw, fullw, **kw)
+        torch.cuda.synchronize()
+        assert fused_step.fused_pac_eval.launches == before + 1
+        assert mc_check.same(
+            got, fused_step.fused_pac_eval_plain(upw, fullw, **kw)), kw
+
+
 def test_cuda_mc_check_catches_planted_faults(cuda):
     """Every mc_check case passes on the four Monte Carlo row kernels,
     and each planted fault of their sources fails at least one (pac_eval's

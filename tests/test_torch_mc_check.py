@@ -77,22 +77,42 @@ def test_pac_eval_launch_lives_in_downtime_eval_with_the_wrapper_argtypes():
 
 
 def test_parent_sources_find_each_timed_launcher(tmp_path):
-    """A checkout where pac_eval had a source of its own times that
-    source's launcher; this tree's finds all three in downtime_eval.cu."""
+    """A checkout where pac_eval or fused_pac_eval had a source of its own
+    times that source's launcher; this tree's finds all three row
+    launchers in downtime_eval.cu and both fused ones in
+    fused_downtime.cu."""
     here = mc_check.parent_sources(_build.CSRC)
     assert here["downtime_eval"] == ("pac_eval_launch",
                                      "downtime_eval_launch",
                                      "downtime_roster_launch")
-    assert here["fused_downtime"] == ("fused_downtime_eval_launch",)
+    assert here["fused_downtime"] == ("fused_pac_eval_launch",
+                                      "fused_downtime_eval_launch")
     assert "fused_step" not in here and "node_count" not in here
     (tmp_path / "pac_eval.cu").write_text(
         'extern "C" int pac_eval_launch(const void* up);\n')
     (tmp_path / "downtime_eval.cu").write_text(
         'extern "C" int downtime_eval_launch(int R);\n'
         'extern "C" int downtime_roster_launch(int R);\n')
+    (tmp_path / "fused_step.cu").write_text(
+        'extern "C" int fused_pac_eval_launch(const void* upw,\n'
+        '                                     int voters, void* stream);\n')
+    (tmp_path / "fused_downtime.cu").write_text(
+        'extern "C" int fused_downtime_eval_launch(\n    int rf);\n')
     assert mc_check.parent_sources(tmp_path) == {
         "downtime_eval": ("downtime_eval_launch", "downtime_roster_launch"),
-        "pac_eval": ("pac_eval_launch",)}
+        "pac_eval": ("pac_eval_launch",),
+        "fused_step": ("fused_pac_eval_launch",),
+        "fused_downtime": ("fused_downtime_eval_launch",)}
+
+
+def test_fused_pac_eval_launch_lives_in_fused_downtime_with_its_argtypes():
+    assert not (_build.CSRC / "fused_step.cu").exists()
+    assert "fused_step" not in _build.SOURCES
+    assert mc_check.argtypes_of("fused_pac_eval_launch") == \
+        fused_step._ARGTYPES
+    assert 'extern "C" int fused_pac_eval_launch(' in \
+        _source("fused_downtime")
+    assert mc_check.TIMED["fused_pac_eval"] == "fused_pac_eval_launch"
 
 
 def test_pac_faults_are_downtime_eval_faults_a_pac_case_can_fail():
@@ -102,6 +122,27 @@ def test_pac_faults_are_downtime_eval_faults_a_pac_case_can_fail():
     assert set(mc_check.DOWNTIME_FAULTS) | set(mc_check.PAC_FAULTS) == \
         set(mc_check.FAULTS["downtime_eval"])
     assert "voters_off_by_one" not in mc_check.DOWNTIME_FAULTS
+
+
+def test_fused_pac_faults_are_fused_downtime_faults_a_pac_case_can_fail():
+    faults = set(mc_check.FAULTS["fused_downtime"])
+    assert set(mc_check.FUSED_PAC_FAULTS) < faults
+    assert {"last_word_unmasked", "loop_word_stride",
+            "voters_one_lane_long"} == set(mc_check.FUSED_PAC_FAULTS)
+    assert set(mc_check.FUSED_DOWNTIME_FAULTS) | \
+        set(mc_check.FUSED_PAC_FAULTS) == faults
+    assert "voters_one_lane_long" not in mc_check.FUSED_DOWNTIME_FAULTS
+
+
+def test_missed_faults_names_fused_pac_faults_no_fused_pac_case_failed():
+    caught = {"fused_downtime": {f: ["fused_downtime_eval:w9_n270"]
+                                 for f in mc_check.FAULTS["fused_downtime"]}}
+    caught["fused_downtime"]["voters_one_lane_long"] = [
+        "fused_pac_eval:w1_n31"]
+    caught["fused_downtime"]["last_word_unmasked"] = [
+        "fused_pac_eval:w5_n155_ragged", "fused_downtime_eval:w1_n31"]
+    missed = mc_check.missed_faults(caught)
+    assert missed == ["loop_word_stride (fused_pac_eval)"]
 
 
 def test_missed_faults_names_pac_faults_no_pac_case_failed():
@@ -127,6 +168,7 @@ def test_missed_faults_names_pac_faults_no_pac_case_failed():
     ("pac_eval", 15_302_656),
     ("fused_downtime_eval", 2_757_472),
     ("fused_downtime_eval_fixed", 2_326_528),
+    ("fused_pac_eval", 2_031_616),
 ])
 def test_byte_counts_at_the_paper_tile(what, want):
     R = 8 * 4096
@@ -136,7 +178,8 @@ def test_byte_counts_at_the_paper_tile(what, want):
            "pac_eval": mc_check.pac_bytes(R, 155),
            "fused_downtime_eval": mc_check.fused_bytes(
                8, 5, 4096, rf=2, n_real=155, counts=True),
-           "fused_downtime_eval_fixed": mc_check.fused_bytes(8, 5, 4096)}
+           "fused_downtime_eval_fixed": mc_check.fused_bytes(8, 5, 4096),
+           "fused_pac_eval": mc_check.fused_pac_bytes(8, 5, 4096)}
     assert got[what] == want
 
 
@@ -184,6 +227,23 @@ def test_fused_cases_reach_the_edges_of_the_register_path():
     assert any(c[3] % 128 for c in cases)               # ragged P
     assert {"mixed", "all", "none"} <= {c[6] for c in cases}
     assert any(c[7] % 8 for c in cases)                 # no int2 rosters
+
+
+def test_fused_pac_cases_reach_the_voters_edges_and_the_loop():
+    cases = mc_check.FUSED_PAC_CASES
+    knobs = mc_check.FUSED_PAC_KNOBS
+    assert {1, 5, 8, 9} <= {c[2] for c in cases}        # W; 9 is the loop
+    assert all(c[4] <= 32 * c[2] for c in cases)
+    assert any(c[4] % 32 for c in cases if c[2] <= 8)   # a padded last word
+    assert any(c[4] % 32 for c in cases if c[2] > 8)
+    assert any(c[3] % 128 for c in cases)               # ragged P
+    voters = {v for _, v in knobs}
+    assert {3, 31, 33} <= voters                        # in, at, across 32
+    for case in cases:                                  # past n_real, and
+        assert any(v > case[4] for v in voters)         # past every word
+        assert any(v > 32 * case[2] for v in voters)
+        assert any(32 < v < case[4] for v in voters) or case[4] <= 33
+    assert any(rf > 4 for rf, _ in knobs)
 
 
 @pytest.mark.parametrize("case", mc_check.FUSED_CASES[:2],
@@ -238,6 +298,35 @@ def test_plain_fused_downtime_eval_at_the_cases_w_matches_pallas(W, n_real):
             assert np.array_equal(g.numpy(), w[:, :n_real])
         else:
             assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("W,n_real,rf,voters", [(1, 31, 3, 33),
+                                                (9, 270, 4, 33),
+                                                (9, 257, 2, 300)])
+def test_plain_fused_pac_eval_at_the_cases_w_matches_pallas(W, n_real, rf,
+                                                            voters):
+    """The plain version that mc_check holds the pac mode against, at a
+    one-word and a loop-path W with voters across a word and past n_real,
+    against the Pallas fused_pac_eval in interpret mode."""
+    B, P = 2, 16
+    rng = np.random.default_rng(W + voters)
+    upw = rng.integers(0, 2 ** 32, (B, W, P), dtype=np.uint64) \
+        .astype(np.uint32)
+    fullw = rng.integers(0, 2 ** 32, (B, W, P), dtype=np.uint64) \
+        .astype(np.uint32)
+    upw[0, :, :3] = 0
+    want = ref_fused.fused_pac_eval(
+        jnp.asarray(upw), jnp.asarray(fullw), rf=rf, voters=voters,
+        n_real=n_real, block_t=1, block_p=16, interpret=True)
+    got = fused_step.fused_pac_eval(
+        torch.from_numpy(upw.view(np.int32)),
+        torch.from_numpy(fullw.view(np.int32)), rf=rf, voters=voters,
+        n_real=n_real)
+    assert len(got) == len(want) == 3
+    assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert np.array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert np.array_equal(got[2].numpy().view(np.uint32),
+                          np.asarray(want[2]))
 
 
 @pytest.mark.parametrize("dtype,offset", [(torch.bool, 3), (torch.int32, 4),
