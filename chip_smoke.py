@@ -15,7 +15,8 @@ One JSON line per phase:
 2. ``build``: nvcc for sm_90a, one process per source, all at once, and
    their seconds, and the registers, spill bytes and serialized-wgmma
    flag of each instantiation of ``flash_attention_sm90.cu`` (per head
-   dim) and ``mlstm_chunk_sm90.cu`` (per kernel and Dv block); beside
+   dim), ``mlstm_chunk_sm90.cu`` (per kernel and Dv block) and
+   ``downtime_eval.cu`` (per mode, with and without the counts); beside
    them, at the same time, the copies of ``downtime_eval.cu``,
    ``latency_charge.cu``, ``fused_downtime.cu``, ``rglru_scan.cu``, both
    flash sources and both mLSTM sources with one planted fault each
@@ -26,18 +27,21 @@ One JSON line per phase:
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
    kernels against the unpacked ones on the same state; ``pac_eval``,
-   ``downtime_eval``, ``latency_charge``, ``fused_downtime_eval`` and
+   ``downtime_eval`` (with and without its counts), ``node_count``,
+   ``latency_charge``, ``fused_downtime_eval`` and
    ``fused_pac_eval`` also on the edges of their tiling
    (``mc_check``: ragged last tiles and blocks, n_pad 31 and 63, inputs
    as views at a byte offset, voters across a word and past n_real, W 1 /
-   5 / 8 / 9 with a ragged P and active all false or all true), where
+   5 / 8 / 9 with a ragged P and active all false or all true; for the
+   counts, tiles across trials, B 1 / 8 / 9, n_real 1 to 300, the ids
+   that count nowhere and every row on node 0), where
    each planted fault of their sources must fail a case (``pac_eval``
    its own, ``mc_check.PAC_FAULTS``; ``fused_pac_eval`` the
    ``fused_downtime.cu`` faults of its code, ``mc_check.
    FUSED_PAC_FAULTS``); plus each kernel's time per call beside the
    plain version's
    (``kernel_time``: ``ms`` back-to-back launches by CUDA events, and for
-   the seven Monte Carlo kernels and ``rglru_scan`` ``device_ms`` from
+   the Monte Carlo kernels and ``rglru_scan`` ``device_ms`` from
    the profiler's kernel durations, ``graph_ms`` from a CUDA graph's
    replay and ``cold_ms`` with the L2 cold).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
@@ -50,10 +54,13 @@ One JSON line per phase:
    ``benchmarks/BENCH_sweep.json`` byte for byte.
 6. ``downtime``: ``simulate_downtime_batched`` on cuda at rf = 2,
    p = 1e-3, 2048 steps with the trajectory kept, for the fixed model
-   (default knobs) and for reconfig with zipf sizes (skew 1) and 1 GiB/s
-   shared bandwidth, each unpacked and packed; the layouts must agree
-   exactly, each of the four §6 kernels must have launched over this
-   path, and a 128-step run on cuda must equal the same run on the CPU.
+   (default knobs, and with 1 GiB/s shared bandwidth) and for reconfig
+   with zipf sizes (skew 1) and 1 GiB/s shared bandwidth, each unpacked
+   and packed; the layouts must agree exactly, each §6 kernel of a
+   configuration must have launched over its run (under shared bandwidth
+   the counts mode of ``downtime_eval``, and ``node_count`` alone
+   never), and a 128-step run on cuda must equal the same run on the
+   CPU.
 7. ``downtime_bench_row``: the i.i.d. row at rf = 2, p = 3e-3 of
    BENCH_downtime.json, BENCH_downtime_reconfig.json and
    BENCH_downtime_skew.json, rebuilt on cuda, packed and unpacked, must
@@ -135,7 +142,9 @@ One JSON line per phase:
    stated tolerance, and equal tokens.
 18. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
-   the same function, that call's time.
+   the same function, that call's time.  ``node_count``'s launches are
+   those of the counts mode, which does its work on the main path; its
+   time is node_count alone.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -189,7 +198,8 @@ INT_OPS = 132 * 64 * 1.98e9
 #: pac_eval / downtime_eval per (row, column) byte lane, fused kernels
 #: per word, node_count per partition
 OPS_PER_LANE = {"pac_eval": 10, "fused_pac_eval": 16, "downtime_eval": 12,
-                "downtime_eval_roster": 12, "node_count": 6,
+                "downtime_eval_roster": 12, "downtime_eval_counts": 12,
+                "downtime_eval_roster_counts": 12, "node_count": 6,
                 "fused_downtime_eval": 20}
 #: where each kernel's source lives and which TPU kernel body it replaces
 SOURCES = {
@@ -201,7 +211,12 @@ SOURCES = {
                       "src/repro/kernels/pac_eval.py:87"),
     "downtime_eval_roster": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
                              "src/repro/kernels/pac_eval.py:131"),
-    "node_count": ("src/repro_torch/kernels/csrc/node_count.cu",
+    "downtime_eval_counts": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
+                             "src/repro/kernels/pac_eval.py:87"),
+    "downtime_eval_roster_counts": (
+        "src/repro_torch/kernels/csrc/downtime_eval.cu",
+        "src/repro/kernels/pac_eval.py:131"),
+    "node_count": ("src/repro_torch/kernels/csrc/downtime_eval.cu",
                    "src/repro/kernels/pac_eval.py:200"),
     "fused_downtime_eval": ("src/repro_torch/kernels/csrc/fused_downtime.cu",
                             "src/repro/kernels/fused_step.py:121"),
@@ -445,16 +460,21 @@ def random_rosters(gen, R, rf, dev):
 
 def check_downtime_kernels(bw, faults, fused_faults):
     """Phase 3 for the §6 kernels: bitwise agreement with the plain
-    versions at the paper tile, packed against unpacked, then
-    ``downtime_eval`` on the edges of its tiling (``mc_check.
-    DOWNTIME_CASES``: a ragged last tile, n_pad 31 and 63, views at a byte
-    offset) with each planted fault of its source (`faults`) failing a
-    case, ``fused_downtime_eval`` on ``mc_check.FUSED_CASES`` (W 1, 5, 8
-    and 9, a ragged P, rosters at an offset, active all false and all
-    true) with each of its source's (`fused_faults`), and times at the §6
-    main path's shapes.  Returns the timing/bound records."""
+    versions at the paper tile (the counts mode and node_count alone
+    among them), packed against unpacked, then ``downtime_eval`` on the
+    edges of its tiling (``mc_check.DOWNTIME_CASES``: a ragged last tile,
+    n_pad 31 and 63, views at a byte offset) with each planted fault of
+    its source (`faults`) failing a case, the counts mode and node_count
+    on ``mc_check.COUNTS_CASES`` (tiles across trials, B 1 / 8 / 9,
+    n_real 1 to 300, the ids that count nowhere, every row on node 0)
+    with each of ``mc_check.COUNTS_FAULTS`` failing one,
+    ``fused_downtime_eval`` on ``mc_check.FUSED_CASES`` (W 1, 5, 8 and 9,
+    a ragged P, rosters at an offset, active all false and all true) with
+    each of its source's (`fused_faults`), and times at the §6 main
+    path's shapes.  Returns the timing/bound records."""
     dev = torch.device(DEVICE)
-    names = ("downtime_eval", "downtime_eval_roster", "node_count",
+    names = ("downtime_eval", "downtime_eval_roster", "downtime_eval_counts",
+             "downtime_eval_roster_counts", "node_count",
              "fused_downtime_eval")
     worst = dict.fromkeys(names, 0.0)
     gen = torch.Generator(device=dev)
@@ -477,47 +497,51 @@ def check_downtime_kernels(bw, faults, fused_faults):
             full = torch.rand((R, n_pad), generator=gen, device=dev) < 0.3
             up[:64] = False                   # rows with no node up
             roster = random_rosters(gen, R, rf, dev)
+            rec = torch.randint(-2, N + 3, (B, P), generator=gen,
+                                device=dev, dtype=torch.int32)
+            act = torch.rand((B, P), generator=gen, device=dev) < 0.3
+            want_cnt = pk.node_count_plain(rec, act, n_real=N)
             for with_roster in (False, True):
                 for extras in (False, True):
                     kw = dict(rf=rf, n_real=N, want_repmask=extras,
                               want_rleader=extras and with_roster,
                               roster=roster if with_roster else None)
+                    name = "downtime_eval_roster" if with_roster \
+                        else "downtime_eval"
                     got = pk.downtime_eval(up, full, **kw)
+                    counted = pk.downtime_eval(up, full, recruit=rec,
+                                               active=act, **kw)
                     torch.cuda.synchronize()
-                    agree("downtime_eval_roster" if with_roster
-                          else "downtime_eval", got,
-                          pk.downtime_eval_plain(up, full, **kw),
+                    want = pk.downtime_eval_plain(up, full, **kw)
+                    agree(name, got, want, n_pad=n_pad, rf=rf, extras=extras)
+                    agree(name + "_counts", counted, want + (want_cnt,),
                           n_pad=n_pad, rf=rf, extras=extras)
             # packed on the same state, roster, counts: the same bits
             upw = bitpack.pack_words(up.reshape(B, P, n_pad)) \
                 .movedim(-1, 1).contiguous()
             fullw = bitpack.pack_words(full.reshape(B, P, n_pad)) \
                 .movedim(-1, 1).contiguous()
-            rec = torch.randint(-2, N + 3, (B, P), generator=gen,
-                                device=dev, dtype=torch.int32)
-            act = torch.rand((B, P), generator=gen, device=dev) < 0.3
             flat = pk.downtime_eval(up, full, rf=rf, n_real=N, roster=roster,
-                                    want_repmask=True, want_rleader=True)
+                                    want_repmask=True, want_rleader=True,
+                                    recruit=rec, active=act)
             cnt = pk.node_count(rec, act, n_real=N)
             packed = fk.fused_downtime_eval(
                 upw, fullw, rf=rf, n_real=N,
                 roster=roster.reshape(B, P, rf), recruit=rec, active=act,
                 want_repmask=True, want_rleader=True)
             torch.cuda.synchronize()
-            creps_w = bitpack.pack_words(flat[-1].reshape(B, P, n_pad)) \
+            creps_w = bitpack.pack_words(flat[-2].reshape(B, P, n_pad)) \
                 .movedim(-1, 1)
             same = all(torch.equal(pw.reshape(R), f)
                        for pw, f in zip(packed[:7], flat[:7])) \
                 and torch.equal(packed[7], creps_w) \
-                and torch.equal(packed[8], cnt)
+                and torch.equal(packed[8], flat[8])
             emit({"phase": "kernel", "kernel": "fused_downtime_eval",
                   "packed_equals_unpacked": same, "n_pad": n_pad, "rf": rf})
             if not same:
                 raise SystemExit(f"packed and unpacked §6 kernels disagree "
                                  f"(n_pad={n_pad}, rf={rf})")
-            agree("node_count", (cnt,),
-                  (pk.node_count_plain(rec, act, n_real=N),), n_pad=n_pad,
-                  rf=rf)
+            agree("node_count", (cnt,), (want_cnt,), n_pad=n_pad, rf=rf)
     for rf in (2, 3, 4):
         # words with every bit pattern, bit 31 included
         upw = torch.randint(-2 ** 31, 2 ** 31, (B, W, P), generator=gen,
@@ -553,6 +577,15 @@ def check_downtime_kernels(bw, faults, fused_faults):
         for f in rec["faults_failed"]:
             caught[f].append(f"{rec['kernel']}:{rec['case']}:rf{rec['rf']}")
     held_faults("downtime_eval", caught)
+    caught = {name: [] for name in mcc.COUNTS_FAULTS}
+    for rec in mcc.counts_checks(gen, {f: faults[f] for f in caught}):
+        emit({"phase": "kernel", **rec})
+        worst[rec["kernel"]] = max(worst[rec["kernel"]], rec["max_abs_err"])
+        if not rec["equal"]:
+            raise SystemExit(f"{rec['kernel']} disagrees ({rec['case']})")
+        for f in rec["faults_failed"]:
+            caught[f].append(f"{rec['kernel']}:{rec['case']}")
+    held_faults("downtime_eval counts", caught)
     caught = {name: [] for name in mcc.FUSED_DOWNTIME_FAULTS}
     for rec in mcc.fused_checks(gen, {f: fused_faults[f] for f in caught}):
         emit({"phase": "kernel", **rec})
@@ -592,16 +625,32 @@ def check_downtime_kernels(bw, faults, fused_faults):
                                              roster=ro), 200),
             time_ms(lambda: pk.downtime_eval_plain(up, full, rf=rf,
                                                    n_real=N, roster=ro), 20))
-    cnt = pk.node_count(rec, act, n_real=N)
-    raw = _build.function("node_count", "node_count_launch", pk._NC_ARGTYPES)
+    # the counts mode at the bandwidth steps' shapes: 5 % of the rows in
+    # flight on a node in [0, N] (N, the no-recruit sentinel, counts
+    # nowhere); its plain version is the plain eval and the plain counts
+    for name, ro in (("downtime_eval_counts", None),
+                     ("downtime_eval_roster_counts", roster)):
+        sym = "downtime_eval_counts_launch" if ro is None \
+            else "downtime_roster_counts_launch"
+        raw = _build.function("downtime_eval", sym, pk._DTC_ARGTYPES)
+        launches[name], _ = mcc.counts_launch(raw, up, full, ro, rec, act,
+                                              rf=rf)
 
-    def count_launch(stream):
-        return raw(rec.data_ptr(), act.data_ptr(), cnt.data_ptr(), B, P, N,
-                   stream)
+        def plain(ro=ro):
+            pk.downtime_eval_plain(up, full, rf=rf, n_real=N, roster=ro)
+            pk.node_count_plain(rec, act, n_real=N)
 
-    launches["node_count"] = count_launch
+        times[name] = (
+            mcc.event_ms(launches[name]),
+            time_ms(lambda ro=ro: pk.downtime_eval(
+                up, full, rf=rf, n_real=N, roster=ro, recruit=rec,
+                active=act), 200),
+            time_ms(plain, 20))
+    raw = _build.function("downtime_eval", "node_count_launch",
+                          pk._NC_ARGTYPES)
+    launches["node_count"], _ = mcc.node_count_launch(raw, rec, act)
     times["node_count"] = (
-        mcc.event_ms(count_launch),
+        mcc.event_ms(launches["node_count"]),
         time_ms(lambda: pk.node_count(rec, act, n_real=N), 200),
         time_ms(lambda: pk.node_count_plain(rec, act, n_real=N), 20))
     # the fused kernel at the reconfig-with-bandwidth shape (roster and
@@ -643,11 +692,16 @@ def check_downtime_kernels(bw, faults, fused_faults):
     nbytes = {
         "downtime_eval": mcc.downtime_bytes(R, N),
         "downtime_eval_roster": mcc.downtime_bytes(R, N, rf),
-        "node_count": 5 * B * P + 4 * B * N,
+        "downtime_eval_counts": mcc.downtime_bytes(R, N, B=B, n_real=N),
+        "downtime_eval_roster_counts": mcc.downtime_bytes(R, N, rf, B=B,
+                                                          n_real=N),
+        "node_count": mcc.counts_bytes(B, P, N),
         "fused_downtime_eval": mcc.fused_bytes(B, W, P, rf=rf, n_real=N,
                                                counts=True),
     }
     lanes = {"downtime_eval": R * N, "downtime_eval_roster": R * N,
+             "downtime_eval_counts": R * N,
+             "downtime_eval_roster_counts": R * N,
              "node_count": B * P, "fused_downtime_eval": B * W * P}
     return {name: record(name, nbytes[name], lanes[name], *times[name],
                          worst[name], bw, launch=launches[name])
@@ -707,6 +761,9 @@ def counters():
             "fused_pac_eval": (fk.fused_pac_eval, "launches"),
             "downtime_eval": (pk.downtime_eval, "launches"),
             "downtime_eval_roster": (pk.downtime_eval, "roster_launches"),
+            "downtime_eval_counts": (pk.downtime_eval, "counts_launches"),
+            "downtime_eval_roster_counts": (pk.downtime_eval,
+                                            "roster_counts_launches"),
             "node_count": (pk.node_count, "launches"),
             "fused_downtime_eval": (fk.fused_downtime_eval, "launches"),
             "latency_charge": (pk.latency_charge, "launches"),
@@ -821,27 +878,35 @@ def check_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
-#: the two §6 configurations of the main path, each with the kernels it
-#: must launch: the fixed model at its default knobs, and reconfig with
-#: zipf-skewed sizes and 1 GiB/s shared per-node bandwidth (the
-#: BENCH_downtime_skew knobs)
+#: the three §6 configurations of the main path, each with the kernels it
+#: must launch: the fixed model at its default knobs, the same with 1
+#: GiB/s shared per-node bandwidth, and reconfig with zipf-skewed sizes
+#: and that bandwidth (the BENCH_downtime_skew knobs).  Under shared
+#: bandwidth the unpacked step counts in its one row-eval launch, so
+#: node_count alone must not launch there.
 DOWNTIME_CONFIGS = {
     "fixed": ({}, ("downtime_eval", "fused_downtime_eval")),
+    "fixed-bw": (dict(node_bandwidth_gibps=1.0),
+                 ("downtime_eval_counts", "fused_downtime_eval")),
     "reconfig-skew-bw": (dict(rebuild_model="reconfig", size_dist="zipf",
                               size_skew=1.0, node_bandwidth_gibps=1.0),
-                         ("downtime_eval_roster", "node_count",
+                         ("downtime_eval_roster_counts",
                           "fused_downtime_eval")),
 }
 
 
-DOWNTIME_KERNELS = ("downtime_eval", "downtime_eval_roster", "node_count",
-                    "fused_downtime_eval")
+DOWNTIME_KERNELS = ("downtime_eval", "downtime_eval_roster",
+                    "downtime_eval_counts", "downtime_eval_roster_counts",
+                    "node_count", "fused_downtime_eval")
 
 
 def check_downtime_engine():
     """Phase 6, the §6 main path: the commit-pause engine on cuda at the
-    paper tile, both configurations, unpacked and packed.  Returns each
-    kernel's launches summed over those four runs."""
+    paper tile, every configuration, unpacked and packed.  Returns each
+    kernel's launches summed over those runs; node_count's are the
+    launches that counted in flight, node_count alone never among them
+    (the counts mode does its work on this path).  The roster eval
+    without counts does not launch here; phase 9 drives it."""
     launches = {}
     for name, (knobs, kernels) in DOWNTIME_CONFIGS.items():
         r, got = check_engine_pair(
@@ -849,8 +914,13 @@ def check_downtime_engine():
             kernels, dict(knobs, trajectory=True), config=name)
         if r.quorum_events <= 0 or r.lark_events <= 0:
             raise SystemExit(f"no pause events in the §6 run ({name})")
+        if got["node_count"] != 0:
+            raise SystemExit(f"node_count launched apart from the row "
+                             f"eval ({name}): {got}")
         for k in DOWNTIME_KERNELS:
             launches[k] = launches.get(k, 0) + got[k]
+    launches["node_count"] = launches["downtime_eval_counts"] + \
+        launches["downtime_eval_roster_counts"]
     return launches
 
 
@@ -1457,7 +1527,10 @@ def sdpa_ms(q, k, v, *, window, reps):
 #: pac mode of fused_downtime_kernel), to a label
 PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "mlstm_output_kernel": "output_NV",
-                "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained"}
+                "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained",
+                "row_eval_kernel": "mode", "node_count_kernel": "node_count"}
+#: what a bool second template argument set to true adds to the label
+PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts"}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1467,13 +1540,14 @@ def ptxas_usage(log: str) -> dict:
     instructions are serialized" notes, C7510-C7520: for want of
     registers, or an accumulator live across divergent paths).  Labels:
     ``PTXAS_LABELS`` and the template argument (``D256``,
-    ``states_NV256``, ``W5_pac``; ``W0`` is the loop)."""
+    ``states_NV256``, ``W5_pac``, ``mode2_counts``; ``W0`` is the
+    loop)."""
     def label(text):
         for kernel, tag in PTXAS_LABELS.items():
             m = re.search(kernel + r"(?:ILi(\d+)E(Lb1E)?)?", text)
             if m:
                 return tag + (m.group(1) or "") + \
-                    ("_pac" if m.group(2) else "")
+                    (PTXAS_FLAGS[kernel] if m.group(2) else "")
         return None
 
     usage, head = {}, None
@@ -1837,6 +1911,7 @@ def main() -> int:
           "rglru_scan_ptxas": ptxas_usage(logs.get("rglru_scan", "")),
           "fused_downtime_ptxas": ptxas_usage(
               logs.get("fused_downtime", "")),
+          "downtime_eval_ptxas": ptxas_usage(logs.get("downtime_eval", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -1849,7 +1924,10 @@ def main() -> int:
     launches.update(check_downtime_engine())
     check_downtime_bench_rows()
     launches["latency_charge"] = check_latency_engine()["latency_charge"]
-    check_zoo_engine()
+    # the roster eval without counts runs on the zoo's path (reconfig
+    # without shared bandwidth); under bandwidth it is the counts mode
+    launches["downtime_eval_roster"] = \
+        check_zoo_engine()["downtime_eval_roster"]
     check_zoo_bench_rows()
     rec.update(check_mlstm_kernel(bw, faults))
     launches["mlstm_chunkwise_sm90"] = check_serve()

@@ -33,10 +33,10 @@ leaves and charges every interval through ``ops.client_latency_step``.
 Each step evaluates the protocols through ``kernels/ops.step_eval``
 (metric "downtime"; hermes asks for the membership bitmask `repmask`,
 spinnaker for the electable roster leader `rleader`): on a CUDA device
-the hand-written kernels ``downtime_eval`` (and its roster variant) plus
-``node_count`` (unpacked), or one ``fused_downtime_eval`` launch
-(packed), and ``latency_charge`` for the latency layer; on the CPU their
-plain PyTorch versions.
+one launch of the hand-written ``downtime_eval`` (plain or roster
+variant, with the in-flight node counts under shared bandwidth;
+unpacked) or of ``fused_downtime_eval`` (packed), and ``latency_charge``
+for the latency layer; on the CPU their plain PyTorch versions.
 
 The port reproduces the reference bit for bit for the same seed and
 knobs.  All protocol state is integer or boolean; the pause
@@ -55,8 +55,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.ops import (StepSpec, client_latency_step,
-                           rebuild_node_counts, step_eval)
+from ..kernels.ops import StepSpec, client_latency_step, step_eval
 from .availability import t975
 from .availability_batched import (_default_max_steps, _engine_setup,
                                    _initial_full_state, _initial_node_state,
@@ -456,13 +455,14 @@ def _fdiv(a, b):
 def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
                dupres_ticks: int, rebuild_steps: int, hist_bins: int,
                rebuild_model: str = "fixed", rebuild_ticks=None,
-               bandwidth_fp=None, cnt_fn=None, rebuild_fp=None,
+               bandwidth_fp=None, rebuild_fp=None,
                packed: bool = False, lat_fn=None, engines: tuple = (),
                lease_ticks: int = 0, view_change_ticks: int = 0,
                disable=frozenset()):
     """The step closure for one configuration: ``step`` (fixed model),
-    ``step_fixed_bw`` (fixed, shared bandwidth), ``step_reconfig`` or
-    ``step_reconfig_packed``, each the reference's op for op.  Carry
+    ``step_fixed_bw`` (fixed, shared bandwidth) or ``step_reconfig``,
+    each the reference's op for op (``step_reconfig`` in the order of the
+    reference's packed step, in both layouts).  Carry
     layout is the reference's: 20 base leaves, + (roster, recruit) under
     reconfig or + (recruit,) under fixed with shared bandwidth, then 7
     leaves per zoo engine (hermes, then spinnaker), then the 5 lat leaves
@@ -898,8 +898,13 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         """The reconfiguring baseline: `step`'s shared blocks with the
         carried per-partition roster as the replica set and the
         per-partition `rebuild_ticks` catch-ups in fixed-point units,
-        shared per recruit node when bandwidth_fp is set (the counts come
-        from ``node_count``).  LARK's path is untouched."""
+        shared per recruit node when bandwidth_fp is set.  Reordered as
+        the reference's packed step so that the evaluation, the roster
+        select, the zoo extras and the in-flight counts are one launch
+        (``downtime_eval`` in its counts mode, or ``fused_downtime_eval``
+        packed): the reconfiguration runs first, the counts still see the
+        interval-start recruit/qreb, and interval_pause the
+        interval-start protocol state.  LARK's path is untouched."""
         base, hstate, sstate, lat = split_carry(carry)
         (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
          qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
@@ -908,82 +913,29 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
             now, up, ev_t, rr_t, rr_idx, lane0, s)
         dt_i = t_clamp - now                                  # (B,) int32
-        if bandwidth_fp is None:
-            rate = torch.full((B, P), _REB_SCALE, dtype=torch.int32,
-                              device=device)
-        else:
-            inflight = (qreb > 0) & (recruit < n)
-            rate = contention_rate(cnt_fn(recruit, inflight), recruit)
-        lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
-            now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
-            rate=rate)
-        hstate, sstate = zoo_interval(now, dt, dt_i, ldn, qmaj_prev, rem0,
-                                      hstate, sstate)
-        lat = lat_interval(lat, dt_i, ldn, qmaj_prev, rem0)
-        now = t_clamp
 
         up_succ = up[:, succ]                                 # (B, P, n)
         roster, loss_any, new_rank, took = reconfigure(up_succ, roster,
                                                        qrep)
-        qreb, recruit = restart_catchups(loss_any, new_rank, took, qreb,
-                                         recruit)
-
-        # -- roster-aware evaluation on the reconfigured roster
-        out_t = dt_fn(up_succ.reshape(B * P, n), full.reshape(B * P, n),
-                      roster.reshape(B * P, rf))
-        lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
+        if packed:
+            tiles = (_pack_holders(up_succ), full, roster)
+        else:
+            tiles = (up_succ.reshape(B * P, n), full.reshape(B * P, n),
+                     roster.reshape(B * P, rf))
+        if bandwidth_fp is None:
+            out_t = dt_fn(*tiles)
+            rate = torch.full((B, P), _REB_SCALE, dtype=torch.int32,
+                              device=device)
+        else:
+            inflight = (qreb > 0) & (recruit < n)
+            *out_t, counts = dt_fn(*tiles, recruit, inflight)
+            rate = contention_rate(counts, recruit)
+        if packed:
+            lark, qmaj, ldr, lfull = out_t[:4]
+        else:
+            lark, qmaj, ldr, lfull = unpack_rows(out_t, B)
         repm = repmask_of(out_t, B)
         rlead = out_t[5 + int(hermes)].reshape(B, P) if spinnaker else None
-        full = torch.where(lark[:, :, None], out_t[-1].reshape(B, P, n),
-                           full)
-
-        ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
-            t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
-        lat = lat_dirty_reset(lat, pen)
-        qdn, qt0, qev, qhist = quorum_transitions(
-            t_clamp, qmaj, qreb, qdn, qt0, qev, qhist)
-        qrep = roster_up(up_succ, roster)
-        hstate, sstate = zoo_post(t_clamp, lark, qmaj, qreb, qrep, roster,
-                                  repm, rlead, hstate, sstate)
-        carry = join_carry(
-            (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
-             qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist, roster,
-             recruit), hstate, sstate, lat)
-        return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
-
-    def step_reconfig_packed(carry, s: int):
-        """step_reconfig over packed (B, W, P) words, reordered as the
-        reference so that the evaluation, the roster select, the zoo
-        extras and the in-flight counts are one ``fused_downtime_eval``
-        launch: the reconfiguration runs first, the counts still see the
-        interval-start recruit/qreb, and interval_pause the
-        interval-start protocol state."""
-        base, hstate, sstate, lat = split_carry(carry)
-        (now, up, ev_t, full, rr_t, rr_idx, lane0, ldn, lt0, qrep, qreb,
-         qdn, qt0, leader, lpt, qpt, lev, qev, lhist, qhist,
-         roster, recruit) = base
-        B = up.shape[0]
-        t_clamp, dt, active, up, ev_t, rr_t, rr_idx = advance(
-            now, up, ev_t, rr_t, rr_idx, lane0, s)
-        dt_i = t_clamp - now                                  # (B,) int32
-
-        up_succ = up[:, succ]                                 # (B, P, n)
-        roster, loss_any, new_rank, took = reconfigure(up_succ, roster,
-                                                       qrep)
-        upw = _pack_holders(up_succ)
-        if bandwidth_fp is None:
-            out_t = dt_fn(upw, full, roster)
-            rate = torch.full((B, P), _REB_SCALE, dtype=torch.int32,
-                              device=device)
-            crepsw = out_t[-1]
-        else:
-            inflight = (qreb > 0) & (recruit < n)
-            out_t = dt_fn(upw, full, roster, recruit, inflight)
-            rate = contention_rate(out_t[-1], recruit)
-            crepsw = out_t[-2]
-        lark, qmaj, ldr, lfull = out_t[:4]
-        repm = out_t[5] if hermes else None
-        rlead = out_t[5 + int(hermes)] if spinnaker else None
 
         lpt, qpt, qreb, qdn, qhist, qmaj_prev, rem0 = interval_pause(
             now, dt, dt_i, ldn, qrep, qreb, qdn, qt0, lpt, qpt, qhist,
@@ -995,7 +947,11 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         qreb, recruit = restart_catchups(loss_any, new_rank, took, qreb,
                                          recruit)
 
-        full = torch.where(lark[:, None, :], crepsw, full)
+        if packed:
+            full = torch.where(lark[:, None, :], out_t[-1], full)
+        else:
+            full = torch.where(lark[:, :, None],
+                               out_t[-1].reshape(B, P, n), full)
         ldn, lt0, leader, lpt, lev, lhist, pen = lark_transitions(
             t_clamp, lark, ldr, lfull, ldn, lt0, leader, lpt, lev, lhist)
         lat = lat_dirty_reset(lat, pen)
@@ -1011,7 +967,7 @@ def _make_step(dt_fn, advance, succ, *, n: int, P: int, rf: int,
         return carry, outputs(t_clamp, ldn, qdn, up, hstate, sstate)
 
     if rebuild_model == "reconfig":
-        return step_reconfig_packed if packed else step_reconfig
+        return step_reconfig
     if bandwidth_fp is not None:
         return step_fixed_bw
     return step
@@ -1167,8 +1123,6 @@ def simulate_downtime_batched(
         if reconfig else None
     bandwidth_fp = int(min(math.floor(_REB_SCALE * node_bandwidth_gibps),
                            _REB_BIG)) if bandwidth_shared else None
-    cnt_fn = (lambda rec, act: rebuild_node_counts(rec, act, n_real=n)) \
-        if bandwidth_shared else None
     # fixed-model restart value in fixed-point work units; the horizon
     # cap keeps rebuild_steps * _REB_SCALE inside int32
     rebuild_fp = int(min(rebuild_steps, max_ticks + 1)) * _REB_SCALE \
@@ -1197,7 +1151,7 @@ def simulate_downtime_batched(
                       rebuild_steps=rebuild_steps, hist_bins=hist_bins,
                       rebuild_model=rebuild_model,
                       rebuild_ticks=rebuild_ticks,
-                      bandwidth_fp=bandwidth_fp, cnt_fn=cnt_fn,
+                      bandwidth_fp=bandwidth_fp,
                       rebuild_fp=rebuild_fp, packed=packed, lat_fn=lat_fn,
                       engines=zoo, lease_ticks=params.lease_ticks,
                       view_change_ticks=params.view_change_ticks,

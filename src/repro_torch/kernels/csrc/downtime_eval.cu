@@ -1,12 +1,15 @@
-// downtime_eval and pac_eval — per-row evaluation on boolean rank-space
-// tiles: the §6 evaluation (plain and roster variants) and §5.1 PAC.
+// downtime_eval, pac_eval and node_count — per-row evaluation on boolean
+// rank-space tiles: the §6 evaluation (plain and roster variants, each
+// with or without the in-flight node counts), §5.1 PAC, and the counts
+// alone.
 //
-// Replaces three Pallas TPU kernel bodies of repro/kernels/pac_eval.py:
+// Replaces four Pallas TPU kernel bodies of repro/kernels/pac_eval.py:
 // _pac_kernel (:23, wrapper pac_eval, pallas_call at :64),
 // _downtime_kernel (:87) and _downtime_roster_kernel (:131), both called
-// by downtime_eval (pallas_call at :405).  Inputs are (R, n_pad) bool
-// tiles in succession-rank space (R = trials * partitions); columns
-// >= n_real are padding.  Outputs, per row:
+// by downtime_eval (pallas_call at :405), and _node_count_kernel (:200,
+// wrapper node_count, pallas_call at :250).  Inputs are (R, n_pad) bool
+// tiles in succession-rank space (R = trials * partitions, row
+// r = b * P + p); columns >= n_real are padding.  Outputs, per row:
 //   lark   = cluster majority up AND some first-rf lane up AND some
 //            latest-copy holder up (PAC; the first rf lanes even in the
 //            roster variant, as the reference)
@@ -23,6 +26,11 @@
 //   repmask (optional) = bit j set iff lane j < rf is up
 //   rleader (optional, roster only) = lowest up roster rank, n_real when
 //            none
+// and, in its counts mode (recruit (R,) int32, active (R,) bool), the
+// (B, n_real) int32 counts, as node_count alone:
+//   cnt[b, node] = #{p : active[b P + p] and recruit[b P + p] == node}
+// where an id outside [0, n_real) — the engine's no-recruit sentinel
+// n_real among them — counts nowhere.
 //
 // Bound: bytes.  Each row is read once (2 * n_pad bytes, + 4 * rf roster
 // bytes) and written once (n_pad bytes of creps and 2 bytes for pac_eval;
@@ -30,35 +38,47 @@
 // (R = 8 * 4096, n_pad = 155), at 3.35 TB/s: pac_eval 3 R n_pad + 2 R =
 // 15,302,656 bytes, 4.57 us; downtime_eval 3 R n_pad + 11 R = 15,597,568
 // bytes, 4.66 us, and 15,859,712 (4.73 us) with an rf = 2 roster.  The
-// arithmetic is a few integer ops per byte.
-// Design: one kernel body, templated on the mode (pac, plain, roster), so
-// that each launcher's instantiation carries only its own work.  A block
-// owns a tile of T consecutive rows (64; four consecutive lanes to a row,
-// 256 threads), T a multiple of 16 so that the tile's bytes start 16-byte
-// aligned whatever n_pad is (when the tensor's base is).  The tile's up
-// and full bytes are each one contiguous range; they come into shared
-// memory in 16-byte cp.async pieces, the range widened to 16-byte
-// boundaries so that a view at any byte offset, or a ragged last tile,
-// needs nothing else (a widened piece holds a byte of the range, so it
-// lies in the same allocation page; the bytes outside the range are never
-// used).  The roster slice comes along the same way.  A row is read in
-// 4-byte words at its own alignment (__funnelshift_r of two aligned
-// shared words), each byte turned into one flag bit by a carry-free add.
-// The row's four lanes each count a quarter of its words (up lanes, up
-// lanes holding the latest copy) and reduce with __shfl_xor_sync; its
-// first lane walks from the first column for the ordered facts (creps,
-// the lanes below rf and, for pac_eval, the up lanes below voters; the
-// leader for downtime_eval), mostly one word.  The roster seats, split
-// over the four lanes, read their up byte from shared memory.  creps is
-// zeroed in shared memory, each row sets its first rf up lanes, and the
-// tile goes out as 16-byte stores over the same contiguous range (single
-// bytes at an unaligned head or ragged tail).  Per-row outputs go out as
-// bytes and words from each row's first lane.  T comes from n_pad at
-// launch so that the tile fits in shared memory (and halves while that
-// leaves SMs without a tile); a row too wide for 16 rows is walked in
-// column passes, one range per row segment.  The reference's 128-lane
-// node and roster padding is TPU layout and is not carried over.  Integer
-// and bit math only: exact.
+// counts add 5 bytes a row and 4 a (trial, node): 15,766,368 bytes
+// (4.71 us), 16,028,512 (4.78 us) with the roster.  node_count alone
+// moves 168,800 bytes (0.05 us), so a launch's latency, not its bytes,
+// sets its time.  The arithmetic is a few integer ops per byte.
+// Design: one kernel body, templated on the mode (pac, plain, roster) and
+// on the counts, so that each launcher's instantiation carries only its
+// own work.  A block owns a tile of T consecutive rows (64; four
+// consecutive lanes to a row, 256 threads), T a multiple of 16 so that
+// the tile's bytes start 16-byte aligned whatever n_pad is (when the
+// tensor's base is).  The tile's up and full bytes are each one
+// contiguous range; they come into shared memory in 16-byte cp.async
+// pieces, the range widened to 16-byte boundaries so that a view at any
+// byte offset, or a ragged last tile, needs nothing else (a widened piece
+// holds a byte of the range, so it lies in the same allocation page; the
+// bytes outside the range are never used).  The roster slice comes along
+// the same way.  A row is read in 4-byte words at its own alignment
+// (__funnelshift_r of two aligned shared words), each byte turned into
+// one flag bit by a carry-free add.  The row's four lanes each count a
+// quarter of its words (up lanes, up lanes holding the latest copy) and
+// reduce with __shfl_xor_sync; its first lane walks from the first column
+// for the ordered facts (creps, the lanes below rf and, for pac_eval, the
+// up lanes below voters; the leader for downtime_eval), mostly one word.
+// The roster seats, split over the four lanes, read their up byte from
+// shared memory.  creps is zeroed in shared memory, each row sets its
+// first rf up lanes, and the tile goes out as 16-byte stores over the
+// same contiguous range (single bytes at an unaligned head or ragged
+// tail).  Per-row outputs go out as bytes and words from each row's first
+// lane.  T comes from n_pad at launch so that the tile fits in shared
+// memory (and halves while that leaves SMs without a tile); a row too
+// wide for 16 rows is walked in column passes, one range per row segment.
+// The counts: a row's first lane loads its recruit id and active flag
+// before the tile arrives and, after the walk, holds the key b n_real +
+// node (b = r / P, taken per row: a tile straddles two trials whenever
+// P % T != 0), or -1 when the row counts nowhere.  __match_any_sync
+// groups the warp's lanes by key, and the lowest lane of each group adds
+// the group's size with one global atomicAdd, as fused_downtime.cu does;
+// integer atomics commute, so the counts are exact in any order.  The
+// launcher zeroes the counts with a memset on the launch's stream.
+// node_count alone is the same count, one thread a row, with no tile.
+// The reference's 128-lane node, partition and roster padding is TPU
+// layout and is not carried over.  Integer and bit math only: exact.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,6 +98,7 @@ constexpr int kMinRows = 16;        // 16 * n_pad is a multiple of 16
 constexpr int kMinBlocks = 132;     // shrink T until the tiles fill the SMs
 constexpr int kBudget = 100 * 1024; // dynamic shared memory of one block
 constexpr int kRosterCap = 16 * 1024;  // largest staged roster slice
+constexpr int kCountThreads = 256;  // node_count alone: threads a block
 // widening to 16-byte boundaries (< 32 bytes) and the word walk's read of
 // one aligned word past a row (< 8 bytes) fit in this many extra bytes
 constexpr int kSlop = 32;
@@ -286,19 +307,41 @@ __device__ __forceinline__ int row_min(int v) {
   return v;
 }
 
-template <int kMode>
+// The key a row counts under: b n_real + its recruit id when the row is
+// active and the id lies in [0, n_real), else -1 (B n_real < 2^31,
+// checked by the caller).
+__device__ __forceinline__ int count_key(int rc, bool act, int b,
+                                         int n_real) {
+  return (act && rc >= 0 && rc < n_real) ? b * n_real + rc : -1;
+}
+
+// Add each lane's key (-1: none) to cnt: __match_any_sync groups the
+// warp's lanes by key, and the lowest lane of each group adds the group's
+// size.  Every lane of the warp calls it.
+__device__ __forceinline__ void count_warp(int key,
+                                           int32_t* __restrict__ cnt) {
+  const unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
+  if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(cnt + key, __popc(peers));
+}
+
+// kCounts: the counts mode (recruit, active and cnt used; downtime modes)
+template <int kMode, bool kCounts>
 __global__ void __launch_bounds__(kMaxRows * kLanes)
 row_eval_kernel(const uint8_t* __restrict__ up,
                      const uint8_t* __restrict__ full,
                      const int32_t* __restrict__ roster,
+                     const int32_t* __restrict__ recruit,
+                     const uint8_t* __restrict__ active,
                      uint8_t* __restrict__ lark, uint8_t* __restrict__ qmaj,
                      int32_t* __restrict__ leader,
                      uint8_t* __restrict__ lfull,
                      int32_t* __restrict__ nrep,
                      int32_t* __restrict__ repmask,
                      int32_t* __restrict__ rleader,
-                     uint8_t* __restrict__ creps, int R, int n_pad,
-                     int n_real, int rf, int voters, Plan plan) {
+                     uint8_t* __restrict__ creps,
+                     int32_t* __restrict__ cnt, int R, int n_pad,
+                     int n_real, int rf, int voters, int P, Plan plan) {
   constexpr bool kWithRoster = kMode == kRoster;
   extern __shared__ __align__(16) uint8_t smem[];
   uint8_t* s_up = smem;
@@ -313,6 +356,14 @@ row_eval_kernel(const uint8_t* __restrict__ up,
   const long long row = row0 + lr;
   const bool live = lr < rows;
   const bool one_pass = plan.stride == 0;
+
+  constexpr bool counting = kCounts;
+  int rc = -1;                              // the row's recruit id and
+  bool act = false;                         // active flag, in its first
+  if (counting && live && part == 0) {      // lane, loaded before the tile
+    rc = recruit[row];
+    act = active[row] != 0;
+  }
 
   const int32_t* seats = nullptr;           // this row's roster ranks
   if (kWithRoster) {
@@ -394,6 +445,8 @@ row_eval_kernel(const uint8_t* __restrict__ up,
 
   const int n_rep = kWithRoster ? row_sum(st.n_rep) : st.n_first;
   const int r_lead = kWithRoster ? row_min(st.r_lead) : n_real;
+  if (counting)                             // every lane of the warp
+    count_warp(count_key(rc, act, static_cast<int>(row) / P, n_real), cnt);
   if (live && part == 0) {
     lark[row] = (2 * st.n_up > n_real && st.n_first > 0 && st.full_up)
                     ? 1 : 0;
@@ -436,28 +489,59 @@ Plan make_plan(int R, int n_pad, int rf, bool roster) {
   return Plan{T, chunk, stride, T * stride, ro_bytes(T)};
 }
 
-template <int kMode>
+// Zero the (B, n_real) counts on the launch's stream, before a kernel
+// adds to them.
+int zero_counts(void* cnt, int B, int n_real, cudaStream_t stream) {
+  const size_t bytes = sizeof(int32_t) * static_cast<size_t>(B) * n_real;
+  return static_cast<int>(cudaMemsetAsync(cnt, 0, bytes, stream));
+}
+
+template <int kMode, bool kCounts>
 int launch(const void* up, const void* full, const void* roster,
-           void* lark, void* qmaj, void* leader, void* lfull, void* nrep,
-           void* repmask, void* rleader, void* creps, int R, int n_pad,
-           int n_real, int rf, int voters, void* stream) {
+           const void* recruit, const void* active, void* lark, void* qmaj,
+           void* leader, void* lfull, void* nrep, void* repmask,
+           void* rleader, void* creps, void* cnt, int R, int n_pad,
+           int n_real, int rf, int voters, int B, int P, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kCounts) {
+    if (R != 1LL * B * P) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = zero_counts(cnt, B, n_real, s);
+    if (err != 0) return err;
+  }
   if (R <= 0) return 0;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      row_eval_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kBudget);
+      row_eval_kernel<kMode, kCounts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const Plan plan = make_plan(R, n_pad, rf, kMode == kRoster);
   const int blocks = (R + plan.rows - 1) / plan.rows;
   const int smem = 3 * plan.buf + plan.ro_buf;
-  row_eval_kernel<kMode><<<blocks, plan.rows * kLanes, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  row_eval_kernel<kMode, kCounts><<<blocks, plan.rows * kLanes, smem, s>>>(
       static_cast<const uint8_t*>(up), static_cast<const uint8_t*>(full),
-      static_cast<const int32_t*>(roster), static_cast<uint8_t*>(lark),
+      static_cast<const int32_t*>(roster),
+      static_cast<const int32_t*>(recruit),
+      static_cast<const uint8_t*>(active), static_cast<uint8_t*>(lark),
       static_cast<uint8_t*>(qmaj), static_cast<int32_t*>(leader),
       static_cast<uint8_t*>(lfull), static_cast<int32_t*>(nrep),
       static_cast<int32_t*>(repmask), static_cast<int32_t*>(rleader),
-      static_cast<uint8_t*>(creps), R, n_pad, n_real, rf, voters, plan);
+      static_cast<uint8_t*>(creps), static_cast<int32_t*>(cnt), R, n_pad,
+      n_real, rf, voters, P, plan);
   return static_cast<int>(cudaGetLastError());
+}
+
+// node_count alone: one thread a row r = b P + p, no tile.
+__global__ void __launch_bounds__(kCountThreads)
+node_count_kernel(const int32_t* __restrict__ recruit,
+                  const uint8_t* __restrict__ active,
+                  int32_t* __restrict__ cnt, int R, int P, int n_real) {
+  const long long r =
+      static_cast<long long>(blockIdx.x) * kCountThreads + threadIdx.x;
+  int key = -1;
+  if (r < R) {
+    const int i = static_cast<int>(r);
+    key = count_key(recruit[i], active[i] != 0, i / P, n_real);
+  }
+  count_warp(key, cnt);                     // every lane of the warp
 }
 
 }  // namespace
@@ -466,9 +550,10 @@ extern "C" int pac_eval_launch(const void* up, const void* full, void* lark,
                                void* maj, void* creps, int R, int n_pad,
                                int n_real, int rf, int voters,
                                void* stream) {
-  return launch<kPac>(up, full, nullptr, lark, maj, nullptr, nullptr,
-                      nullptr, nullptr, nullptr, creps, R, n_pad, n_real,
-                      rf, voters, stream);
+  return launch<kPac, false>(up, full, nullptr, nullptr, nullptr, lark, maj,
+                             nullptr, nullptr, nullptr, nullptr, nullptr,
+                             creps, nullptr, R, n_pad, n_real, rf, voters,
+                             0, 0, stream);
 }
 
 extern "C" int downtime_eval_launch(const void* up, const void* full,
@@ -478,9 +563,10 @@ extern "C" int downtime_eval_launch(const void* up, const void* full,
                                     void* rleader, void* creps, int R,
                                     int n_pad, int n_real, int rf,
                                     void* stream) {
-  return launch<kPlain>(up, full, roster, lark, qmaj, leader, lfull, nrep,
-                        repmask, rleader, creps, R, n_pad, n_real, rf, 0,
-                        stream);
+  return launch<kPlain, false>(up, full, roster, nullptr, nullptr, lark,
+                               qmaj, leader, lfull, nrep, repmask, rleader,
+                               creps, nullptr, R, n_pad, n_real, rf, 0, 0, 0,
+                               stream);
 }
 
 extern "C" int downtime_roster_launch(const void* up, const void* full,
@@ -490,7 +576,49 @@ extern "C" int downtime_roster_launch(const void* up, const void* full,
                                       void* rleader, void* creps, int R,
                                       int n_pad, int n_real, int rf,
                                       void* stream) {
-  return launch<kRoster>(up, full, roster, lark, qmaj, leader, lfull, nrep,
-                         repmask, rleader, creps, R, n_pad, n_real, rf, 0,
-                         stream);
+  return launch<kRoster, false>(up, full, roster, nullptr, nullptr, lark,
+                                qmaj, leader, lfull, nrep, repmask, rleader,
+                                creps, nullptr, R, n_pad, n_real, rf, 0, 0,
+                                0, stream);
+}
+
+// The counts mode: the launchers above plus the in-flight counts of the
+// (B, P) rows' recruit ids and active flags into cnt (B, n_real), which
+// the launch zeroes first; R must equal B P.
+extern "C" int downtime_eval_counts_launch(
+    const void* up, const void* full, const void* roster,
+    const void* recruit, const void* active, void* lark, void* qmaj,
+    void* leader, void* lfull, void* nrep, void* repmask, void* rleader,
+    void* creps, void* cnt, int R, int n_pad, int n_real, int rf, int B,
+    int P, void* stream) {
+  return launch<kPlain, true>(up, full, roster, recruit, active, lark, qmaj,
+                              leader, lfull, nrep, repmask, rleader, creps,
+                              cnt, R, n_pad, n_real, rf, 0, B, P, stream);
+}
+
+extern "C" int downtime_roster_counts_launch(
+    const void* up, const void* full, const void* roster,
+    const void* recruit, const void* active, void* lark, void* qmaj,
+    void* leader, void* lfull, void* nrep, void* repmask, void* rleader,
+    void* creps, void* cnt, int R, int n_pad, int n_real, int rf, int B,
+    int P, void* stream) {
+  return launch<kRoster, true>(up, full, roster, recruit, active, lark, qmaj,
+                               leader, lfull, nrep, repmask, rleader, creps,
+                               cnt, R, n_pad, n_real, rf, 0, B, P, stream);
+}
+
+// The counts alone, zeroed first: recruit, active (B, P), cnt (B, n_real).
+extern "C" int node_count_launch(const void* recruit, const void* active,
+                                 void* cnt, int B, int P, int n_real,
+                                 void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = zero_counts(cnt, B, n_real, s);
+  if (err != 0 || B <= 0 || P <= 0) return err;
+  const long long R = 1LL * B * P;
+  const int blocks = static_cast<int>((R + kCountThreads - 1) / kCountThreads);
+  node_count_kernel<<<blocks, kCountThreads, 0, s>>>(
+      static_cast<const int32_t*>(recruit),
+      static_cast<const uint8_t*>(active), static_cast<int32_t*>(cnt),
+      static_cast<int>(R), P, n_real);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
 """Holding the Monte Carlo row kernels ``pac_eval``, ``downtime_eval``
-(plain and roster), ``latency_charge``, ``fused_downtime_eval`` and
+(plain and roster, each with and without the in-flight counts),
+``node_count``, ``latency_charge``, ``fused_downtime_eval`` and
 ``fused_pac_eval`` against their plain versions bit for bit, the faults
 that holding must catch, their bytes, and their times on the card.
 
@@ -8,7 +9,13 @@ reach the edges of that tiling: a row count that is not a multiple of a
 tile, narrow rows (n_pad 31 and 63, n_real < n_pad), inputs that are
 contiguous views at a byte offset (``data_ptr() % 16 != 0``), roster
 seats outside [0, n_real), pac_eval's voters across a word and past
-n_real, and latency rows whose last block is ragged.
+n_real, and latency rows whose last block is ragged.  The counts cases
+(``COUNTS_CASES``) put trial boundaries inside a tile (P 4095, 100, 17),
+shrink the tile to 16 rows, take B 1, 8 and 9 and n_real 1, 31, 155 and
+300, plant the ids that count nowhere (-1, n_real, n_real + 5 and the
+int32 extremes) on active rows, and take active all false and all true
+and every row on node 0; their raw launches must also leave the words
+past the counts alone.
 ``fused_downtime_eval`` holds W <= 8 words in registers and walks more
 in a loop, so its cases take W 1, 5, 8 and 9, n_real not a multiple of
 32, P not a multiple of a block, rosters at an offset, recruit ids
@@ -28,12 +35,15 @@ under ``build/``, runs every case through the kernels and the copies,
 and prints one JSON line per case.  With ``--parent DIR`` (a checkout of
 an earlier commit, e.g. a ``git archive`` of it) it also builds that
 commit's sources of the same launchers (found by symbol, so a source
-that a launcher has since left is found too) and times both versions at
-the paper tile in turns, parent, change, change, parent
-(``device_times``); ``--ablate`` times copies with one part taken out
+that a launcher has since left is found too, as node_count.cu) and times
+both versions at the paper tile in turns, parent, change, change, parent
+(``device_times``); a parent without the counts mode also has its
+fill, node_count and row eval timed against one counts launch
+(``STEP_PAIRS``).  ``--ablate`` times copies with one part taken out
 (``ABLATIONS``).  Exits 0 when the kernels pass every case and every
 fault fails at least one (pac_eval's own, ``PAC_FAULTS``, a pac_eval
-case; ``FUSED_PAC_FAULTS`` a fused_pac_eval case).  Needs nvcc and a
+case; ``FUSED_PAC_FAULTS`` a fused_pac_eval case; the counts mode's,
+``COUNTS_FAULTS``, can fail only a counts case).  Needs nvcc and a
 card.
 """
 from __future__ import annotations
@@ -53,17 +63,24 @@ from . import pac_eval as pk
 N, P, B = 155, 4096, 8
 #: launcher symbols by source, and their ctypes argtypes in that order
 SYMBOLS = {"downtime_eval": ("downtime_eval_launch", "downtime_roster_launch",
-                             "pac_eval_launch"),
+                             "pac_eval_launch", "downtime_eval_counts_launch",
+                             "downtime_roster_counts_launch",
+                             "node_count_launch"),
            "latency_charge": ("latency_charge_launch",),
            "fused_downtime": ("fused_downtime_eval_launch",
                               "fused_pac_eval_launch")}
-ARGTYPES = {"downtime_eval": (pk._DT_ARGTYPES, pk._DT_ARGTYPES, pk._ARGTYPES),
+ARGTYPES = {"downtime_eval": (pk._DT_ARGTYPES, pk._DT_ARGTYPES, pk._ARGTYPES,
+                              pk._DTC_ARGTYPES, pk._DTC_ARGTYPES,
+                              pk._NC_ARGTYPES),
             "latency_charge": (pk._LC_ARGTYPES,),
             "fused_downtime": (fk._FDT_ARGTYPES, fk._ARGTYPES)}
 #: index of the pac_eval launcher in downtime_eval.cu's SYMBOLS tuple
-#: (the plain and roster launchers are 0 and 1), and of the
-#: fused_pac_eval launcher in fused_downtime.cu's
+#: (the plain and roster launchers are 0 and 1), of its plain counts
+#: launcher (COUNTS + 1 the roster one) and of node_count alone, and of
+#: the fused_pac_eval launcher in fused_downtime.cu's
 PAC = 2
+COUNTS = 3
+NODE_COUNT = 5
 FUSED_PAC = 1
 
 #: planted faults: (text that occurs once in the source, replacement)
@@ -92,6 +109,26 @@ FAULTS = {
         "voters_off_by_one": (
             "st.n_vote += __popc(U & low_lanes(voters - col));",
             "st.n_vote += __popc(U & low_lanes(voters + 1 - col));"),
+        # the no-recruit sentinel n_real counted (on node 0 of the next
+        # trial, or past the counts)
+        "count_id_le_n_real": ("rc >= 0 && rc < n_real) ?",
+                               "rc >= 0 && rc <= n_real) ?"),
+        # a row that is not active counted
+        "count_active_ignored": ("(act && rc >= 0", "(rc >= 0"),
+        # every row of a tile counted in the trial of the tile's first row
+        "count_trial_of_tile": ("static_cast<int>(row) / P",
+                                "static_cast<int>(row0) / P"),
+        # a group of rows on one node adds 1, not its size
+        "count_group_size_one": ("atomicAdd(cnt + key, __popc(peers));",
+                                 "atomicAdd(cnt + key, 1);"),
+        # the counts not zeroed before the kernel adds to them
+        "count_memset_dropped": (
+            "  return static_cast<int>(cudaMemsetAsync(cnt, 0, bytes, stream));",
+            "  return static_cast<int>(bytes & 0);"),
+        # the rows of a ragged last tile not counted
+        "count_ragged_tile_dropped": (
+            "if (counting && live && part == 0) {",
+            "if (counting && live && rows == plan.rows && part == 0) {"),
     },
     "latency_charge": {
         # qsum's pay * rem contracted into an FMA with the subtraction
@@ -133,11 +170,16 @@ FAULTS = {
     },
 }
 #: downtime_eval.cu faults that a pac_eval case must fail (the rest are
-#: the roster's), and those a downtime_eval case must (the rest pac_eval's)
+#: the roster's and the counts'), those a counts case must (the counts
+#: mode's own), and those a downtime_eval case must (the rest but
+#: pac_eval's)
 PAC_FAULTS = ("creps_rank_lt", "unaligned_head_dropped", "ragged_tail_dropped",
               "creps_tail_dropped", "voters_off_by_one")
+COUNTS_FAULTS = tuple(f for f in FAULTS["downtime_eval"]
+                      if f.startswith("count_"))
 DOWNTIME_FAULTS = tuple(f for f in FAULTS["downtime_eval"]
-                        if f != "voters_off_by_one")
+                        if f != "voters_off_by_one" and
+                        f not in COUNTS_FAULTS)
 #: fused_downtime.cu faults that a fused_pac_eval case must fail (code the
 #: pac mode shares, and its own), and those a fused_downtime_eval case
 #: must (all but the pac mode's own)
@@ -169,6 +211,20 @@ ABLATIONS = {
         **{f"lanes_{t}": [("constexpr int kLanes = 4;",
                            f"constexpr int kLanes = {t};")]
            for t in (1, 2, 8)},
+        # the counts mode without its atomics (the warp match stays)
+        "no_count_atomics": [
+            ("  if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1)\n",
+             "  if (key >= 0 && (threadIdx.x & 31) == __ffs(peers) - 1 &&\n"
+             "      peers == 0u)\n")],
+        # the counts mode with ids and flags made up, not loaded
+        "no_count_loads": [
+            ("    rc = recruit[row];\n    act = active[row] != 0;\n",
+             "    rc = static_cast<int>(row % 160);\n"
+             "    act = (row & 15) == 0;\n")],
+        # the counts mode a run-time flag of every instantiation, not a
+        # template one (the modes without counts then carry its code)
+        "probe_runtime_counts": [("  constexpr bool counting = kCounts;\n",
+                                  "  const bool counting = cnt != nullptr;\n")],
     },
     "latency_charge": {
         "empty": [("  const int t = threadIdx.x;\n",
@@ -222,6 +278,29 @@ DOWNTIME_CASES = (("ragged_155", 8 * 4093, 155, 155, 0.5, (0, 0, 0)),
                   ("n63_pad", 1029, 63, 60, 0.5, (0, 0, 0)),
                   ("unaligned_155", 8 * 4093, 155, 155, 0.5, (3, 9, 4)),
                   ("sparse_unaligned_160", 4099, 160, 155, 0.03, (7, 1, 12)))
+#: counts cases, each through both counts launchers and node_count alone:
+#: (name, trials, partitions, n_pad, n_real, recruit ids ("mixed": in
+#: [-2, n_real + 3) with every EDGE_IDS id planted on active rows,
+#: "zero": every row on node 0), active ("mixed", "all" or "none")).
+#: P 4095, 100 and 17 put trial boundaries inside tiles; 8 * 4095, 900,
+#: 153 and 17 rows leave a ragged last tile; the small R and n_pad 31 / 63
+#: shrink the tile to 16 rows; n_real 300 passes 256.
+COUNTS_CASES = (("paper", 8, 4096, 155, 155, "mixed", "mixed"),
+                ("p4095_straddle", 8, 4095, 155, 155, "mixed", "mixed"),
+                ("p4095_node0_all", 8, 4095, 155, 155, "zero", "all"),
+                ("b9_p100_n31", 9, 100, 31, 31, "mixed", "all"),
+                ("b9_p17_n63_pad", 9, 17, 63, 60, "mixed", "mixed"),
+                ("b1_p17_n1", 1, 17, 31, 1, "mixed", "all"),
+                ("b1_p4096_n300", 1, 4096, 300, 300, "mixed", "mixed"),
+                ("b8_p100_none_active", 8, 100, 155, 155, "mixed", "none"))
+#: the ids outside [0, n_real) that count nowhere, as functions of n_real:
+#: -1, the engine's no-recruit sentinel n_real, n_real + 5 and the int32
+#: extremes
+EDGE_IDS = (lambda n: -1, lambda n: n, lambda n: n + 5,
+            lambda n: -2 ** 31, lambda n: 2 ** 31 - 1)
+#: what a counts launch must overwrite: each count starts as SENTINEL, and
+#: the GUARD words past the counts must keep it
+SENTINEL, GUARD = -7, 32
 #: pac_eval's (rf, voters) on each DOWNTIME_CASES case: voters within the
 #: first word, at the edge of the first 32 lanes and across it, past
 #: n_real (below n_pad where n_pad > n_real + 1) and past n_pad
@@ -260,10 +339,19 @@ LATENCY_CASES = (("paper_slo0", 8, 4096, 0, 0),
 # bytes each call must move (each input read once, each output written once)
 # ---------------------------------------------------------------------------
 
-def downtime_bytes(R: int, n_pad: int, rf: int = 0) -> int:
+def downtime_bytes(R: int, n_pad: int, rf: int = 0, *, B: int = 0,
+                   n_real: int = 0) -> int:
     """downtime_eval on (R, n_pad) tiles: up and full read, creps written,
-    11 bytes of row outputs; with a roster (rf > 0) its 4 R rf bytes."""
-    return 3 * R * n_pad + 11 * R + 4 * R * rf
+    11 bytes of row outputs; with a roster (rf > 0) its 4 R rf bytes; in
+    the counts mode (B trials) those of node_count alone besides."""
+    counts = counts_bytes(B, R // B, n_real) if B else 0
+    return 3 * R * n_pad + 11 * R + 4 * R * rf + counts
+
+
+def counts_bytes(B: int, P: int, n_real: int) -> int:
+    """node_count over (B, P) rows: recruit and active read, (B, n_real)
+    int32 counts written."""
+    return 5 * B * P + 4 * B * n_real
 
 
 def pac_bytes(R: int, n_pad: int) -> int:
@@ -351,6 +439,33 @@ def words(gen, shape, dens=1):
             .to(torch.int32)
         out = w if out is None else out & w
     return out
+
+
+def counts_inputs(gen, case, rf):
+    """(up, full, roster, recruit, active) of a COUNTS_CASES entry: half
+    the lanes up, rows with no node up, a roster with seats out of range,
+    and the recruit ids and active flags the case names."""
+    _, Bq, Pq, n_pad, n_real, ids, act = case
+    dev = gen.device
+    R = Bq * Pq
+    up = torch.rand((R, n_pad), generator=gen, device=dev) < 0.5
+    full = torch.rand((R, n_pad), generator=gen, device=dev) < 0.5
+    up[:5] = False
+    roster = rosters(gen, R, rf, max(n_real, rf), dev)
+    active = {"mixed": torch.rand((R,), generator=gen, device=dev) < 0.5,
+              "all": torch.ones(R, dtype=torch.bool, device=dev),
+              "none": torch.zeros(R, dtype=torch.bool, device=dev)}[act]
+    if ids == "zero":
+        recruit = torch.zeros(R, dtype=torch.int32, device=dev)
+    else:
+        recruit = torch.randint(-2, n_real + 3, (R,), generator=gen,
+                                device=dev, dtype=torch.int32)
+        for k, edge in enumerate(EDGE_IDS):
+            recruit[k::13] = edge(n_real)
+            if act != "none":
+                active[k::13] = True
+    return (up, full, roster, recruit.reshape(Bq, Pq),
+            active.reshape(Bq, Pq))
 
 
 def fused_inputs(gen, case, rf):
@@ -448,6 +563,55 @@ def run_downtime(fn, up, full, *, rf, n_real, roster=None,
     _build.check(err, "downtime_eval (raw)")
     extras = tuple(t for t in (repmask, rleader) if t is not None)
     return (lark, qmaj, leader, lfull, nrep) + extras + (creps,)
+
+
+def counts_out(Bq, n_real, dev):
+    """(cnt (Bq, n_real), the GUARD words after it), all SENTINEL."""
+    buf = torch.full((Bq * n_real + GUARD,), SENTINEL, dtype=torch.int32,
+                     device=dev)
+    return buf[:Bq * n_real].view(Bq, n_real), buf[Bq * n_real:]
+
+
+def run_counts(fn, up, full, *, rf, n_real, recruit, active, roster=None,
+               want_repmask=False, want_rleader=False):
+    """One raw launch of a counts launcher `fn` (plain or roster, to match
+    `roster`) on outputs that start as True / SENTINEL; returns the
+    wrapper's outputs, then the guard words past the counts."""
+    R, n_pad = up.shape
+    Bq, Pq = recruit.shape
+    dev = up.device
+
+    def rows(dtype):
+        if dtype == torch.bool:
+            return torch.ones(R, dtype=dtype, device=dev)
+        return torch.full((R,), SENTINEL, dtype=dtype, device=dev)
+
+    lark, qmaj, lfull = (rows(torch.bool) for _ in range(3))
+    leader, nrep = rows(torch.int32), rows(torch.int32)
+    repmask = rows(torch.int32) if want_repmask else None
+    rleader = rows(torch.int32) if want_rleader else None
+    creps = torch.ones((R, n_pad), dtype=torch.bool, device=dev)
+    cnt, guard = counts_out(Bq, n_real, dev)
+    err = fn(up.data_ptr(), full.data_ptr(), _ptr(roster), recruit.data_ptr(),
+             active.data_ptr(), lark.data_ptr(), qmaj.data_ptr(),
+             leader.data_ptr(), lfull.data_ptr(), nrep.data_ptr(),
+             _ptr(repmask), _ptr(rleader), creps.data_ptr(), cnt.data_ptr(),
+             R, n_pad, n_real, rf, Bq, Pq,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "downtime_eval counts (raw)")
+    extras = tuple(t for t in (repmask, rleader) if t is not None)
+    return (lark, qmaj, leader, lfull, nrep) + extras + (creps, cnt, guard)
+
+
+def run_node_count(fn, recruit, active, *, n_real):
+    """One raw launch of a node_count launcher `fn` on SENTINEL counts;
+    returns (cnt, the guard words past it)."""
+    Bq, Pq = recruit.shape
+    cnt, guard = counts_out(Bq, n_real, recruit.device)
+    err = fn(recruit.data_ptr(), active.data_ptr(), cnt.data_ptr(), Bq, Pq,
+             n_real, torch.cuda.current_stream(recruit.device).cuda_stream)
+    _build.check(err, "node_count (raw)")
+    return cnt, guard
 
 
 def run_pac(fn, up, full, *, rf, voters, n_real):
@@ -602,6 +766,48 @@ def pac_checks(gen, faults, *, entry=None):
             yield {"kernel": "pac_eval", "case": name, "R": R,
                    "n_pad": n_pad, "n_real": n_real, "rf": rf,
                    "voters": voters, "offsets": list(case[5][:2]),
+                   "equal": same(got, want), "max_abs_err": int_err(got, want),
+                   "faults_failed": failed}
+
+
+def counts_checks(gen, faults, *, rf=2):
+    """Run every COUNTS_CASES case through the counts mode (first-rf and
+    roster, the extras on) and node_count alone, by the wrappers and by
+    each fault's launchers, whose raw launches must also leave the guard
+    words past the counts alone.  Yields one record per case and kernel,
+    as ``downtime_checks``."""
+    for case in COUNTS_CASES:
+        name, Bq, Pq, n_pad, n_real = case[:5]
+        up, full, roster, recruit, active = counts_inputs(gen, case, rf)
+        guard = torch.full((GUARD,), SENTINEL, dtype=torch.int32,
+                           device=up.device)
+        counted = dict(recruit=recruit, active=active)
+        want_cnt = pk.node_count_plain(recruit, active, n_real=n_real)
+        for kernel in ("downtime_eval_counts", "downtime_eval_roster_counts",
+                       "node_count"):
+            if kernel == "node_count":
+                want = (want_cnt,)
+                got = (pk.node_count(recruit, active, n_real=n_real),)
+
+                def run(fns):
+                    return run_node_count(fns[NODE_COUNT], recruit, active,
+                                          n_real=n_real)
+            else:
+                with_roster = kernel == "downtime_eval_roster_counts"
+                kw = dict(rf=rf, n_real=n_real, want_repmask=True,
+                          want_rleader=with_roster,
+                          roster=roster if with_roster else None)
+                want = pk.downtime_eval_plain(up, full, **kw) + (want_cnt,)
+                got = pk.downtime_eval(up, full, **counted, **kw)
+
+                def run(fns, kw=kw, idx=COUNTS + int(with_roster)):
+                    return run_counts(fns[idx], up, full, **counted, **kw)
+            failed = [f for f, fns in faults.items()
+                      if not same(run(fns), want + (guard,))]
+            torch.cuda.synchronize()
+            yield {"kernel": kernel, "case": name, "B": Bq, "P": Pq,
+                   "n_pad": n_pad, "n_real": n_real, "rf": rf,
+                   "active": case[6], "ids": case[5],
                    "equal": same(got, want), "max_abs_err": int_err(got, want),
                    "faults_failed": failed}
 
@@ -792,6 +998,18 @@ def event_ms(launch, reps: int = 200) -> float:
 # the paper-tile shapes the main path gives the kernels, for timing
 # ---------------------------------------------------------------------------
 
+def raw_launch(fn, ptrs, *tensors):
+    """launch(stream) = fn(*ptrs, stream), holding `tensors` (the buffers
+    behind the pointers) for as long as it lives: a buffer freed while its
+    pointer is still launched on is written after PyTorch's cache has
+    handed it on, or, once a CUDA graph capture has emptied the cache,
+    after it was freed on the device (an illegal address)."""
+    def launch(s):
+        return fn(*ptrs, s)
+    launch.holds = tensors
+    return launch
+
+
 def paper_downtime(gen):
     """(up, full, roster) at the paper tile in a mostly-up cluster, rf 2."""
     dev = gen.device
@@ -807,7 +1025,47 @@ def downtime_launch(fn, up, full, roster=None, rf=2):
     ptrs = (up.data_ptr(), full.data_ptr(), _ptr(roster),
             *(o.data_ptr() for o in outs[:5]), None, None,
             outs[5].data_ptr(), up.shape[0], up.shape[1], N, rf)
-    return (lambda s: fn(*ptrs, s)), outs
+    return raw_launch(fn, ptrs, up, full, roster, outs), outs
+
+
+def counts_launch(fn, up, full, roster, recruit, active, rf=2):
+    """launch(stream) for a raw counts launcher (the roster one when
+    `roster` is given) on fresh outputs (no extras), and those outputs."""
+    outs = pk.downtime_eval(up, full, rf=rf, n_real=N, roster=roster,
+                            recruit=recruit, active=active)
+    Bq, Pq = recruit.shape
+    ptrs = (up.data_ptr(), full.data_ptr(), _ptr(roster), recruit.data_ptr(),
+            active.data_ptr(), *(o.data_ptr() for o in outs[:5]), None, None,
+            outs[5].data_ptr(), outs[6].data_ptr(), up.shape[0], up.shape[1],
+            N, rf, Bq, Pq)
+    return raw_launch(fn, ptrs, up, full, roster, recruit, active, outs), outs
+
+
+def node_count_launch(fn, recruit, active):
+    """launch(stream) for a raw node_count launcher on fresh counts, and
+    those counts."""
+    cnt = torch.zeros((recruit.shape[0], N), dtype=torch.int32,
+                      device=recruit.device)
+    ptrs = (recruit.data_ptr(), active.data_ptr(), cnt.data_ptr(),
+            *recruit.shape, N)
+    return raw_launch(fn, ptrs, recruit, active, cnt), cnt
+
+
+def split_step_launch(count_fn, eval_fn, up, full, roster, recruit, active):
+    """launch(stream) for an earlier tree's unpacked bandwidth step, whose
+    ``node_count_launch`` (`count_fn`) adds to counts its wrapper zeroed:
+    the fill, the counts and the row eval (`eval_fn`, the roster launcher
+    when `roster` is given), three device ops on the stream."""
+    eval_launch, _ = downtime_launch(eval_fn, up, full, roster)
+    cnt = torch.empty((recruit.shape[0], N), dtype=torch.int32,
+                      device=recruit.device)
+    ptrs = (recruit.data_ptr(), active.data_ptr(), cnt.data_ptr(),
+            *recruit.shape, N)
+
+    def launch(s):
+        cnt.zero_()                           # on the current stream, s
+        return count_fn(*ptrs, s) or eval_launch(s)
+    return launch
 
 
 def paper_latency(gen, nbins=16):
@@ -828,7 +1086,7 @@ def latency_launch(fn, args, nbins=16, slo_ticks=8):
     ptrs = (*(args[k].data_ptr() for k in _LC_IN),
             *(o.data_ptr() for o in outs), Bq, Pq, NB,
             args["pow_tables"].shape[0], nbins, slo_ticks)
-    return (lambda s: fn(*ptrs, s)), outs
+    return raw_launch(fn, ptrs, args, outs), outs
 
 
 def pac_launch(fn, up, full, rf=2, voters=3):
@@ -837,7 +1095,7 @@ def pac_launch(fn, up, full, rf=2, voters=3):
     outs = pk.pac_eval(up, full, rf=rf, voters=voters, n_real=N)
     ptrs = (up.data_ptr(), full.data_ptr(), *(o.data_ptr() for o in outs),
             up.shape[0], up.shape[1], N, rf, voters)
-    return (lambda s: fn(*ptrs, s)), outs
+    return raw_launch(fn, ptrs, up, full, outs), outs
 
 
 def fused_pac_launch(fn, upw, fullw, rf=2, voters=3):
@@ -847,7 +1105,7 @@ def fused_pac_launch(fn, upw, fullw, rf=2, voters=3):
     Bq, W, Pq = upw.shape
     ptrs = (upw.data_ptr(), fullw.data_ptr(), *(o.data_ptr() for o in outs),
             Bq, W, Pq, N, rf, voters)
-    return (lambda s: fn(*ptrs, s)), outs
+    return raw_launch(fn, ptrs, upw, fullw, outs), outs
 
 
 def paper_fused(gen, roster):
@@ -877,7 +1135,8 @@ def fused_launch(fn, upw, fullw, roster=None, recruit=None, active=None):
             _ptr(active), *(o.data_ptr() for o in outs[:5]), None, None,
             outs[5].data_ptr(), outs[6].data_ptr() if recruit is not None
             else None, Bq, W, Pq, N, rf)
-    return (lambda s: fn(*ptrs, s)), outs
+    return raw_launch(fn, ptrs, upw, fullw, roster, recruit, active,
+                      outs), outs
 
 
 # ---------------------------------------------------------------------------
@@ -885,18 +1144,33 @@ def fused_launch(fn, upw, fullw, roster=None, recruit=None, active=None):
 # ---------------------------------------------------------------------------
 
 #: the launches timed at the paper tile: label -> launcher symbol; the
+#: counts launchers at the bandwidth steps' shapes (5 % of the rows in
+#: flight), the roster one also with every row counting node 0 (the
+#: counts' worst contention), and node_count alone on the same ids; the
 #: fused kernel at the reconfig-with-bandwidth shape (rf = 2 roster and
 #: the counts), at the fixed model's (neither), and at the first with
-#: every row counting node 0 (the counts' worst contention); its pac mode
-#: on the same words
+#: every row on node 0; its pac mode on the same words
 TIMED = {"pac_eval": "pac_eval_launch",
          "fused_pac_eval": "fused_pac_eval_launch",
          "downtime_eval": "downtime_eval_launch",
          "downtime_eval_roster": "downtime_roster_launch",
+         "downtime_eval_counts": "downtime_eval_counts_launch",
+         "downtime_eval_roster_counts": "downtime_roster_counts_launch",
+         "downtime_eval_roster_counts_hot": "downtime_roster_counts_launch",
+         "node_count": "node_count_launch",
          "latency_charge": "latency_charge_launch",
          "fused_downtime_eval": "fused_downtime_eval_launch",
          "fused_downtime_eval_fixed": "fused_downtime_eval_launch",
          "fused_downtime_eval_hot": "fused_downtime_eval_launch"}
+#: --parent pairs whose two sides make different launches, for a parent
+#: without the counts mode: its unpacked bandwidth step (the wrapper's
+#: fill, ``node_count_launch`` and the row eval: label -> the parent's
+#: row-eval symbol) against this tree's one counts launch (its memset
+#: and kernel: the change's symbol)
+STEP_PAIRS = {"step_plain_counts": ("downtime_eval_launch",
+                                    "downtime_eval_counts_launch"),
+              "step_roster_counts": ("downtime_roster_launch",
+                                     "downtime_roster_counts_launch")}
 
 
 def build_fault_copies(out_dir: Path) -> dict:
@@ -931,6 +1205,13 @@ def paper_launches(state: dict, fns: dict) -> dict:
         "downtime_eval": lambda fn: downtime_launch(fn, up, full),
         "downtime_eval_roster": lambda fn: downtime_launch(fn, up, full,
                                                            roster),
+        "downtime_eval_counts": lambda fn: counts_launch(
+            fn, up, full, None, recruit, active),
+        "downtime_eval_roster_counts": lambda fn: counts_launch(
+            fn, up, full, roster, recruit, active),
+        "downtime_eval_roster_counts_hot": lambda fn: counts_launch(
+            fn, up, full, roster, *state["hot"]),
+        "node_count": lambda fn: node_count_launch(fn, recruit, active),
         "latency_charge": lambda fn: latency_launch(fn, state["latency"]),
         "fused_downtime_eval": lambda fn: fused_launch(
             fn, upw, fullw, rost3, recruit, active),
@@ -943,18 +1224,30 @@ def paper_launches(state: dict, fns: dict) -> dict:
 
 
 def ab_times(parent: dict, change: dict) -> list:
-    """Each TIMED launch at the paper tile, parent and change in turns
-    (parent, change, change, parent); `parent` and `change` map a
+    """Each TIMED launch the parent has, and each STEP_PAIRS pair when the
+    parent has no counts mode, at the paper tile, parent and change in
+    turns (parent, change, change, parent); `parent` and `change` map a
     launcher symbol to its ctypes function.  One record per turn."""
     state = paper_state(3)
-    sides = {"parent": paper_launches(state, parent),
-             "change": paper_launches(state, change)}
-    out = []
-    for label in TIMED:
-        if label not in sides["parent"]:
+    sides = {side: {label: launch for label, (launch, _) in
+                    paper_launches(state, fns).items()}
+             for side, fns in (("parent", parent), ("change", change))}
+    up, full, roster = state["up"], state["full"], state["roster"]
+    recruit, active = state["fused"][3:]
+    for label, (parent_sym, change_sym) in STEP_PAIRS.items():
+        if "downtime_eval_counts_launch" in parent or \
+                "node_count_launch" not in parent:
             continue
+        ro = roster if "roster" in label else None
+        sides["parent"][label] = split_step_launch(
+            parent["node_count_launch"], parent[parent_sym], up, full, ro,
+            recruit, active)
+        sides["change"][label], _ = counts_launch(change[change_sym], up,
+                                                  full, ro, recruit, active)
+    out = []
+    for label in sides["parent"]:
         for side in ("parent", "change", "change", "parent"):
-            launch, _ = sides[side][label]
+            launch = sides[side][label]
             out.append({"kernel": label, "side": side,
                         "ms": event_ms(launch), **device_times(launch)})
     return out
@@ -1055,6 +1348,7 @@ def main(argv=None) -> int:
     caught = {src: {f: [] for f in fl} for src, fl in FAULTS.items()}
     for src, checks in (("downtime_eval", downtime_checks),
                         ("downtime_eval", pac_checks),
+                        ("downtime_eval", counts_checks),
                         ("latency_charge", latency_checks),
                         ("fused_downtime", fused_checks),
                         ("fused_downtime", fused_pac_checks)):

@@ -7,8 +7,8 @@ spec onto kernels by metric and layout:
 
   availability, packed=False  (R, n_pad) bool tiles  -> pac_eval.pac_eval
   availability, packed=True   (B, W, P) int32 words  -> fused_step.fused_pac_eval
-  downtime, packed=False      bool tiles [+ roster]  -> pac_eval.downtime_eval
-                              [+ recruit/active]     -> pac_eval.node_count
+  downtime, packed=False      bool tiles [+ roster + recruit/active]
+                                                     -> pac_eval.downtime_eval
   downtime, packed=True       words [+ roster + recruit/active]
                                                      -> fused_step.fused_downtime_eval
 
@@ -183,7 +183,8 @@ def step_eval(spec: StepSpec, up, full, *, roster=None, recruit=None,
     Boolean layout (spec.packed=False): up/full are (R, n_pad) bool
     rank-space tiles, roster (R, rf) int32, and outputs are (R,) /
     (R, n_pad).  recruit/active ((B, P) int32/bool) additionally request
-    the bandwidth model's node counts (B, n_real).
+    the bandwidth model's node counts (B, n_real), from the same
+    ``downtime_eval`` launch.
     Packed layout (spec.packed=True): up/full are (B, W, P) int32 word
     planes (bit b of word k = succession rank 32k+b), roster is the
     engine's carried (B, P, rf) int32 ranks, row outputs are (B, P) and
@@ -221,14 +222,12 @@ def step_eval(spec: StepSpec, up, full, *, roster=None, recruit=None,
         counts = outs[ncr] if recruit is not None else None
         creps = outs[ncr - 1]
     else:
-        counts = None
-        if recruit is not None:
-            counts = rebuild_node_counts(recruit, active,
-                                         n_real=spec.n_real)
         outs = pac_eval.downtime_eval(
             up, full, rf=spec.rf, n_real=spec.n_real, roster=roster,
-            want_repmask=want_rm, want_rleader=want_rl)
-        creps = outs[-1]
+            want_repmask=want_rm, want_rleader=want_rl, recruit=recruit,
+            active=active)
+        counts = outs[-1] if recruit is not None else None
+        creps = outs[-2] if recruit is not None else outs[-1]
     repmask, rleader = _take_extras(outs, want_rm, want_rl)
     return StepOutputs(lark=outs[0], maj=outs[1], leader=outs[2],
                        leader_full=outs[3], nrep=outs[4], creps=creps,

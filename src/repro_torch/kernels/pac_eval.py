@@ -1,7 +1,7 @@
 """Per-row evaluation on boolean rank-space tiles: the CUDA kernels
-``pac_eval``, ``downtime_eval`` and its roster variant (three launchers
-of csrc/downtime_eval.cu) and ``node_count`` (csrc/node_count.cu), each
-beside its plain PyTorch version.
+``pac_eval``, ``downtime_eval`` (plain and roster, each with or without
+the in-flight node counts) and ``node_count``, six launchers of
+csrc/downtime_eval.cu, each beside its plain PyTorch version.
 
 * ``pac_eval`` replaces ``repro/kernels/pac_eval.py:pac_eval`` (Pallas
   body ``_pac_kernel``): §5.1 PAC.  Bound by bytes: 2·R·n_pad read,
@@ -11,11 +11,14 @@ beside its plain PyTorch version.
   (bodies ``_downtime_kernel`` and, with a roster,
   ``_downtime_roster_kernel``): the §6 per-step evaluation.  Bound by
   bytes: 2·R·n_pad read, R·n_pad + 11·R written, + 4·R·rf roster bytes
-  read (about 15.6 MB, 15.9 MB with a rf = 2 roster).
+  read (about 15.6 MB, 15.9 MB with a rf = 2 roster).  Given the
+  engine's recruit ids and active flags it also returns the in-flight
+  counts from the same launch (+ 5·R + 4·B·n_real bytes: 15.8 MB,
+  16.0 MB with the roster), the unpacked §6 bandwidth step's one eval.
 * ``node_count`` replaces ``repro/kernels/pac_eval.py:node_count`` (body
-  ``_node_count_kernel``): in-flight catch-ups per (trial, node).
-  5·B·P bytes read, 4·B·n_real written (about 0.17 MB): bound by launch
-  latency, not by bytes.
+  ``_node_count_kernel``): in-flight catch-ups per (trial, node), the
+  counts mode alone.  5·B·P bytes read, 4·B·n_real written (about
+  0.17 MB): bound by launch latency, not by bytes.
 * ``latency_charge`` (csrc/latency_charge.cu) replaces
   ``repro/kernels/pac_eval.py:latency_charge`` (body ``_latency_kernel``)
   and the ``decay_from_dt`` chain before it: one interval of the §6
@@ -24,8 +27,10 @@ beside its plain PyTorch version.
   timed shape (B = 8, P = 4096, NB = 4, nbins = 16, 9 of the 22 tables).
 
 ``pac_eval`` and ``downtime_eval`` are one kernel body, templated on
-what it evaluates: it stages tiles of whole rows in shared memory in
-16-byte pieces and walks each row in 4-byte words, four lanes to a row.
+what it evaluates and on the counts: it stages tiles of whole rows in
+shared memory in 16-byte pieces and walks each row in 4-byte words, four
+lanes to a row; a warp's rows add their counts with ``__match_any_sync``
+and one atomicAdd per (trial, node).
 ``latency_charge`` issues every table load of a row before its decay
 chain and writes its histogram rows as 16-byte stores.  Every byte is
 read or written once; see the sources.
@@ -118,6 +123,9 @@ pac_eval.launches = 0
 
 _DT_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + \
     (ctypes.c_void_p,)
+#: the counts launchers: + recruit, active, cnt and B, P
+_DTC_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6 + \
+    (ctypes.c_void_p,)
 
 
 def downtime_eval_plain(up, full, *, rf: int, n_real: int, roster=None,
@@ -172,13 +180,17 @@ def downtime_eval_plain(up, full, *, rf: int, n_real: int, roster=None,
 
 
 def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
-                  want_repmask: bool = False, want_rleader: bool = False):
+                  want_repmask: bool = False, want_rleader: bool = False,
+                  recruit=None, active=None):
     """(R, n_pad) bool rank-space tiles [+ roster (R, rf) int32] ->
-    (lark, qmaj, leader, leader_full, nrep, *extras, creps); see
-    ``downtime_eval_plain``.  CUDA tensors launch the kernel
-    (``downtime_eval.launches`` counts the plain variant,
-    ``downtime_eval.roster_launches`` the roster one); CPU tensors run
-    the plain version."""
+    (lark, qmaj, leader, leader_full, nrep, *extras, creps[, counts]);
+    see ``downtime_eval_plain``.  With recruit (B, P) int32 and active
+    (B, P) bool, R = B·P, the per-(trial, node) in-flight counts (B,
+    n_real) int32 of ``node_count_plain`` come last.  CUDA tensors make
+    one launch (``downtime_eval.launches`` counts the plain variant,
+    ``roster_launches`` the roster one, ``counts_launches`` and
+    ``roster_counts_launches`` the same with the counts); CPU tensors run
+    the plain versions."""
     _check(up, full, rf=rf, voters=rf, n_real=n_real)
     if want_rleader and roster is None:
         raise ValueError("rleader needs a roster (it elects among "
@@ -194,10 +206,23 @@ def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
         if roster.device != up.device or not roster.is_contiguous():
             raise ValueError("roster must be contiguous, on the tiles' "
                              "device")
+    counting = recruit is not None or active is not None
+    if counting:
+        if recruit is None or active is None:
+            raise ValueError("recruit and active must be passed together")
+        check_counts_args(recruit, active, n_real=n_real)
+        if recruit.numel() != R or recruit.device != up.device:
+            raise ValueError(f"recruit/active must be (B, P) with B·P = "
+                             f"R = {R}, on the tiles' device; got "
+                             f"{tuple(recruit.shape)} on {recruit.device}")
     if up.device.type == "cpu":
-        return downtime_eval_plain(up, full, rf=rf, n_real=n_real,
+        outs = downtime_eval_plain(up, full, rf=rf, n_real=n_real,
                                    roster=roster, want_repmask=want_repmask,
                                    want_rleader=want_rleader)
+        if counting:
+            outs = outs + (node_count_plain(recruit, active,
+                                            n_real=n_real),)
+        return outs
     if up.device.type != "cuda":
         raise ValueError(f"downtime_eval runs on cuda or cpu, not "
                          f"{up.device}")
@@ -212,30 +237,45 @@ def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
     repmask = rows(torch.int32) if want_repmask else None
     rleader = rows(torch.int32) if want_rleader else None
     creps = torch.empty((R, n_pad), dtype=torch.bool, device=dev)
-    symbol = "downtime_eval_launch" if roster is None \
-        else "downtime_roster_launch"
-    launch = _build.function("downtime_eval", symbol, _DT_ARGTYPES)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = launch(up.data_ptr(), full.data_ptr(), ptr(roster),
-                 lark.data_ptr(), qmaj.data_ptr(), leader.data_ptr(),
-                 lfull.data_ptr(), nrep.data_ptr(), ptr(repmask),
-                 ptr(rleader), creps.data_ptr(), R, n_pad, n_real, rf,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "downtime_eval")
-    if roster is None:
-        downtime_eval.launches += 1
+    ins = (up.data_ptr(), full.data_ptr(), ptr(roster))
+    row_outs = (lark.data_ptr(), qmaj.data_ptr(), leader.data_ptr(),
+                lfull.data_ptr(), nrep.data_ptr(), ptr(repmask),
+                ptr(rleader), creps.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    symbol, counter = _LAUNCHERS[(roster is not None, counting)]
+    if counting:
+        B, P = recruit.shape
+        counts = torch.empty((B, n_real), dtype=torch.int32, device=dev)
+        launch = _build.function("downtime_eval", symbol, _DTC_ARGTYPES)
+        err = launch(*ins, recruit.data_ptr(), active.data_ptr(), *row_outs,
+                     counts.data_ptr(), R, n_pad, n_real, rf, B, P, stream)
     else:
-        downtime_eval.roster_launches += 1
+        launch = _build.function("downtime_eval", symbol, _DT_ARGTYPES)
+        err = launch(*ins, *row_outs, R, n_pad, n_real, rf, stream)
+    _build.check(err, "downtime_eval")
+    setattr(downtime_eval, counter, getattr(downtime_eval, counter) + 1)
     extras = tuple(t for t in (repmask, rleader) if t is not None)
-    return (lark, qmaj, leader, lfull, nrep) + extras + (creps,)
+    outs = (lark, qmaj, leader, lfull, nrep) + extras + (creps,)
+    return outs + (counts,) if counting else outs
 
 
-#: kernel launches since the last reset, one count per variant
+#: (roster given, counts asked) -> (launcher symbol, launch counter)
+_LAUNCHERS = {
+    (False, False): ("downtime_eval_launch", "launches"),
+    (True, False): ("downtime_roster_launch", "roster_launches"),
+    (False, True): ("downtime_eval_counts_launch", "counts_launches"),
+    (True, True): ("downtime_roster_counts_launch", "roster_counts_launches"),
+}
+
+#: kernel launches since the last reset, one count per launcher
 downtime_eval.launches = 0
 downtime_eval.roster_launches = 0
+downtime_eval.counts_launches = 0
+downtime_eval.roster_counts_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -272,15 +312,20 @@ def check_counts_args(recruit, active, *, n_real: int):
                          f"{active.device}")
     if not (recruit.is_contiguous() and active.is_contiguous()):
         raise ValueError("recruit and active must be contiguous")
-    if not 1 <= n_real <= 8192:
-        raise ValueError(f"n_real={n_real} must be in [1, 8192] (one "
-                         f"shared-memory histogram per block)")
+    # a row's key b·n_real + node and the counts' index are int32, and so
+    # is a row's index b·P + p
+    if n_real < 1 or recruit.shape[0] * n_real >= 2 ** 31:
+        raise ValueError(f"n_real={n_real} must be >= 1 with B·n_real < "
+                         f"2^31 (B = {recruit.shape[0]})")
+    if recruit.numel() >= 2 ** 31:
+        raise ValueError("recruit must hold fewer than 2^31 rows")
 
 
 def node_count(recruit, active, *, n_real: int):
     """recruit (B, P) int32, active (B, P) bool -> (B, n_real) int32
     per-node in-flight counts; see ``node_count_plain``.  CUDA tensors
-    launch the kernel; CPU tensors run the plain version."""
+    launch the counts kernel of csrc/downtime_eval.cu (which zeroes the
+    counts first); CPU tensors run the plain version."""
     check_counts_args(recruit, active, n_real=n_real)
     if recruit.device.type == "cpu":
         return node_count_plain(recruit, active, n_real=n_real)
@@ -288,12 +333,9 @@ def node_count(recruit, active, *, n_real: int):
         raise ValueError(f"node_count runs on cuda or cpu, not "
                          f"{recruit.device}")
     B, P = recruit.shape
-    if B > 65535:
-        raise ValueError(f"node_count takes at most 65535 trials (the "
-                         f"grid's y axis); got {B}")
-    counts = torch.zeros((B, n_real), dtype=torch.int32,
+    counts = torch.empty((B, n_real), dtype=torch.int32,
                          device=recruit.device)
-    launch = _build.function("node_count", "node_count_launch",
+    launch = _build.function("downtime_eval", "node_count_launch",
                              _NC_ARGTYPES)
     err = launch(recruit.data_ptr(), active.data_ptr(), counts.data_ptr(),
                  B, P, n_real,

@@ -17,8 +17,9 @@ chunks of 512 steps twice: once timed on the host clock with nothing
 else attached (wall seconds, steps per second), once under
 ``torch.profiler`` for the kernels' device times.  Prints one JSON
 object: the unprofiled wall time, the device-busy seconds (the sum of
-the CUDA kernel events' durations), the idle share 1 - busy / wall, and
-the kernels by device time.  The run's setup (succession matrix, tables,
+the CUDA kernel events' durations), the idle share 1 - busy / wall, the
+device ops (kernels and memsets) per step, and the kernels by device
+time.  The run's setup (succession matrix, tables,
 the t = 0 eval) is inside both windows; at four chunks it is a small
 part.
 """
@@ -111,11 +112,12 @@ def main(argv=None) -> int:
         wall_profiled = time.monotonic() - t0
     # kernel events only: a CPU op's self device time repeats the
     # durations of the kernels it launched
-    kernels = {}
+    kernels, ops = {}, 0
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + \
                 _device_self_us(evt)
+            ops += evt.count
     busy = sum(kernels.values()) / 1e6
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     out = {"device": torch.cuda.get_device_name(0), "metric": args.metric,
@@ -125,6 +127,7 @@ def main(argv=None) -> int:
            "wall_s": wall, "steps_per_s": steps / wall,
            "wall_s_profiled": wall_profiled, "device_busy_s": busy,
            "idle_share": (1.0 - busy / wall) if busy > 0 else None,
+           "device_ops_per_step": ops / steps,
            "kernels_us": [{"name": k[:120], "us": v,
                            "us_per_step": v / steps} for k, v in top]}
     print(json.dumps(out), flush=True)

@@ -82,6 +82,32 @@ def test_trajectories_match_reference(scenario, config, packed):
                      got)
 
 
+@pytest.mark.parametrize("config", ["fixed-bw", "skew-bw"])
+def test_unpacked_bandwidth_step_counts_in_its_one_row_eval(config,
+                                                            monkeypatch):
+    """Under shared bandwidth an unpacked step makes one row-eval call,
+    which also returns the in-flight counts, and never calls node_count
+    alone; the run is the reference's."""
+    from repro_torch.kernels import pac_eval
+    calls = []
+    row_eval = pac_eval.downtime_eval
+
+    def counted(*a, **kw):
+        calls.append(kw.get("recruit") is not None)
+        return row_eval(*a, **kw)
+
+    def refused(*a, **kw):
+        raise AssertionError("node_count called apart from the row eval")
+
+    monkeypatch.setattr(pac_eval, "downtime_eval", counted)
+    monkeypatch.setattr(pac_eval, "node_count", refused)
+    kw = dict(KW, **CONFIGS[config])
+    got = T.simulate_downtime_batched(device="cpu", **kw)
+    steps = len(got.trajectory["times"])
+    assert calls == [False] + [True] * steps   # the t=0 eval, then steps
+    _assert_same(R.simulate_downtime_batched(backend="numpy", **kw), got)
+
+
 @pytest.mark.parametrize("rf,p,seed", [(2, 3e-3, 0), (3, 8e-3, 3)])
 def test_zero_knobs_degenerate_to_instantaneous_integrals(rf, p, seed):
     """dupres_ticks=0 makes LARK's pause the instantaneous PAC
@@ -232,8 +258,7 @@ def _port_step(packed, bandwidth):
         rebuild_ticks=torch.from_numpy(T._partition_rebuild_ticks(
             c["seed"], P, 30, dist="zipf", cap=c["horizon"] + 1)
             * np.int32(T._REB_SCALE)),
-        bandwidth_fp=bandwidth, packed=packed,
-        cnt_fn=lambda rec, act: T.rebuild_node_counts(rec, act, n_real=n))
+        bandwidth_fp=bandwidth, packed=packed)
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])

@@ -115,6 +115,48 @@ def test_plain_node_count_matches_pallas_interpret_and_numpy():
     assert int(got.sum()) == int(ok.sum()) > 0
 
 
+@pytest.mark.parametrize("with_roster", [False, True],
+                         ids=["first-rf", "roster"])
+@pytest.mark.parametrize("B,P", [(3, 17), (1, 100)])
+def test_plain_counts_mode_matches_pallas_interpret_and_numpy(B, P,
+                                                              with_roster):
+    """downtime_eval with recruit/active on CPU tensors: the eval of the
+    reference's downtime_eval and, last, the counts of its node_count
+    (Pallas, interpret mode) and of rebuild_node_counts_np, at a P that
+    no tile divides, with the sentinel and other ids outside [0, n_real)
+    on active rows."""
+    n_real, n_pad, rf = 29, 40, 2
+    R = B * P
+    rng = np.random.default_rng(B * 1000 + P + with_roster)
+    up = rng.random((R, n_pad)) < 0.6
+    full = rng.random((R, n_pad)) < 0.4
+    up[0] = False
+    recruit = rng.integers(-3, n_real + 4, (B, P)).astype(np.int32)
+    active = rng.random((B, P)) < 0.6
+    recruit[:, :4] = [-1, n_real, n_real + 5, 2 ** 31 - 1]
+    active[:, :4] = True
+    roster = np.stack([rng.permutation(n_real)[:rf]
+                       for _ in range(R)]).astype(np.int32) \
+        if with_roster else None
+    want = ref_pac.downtime_eval(
+        jnp.asarray(up), jnp.asarray(full), rf=rf, n_real=n_real,
+        block_p=R, interpret=True,
+        roster=None if roster is None else jnp.asarray(roster))
+    want_cnt = np.asarray(ref_pac.node_count(
+        jnp.asarray(recruit), jnp.asarray(active), n_real=n_real,
+        interpret=True))[:, :n_real]
+    assert np.array_equal(want_cnt, rebuild_node_counts_np(
+        recruit, active, n_real=n_real))
+    got = pac_eval.downtime_eval(
+        torch.from_numpy(up), torch.from_numpy(full), rf=rf, n_real=n_real,
+        roster=None if roster is None else torch.from_numpy(roster),
+        recruit=torch.from_numpy(recruit), active=torch.from_numpy(active))
+    _assert_outs_equal(got[:-1], want)
+    assert got[-1].dtype == torch.int32 and got[-1].shape == (B, n_real)
+    assert np.array_equal(got[-1].numpy(), want_cnt)
+    assert int(got[-1].sum()) > 0
+
+
 @pytest.mark.parametrize("with_counts", [False, True],
                          ids=["eval", "counts"])
 @pytest.mark.parametrize("with_roster", [False, True],
@@ -232,7 +274,10 @@ def test_step_eval_downtime_dispatch_and_argument_checks(packed):
     ("fused_downtime", "fused_pac_eval_launch", fused_step._ARGTYPES),
     ("downtime_eval", "downtime_eval_launch", pac_eval._DT_ARGTYPES),
     ("downtime_eval", "downtime_roster_launch", pac_eval._DT_ARGTYPES),
-    ("node_count", "node_count_launch", pac_eval._NC_ARGTYPES),
+    ("downtime_eval", "node_count_launch", pac_eval._NC_ARGTYPES),
+    ("downtime_eval", "downtime_eval_counts_launch", pac_eval._DTC_ARGTYPES),
+    ("downtime_eval", "downtime_roster_counts_launch",
+     pac_eval._DTC_ARGTYPES),
     ("fused_downtime", "fused_downtime_eval_launch",
      fused_step._FDT_ARGTYPES),
 ])

@@ -175,6 +175,64 @@ def test_cuda_node_count_matches_plain(cuda):
                        pac_eval.node_count_plain(rec, act, n_real=155))
 
 
+@pytest.mark.parametrize("case", mc_check.COUNTS_CASES,
+                         ids=[c[0] for c in mc_check.COUNTS_CASES])
+def test_cuda_counts_mode_edge_cases_match_plain(cuda, case):
+    """downtime_eval's counts mode (first-rf and roster) and node_count
+    alone on mc_check's counts cases: tiles across trial boundaries and
+    ragged last tiles at 64 and 16 rows, B 1 / 8 / 9, n_real 1 to 300,
+    the ids that count nowhere on active rows, every row on node 0; one
+    launch each, bit for bit."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(case[1] * case[2])
+    n_real = case[4]
+    up, full, roster, recruit, active = mc_check.counts_inputs(gen, case, 3)
+    want_cnt = pac_eval.node_count_plain(recruit, active, n_real=n_real)
+    for with_roster in (False, True):
+        kw = dict(rf=3, n_real=n_real, want_repmask=True,
+                  want_rleader=with_roster,
+                  roster=roster if with_roster else None)
+        counter = "roster_counts_launches" if with_roster \
+            else "counts_launches"
+        before = getattr(pac_eval.downtime_eval, counter)
+        got = pac_eval.downtime_eval(up, full, recruit=recruit,
+                                     active=active, **kw)
+        torch.cuda.synchronize()
+        assert getattr(pac_eval.downtime_eval, counter) == before + 1
+        assert mc_check.same(
+            got, pac_eval.downtime_eval_plain(up, full, **kw) + (want_cnt,)),\
+            with_roster
+    before = pac_eval.node_count.launches
+    got = pac_eval.node_count(recruit, active, n_real=n_real)
+    torch.cuda.synchronize()
+    assert pac_eval.node_count.launches == before + 1
+    assert torch.equal(got, want_cnt)
+
+
+@pytest.mark.parametrize("config", ["fixed-bw", "skew-bw"])
+def test_cuda_unpacked_bandwidth_step_is_one_row_eval_launch(cuda, config):
+    """Under shared bandwidth each unpacked step makes exactly one
+    row-eval launch, in the counts mode, and node_count never launches:
+    one plain launch for the t = 0 eval, then one counts launch a step."""
+    kw = dict(n=40, partitions=32, rf=2, p=2e-2, trials=3, max_ticks=4_000,
+              min_ticks=10 ** 9, chunk_steps=64, max_steps=128, seed=11,
+              trajectory=True, rebuild_steps=30, rebuild_ticks_per_gib=30,
+              node_bandwidth_gibps=1.0)
+    if config == "skew-bw":
+        kw.update(rebuild_model="reconfig", size_dist="zipf", size_skew=1.0)
+    dt = pac_eval.downtime_eval
+    names = ("launches", "roster_launches", "counts_launches",
+             "roster_counts_launches")
+    before = [getattr(dt, k) for k in names] + [pac_eval.node_count.launches]
+    r = simulate_downtime_batched(device=cuda, **kw)
+    torch.cuda.synchronize()
+    got = [getattr(dt, k) - b for k, b in zip(names, before)] + \
+        [pac_eval.node_count.launches - before[-1]]
+    steps = len(r.trajectory["times"])
+    plain = steps if config == "fixed-bw" else 0
+    assert steps > 0 and got == [1, 0, plain, steps - plain, 0]
+
+
 @pytest.mark.parametrize("with_counts", [False, True],
                          ids=["eval", "counts"])
 @pytest.mark.parametrize("with_roster", [False, True],

@@ -119,22 +119,30 @@ def test_downtime_wrappers_dispatch_by_device_without_fallback():
     up = torch.ones((4, 9), dtype=torch.bool)
     # rank 9 lies outside the 9 real lanes and reads as down
     roster = torch.tensor([[0, 9]] * 4, dtype=torch.int32)
-    counts = (pac_eval.downtime_eval.launches,
-              pac_eval.downtime_eval.roster_launches,
-              pac_eval.node_count.launches,
-              fused_step.fused_downtime_eval.launches)
+    def launched():
+        return (pac_eval.downtime_eval.launches,
+                pac_eval.downtime_eval.roster_launches,
+                pac_eval.downtime_eval.counts_launches,
+                pac_eval.downtime_eval.roster_counts_launches,
+                pac_eval.node_count.launches,
+                fused_step.fused_downtime_eval.launches)
+
+    counts = launched()
     outs = pac_eval.downtime_eval(up, up, rf=2, n_real=9, roster=roster)
     assert outs[2].tolist() == [0] * 4 and outs[4].tolist() == [1] * 4
     rec = torch.zeros((2, 4), dtype=torch.int32)
     assert pac_eval.node_count(rec, rec == 0, n_real=9)[:, 0].tolist() == \
         [4, 4]
+    for ro in (None, roster):
+        outs = pac_eval.downtime_eval(up.repeat(2, 1), up.repeat(2, 1), rf=2,
+                                      n_real=9, roster=None if ro is None
+                                      else ro.repeat(2, 1),
+                                      recruit=rec, active=rec == 0)
+        assert outs[-1][:, 0].tolist() == [4, 4]
     words = torch.from_numpy(np.full((2, 1, 4), -1, dtype=np.int32))
     fused_step.fused_downtime_eval(words, words, rf=2, n_real=9,
                                    recruit=rec, active=rec == 0)
-    assert counts == (pac_eval.downtime_eval.launches,   # plain: no launch
-                      pac_eval.downtime_eval.roster_launches,
-                      pac_eval.node_count.launches,
-                      fused_step.fused_downtime_eval.launches)
+    assert counts == launched()                         # plain: no launch
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         pac_eval.downtime_eval(up.to(meta), up.to(meta), rf=2, n_real=9)
@@ -145,9 +153,34 @@ def test_downtime_wrappers_dispatch_by_device_without_fallback():
                                        n_real=9)
     with pytest.raises(TypeError):
         pac_eval.node_count(rec.to(torch.int64), rec == 0, n_real=9)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        pac_eval.downtime_eval(up.repeat(2, 1).to(meta),
+                               up.repeat(2, 1).to(meta), rf=2, n_real=9,
+                               recruit=rec.to(meta),
+                               active=(rec == 0).to(meta))
     with pytest.raises(ValueError, match="roster"):
         pac_eval.downtime_eval(up, up, rf=2, n_real=9,
                                roster=roster.to(torch.int64))
+
+
+def test_counts_arguments_are_checked_before_any_launch():
+    """recruit and active come together, as (B, P) with B·P the tiles'
+    rows, on their device; B·n_real must stay inside int32 (a row's key
+    and the counts' index), whatever n_real."""
+    up = torch.ones((8, 9), dtype=torch.bool)
+    rec = torch.zeros((2, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="together"):
+        pac_eval.downtime_eval(up, up, rf=2, n_real=9, recruit=rec)
+    with pytest.raises(ValueError, match="B·P"):
+        pac_eval.downtime_eval(up, up, rf=2, n_real=9, recruit=rec[:1],
+                               active=rec[:1] == 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        pac_eval.node_count(rec, rec == 0, n_real=2 ** 30)
+    with pytest.raises(ValueError, match=">= 1"):
+        pac_eval.node_count(rec, rec == 0, n_real=0)
+    # past the old shared-histogram limit of 8192 nodes
+    big = pac_eval.node_count(rec + 9000, rec == 0, n_real=9001)
+    assert big.shape == (2, 9001) and big[:, 9000].tolist() == [4, 4]
 
 
 def test_latency_entry_point_defaults_to_the_card():

@@ -77,14 +77,17 @@ def test_pac_eval_launch_lives_in_downtime_eval_with_the_wrapper_argtypes():
 
 
 def test_parent_sources_find_each_timed_launcher(tmp_path):
-    """A checkout where pac_eval or fused_pac_eval had a source of its own
-    times that source's launcher; this tree's finds all three row
-    launchers in downtime_eval.cu and both fused ones in
-    fused_downtime.cu."""
+    """A checkout where pac_eval, fused_pac_eval or node_count had a
+    source of its own times that source's launcher; this tree's finds the
+    three row launchers, the two counts launchers and node_count in
+    downtime_eval.cu and both fused ones in fused_downtime.cu."""
     here = mc_check.parent_sources(_build.CSRC)
     assert here["downtime_eval"] == ("pac_eval_launch",
                                      "downtime_eval_launch",
-                                     "downtime_roster_launch")
+                                     "downtime_roster_launch",
+                                     "downtime_eval_counts_launch",
+                                     "downtime_roster_counts_launch",
+                                     "node_count_launch")
     assert here["fused_downtime"] == ("fused_pac_eval_launch",
                                       "fused_downtime_eval_launch")
     assert "fused_step" not in here and "node_count" not in here
@@ -93,6 +96,9 @@ def test_parent_sources_find_each_timed_launcher(tmp_path):
     (tmp_path / "downtime_eval.cu").write_text(
         'extern "C" int downtime_eval_launch(int R);\n'
         'extern "C" int downtime_roster_launch(int R);\n')
+    (tmp_path / "node_count.cu").write_text(
+        'extern "C" int node_count_launch(const void* recruit,\n'
+        '                                 int n_real, void* stream);\n')
     (tmp_path / "fused_step.cu").write_text(
         'extern "C" int fused_pac_eval_launch(const void* upw,\n'
         '                                     int voters, void* stream);\n')
@@ -101,6 +107,7 @@ def test_parent_sources_find_each_timed_launcher(tmp_path):
     assert mc_check.parent_sources(tmp_path) == {
         "downtime_eval": ("downtime_eval_launch", "downtime_roster_launch"),
         "pac_eval": ("pac_eval_launch",),
+        "node_count": ("node_count_launch",),
         "fused_step": ("fused_pac_eval_launch",),
         "fused_downtime": ("fused_downtime_eval_launch",)}
 
@@ -119,9 +126,37 @@ def test_pac_faults_are_downtime_eval_faults_a_pac_case_can_fail():
     assert set(mc_check.PAC_FAULTS) < set(mc_check.FAULTS["downtime_eval"])
     assert "seat_out_of_range_up" not in mc_check.PAC_FAULTS
     assert "voters_off_by_one" in mc_check.PAC_FAULTS
-    assert set(mc_check.DOWNTIME_FAULTS) | set(mc_check.PAC_FAULTS) == \
-        set(mc_check.FAULTS["downtime_eval"])
+    assert set(mc_check.DOWNTIME_FAULTS) | set(mc_check.PAC_FAULTS) | \
+        set(mc_check.COUNTS_FAULTS) == set(mc_check.FAULTS["downtime_eval"])
     assert "voters_off_by_one" not in mc_check.DOWNTIME_FAULTS
+    assert not set(mc_check.COUNTS_FAULTS) & (
+        set(mc_check.DOWNTIME_FAULTS) | set(mc_check.PAC_FAULTS))
+
+
+def test_counts_faults_plant_each_way_the_counts_can_go_wrong():
+    """The counts mode's six faults: the sentinel counted, active
+    ignored, the trial of the tile's first row, a group adding 1, the
+    memset dropped, a ragged last tile's rows dropped."""
+    assert set(mc_check.COUNTS_FAULTS) == {
+        "count_id_le_n_real", "count_active_ignored", "count_trial_of_tile",
+        "count_group_size_one", "count_memset_dropped",
+        "count_ragged_tile_dropped"}
+
+
+def test_counts_launchers_and_node_count_live_in_downtime_eval():
+    assert not (_build.CSRC / "node_count.cu").exists()
+    assert "node_count" not in _build.SOURCES
+    syms = mc_check.SYMBOLS["downtime_eval"]
+    assert syms[mc_check.COUNTS] == "downtime_eval_counts_launch"
+    assert syms[mc_check.COUNTS + 1] == "downtime_roster_counts_launch"
+    assert syms[mc_check.NODE_COUNT] == "node_count_launch"
+    assert mc_check.argtypes_of("node_count_launch") == pac_eval._NC_ARGTYPES
+    for sym in syms[mc_check.COUNTS:mc_check.NODE_COUNT]:
+        assert mc_check.argtypes_of(sym) == pac_eval._DTC_ARGTYPES
+    # the parent's symbols of the step pairs keep their C signatures
+    for parent_sym, change_sym in mc_check.STEP_PAIRS.values():
+        assert mc_check.argtypes_of(parent_sym) == pac_eval._DT_ARGTYPES
+        assert change_sym in syms
 
 
 def test_fused_pac_faults_are_fused_downtime_faults_a_pac_case_can_fail():
@@ -164,6 +199,9 @@ def test_missed_faults_names_pac_faults_no_pac_case_failed():
 @pytest.mark.parametrize("what,want", [
     ("downtime_eval", 15_597_568),
     ("downtime_eval_roster", 15_859_712),
+    ("downtime_eval_counts", 15_766_368),
+    ("downtime_eval_roster_counts", 16_028_512),
+    ("node_count", 168_800),
     ("latency_charge", 4_735_024),
     ("pac_eval", 15_302_656),
     ("fused_downtime_eval", 2_757_472),
@@ -174,6 +212,11 @@ def test_byte_counts_at_the_paper_tile(what, want):
     R = 8 * 4096
     got = {"downtime_eval": mc_check.downtime_bytes(R, 155),
            "downtime_eval_roster": mc_check.downtime_bytes(R, 155, 2),
+           "downtime_eval_counts": mc_check.downtime_bytes(
+               R, 155, B=8, n_real=155),
+           "downtime_eval_roster_counts": mc_check.downtime_bytes(
+               R, 155, 2, B=8, n_real=155),
+           "node_count": mc_check.counts_bytes(8, 4096, 155),
            "latency_charge": mc_check.latency_bytes(8, 4096, 4, 16, 9),
            "pac_eval": mc_check.pac_bytes(R, 155),
            "fused_downtime_eval": mc_check.fused_bytes(
@@ -202,6 +245,71 @@ def test_cases_reach_the_edges_of_the_tiling():
     assert any((b * p) % 128 for _, b, p, _, _ in lat)
     assert any(off % 16 for _, _, _, off, _ in lat)
     assert {0, 8} <= {slo for *_, slo in lat}
+
+
+def _tile_rows(R, n_pad):
+    """csrc/downtime_eval.cu make_plan's T for a one-pass tile, in
+    Python: 64 rows, halved to 16 while the three row buffers overflow
+    100 KiB or the tiles leave some of the 132 SMs idle."""
+    def tile(T):
+        return 3 * ((T * n_pad + 32 + 15) & ~15)
+    T = 64
+    while T > 16 and (tile(T) > 100 * 1024 or (R + T - 1) // T < 132):
+        T //= 2
+    return T
+
+
+def test_counts_cases_reach_the_edges_of_the_counts():
+    """Tiles across trial boundaries and ragged last tiles at T 64 and
+    16, B 1 / 8 / 9, n_real 1 / 31 / 155 / 300, n_pad 31 and 63, every
+    row on node 0, active all false and all true."""
+    cases = mc_check.COUNTS_CASES
+    assert {4096, 4095, 100, 17} <= {c[2] for c in cases}
+    assert {1, 8, 9} <= {c[1] for c in cases}
+    assert {1, 31, 155, 300} <= {c[4] for c in cases}
+    assert {31, 63} <= {c[3] for c in cases}
+    assert all(c[4] <= c[3] for c in cases)
+    assert {"zero", "mixed"} == {c[5] for c in cases}
+    assert {"mixed", "all", "none"} == {c[6] for c in cases}
+    def T(c):
+        return _tile_rows(c[1] * c[2], c[3])
+
+    assert {T(c) for c in cases} == {16, 64}
+    straddle = [c for c in cases if c[1] > 1 and c[2] % T(c)]
+    assert {T(c) for c in straddle} == {16, 64}
+    ragged = [c for c in cases if (c[1] * c[2]) % T(c)]
+    assert {T(c) for c in ragged} == {16, 64}
+
+
+@pytest.mark.parametrize("case", mc_check.COUNTS_CASES,
+                         ids=[c[0] for c in mc_check.COUNTS_CASES])
+def test_counts_inputs_hold_what_the_case_names(case):
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    name, Bq, Pq, n_pad, n_real, ids, act = case
+    up, full, roster, recruit, active = mc_check.counts_inputs(gen, case, 2)
+    assert up.shape == full.shape == (Bq * Pq, n_pad)
+    assert roster.shape == (Bq * Pq, 2) and roster.dtype == torch.int32
+    assert recruit.shape == active.shape == (Bq, Pq)
+    assert recruit.dtype == torch.int32 and active.dtype == torch.bool
+    if act == "none":
+        assert not active.any()
+    elif act == "all":
+        assert active.all()
+    if ids == "zero":
+        assert (recruit == 0).all()
+    else:
+        flat_r, flat_a = recruit.reshape(-1), active.reshape(-1)
+        for edge in mc_check.EDGE_IDS:
+            hit = flat_r == edge(n_real)
+            assert hit.any()
+            if act != "none":
+                assert (flat_a & hit).any()
+    counts = pac_eval.downtime_eval(up, full, rf=2, n_real=n_real,
+                                    recruit=recruit, active=active)[-1]
+    assert torch.equal(counts, pac_eval.node_count_plain(recruit, active,
+                                                         n_real=n_real))
+    assert (int(counts.sum()) > 0) == (act != "none")
 
 
 def test_pac_knobs_reach_the_voters_edges():
