@@ -6,9 +6,10 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its main paths at the paper tile (n = 155 nodes, P = 4096
 partitions, 8 trials): the §5.1 availability Monte Carlo, the §6
-commit-pause engine, its client-latency layer and its protocol zoo; and
-the LM serve paths at full width: xlstm-350m and recurrentgemma-9b behind
-the LARK session store.
+commit-pause engine, its client-latency layer and its protocol zoo; the
+LM serve paths at full width: xlstm-350m and recurrentgemma-9b behind
+the LARK session store; and the §5.2 micro-simulator's Tables 3-4 at the
+reference's 520,000 ticks.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -19,10 +20,11 @@ One JSON line per phase:
    ``downtime_eval.cu`` (per mode, with and without the counts); beside
    them, at the same time, the copies of ``downtime_eval.cu``,
    ``latency_charge.cu``, ``fused_downtime.cu``, ``rglru_scan.cu``, both
-   flash sources and both mLSTM sources with one planted fault each
-   (``mc_check.FAULTS``,
-   ``rglru_check.FAULTS``, ``flash_check.FAULTS``,
-   ``mlstm_check.FAULTS``).
+   flash sources, both mLSTM sources and ``microsim_scan.cu`` with one
+   planted fault each (``mc_check.FAULTS``, ``rglru_check.FAULTS``,
+   ``flash_check.FAULTS``, ``mlstm_check.FAULTS``,
+   ``microsim_scan.FAULTS``); and the registers and spills of
+   ``microsim_scan.cu``.
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
@@ -140,7 +142,21 @@ One JSON line per phase:
    segment included) on the CPU (plain) and on the card (kernel), a
    48-token prompt over the 32-token window: prefill logits within a
    stated tolerance, and equal tokens.
-18. ``kernels``: every ported kernel with its launches on its main path,
+18. ``microsim`` / ``microsim_tables``: ``microsim_scan`` against
+   ``_simulate_batch_plain`` on the card, all 12 grid rows of Tables 3
+   and 4, LARK and baseline, ``torch.equal`` on every output, at the
+   paper's constants over 2,600 ticks and with a short outage (failure
+   at 200, return at 1,200, partitions 1,000 times smaller) over 4,000
+   ticks; each planted fault (``microsim_scan.FAULTS``) must fail a case.
+   Then the main path: both tables at 520,000 ticks through
+   ``microsim_tables.run``, one launch a table and the plain loop never
+   run, whose 24 lines must equal
+   ``experiments/microsim_tables_ref.csv`` (the reference's own output)
+   byte for byte; the kernel's time per table and the plain loop's per
+   tick; and the runner's two smoke rows under backend "event" (the
+   scalar §5.1 engine, host numpy) equal to the reference's, pinned in
+   ``EVENT_SMOKE_ROWS``.
+19. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time.  ``node_count``'s launches are
    those of the counts mode, which does its work on the main path; its
@@ -166,11 +182,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import microsim_tables  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core import availability_batched as ab  # noqa: E402
 from repro_torch.core import client_latency as cl  # noqa: E402
 from repro_torch.core import downtime_batched as db  # noqa: E402
+from repro_torch.core import microsim  # noqa: E402
 from repro_torch.experiments import runner  # noqa: E402
+from repro_torch.experiments.spec import ExperimentSpec  # noqa: E402
 from repro_torch.kernels import _build, bitpack, ops  # noqa: E402
 from repro_torch.kernels import fused_step as fk  # noqa: E402
 from repro_torch.data import SyntheticLMData  # noqa: E402
@@ -178,6 +197,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import flash_check as fc  # noqa: E402
 from repro_torch.kernels import mc_check as mcc  # noqa: E402
 from repro_torch.kernels import mlstm_check as mc  # noqa: E402
+from repro_torch.kernels import microsim_scan as msk  # noqa: E402
 from repro_torch.kernels import mlstm_chunk as mk  # noqa: E402
 from repro_torch.kernels import pac_eval as pk  # noqa: E402
 from repro_torch.kernels import rglru_check as rc  # noqa: E402
@@ -234,6 +254,8 @@ SOURCES = {
     "flash_attention_fwd_sm90": (
         "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "src/repro/kernels/flash_attention.py:27"),
+    "microsim_scan": ("src/repro_torch/kernels/csrc/microsim_scan.cu",
+                      "repro/core/microsim.py: _simulate_batch (lax.scan)"),
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
 #: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
@@ -245,12 +267,28 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
 #: the recurrentgemma serve phase: 4 prompts of 3072 tokens (past the
 #: 2048-token window, under mha's dense limit), then as above
 RG_PROMPT = 3072
+#: the reference runner's two smoke-spec rows under its default backend
+#: "event" (the scalar §5.1 engine), serialized as the runner dumps them;
+#: tests/test_torch_event.py holds these strings against the reference
+EVENT_SMOKE_ROWS = [
+    '{"analytic_ratio": 3, "analytic_u_lark": 0.0008483363182203787, '
+    '"ci_lark": 0.00017649349208520115, "ci_maj": 0.00043866468406298124, '
+    '"kind": "iid", "p": 0.003, "ratio": 2.6925714285714286, "rf": 2, '
+    '"ticks": 15002, "u_lark": 0.000911336821757099, '
+    '"u_maj": 0.0024538394880682574}',
+    '{"analytic_ratio": 10, "analytic_u_lark": 0.0007513148009015778, '
+    '"ci_lark": 0.00013314734214479014, "ci_maj": 0.0006493328557669195, '
+    '"kind": "iid", "p": 0.01, "ratio": 8.233144621718992, "rf": 3, '
+    '"ticks": 20003, "u_lark": 0.0007588705444183373, '
+    '"u_maj": 0.006247890941358796}']
 #: the sources whose planted faults the kernel, mlstm, rglru and flash
 #: phases run: (faults, C symbol or symbols, argtypes)
 FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
                     for src, faults in mcc.FAULTS.items()},
                  "rglru_scan": (rc.FAULTS, "rglru_scan_launch",
                                 rk._ARGTYPES),
+                 "microsim_scan": (msk.FAULTS, "microsim_scan_launch",
+                                   msk._ARGTYPES),
                  **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
                     for src, faults in fc.FAULTS.items()},
                  **{src: (faults, *mk.ROUTES[mc.SOURCE_ROUTE[src]][1:])
@@ -776,7 +814,9 @@ def counters():
                                     "simt_launches"),
             "flash_attention_fwd_sm90": (fa.flash_attention_fwd,
                                          "sm90_launches"),
-            "flash_attention_plain": (fa.flash_attention_plain, "calls")}
+            "flash_attention_plain": (fa.flash_attention_plain, "calls"),
+            "microsim_scan": (msk.microsim_scan, "launches"),
+            "microsim_plain": (microsim._simulate_batch_plain, "calls")}
 
 
 def reset_counts():
@@ -859,6 +899,7 @@ def check_bench_rows():
     for packed in (False, True):
         t0 = time.monotonic()
         iid = next(runner._gen_run(full=spec.full, seeds=seeds,
+                                   backend=spec.backend,
                                    devices=spec.devices, smoke=spec.smoke,
                                    packed=packed, device=DEVICE))
         sc = next(runner._gen_run_scenarios(
@@ -1528,7 +1569,8 @@ def sdpa_ms(q, k, v, *, window, reps):
 PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "mlstm_output_kernel": "output_NV",
                 "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained",
-                "row_eval_kernel": "mode", "node_count_kernel": "node_count"}
+                "row_eval_kernel": "mode", "node_count_kernel": "node_count",
+                "microsim_scan_kernel": "ticks"}
 #: what a bool second template argument set to true adds to the label
 PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts"}
 
@@ -1882,6 +1924,131 @@ def check_serve_rg_cpu():
                          "disagrees with the cpu run")
 
 
+def microsim_equal(got, want) -> bool:
+    return all(torch.equal(got[m][k], want[m][k])
+               for m in msk.MODES for k in want[m])
+
+
+def microsim_abs_err(got, want) -> float:
+    return max((got[m][k].double() - want[m][k].double()).abs().max().item()
+               for m in msk.MODES for k in want[m])
+
+
+def check_microsim(bw, faults):
+    """Phase 18: the §5.2 micro-simulator.  ``microsim_scan`` against
+    ``_simulate_batch_plain`` on the card, all 12 grid rows of both
+    tables, LARK and baseline, ``torch.equal`` on every output, for each
+    of ``microsim_scan.CASES`` (the paper's constants over 2,600 ticks; a
+    short outage over 4,000 ticks with small partitions, so the backfill
+    ends inside the run), with each planted fault (copies of
+    microsim_scan.cu in `faults`) failing a case; then the main path:
+    Tables 3-4 at 520,000 ticks through ``microsim_tables.run``, counts
+    read around it, its 24 lines equal to the committed reference's byte
+    for byte; the kernel's time per table beside the plain version's
+    per-tick time and the bounds; and the port runner's two smoke rows
+    under backend "event" (host numpy) equal to the pinned reference
+    rows.  Returns (the kernels-line record, the main path's launches)."""
+    t_phase = time.monotonic()
+    dev = torch.device(DEVICE)
+    caught = {name: [] for name in faults}
+    worst, plain_s, timed = 0.0, {}, None
+    for case, ticks, fail_t, recover_t, scale in msk.CASES:
+        with msk.outage(fail_t, recover_t):
+            for table in microsim.TABLES:
+                x = msk.case_configs(table, scale, dev)
+                got = msk.microsim_scan(*x, ticks=ticks)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                want = {m: microsim._simulate_batch_plain(
+                            *x, m == "lark", ticks, 0) for m in msk.MODES}
+                end.record()
+                torch.cuda.synchronize()
+                plain_s[f"{case}/{table}"] = start.elapsed_time(end) / 1e3
+                same = microsim_equal(got, want)
+                worst = max(worst, microsim_abs_err(got, want))
+                for name, fn in faults.items():
+                    out, args, keep = msk.launch_args(*x, ticks=ticks)
+                    _build.check(fn(*args, torch.cuda.current_stream()
+                                    .cuda_stream), f"microsim_scan {name}")
+                    torch.cuda.synchronize()
+                    if not microsim_equal(out, want):
+                        caught[name].append(f"{case}/{table}")
+                    del keep
+                # with the return inside the run, every row's backfill ends
+                backfill_ends = bool(
+                    (want["lark"]["pending_ts"][:, -1] < 0.5).all()) \
+                    if recover_t < ticks else None
+                emit({"phase": "microsim", "case": case, "table": table,
+                      "ticks": ticks, "fail_t": fail_t,
+                      "recover_t": recover_t, "ps_scale": scale,
+                      "equal": same, "backfill_ends": backfill_ends,
+                      "completions": want["lark"]["per_tick_done"]
+                      .sum().item(),
+                      "plain_s": plain_s[f"{case}/{table}"]})
+                if not same:
+                    raise SystemExit(f"microsim_scan disagrees with its "
+                                     f"plain version ({case}, {table})")
+                if case == "paper_constants" and table == "t4":
+                    timed = (x, ticks, plain_s[f"{case}/{table}"])
+    held_faults("microsim_scan", caught)
+
+    # the main path: both tables through the entry point a user calls
+    names = ("microsim_scan", "microsim_plain")
+    reset_counts()
+    t0 = time.monotonic()
+    lines = microsim_tables.lines(microsim_tables.run(device=DEVICE))
+    tables_s = time.monotonic() - t0
+    launches = read_counts(names)
+    same_lines = lines == microsim_tables.reference_lines()
+
+    x, ticks, plain_t = timed
+    ms = time_ms(lambda: msk.microsim_scan(*x, ticks=ticks), 10)
+    fn = _build.function("microsim_scan", "microsim_scan_launch",
+                         msk._ARGTYPES)
+    _, args, keep = msk.launch_args(*x, ticks=ticks)
+
+    def launch(stream):
+        return fn(*args, stream)
+    xt = msk.case_configs("t4", 1.0, dev)
+    table_ms = time_ms(
+        lambda: msk.microsim_scan(*xt, ticks=microsim_tables.TICKS), 3)
+    R = x[0].shape[0]
+    nbytes, flops, iops = msk.work(R, ticks)
+    # the record adds the profiler's device time, a CUDA graph's replay
+    # and the L2-cold time of the same launch (mc_check.device_times)
+    rec = record("microsim_scan", nbytes, 0, ms, ms, plain_t * 1e3, worst,
+                 bw, ops=max(flops / FLOAT_PEAK[torch.float32],
+                             iops / INT_OPS) * INT_OPS, launch=launch)
+    del keep
+    tb, tf, ti = msk.work(R, microsim_tables.TICKS)
+
+    # the runner's event branch (host numpy) on this machine
+    t0 = time.monotonic()
+    rows = [json.dumps(runner._json_safe(r), sort_keys=True)
+            for r in runner.iter_rows(ExperimentSpec.create(smoke=True),
+                                      device=DEVICE)]
+    event_s = time.monotonic() - t0
+    checks = {"tables_equal_reference": same_lines,
+              "launches": launches["microsim_scan"] == len(microsim.TABLES),
+              "plain_never_ran": launches["microsim_plain"] == 0,
+              "event_rows_equal_reference": rows == EVENT_SMOKE_ROWS}
+    emit({"phase": "microsim_tables", "ticks": microsim_tables.TICKS,
+          "rows": R, "tables_s": tables_s, "launches": launches,
+          "kernel_ms_per_table": table_ms,
+          "kernel_us_per_tick": table_ms * 1e3 / microsim_tables.TICKS,
+          "plain_ms_per_tick": plain_t * 1e3 / ticks,
+          "table_bytes": tb, "table_bytes_bound_ms": tb / bw * 1e3,
+          "table_ops_bound_ms": max(tf / FLOAT_PEAK[torch.float32],
+                                    ti / INT_OPS) * 1e3,
+          "check_ticks": ticks, "check_ms": ms,
+          "event_rows_s": event_s, "lines_head": lines[:2], **checks,
+          "wall_s": time.monotonic() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"the microsim phase failed: {checks}")
+    return rec, launches["microsim_scan"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1912,6 +2079,7 @@ def main() -> int:
           "fused_downtime_ptxas": ptxas_usage(
               logs.get("fused_downtime", "")),
           "downtime_eval_ptxas": ptxas_usage(logs.get("downtime_eval", "")),
+          "microsim_scan_ptxas": ptxas_usage(logs.get("microsim_scan", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -1938,6 +2106,8 @@ def main() -> int:
     launches.update(flash_launches)
     launches["rglru_scan"] = check_serve_rg()
     check_serve_rg_cpu()
+    rec["microsim_scan"], launches["microsim_scan"] = check_microsim(
+        bw, faults["microsim_scan"])
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -18,11 +18,13 @@ Backends: the spec's ``numpy``, ``jax`` and ``pallas`` all run the port's
 engine (the reference proves them row-identical).  ``devices > 1`` is
 checked (trials must divide) and runs all trials as one batch on one
 card, which invariant 2 makes equal to the sharded run; provenance
-records the requested geometry beside the observed one.  Downtime and
-latency rows under ``backend="event"`` run the batched engine on one
-device, as the reference's do.  Not ported yet, each raising
-``NotImplementedError``: availability under ``backend="event"`` (ROADMAP
-Queue 1 item 11) and ``autotune`` (item 10).
+records the requested geometry beside the observed one.  Availability
+rows under ``backend="event"`` run the scalar event engine
+(``core/availability.py``, host numpy) once per seed, as the reference's
+do; scenario, downtime and latency rows under ``"event"`` run the batched
+engine on one device, as the reference's ``_batched_backend`` maps them.
+Not ported yet, raising ``NotImplementedError``: ``autotune`` (ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import time
 
 from ..core.analytical import (improvement_factor, lark_unavailability,
                                node_unavailability)
+from ..core.availability import simulate_availability
 from ..core.availability_batched import simulate_availability_batched
 from ..core.client_latency import simulate_client_latency
 from ..core.downtime_batched import DowntimeParams, simulate_downtime_batched
@@ -71,19 +74,41 @@ def _iid_grid(full: bool, smoke: bool):
     return SMOKE_GRID if smoke else (FULL_GRID if full else REDUCED_GRID)
 
 
-def _gen_run(full: bool = False, seeds=(0,), devices: int = 1,
-             smoke: bool = False, packed: bool = False, device=None):
-    """i.i.d. rows of a batched backend: one batch of len(seeds) trials
-    from seed min(seeds), as the reference's batched branch."""
+def _gen_run(full: bool = False, seeds=(0,), backend: str = "event",
+             devices: int = 1, smoke: bool = False, packed: bool = False,
+             device=None):
+    """i.i.d. rows.  ``backend="event"``: one scalar event-engine run per
+    seed on the host, averaged; any other backend: one batch of
+    len(seeds) trials from seed min(seeds) on `device`."""
     grid = _iid_grid(full, smoke)
     n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=False)
     for rf, p in grid:
-        r = simulate_availability_batched(
-            n=n, partitions=parts, rf=rf, p=p, trials=len(seeds),
-            max_ticks=max_ticks, min_ticks=min_ticks, seed=min(seeds),
-            devices=devices, packed=packed, device=device)
-        u_l, u_m, ticks = r.u_lark, r.u_maj, r.ticks
-        ci_l, ci_m = r.ci_lark, r.ci_maj
+        if backend == "event":
+            us_l, us_m, cis_l, cis_m = [], [], [], []
+            ticks = 0
+            for s in seeds:
+                r = simulate_availability(n=n, partitions=parts, rf=rf, p=p,
+                                          max_ticks=max_ticks,
+                                          min_ticks=min_ticks, seed=s)
+                us_l.append(r.u_lark)
+                us_m.append(r.u_maj)
+                cis_l.append(r.ci_lark)
+                cis_m.append(r.ci_maj)
+                ticks = r.ticks
+            N = len(seeds)
+            u_l = sum(us_l) / N
+            u_m = sum(us_m) / N
+            # half-width of the across-seed mean: independent runs, so
+            # se_mean = sqrt(sum se_i^2) / N
+            ci_l = math.sqrt(sum(c * c for c in cis_l)) / N
+            ci_m = math.sqrt(sum(c * c for c in cis_m)) / N
+        else:
+            r = simulate_availability_batched(
+                n=n, partitions=parts, rf=rf, p=p, trials=len(seeds),
+                max_ticks=max_ticks, min_ticks=min_ticks, seed=min(seeds),
+                devices=devices, packed=packed, device=device)
+            u_l, u_m, ticks = r.u_lark, r.u_maj, r.ticks
+            ci_l, ci_m = r.ci_lark, r.ci_maj
         f = rf - 1
         yield {
             "kind": "iid", "rf": rf, "p": p, "u_lark": u_l, "u_maj": u_m,
@@ -326,11 +351,6 @@ def row_csv_line(r: dict):
 
 
 def _check_ported(spec: ExperimentSpec):
-    if spec.metric == "availability" and spec.backend == "event":
-        raise NotImplementedError(
-            "backend 'event' (the scalar event engine) is not ported yet "
-            "(ROADMAP Queue 1 item 11); use backend 'numpy', 'jax' or "
-            "'pallas', which all run the port's batched engine")
     if spec.autotune:
         raise NotImplementedError(
             "autotune is not ported yet (ROADMAP Queue 1 item 10)")
@@ -341,12 +361,13 @@ def iter_rows(spec: ExperimentSpec, device=None):
     then each scenario grid."""
     _check_ported(spec)
     names = list(spec.scenarios)
+    # batched rows under "event" run on one device, as the reference's
+    # _batched_backend maps them
+    devices = 1 if spec.backend == "event" else spec.devices
     if spec.metric in ("downtime", "latency"):
-        # event rows run the batched engine on one device, as the
-        # reference's _batched_backend maps them
         common = dict(full=spec.full, trials=spec.trials, seed=spec.seed,
-                      devices=1 if spec.backend == "event" else spec.devices,
-                      smoke=spec.smoke, params=spec.downtime_params(),
+                      devices=devices, smoke=spec.smoke,
+                      params=spec.downtime_params(),
                       packed=spec.packed, device=device)
         iid, scen = (_gen_run_downtime, _gen_run_downtime_scenarios) \
             if spec.metric == "downtime" \
@@ -360,12 +381,12 @@ def iter_rows(spec: ExperimentSpec, device=None):
         yield from _gen_run(
             full=spec.full,
             seeds=tuple(range(spec.seed, spec.seed + spec.trials)),
-            devices=spec.devices, smoke=spec.smoke, packed=spec.packed,
-            device=device)
+            backend=spec.backend, devices=spec.devices, smoke=spec.smoke,
+            packed=spec.packed, device=device)
     if names:
         yield from _gen_run_scenarios(
             names, full=spec.full, trials=spec.trials, seed=spec.seed,
-            devices=spec.devices, smoke=spec.smoke, packed=spec.packed,
+            devices=devices, smoke=spec.smoke, packed=spec.packed,
             device=device)
 
 

@@ -3,7 +3,9 @@ version (the Monte Carlo kernels bitwise, ``mlstm_chunkwise``,
 ``rglru_scan`` and ``flash_attention_fwd`` at stated tolerances, with
 their planted faults), the engines (§5.1, §6 with the protocol zoo, and
 client latency) on cuda against the same runs on the CPU, and the
-reduced xLSTM and recurrentgemma serve paths on cuda against the CPU.
+reduced xLSTM and recurrentgemma serve paths on cuda against the CPU,
+and the §5.2 micro-simulator's ``microsim_scan`` bitwise against its
+plain tick loop.
 
 This file imports neither jax nor repro, so it runs on a machine that
 has only torch and a card:
@@ -21,9 +23,11 @@ from repro_torch.core.client_latency import simulate_client_latency
 from repro_torch.core.downtime_batched import (ENGINES,
                                                simulate_downtime_batched)
 from repro_torch.configs import reduced_config
+from repro_torch.core import microsim
 from repro_torch.kernels import (flash_attention, flash_check, fused_step,
-                                 mc_check, mlstm_check, mlstm_chunk,
-                                 pac_eval, rglru_check, rglru_scan)
+                                 mc_check, microsim_scan, mlstm_check,
+                                 mlstm_chunk, pac_eval, rglru_check,
+                                 rglru_scan)
 from repro_torch.kernels.latency import decay_pow_tables
 from repro_torch.models import build_model
 from repro_torch.serving import ServeLoop
@@ -641,3 +645,25 @@ def test_cuda_reduced_recurrentgemma_serve_matches_cpu(cuda):
     want = ServeLoop(cfg, params, max_len=56, device="cpu").generate(
         batch, steps=8)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("table", sorted(microsim.TABLES))
+@pytest.mark.parametrize("case", [c[0] for c in microsim_scan.CASES])
+def test_cuda_microsim_scan_matches_plain(cuda, case, table):
+    """All 12 grid rows, LARK and baseline, every output bitwise; the
+    short case also on the CPU's plain loop (cuda and cpu agree)."""
+    _, ticks, fail_t, recover_t, scale = next(
+        c for c in microsim_scan.CASES if c[0] == case)
+    if case == "paper_constants":
+        ticks = 2100
+    x = microsim_scan.case_configs(table, scale, cuda)
+    with microsim_scan.outage(fail_t, recover_t):
+        before = microsim_scan.microsim_scan.launches
+        got = microsim_scan.microsim_scan(*x, ticks=ticks)
+        torch.cuda.synchronize()
+        assert microsim_scan.microsim_scan.launches == before + 1
+        want = microsim_scan.microsim_scan(*(c.cpu() for c in x),
+                                           ticks=ticks)
+    for mode in microsim_scan.MODES:
+        for k, w in want[mode].items():
+            assert torch.equal(got[mode][k].cpu(), w), (mode, k)

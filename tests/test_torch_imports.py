@@ -234,3 +234,38 @@ def test_recurrentgemma_serve_defaults_to_the_card():
         ServeLoop(reduced_config("recurrentgemma_9b"), {})
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--arch", "recurrentgemma_9b"])
+
+
+def test_microsim_entry_points_default_to_the_card():
+    """run_table and the tables CLI default to the card and raise without
+    one; with device="cpu" they run the plain tick loop."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch import microsim_tables
+    from repro_torch.core import microsim
+    configs = microsim.table_configs(0.5, 0.5)[:1]
+    with pytest.raises(RuntimeError, match="cuda"):
+        microsim.run_table(configs, ticks=10)
+    with pytest.raises(RuntimeError, match="cuda"):
+        microsim_tables.main(["--ticks", "10"])
+    rows = microsim.run_table(configs, ticks=10, device="cpu")
+    assert len(rows) == 1 and rows[0]["window_s"] == 0.01
+
+
+def test_microsim_wrapper_dispatches_by_device_without_fallback():
+    """microsim_scan runs the plain tick loop on CPU tensors (no launch),
+    refuses any other device, and has no path from a CUDA tensor back to
+    the plain version."""
+    import inspect
+    from repro_torch.kernels import microsim_scan
+    configs = microsim_scan.case_configs("t3", 1.0, "cpu")
+    before = microsim_scan.microsim_scan.launches
+    out = microsim_scan.microsim_scan(*configs, ticks=5)
+    assert microsim_scan.microsim_scan.launches == before
+    assert set(out) == {"lark", "base"}
+    assert out["lark"]["per_tick_done"].shape == (12, 5)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        microsim_scan.microsim_scan(*(c.to("meta") for c in configs),
+                                    ticks=5)
+    code = inspect.getsource(microsim_scan.microsim_scan).split('"""')[2]
+    assert "except" not in code and code.count("_simulate_batch_plain") == 1

@@ -1,7 +1,8 @@
 """The port's experiments layer against the reference: smoke-spec rows
 serialize byte for byte like the reference runner's (reference backend
-jax), spec identities and RNG salts match, and the paths still to be
-ported raise ``NotImplementedError``."""
+jax; the scalar event engine under backend "event"), spec identities and
+RNG salts match, and the path still to be ported (autotune) raises
+``NotImplementedError``."""
 import json
 from dataclasses import asdict
 from itertools import islice
@@ -79,13 +80,22 @@ def test_rng_salts_and_constants_match_reference():
 ])
 def test_unported_paths_raise(kw, item):
     """Paths still to be ported raise NotImplementedError naming their
-    ROADMAP Queue 1 item.  Items 7 (the protocol zoo) and 8 (the latency
-    metric) are ported: their first rows are the reference runner's."""
+    ROADMAP Queue 1 item.  Items 7 (the protocol zoo), 8 (the latency
+    metric) and 11 (the scalar event engine: the smoke spec's default
+    backend "event") are ported: their rows are the reference runner's,
+    the first ones for 7 and 8, all of them for 11."""
     rows = runner.iter_rows(ExperimentSpec.create(**kw), device="cpu")
     if item in ("item 7", "item 8"):
         k = 2 if item == "item 7" else 1       # + the hermes engine row
         want = list(islice(ref_runner.iter_rows(RefSpec.create(**kw)), k))
         assert _dumps(islice(rows, k)) == _dumps(want)
+        return
+    if item == "item 11":
+        assert ExperimentSpec.create(**kw).backend == "event"
+        want = list(ref_runner.iter_rows(RefSpec.create(**kw)))
+        got = list(rows)
+        assert [r["kind"] for r in got] == ["iid", "iid"]
+        assert _dumps(got) == _dumps(want)
         return
     with pytest.raises(NotImplementedError, match=item):
         next(rows)
