@@ -7,8 +7,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its main paths at the paper tile (n = 155 nodes, P = 4096
 partitions, 8 trials): the §5.1 availability Monte Carlo, the §6
 commit-pause engine, its client-latency layer and its protocol zoo; the
-LM serve paths at full width: xlstm-350m and recurrentgemma-9b behind
-the LARK session store; and the §5.2 micro-simulator's Tables 3-4 at the
+LM serve paths at full width: xlstm-350m, recurrentgemma-9b and
+smollm-360m behind the LARK session store, and every other architecture
+of the registry; and the §5.2 micro-simulator's Tables 3-4 at the
 reference's 520,000 ticks.
 One JSON line per phase:
 
@@ -156,7 +157,30 @@ One JSON line per phase:
    tick; and the runner's two smoke rows under backend "event" (the
    scalar §5.1 engine, host numpy) equal to the reference's, pinned in
    ``EVENT_SMOKE_ROWS``.
-19. ``kernels``: every ported kernel with its launches on its main path,
+19. ``serve_dense``: smollm-360m (the reference's serve default) at full
+   width and depth (32 layers, d_model 960, 15 heads over 5 KV heads of
+   64, vocab 49152, bf16, tied embeddings, seed-0 weights) with the serve
+   phase's traffic: 4 prompts of 1024 tokens, 32 greedy tokens with a
+   checkpoint every 8, ``fail_server(0)``, 8 more; tokens and every decode
+   step's logits bitwise equal to an uninterrupted run, finite logits.
+   Prints prefill and decode tokens/s, parameter and KV-cache bytes.
+20. ``families``: internlm2-20b (48 layers), minicpm3-4b (62, MLA),
+   qwen2-vl-2b (28, M-RoPE over embeddings), whisper-small (12 + 12),
+   mixtral-8x7b, qwen3-moe-235b-a22b and nemotron-4-340b (each cut to 2
+   layers: the card cannot hold their weights), every width as in the
+   config, bf16, seed-0 weights.  4 prompts of 1024 (mixtral 2 of 5120,
+   past its 4096 window; whisper 256 tokens over 1500 stub frames, served
+   through ``ServeLoop`` with a failover, bitwise; qwen2-vl decoding the
+   data's next embeddings through ``decode_step``), 8 greedy decode
+   steps.  Checks: (a) every logit finite; (b) the decode logits at S-1
+   after a prefill of S-1 within ``DECODE_TOL`` of the largest logit of
+   a prefill of S (MoE with its capacity taking every slot), and a decode
+   one position off beyond it; (c) the reduced float32 config on the card
+   against the CPU, logits within rtol 1e-3 / atol 1e-3 of the largest
+   and greedy ids equal.  Prints every depth cut, tokens/s and bytes.
+   No kernel runs on these paths (attention is the dense masked softmax,
+   as in the reference), and none may launch.
+21. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time.  ``node_count``'s launches are
    those of the counts mode, which does its work on the main path; its
@@ -168,6 +192,7 @@ exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -202,7 +227,8 @@ from repro_torch.kernels import mlstm_chunk as mk  # noqa: E402
 from repro_torch.kernels import pac_eval as pk  # noqa: E402
 from repro_torch.kernels import rglru_check as rc  # noqa: E402
 from repro_torch.kernels import rglru_scan as rk  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import (batch_prefix, build_model,  # noqa: E402
+                                decode_input)
 from repro_torch.serving import LarkSessionStore, ServeLoop  # noqa: E402
 from repro_torch.models.transformer import tree_map  # noqa: E402
 
@@ -2049,6 +2075,334 @@ def check_microsim(bw, faults):
     return rec, launches["microsim_scan"]
 
 
+# ---------------------------------------------------------------------------
+# every other registry architecture: serve_dense and families
+# ---------------------------------------------------------------------------
+
+#: serve_dense: smollm-360m (the reference's serve default) at full width
+#: and depth, with the serve phase's traffic
+DENSE_ARCH = "smollm_360m"
+#: the families phase, in order; the depth of the three models whose bf16
+#: weights the card cannot hold (mixtral ~93 GB, qwen3-moe ~470 GB,
+#: nemotron ~680 GB whole) is cut to 2 layers, every width kept
+FAMILIES = ("internlm2_20b", "minicpm3_4b", "qwen2_vl_2b", "whisper_small",
+            "mixtral_8x7b", "qwen3_moe_235b_a22b", "nemotron_4_340b")
+FAMILY_DEPTH = {"mixtral_8x7b": 2, "qwen3_moe_235b_a22b": 2,
+                "nemotron_4_340b": 2}
+#: (prompts, prompt length): 4 of 1024 unless named; mixtral's 5120 pass
+#: its 4096-token window (the ring wraps, mha's local q-chunk branch
+#: runs); whisper's 256 decoder tokens attend to 1500 stub frames
+FAMILY_TRAFFIC = {"mixtral_8x7b": (2, 5120), "whisper_small": (4, 256)}
+FAMILY_DECODE = 8
+#: check (b): decode logits at S-1 after a prefill of S-1 inputs against
+#: the prefill of S inputs, max |difference| over the largest |logit|,
+#: in bf16 at full width.  Measured on an H100: 0.0072-0.0187 at the
+#: right position (2-5 bf16 steps of the largest logit), 0.0296-0.6649
+#: one position off (qwen2-vl's least: its random input embeddings
+#: outweigh attention); tests/test_torch_dense.py shows on the CPU that
+#: a decode one position off exceeds it on every family
+DECODE_TOL = 0.025
+#: check (c): the reduced float32 config, prompt 48 (past its 32-token
+#: window where it has one), on the card against the CPU
+FAMILY_CPU_PROMPT = 48
+
+
+def init_model(cfg, device=None):
+    """The model's entry points and its seed-0 weights on `device` (the
+    card by default)."""
+    model = build_model(cfg)
+    gen = torch.Generator(device=device or DEVICE)
+    gen.manual_seed(0)
+    return model, model["init_params"](gen)
+
+
+def param_count(tree):
+    """(elements, bytes) of every tensor leaf."""
+    leaves = []
+    tree_map(leaves.append, tree)
+    return (sum(t.numel() for t in leaves),
+            sum(t.numel() * t.element_size() for t in leaves))
+
+
+def serve_batch(cfg, batch: int, prompt: int, extra: int = 0, device=None):
+    """SyntheticLMData's batch 0 without labels, on `device`: tokens (and
+    whisper's stub frames), or qwen2-vl's embeddings and (t, h, w) ids,
+    over prompt + extra positions (the extra feed qwen2-vl's decode)."""
+    raw = SyntheticLMData(cfg, batch, prompt + extra).batch_at(0)
+    return {k: torch.from_numpy(v).to(device or DEVICE)
+            for k, v in raw.items() if k != "labels"}
+
+
+def decode_parity(model, params, batch, logits_full, offs=(0,)):
+    """Check (b): prefill the batch's first S-1 positions, decode position
+    S-1 at S-1+off for each off (0 is the right position), and return
+    each max |decode - prefill| over max |prefill logits|, where
+    logits_full is the prefill of all S.  The caches hold S+1 positions,
+    so a decode one past S-1 has a slot."""
+    S = batch["embeds" if "embeds" in batch else "tokens"].shape[1]
+    _, state = model["prefill"](params, batch_prefix(batch, S - 1), S + 1)
+    last, kw = decode_input(batch, S - 1)
+    full = logits_full.float()
+    errs = []
+    for off in offs:
+        if "positions" in kw:
+            kw = dict(kw, positions=batch["positions"][:, :, S - 1:S] + off)
+        logits, _ = model["decode_step"](params, state, last, S - 1 + off,
+                                         **kw)
+        errs.append(((logits.float() - full).abs().max()
+                     / full.abs().max()).item())
+    return errs
+
+
+def no_drop(cfg):
+    """An MoE config whose capacity takes every slot: cf = E / K gives
+    C = S, the most slots one row can send an expert (a token's K experts
+    are distinct), the same outputs as the reference test's cf = E."""
+    if cfg.moe is None:
+        return cfg
+    m = cfg.moe
+    return cfg.replace(moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.experts_per_token))
+
+
+def greedy_decode(model, params, state, logits, batch, S: int, steps: int):
+    """steps greedy decode steps after a prefill of S positions.  A token
+    model feeds back its argmax; qwen2-vl feeds the batch's next
+    embeddings and ids.  Returns (argmax ids (B, steps), per-step logits,
+    state)."""
+    ids, kept = [], []
+    cur = logits.argmax(-1).to(torch.int32)
+    for i in range(steps):
+        if "embeds" in batch:
+            inp, kw = decode_input(batch, S + i)
+        else:
+            inp, kw = cur, {}
+        logits, state = model["decode_step"](params, state, inp, S + i, **kw)
+        cur = logits.argmax(-1).to(torch.int32)
+        ids.append(cur)
+        kept.append(logits)
+    return torch.stack(ids, 1), kept, state
+
+
+def serve_failover(cfg, params, batch, max_len, gen, resume, every):
+    """ServeLoop: gen tokens with a session checkpoint every `every` into
+    a 4-node rf 2 LarkSessionStore, fail_server(0), resume more from the
+    store; against an uninterrupted run of gen + resume.  Returns the
+    checks, the first run's tokens and the main path's seconds."""
+    sessions = LarkSessionStore(num_nodes=4, rf=2)
+    loop = ServeLoop(cfg, params, max_len=max_len, session_store=sessions,
+                     checkpoint_every=every, device=DEVICE)
+    whole = ServeLoop(cfg, params, max_len=max_len, device=DEVICE)
+    finite, resumed_logits, whole_logits = [], [], []
+    watch_logits(loop, finite)
+    watch_logits(whole, finite)
+    keep_decode_logits(loop, resumed_logits)
+    keep_decode_logits(whole, whole_logits)
+    t0 = time.monotonic()
+    toks = loop.generate(batch, steps=gen, session_id="req-0")
+    sessions.fail_server(0)
+    resumed = loop.resume("req-0", steps=resume)
+    uninterrupted = whole.generate(batch, steps=gen + resume)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    checks = {
+        "prefix_equal": resumed is not None and
+        np.array_equal(resumed[:, :gen], toks),
+        "resume_equals_uninterrupted": resumed is not None and
+        np.array_equal(resumed, uninterrupted),
+        "decode_logits_equal": len(resumed_logits) == len(whole_logits)
+        == gen + resume and all(
+            torch.equal(a, b) for a, b in zip(resumed_logits, whole_logits)),
+        "logits_finite": bool(torch.stack(finite).all().item())}
+    return checks, toks, wall
+
+
+def timed_serve(model, params, batch, S: int, max_len: int, steps: int):
+    """A warm-up prefill, a timed prefill of the batch's first S
+    positions and `steps` timed greedy decode steps after one warm-up
+    step.  Returns (prefill s, decode s, the timed prefill's logits, the
+    final state, every logit's finite flag)."""
+    finite = []
+    prompt = batch_prefix(batch, S)
+    with torch.no_grad():
+        model["prefill"](params, prompt, max_len)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, state = model["prefill"](params, prompt, max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.monotonic() - t0
+        finite.append(torch.isfinite(logits).all())
+        _, kept, state = greedy_decode(model, params, state, logits, batch,
+                                       S, 1)
+        finite.append(torch.isfinite(kept[0]).all())
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        _, kept, state = greedy_decode(model, params, state, kept[0], batch,
+                                       S + 1, steps)
+        torch.cuda.synchronize()
+        decode_s = time.monotonic() - t0
+        finite += [torch.isfinite(k).all() for k in kept]
+    return prefill_s, decode_s, logits, state, finite
+
+
+def check_serve_dense():
+    """Phase 19, smollm-360m at full width and depth, the serve phase's
+    traffic: 4 prompts of 1024 tokens, 32 greedy tokens with a checkpoint
+    every 8, fail_server(0), 8 more, bitwise equal to an uninterrupted
+    run (tokens and every decode step's logits)."""
+    t_phase = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(DENSE_ARCH)
+    model, params = init_model(cfg)
+    n_params, p_bytes = param_count(params)
+    batch = serve_batch(cfg, SERVE_BATCH, SERVE_PROMPT)
+    max_len = SERVE_PROMPT + SERVE_GEN + SERVE_RESUME
+    prefill_s, decode_s, _, state, finite = timed_serve(
+        model, params, batch, SERVE_PROMPT, max_len, SERVE_GEN)
+    kv_bytes = state_bytes(state)
+    del state
+    reset_counts()
+    checks, toks, main_wall = serve_failover(
+        cfg, params, {k: v.cpu().numpy() for k, v in batch.items()},
+        max_len, SERVE_GEN, SERVE_RESUME, 8)
+    launches = {k: v for k, v in read_counts(counters()).items() if v}
+    checks["logits_finite"] = checks["logits_finite"] and bool(
+        torch.stack(finite).all().item())
+    checks["no_kernel_on_path"] = not launches
+    emit({"phase": "serve_dense", "arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+          "vocab": cfg.vocab_size, "dtype": cfg.act_dtype,
+          "params": n_params, "param_bytes": p_bytes,
+          "kv_cache_bytes": kv_bytes, "batch": SERVE_BATCH,
+          "prompt_len": SERVE_PROMPT, "max_len": max_len,
+          "generated": SERVE_GEN, "resumed": SERVE_RESUME,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT / prefill_s,
+          "decode_tokens_per_s": SERVE_BATCH * SERVE_GEN / decode_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "main_path_wall_s": main_wall, "launches": launches,
+          "tokens_head": toks[:, :6].tolist(), **checks,
+          "wall_s": time.monotonic() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"the smollm serve phase failed: {checks}")
+
+
+def family_cpu_check(arch: str):
+    """Check (c): the reduced float32 config with the same seed-0 weights
+    on the card and on the CPU.  Prefill logits within rtol 1e-3 and atol
+    1e-3 of the largest, and FAMILY_DECODE greedy argmax ids equal."""
+    cfg = reduced_config(arch)
+    model, params = init_model(cfg, "cpu")
+    gpu_params = tree_map(lambda t: t.to(DEVICE), params)
+    S = FAMILY_CPU_PROMPT
+    max_len = S + FAMILY_DECODE
+    out = {}
+    for dev, p in (("cpu", params), (DEVICE, gpu_params)):
+        batch = serve_batch(cfg, 2, S, FAMILY_DECODE, dev)
+        with torch.no_grad():
+            logits, state = model["prefill"](p, batch_prefix(batch, S),
+                                             max_len)
+            ids, _, _ = greedy_decode(model, p, state, logits, batch, S,
+                                      FAMILY_DECODE)
+        out[dev] = (logits.cpu(), ids.cpu())
+    (lc, ic), (lg, ig) = out["cpu"], out[DEVICE]
+    scale = max(1.0, lc.abs().max().item())
+    return {"cpu_logits_close": torch.allclose(lg, lc, atol=1e-3 * scale,
+                                               rtol=1e-3),
+            "cpu_max_abs_err": mlstm_abs_err(lg, lc),
+            "cpu_tokens_equal": torch.equal(ig, ic)}
+
+
+def check_family(arch: str):
+    """One architecture of phase 20 at full width: (a) every logit
+    finite, (b) decode against prefill within DECODE_TOL, (c) the reduced
+    config on the card against the CPU; whisper also serves through
+    ServeLoop with a failover, bitwise."""
+    t_arch = time.monotonic()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=FAMILY_DEPTH.get(arch, full.num_layers))
+    model, params = init_model(cfg)
+    n_params, p_bytes = param_count(params)
+    Bn, S = FAMILY_TRAFFIC.get(arch, (SERVE_BATCH, SERVE_PROMPT))
+    batch = serve_batch(cfg, Bn, S, FAMILY_DECODE + 1)
+    prompt = batch_prefix(batch, S)
+    max_len = S + FAMILY_DECODE + 1
+    reset_counts()
+    prefill_s, decode_s, logits, state, finite = timed_serve(
+        model, params, batch, S, max_len, FAMILY_DECODE)
+    sbytes = state_bytes(state)
+    del state
+    with torch.no_grad():
+        if cfg.moe is None:
+            pmodel, full_logits = model, logits
+        else:
+            pmodel = build_model(no_drop(cfg))
+            full_logits, _ = pmodel["prefill"](params, prompt, S + 1)
+        parity, *one_off = decode_parity(pmodel, params, prompt,
+                                         full_logits, offs=(0, -1, 1))
+        del full_logits
+    checks = {"logits_finite": bool(torch.stack(finite).all().item()),
+              "decode_matches_prefill": parity <= DECODE_TOL,
+              "one_off_fails": min(one_off) > DECODE_TOL}
+    rec = {}
+    if cfg.is_encoder_decoder:
+        np_batch = {k: v.cpu().numpy() for k, v in prompt.items()}
+        served, toks, rec["main_path_wall_s"] = serve_failover(
+            cfg, params, np_batch, S + 2 * FAMILY_DECODE, FAMILY_DECODE,
+            FAMILY_DECODE, FAMILY_DECODE)
+        checks.update(served)
+        rec["tokens_head"] = toks[:, :6].tolist()
+    launches = {k: v for k, v in read_counts(counters()).items() if v}
+    del params, model, pmodel
+    torch.cuda.empty_cache()
+    cpu = family_cpu_check(arch)
+    checks["cpu_logits_close"] = cpu.pop("cpu_logits_close")
+    checks["cpu_tokens_equal"] = cpu.pop("cpu_tokens_equal")
+    checks["no_kernel_on_path"] = not launches
+    rec.update({
+        "arch": arch, "layers": cfg.num_layers,
+        "depth_cut": None if cfg.num_layers == full.num_layers else
+        f"{full.num_layers} -> {cfg.num_layers} layers",
+        "enc_layers": cfg.enc_layers or None, "d_model": cfg.d_model,
+        "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+        "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+        "window": cfg.window or None,
+        "experts": None if cfg.moe is None else
+        [cfg.moe.num_experts, cfg.moe.experts_per_token],
+        "mla": None if cfg.mla is None else dataclasses.asdict(cfg.mla),
+        "mrope_sections": list(cfg.mrope_sections) or None,
+        "dtype": cfg.act_dtype, "params": n_params, "param_bytes": p_bytes,
+        "decode_state_bytes": sbytes, "batch": Bn, "prompt_len": S,
+        "prefill_s": prefill_s, "prefill_tokens_per_s": Bn * S / prefill_s,
+        "decode_tokens_per_s": Bn * FAMILY_DECODE / decode_s,
+        "decode_parity": parity, "decode_one_off": one_off,
+        "decode_tol": DECODE_TOL, **cpu,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches, **checks,
+        "wall_s": time.monotonic() - t_arch})
+    return rec, checks
+
+
+def check_families():
+    """Phase 20: every other registry architecture at full width."""
+    t_phase = time.monotonic()
+    failed = {}
+    for arch in FAMILIES:
+        rec, checks = check_family(arch)
+        emit({"phase": "families", **rec})
+        failed.update({f"{arch}.{k}": v for k, v in checks.items() if not v})
+    emit({"phase": "families_total", "archs": len(FAMILIES),
+          "depth_cuts": {a: f"{get_config(a).num_layers} -> {d}"
+                         for a, d in FAMILY_DEPTH.items()},
+          "failed": sorted(failed), "wall_s": time.monotonic() - t_phase})
+    if failed:
+        raise SystemExit(f"the families phase failed: {sorted(failed)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2108,6 +2462,8 @@ def main() -> int:
     check_serve_rg_cpu()
     rec["microsim_scan"], launches["microsim_scan"] = check_microsim(
         bw, faults["microsim_scan"])
+    check_serve_dense()
+    check_families()
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

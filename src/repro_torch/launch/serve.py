@@ -6,15 +6,17 @@ of ``repro/launch/serve.py``).
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced \
       --batch 4 --prompt-len 1024 --gen 32 --fail-server     # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve \
-      --arch recurrentgemma_9b --device cpu --fail-server
+      --arch whisper_small --device cpu --fail-server
 
-The default arch is ``xlstm_350m``; ``recurrentgemma_9b`` is the other
-family the port carries (the reference's default, ``smollm_360m``, needs
-global attention: ROADMAP Queue 1 item 16); other arches raise
-``NotImplementedError`` until their slice lands.  ``--reduced`` defaults to on as in the reference, but is a
-``BooleanOptionalAction``, so ``--no-reduced`` reaches the full config
-(the reference's ``store_true`` with ``default=True`` never can).  Runs on
-the card unless ``--device cpu``; weights are random, from seed 0.
+The default arch is ``smollm_360m``, as in the reference; every arch of
+``configs/registry.py`` serves, except that qwen2_vl_2b (a decoder over
+input embeddings) raises a ``ValueError`` before its first decode step:
+greedy decoding of argmax token ids cannot supply the next embedding
+(``serving/serve_loop.py``).  ``--reduced`` defaults to on as in the
+reference, but is a ``BooleanOptionalAction``, so ``--no-reduced``
+reaches the full config (the reference's ``store_true`` with
+``default=True`` never can).  Runs on the card unless ``--device cpu``;
+weights are random, from seed 0.
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ from repro_torch.serving import LarkSessionStore, ServeLoop
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="xlstm_350m")
+    ap.add_argument("--arch", default="smollm_360m")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True)
     ap.add_argument("--device", default=None,

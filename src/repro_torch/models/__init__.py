@@ -1,7 +1,9 @@
-"""Port of ``repro.models`` for the xLSTM and recurrentgemma serve paths:
-layers, the mLSTM, sLSTM and RG-LRU blocks, local attention, the
-per-layer model assembly and its converters from the reference's
-pytrees."""
-from .model import batch_specs, build_model, make_batch
+"""Port of ``repro.models``: layers, attention (global, sliding-window,
+local, cross and MLA), MoE, the mLSTM, sLSTM and RG-LRU blocks, the
+per-layer decoder-only and encoder-decoder assemblies and their
+converters from the reference's pytrees."""
+from .model import (batch_prefix, batch_specs, build_model, decode_input,
+                    make_batch)
 
-__all__ = ["build_model", "batch_specs", "make_batch"]
+__all__ = ["build_model", "batch_specs", "make_batch", "batch_prefix",
+           "decode_input"]

@@ -1,0 +1,74 @@
+"""Whisper-style encoder-decoder backbone (port of
+``repro/models/encdec.py``; the audio frontend is a stub).
+
+The batch supplies precomputed frame embeddings ``audio_embeds``
+(B, enc_seq, d_model) beside the decoder's ``tokens``.  The encoder is
+``enc_layers`` non-causal layers of the decoder's block pattern; every
+decoder layer adds cross-attention to the encoder output, whose keys and
+values are computed once at prefill and carried in the decode state
+(``ck``/``cv``).  Both stacks add sinusoidal positions: the reference's
+stated deviation from whisper's learned decoder positions, followed here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from .layers import (apply_norm, dtype_of, embed_init, embed_tokens,
+                     norm_init, sinusoidal_positions, unembed)
+from .transformer import (block_init, encoder_config, layer_kinds,
+                          layers_apply, layers_state_shape)
+
+
+def build_encdec(cfg: ModelConfig):
+    enc_cfg = encoder_config(cfg)
+
+    def init_params(gen: torch.Generator):
+        dev = gen.device
+        return {
+            "embed": embed_init(cfg, gen),
+            "encoder": [block_init(enc_cfg, kind, gen)
+                        for kind in layer_kinds(enc_cfg)],
+            "enc_ln": norm_init(cfg, dev),
+            "decoder": [block_init(cfg, kind, gen, cross=True)
+                        for kind in layer_kinds(cfg)],
+            "ln_f": norm_init(cfg, dev),
+        }
+
+    def encode(params, audio_embeds):
+        """The encoder output (B, enc_seq, d), normalized."""
+        x = audio_embeds.to(dtype_of(cfg))
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
+        x, _ = layers_apply(enc_cfg, params["encoder"], x, mode="train",
+                            causal=False)
+        return apply_norm(cfg, params["enc_ln"], x)
+
+    def _embed_dec(params, tokens, offset=0):
+        x = embed_tokens(cfg, params["embed"], tokens)
+        pos = torch.arange(tokens.shape[1], device=x.device) + offset
+        return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
+
+    def prefill(params, batch, max_len: int = 0):
+        enc = encode(params, batch["audio_embeds"])
+        x = _embed_dec(params, batch["tokens"])
+        x, states = layers_apply(cfg, params["decoder"], x, mode="prefill",
+                                 enc_out=enc, max_len=max_len)
+        x = apply_norm(cfg, params["ln_f"], x)
+        logits = unembed(cfg, params["embed"], x[:, -1:])
+        return logits[:, 0], states
+
+    def decode_step(params, states, tokens, pos, positions=None):
+        x = _embed_dec(params, tokens[:, None], offset=int(pos))
+        x, states = layers_apply(cfg, params["decoder"], x, mode="decode",
+                                 states=states, pos=pos)
+        x = apply_norm(cfg, params["ln_f"], x)
+        logits = unembed(cfg, params["embed"], x)
+        return logits[:, 0], states
+
+    def decode_state_shape(batch: int, max_len: int = 0):
+        return layers_state_shape(cfg, batch, max_len, cross=True)
+
+    return dict(config=cfg, init_params=init_params, encode=encode,
+                prefill=prefill, decode_step=decode_step,
+                decode_state_shape=decode_state_shape)

@@ -1,11 +1,10 @@
-"""Shared layers (port of ``repro/models/layers.py``, the part the xLSTM
-and recurrentgemma serve paths use): dtypes, the truncated-normal
-initializer, norms in float32, rotary position embeddings, the
-feed-forward blocks, embedding and the tied unembedding.
+"""Shared layers (port of ``repro/models/layers.py``, the part the serve
+paths use): dtypes, the truncated-normal initializer, norms in float32,
+rotary position embeddings (plain and M-RoPE), whisper's sinusoidal
+positions, the feed-forward blocks, embedding and the unembedding.
 
 Parameters are nested dicts of tensors, as the reference's pytrees.
-M-RoPE, the sinusoidal positions and the loss come with the slices that
-use them (ROADMAP Queue 1 items 17-18).
+The loss comes with the training slice (ROADMAP Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -98,6 +97,34 @@ def apply_rope(x, cos, sin):
     s = sin[..., None, :].to(torch.float32)
     x1, x2 = x[..., :d2].to(torch.float32), x[..., d2:].to(torch.float32)
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def mrope_angles(pos_thw, dim: int, theta: float, sections):
+    """M-RoPE (qwen2-vl): pos_thw (B, 3, S); sections sum to dim // 2.
+    Frequency slot f rotates by the (t|h|w) position row of its section.
+    Returns cos/sin of shape (B, S, dim // 2), in float32."""
+    if sum(sections) != dim // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {dim // 2}")
+    dev = pos_thw.device
+    inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                             device=dev) / dim))
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev))                  # (dim // 2,)
+    pos = pos_thw.to(torch.float32)[:, sec_id, :]            # (B, dim//2, S)
+    ang = pos.transpose(1, 2) * inv_freq                     # (B, S, dim//2)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def sinusoidal_positions(positions, dim: int):
+    """Whisper-style sinusoidal embeddings, sin before cos, frequencies
+    spaced over ``half - 1``: positions (...,) -> (..., dim) float32."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / (half - 1))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Model assembly (port of ``repro/models/transformer.py:36-296``) for the
-block kinds the port carries: MLSTM and SLSTM (xlstm), RGLRU and
-LOCAL_ATTN (recurrentgemma), each RG-LRU and local-attention block
-followed by its MLP.
+"""Model assembly (port of ``repro/models/transformer.py``): every block
+kind of the registry (ATTN, LOCAL_ATTN, MLSTM, SLSTM, RGLRU), the MoE
+feed-forward in place of the MLP, whisper's cross-attention blocks, and
+the decoder-only LM over token or embedding inputs; ``build_lm`` hands
+encoder-decoder configurations to ``encdec.build_encdec``.
 
 The reference groups layers into segments of (pattern, repeats), stacks
 each pattern position's parameters along a leading ``repeats`` axis and
@@ -15,14 +16,17 @@ across that map.
 Entry points produced by ``build_lm``:
   init_params(gen)                     -> params (on gen's device)
   prefill(params, batch, max_len)      -> (last_logits, decode_state)
-  decode_step(params, state, tok, pos) -> (logits, decode_state)
+  decode_step(params, state, tok, pos, positions=None)
+                                       -> (logits, decode_state)
   decode_state_shape(batch, max_len)   -> [{leaf: (shape, dtype)}] per layer
 
-``max_len`` sizes the attention caches (a local-attention ring holds
-min(max_len, window) positions) and ``pos`` is the decoded token's
-position.  Global attention, MoE, MLA, encoder-decoder and embeds-input
-configurations raise ``NotImplementedError`` naming their ROADMAP item;
-``loss_fn`` and training wait for the training slice.
+``max_len`` sizes the attention caches (a ring holds min(max_len,
+window) positions) and ``pos`` is the decoded token's position.  An
+embeds-input model (qwen2-vl) takes ``batch["embeds"]`` (B, S, d) and its
+(B, 3, S) M-RoPE ``positions`` at prefill, and the next input's
+embedding (B, d) in place of a token at decode.  ``loss_fn`` and
+training wait for the training slice (ROADMAP Queue 1 item 18); the MoE
+aux loss is dropped here, as serving drops it.
 """
 from __future__ import annotations
 
@@ -35,38 +39,9 @@ from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM,
                                       ModelConfig)
 from . import attention as attn
 from . import ssm
-from .layers import (apply_mlp, apply_norm, embed_init, embed_tokens,
-                     mlp_init, norm_init, unembed)
-
-#: the block kinds the port carries
-PORTED = (MLSTM, SLSTM, RGLRU, LOCAL_ATTN)
-#: block kinds and configuration features still to port, by ROADMAP item
-UNPORTED = {
-    ATTN: "ROADMAP Queue 1 item 16 (global attention models)",
-    "moe": "ROADMAP Queue 1 item 17 (the other families)",
-    "mla": "ROADMAP Queue 1 item 17 (the other families)",
-    "encoder-decoder": "ROADMAP Queue 1 item 17 (the other families)",
-    "embeds-input": "ROADMAP Queue 1 item 17 (the other families)",
-}
-
-
-def _unported(kind: str):
-    return NotImplementedError(f"block kind {kind!r}: see "
-                               f"{UNPORTED.get(kind, 'ROADMAP Queue 1')}")
-
-
-def check_ported(cfg: ModelConfig):
-    """Raise NotImplementedError for anything this slice does not carry."""
-    features = [name for name, on in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
-        ("encoder-decoder", cfg.is_encoder_decoder),
-        ("embeds-input", cfg.embeds_input)) if on]
-    features += [kind for pattern, _ in cfg.layout for kind in pattern]
-    for f in features:
-        if f not in PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: {f!r} is not ported yet; see "
-                f"{UNPORTED.get(f, 'ROADMAP Queue 1')}")
+from .layers import (apply_mlp, apply_norm, dtype_of, embed_init,
+                     embed_tokens, mlp_init, norm_init, unembed)
+from .moe import apply_moe, moe_init
 
 
 def layer_kinds(cfg: ModelConfig) -> List[str]:
@@ -79,8 +54,21 @@ def layer_kinds(cfg: ModelConfig) -> List[str]:
 # Single block: init / state-shape / apply
 # ---------------------------------------------------------------------------
 
-def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator):
+def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator, *,
+               cross: bool = False):
     dev = gen.device
+    if kind in (ATTN, LOCAL_ATTN):
+        p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen)}
+        if cross:
+            p["ln_x"] = norm_init(cfg, dev)
+            p["xattn"] = attn.attn_init(cfg, gen)
+        if cfg.moe is not None:
+            p["ln2"] = norm_init(cfg, dev)
+            p["moe"] = moe_init(cfg, gen)
+        elif cfg.d_ff:
+            p["ln2"] = norm_init(cfg, dev)
+            p["mlp"] = mlp_init(cfg, gen)
+        return p
     if kind == MLSTM:
         return {"ln": norm_init(cfg, dev), "cell": ssm.mlstm_init(cfg, gen)}
     if kind == SLSTM:
@@ -88,43 +76,96 @@ def block_init(cfg: ModelConfig, kind: str, gen: torch.Generator):
     if kind == RGLRU:
         return {"ln1": norm_init(cfg, dev), "cell": ssm.rglru_init(cfg, gen),
                 "ln2": norm_init(cfg, dev), "mlp": mlp_init(cfg, gen)}
-    if kind == LOCAL_ATTN:
-        p = {"ln1": norm_init(cfg, dev), "attn": attn.attn_init(cfg, gen)}
-        if cfg.d_ff:
-            p["ln2"] = norm_init(cfg, dev)
-            p["mlp"] = mlp_init(cfg, gen)
-        return p
-    raise _unported(kind)
+    raise ValueError(kind)
+
+
+def _window(cfg: ModelConfig, kind: str) -> int:
+    return cfg.window if kind == ATTN else cfg.local_window
 
 
 def block_state_shape(cfg: ModelConfig, kind: str, batch: int,
-                      max_len: int = 0):
+                      max_len: int = 0, cross: bool = False):
+    if kind in (ATTN, LOCAL_ATTN):
+        st = {"kv": attn.kv_cache_shape(cfg, batch, max_len,
+                                        _window(cfg, kind))}
+        if cross:
+            kvd = ((batch, cfg.enc_seq, cfg.num_kv_heads, cfg.head_dim),
+                   dtype_of(cfg))
+            st["ck"] = kvd
+            st["cv"] = kvd
+        return st
     if kind == MLSTM:
         return {"cell": ssm.mlstm_state_shape(cfg, batch)}
     if kind == SLSTM:
         return {"cell": ssm.slstm_state_shape(cfg, batch)}
     if kind == RGLRU:
         return {"cell": ssm.rglru_state_shape(cfg, batch)}
-    if kind == LOCAL_ATTN:
-        return {"kv": attn.kv_cache_shape(cfg, batch, max_len,
-                                          cfg.local_window)}
-    raise _unported(kind)
+    raise ValueError(kind)
+
+
+def _cross_kv(cfg: ModelConfig, params, enc_out):
+    """The cross-attention keys and values of the encoder output, each
+    (B, enc_seq, KV, D) in the activation dtype: computed once at
+    prefill and carried in the decode state."""
+    B, T, _ = enc_out.shape
+    shape = (B, T, cfg.num_kv_heads, cfg.head_dim)
+    return ((enc_out @ params["wk"]).reshape(shape).to(dtype_of(cfg)),
+            (enc_out @ params["wv"]).reshape(shape).to(dtype_of(cfg)))
+
+
+def _cross_decode(cfg: ModelConfig, params, x, ck, cv):
+    """One decode step's cross-attention against the carried ck/cv."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    T = ck.shape[1]
+    out = attn.decode_mha(q, ck, cv, torch.arange(T, device=x.device),
+                          cur_pos=T - 1)
+    return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params["wo"]
+
+
+def _apply_attn_block(cfg: ModelConfig, kind: str, params, x, *, mode,
+                      state, pos, positions, max_len, enc_out, causal):
+    h, kv = attn.apply_attention(
+        cfg, params["attn"], apply_norm(cfg, params["ln1"], x), mode=mode,
+        window=_window(cfg, kind),
+        cache=None if state is None else state["kv"], pos=pos,
+        positions=positions, max_len=max_len, causal=causal)
+    x = x + h
+    new_state = None if kv is None else {"kv": kv}
+    if "xattn" in params:
+        xn = apply_norm(cfg, params["ln_x"], x)
+        if mode == "decode":
+            ck, cv = state["ck"], state["cv"]
+            xh = _cross_decode(cfg, params["xattn"], xn, ck, cv)
+        else:
+            xh, _ = attn.apply_attention(cfg, params["xattn"], xn,
+                                         mode="train",
+                                         cross_kv=(enc_out, enc_out),
+                                         causal=False)
+            if mode == "prefill":
+                ck, cv = _cross_kv(cfg, params["xattn"], enc_out)
+        x = x + xh
+        if mode != "train":
+            new_state = dict(new_state, ck=ck, cv=cv)
+    if "moe" in params:
+        h, _ = apply_moe(cfg, params["moe"],
+                         apply_norm(cfg, params["ln2"], x))
+        x = x + h
+    elif "mlp" in params:
+        x = x + apply_mlp(cfg, params["mlp"],
+                          apply_norm(cfg, params["ln2"], x))
+    return x, new_state
 
 
 def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
-                state=None, pos=None, max_len: int = 0):
+                state=None, pos=None, positions=None, max_len: int = 0,
+                enc_out=None, causal: bool = True):
     """Returns (x, new_state)."""
-    if kind == LOCAL_ATTN:
-        h, kv = attn.apply_attention(
-            cfg, params["attn"], apply_norm(cfg, params["ln1"], x),
-            mode=mode, window=cfg.local_window,
-            cache=None if state is None else state["kv"], pos=pos,
-            max_len=max_len)
-        x = x + h
-        if "mlp" in params:
-            x = x + apply_mlp(cfg, params["mlp"],
-                              apply_norm(cfg, params["ln2"], x))
-        return x, None if kv is None else {"kv": kv}
+    if kind in (ATTN, LOCAL_ATTN):
+        return _apply_attn_block(cfg, kind, params, x, mode=mode,
+                                 state=state, pos=pos, positions=positions,
+                                 max_len=max_len, enc_out=enc_out,
+                                 causal=causal)
     if kind == RGLRU:
         h, st = ssm.apply_rglru(cfg, params["cell"],
                                 apply_norm(cfg, params["ln1"], x), mode=mode,
@@ -134,7 +175,7 @@ def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
                           apply_norm(cfg, params["ln2"], x))
         return x, None if st is None else {"cell": st}
     if kind not in (MLSTM, SLSTM):
-        raise _unported(kind)
+        raise ValueError(kind)
     fn = ssm.apply_mlstm if kind == MLSTM else ssm.apply_slstm
     h, st = fn(cfg, params["cell"], apply_norm(cfg, params["ln"], x),
                mode=mode, state=None if state is None else state["cell"])
@@ -142,7 +183,8 @@ def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
 
 
 def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
-                 pos=None, max_len: int = 0):
+                 pos=None, positions=None, max_len: int = 0, enc_out=None,
+                 causal: bool = True):
     """All layers in order (the reference's segments_apply).  Returns
     (x, new_states) with new_states None in train mode."""
     new_states = []
@@ -151,9 +193,17 @@ def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
         with torch.profiler.record_function(f"block:{kind}"):
             x, ns = block_apply(cfg, kind, blocks[li], x, mode=mode,
                                 state=None if states is None else states[li],
-                                pos=pos, max_len=max_len)
+                                pos=pos, positions=positions,
+                                max_len=max_len, enc_out=enc_out,
+                                causal=causal)
         new_states.append(ns)
     return x, (new_states if mode != "train" else None)
+
+
+def layers_state_shape(cfg: ModelConfig, batch: int, max_len: int = 0,
+                       cross: bool = False):
+    return [block_state_shape(cfg, kind, batch, max_len, cross)
+            for kind in layer_kinds(cfg)]
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +211,9 @@ def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
 # ---------------------------------------------------------------------------
 
 def build_lm(cfg: ModelConfig):
-    check_ported(cfg)
+    if cfg.is_encoder_decoder:
+        from .encdec import build_encdec
+        return build_encdec(cfg)
 
     def init_params(gen: torch.Generator):
         return {
@@ -171,31 +223,42 @@ def build_lm(cfg: ModelConfig):
             "ln_f": norm_init(cfg, gen.device),
         }
 
-    def _backbone(params, x, *, mode, states=None, pos=None, max_len=0):
+    def _backbone(params, x, *, mode, states=None, pos=None, positions=None,
+                  max_len=0):
         x, new_states = layers_apply(cfg, params["blocks"], x, mode=mode,
-                                     states=states, pos=pos, max_len=max_len)
+                                     states=states, pos=pos,
+                                     positions=positions, max_len=max_len)
         return apply_norm(cfg, params["ln_f"], x), new_states
 
     def prefill(params, batch, max_len: int = 0):
         """max_len sizes the attention caches (recurrent blocks ignore
         it)."""
-        x = embed_tokens(cfg, params["embed"], batch["tokens"])
-        x, states = _backbone(params, x, mode="prefill", max_len=max_len)
+        if cfg.embeds_input:
+            x = batch["embeds"].to(dtype_of(cfg))
+        else:
+            x = embed_tokens(cfg, params["embed"], batch["tokens"])
+        positions = batch.get("positions") if cfg.position_inputs else None
+        x, states = _backbone(params, x, mode="prefill", positions=positions,
+                              max_len=max_len)
         logits = unembed(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], states
 
-    def decode_step(params, states, tokens, pos=None):
-        """tokens (B,) int; pos: the tokens' position (an int or a 0-d
-        tensor), which attention reads and the recurrent blocks ignore."""
-        x = embed_tokens(cfg, params["embed"], tokens[:, None])
+    def decode_step(params, states, tokens, pos=None, positions=None):
+        """tokens (B,) int, or for an embeds-input model the next inputs'
+        embeddings (B, d); pos: their position (an int or a 0-d tensor),
+        which attention reads and the recurrent blocks ignore; positions:
+        (B, 3, 1) M-RoPE ids (default: pos on all three rows)."""
+        if cfg.embeds_input:
+            x = tokens.to(dtype_of(cfg))[:, None, :]
+        else:
+            x = embed_tokens(cfg, params["embed"], tokens[:, None])
         x, states = _backbone(params, x, mode="decode", states=states,
-                              pos=pos)
+                              pos=pos, positions=positions)
         logits = unembed(cfg, params["embed"], x)
         return logits[:, 0], states
 
     def decode_state_shape(batch: int, max_len: int = 0):
-        return [block_state_shape(cfg, kind, batch, max_len)
-                for kind in layer_kinds(cfg)]
+        return layers_state_shape(cfg, batch, max_len)
 
     return dict(config=cfg, init_params=init_params, prefill=prefill,
                 decode_step=decode_step,
@@ -269,14 +332,24 @@ def _stack_trees(trees):
     return np.stack(trees)
 
 
+def encoder_config(cfg: ModelConfig) -> ModelConfig:
+    """An encoder-decoder's encoder stack: ``enc_layers`` layers of the
+    decoder's block pattern, without cross-attention."""
+    return cfg.replace(num_layers=cfg.enc_layers, is_encoder_decoder=False)
+
+
 def params_from_jax(cfg: ModelConfig, params_np, device="cpu"):
     """The reference's ``init_params`` pytree (leaves as numpy arrays) as
-    the port's parameters on `device`."""
+    the port's parameters on `device`: the stacked segments (``blocks``;
+    an encoder-decoder's ``encoder`` and ``decoder``) become per-layer
+    lists, every other entry keeps its tree."""
     def conv(a):
         return tensor_from_numpy(a, device)
-    return {"embed": tree_map(conv, params_np["embed"]),
-            "blocks": _unstack(cfg, params_np["blocks"], conv),
-            "ln_f": tree_map(conv, params_np["ln_f"])}
+    stacks = {"blocks": cfg, "decoder": cfg}
+    if cfg.is_encoder_decoder:
+        stacks["encoder"] = encoder_config(cfg)
+    return {name: _unstack(stacks[name], tree, conv) if name in stacks
+            else tree_map(conv, tree) for name, tree in params_np.items()}
 
 
 def state_from_jax(cfg: ModelConfig, states_np, device="cpu"):

@@ -5,6 +5,7 @@
         [--reduced | --no-reduced] [--json OUT]
     PYTHONPATH=src python -m repro_torch.profile_serve \\
         --arch recurrentgemma_9b --no-reduced --prompt-len 3072
+    PYTHONPATH=src python -m repro_torch.profile_serve --arch smollm_360m
 
 Builds the model at full width (the default, ``--no-reduced``;
 ``--reduced`` for the CPU-test size) with random weights from seed 0 on
@@ -17,8 +18,10 @@ unprofiled wall time, its device-busy seconds (the sum of the CUDA
 kernel events) and idle share, device time by kernel group (the mLSTM
 and RG-LRU kernels, GEMMs, the rest) and by kernel name, and the host
 time inside each block kind's range (``block:mlstm``, ``block:slstm``,
-``block:rglru``, ``block:local``; the sLSTM's per-token loop is in the
-second).
+``block:rglru``, ``block:local``, ``block:attn``; the sLSTM's per-token
+loop is in the second).  Every registry arch runs: whisper prefills its
+stub frames with the tokens, and qwen2-vl decodes the data's next
+embeddings and (t, h, w) ids.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .configs import get_config, reduced_config
 from .data import SyntheticLMData
-from .models import build_model
+from .models import batch_prefix, build_model, decode_input
 from .profile_step import _device_self_us
 
 
@@ -68,25 +71,31 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model["init_params"](gen)
-    tokens = torch.from_numpy(SyntheticLMData(cfg, args.batch, args.prompt_len)
-                              .batch_at(0)["tokens"]).to(dev)
-    batch = {"tokens": tokens}
     S = args.prompt_len
     max_len = S + args.decode_steps
+    # the decode steps' inputs: the argmax token, or for an embeds-input
+    # model (qwen2-vl) the data's next embedding and ids
+    data = SyntheticLMData(cfg, args.batch, max_len).batch_at(0)
+    inputs = {k: torch.from_numpy(v).to(dev) for k, v in data.items()
+              if k != "labels"}
+    batch = batch_prefix(inputs, S)
+
+    def step(state, logits, i):
+        inp, kw = decode_input(inputs, S + i) if cfg.embeds_input and \
+            not cfg.is_encoder_decoder else (logits.argmax(-1), {})
+        return model["decode_step"](params, state, inp, S + i, **kw)
 
     with torch.no_grad():
         logits, state = model["prefill"](params, batch, max_len)  # warm-up
-        model["decode_step"](params, state, logits.argmax(-1), S)
+        step(state, logits, 0)
         torch.cuda.synchronize()
         t0 = time.monotonic()
         logits, state = model["prefill"](params, batch, max_len)
         torch.cuda.synchronize()
         prefill_s = time.monotonic() - t0
-        cur = logits.argmax(-1)
         t0 = time.monotonic()
         for i in range(args.decode_steps):
-            logits, state = model["decode_step"](params, state, cur, S + i)
-            cur = logits.argmax(-1)
+            logits, state = step(state, logits, i)
         torch.cuda.synchronize()
         decode_s = time.monotonic() - t0
         del logits, state

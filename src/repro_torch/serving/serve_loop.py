@@ -4,6 +4,13 @@ store every ``checkpoint_every`` tokens.
 
 Runs on the card unless ``device="cpu"`` is passed; the parameters move
 to the loop's device once, at construction.
+
+Greedy serving feeds each step's argmax token back.  A decoder-only
+model over embeddings (qwen2-vl) cannot take a token id: its
+``decode_step`` wants the next input's embedding (B, d).  The reference's
+loop hands it the ids anyway and fails inside ``decode_step`` with an
+``IndexError``; this loop raises a ``ValueError`` naming the cause before
+the first decode step.  Drive such a model through its ``decode_step``.
 """
 from __future__ import annotations
 
@@ -31,6 +38,15 @@ class ServeLoop:
         self.sessions = session_store
         self.checkpoint_every = checkpoint_every
 
+    def _check_decodes_tokens(self):
+        if self.cfg.embeds_input and not self.cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{self.cfg.name} takes input embeddings, not token ids: "
+                "its decode_step needs the next input's embedding (B, "
+                f"d_model={self.cfg.d_model}), which greedy decoding of "
+                "argmax token ids cannot supply; call the model's "
+                "decode_step with embeddings instead")
+
     def _to_device(self, batch: Dict):
         """A batch of numpy arrays or tensors on the loop's device."""
         return {k: torch.as_tensor(v).to(self.device)
@@ -42,7 +58,9 @@ class ServeLoop:
         batch = self._to_device(batch)
         logits, state = self.model["prefill"](self.params, batch,
                                               max_len=self.max_len)
-        prompt_len = batch["tokens"].shape[1]
+        prompt_len = (batch["tokens"].shape[1] if "tokens" in batch
+                      else batch["embeds"].shape[1])
+        self._check_decodes_tokens()
         toks: List[np.ndarray] = []
         cur = logits.argmax(-1).to(torch.int32)
         for i in range(steps):
@@ -62,6 +80,7 @@ class ServeLoop:
         """Continue a session from its last committed decode state."""
         if self.sessions is None:
             return None
+        self._check_decodes_tokens()
         ok, blob = self.sessions.load_session(session_id)
         if not ok or blob is None:
             return None

@@ -151,14 +151,31 @@ def test_serve_cli_runs_on_cpu():
 def test_serve_cli_reaches_the_full_config(monkeypatch):
     """--no-reduced takes the full config and the default the reduced one
     (the reference's store_true flag with default=True never reaches the
-    full one); an arch this slice does not carry raises naming its
-    ROADMAP item."""
+    full one), and the default arch is smollm_360m, the reference's.  The
+    model and the loop are stubbed: the full model is not built here."""
     called = []
     monkeypatch.setattr(serve, "get_config", lambda a: called.append(
-        "full") or get_config(a))
+        ("full", a)) or get_config(a))
     monkeypatch.setattr(serve, "reduced_config", lambda a: called.append(
-        "reduced") or reduced_config(a))
+        ("reduced", a)) or reduced_config(a))
+    built = []
+    monkeypatch.setattr(serve, "build_model", lambda cfg: built.append(
+        cfg) or {"init_params": lambda gen: {}})
+
+    class StubLoop:
+        def __init__(self, cfg, params, max_len, **kw):
+            self.max_len = max_len
+
+        def generate(self, batch, steps, session_id):
+            return np.zeros((len(batch["tokens"]), steps), np.int32)
+
+        def resume(self, session_id, steps):
+            return np.zeros((2, 2 * steps), np.int32)
+    monkeypatch.setattr(serve, "ServeLoop", StubLoop)
     for flags in (["--no-reduced"], []):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            serve.main(flags + ["--arch", "smollm_360m", "--device", "cpu"])
-    assert called == ["full", "reduced"]
+        serve.main(flags + ["--device", "cpu"])
+    assert called == [("full", "smollm_360m"), ("reduced", "smollm_360m")]
+    assert built[0] is get_config("smollm_360m")
+    assert (built[0].num_layers, built[0].d_model) == (32, 960)
+    assert repr(built[1]) == repr(reduced_config("smollm_360m"))
+    assert built[1].d_model == 64
