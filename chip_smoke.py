@@ -9,8 +9,11 @@ partitions, 8 trials): the §5.1 availability Monte Carlo, the §6
 commit-pause engine, its client-latency layer and its protocol zoo; the
 LM serve paths at full width: xlstm-350m, recurrentgemma-9b and
 smollm-360m behind the LARK session store, and every other architecture
-of the registry; and the §5.2 micro-simulator's Tables 3-4 at the
-reference's 520,000 ticks.
+of the registry; the §5.2 micro-simulator's Tables 3-4 at the
+reference's 520,000 ticks; and training: the backward kernels of the
+mLSTM and RG-LRU cells, and the train step of xlstm-350m,
+recurrentgemma-9b (cut to 3 layers) and smollm-360m at full width behind
+the LARK and quorum-log checkpoint stores.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -180,7 +183,46 @@ One JSON line per phase:
    and greedy ids equal.  Prints every depth cut, tokens/s and bytes.
    No kernel runs on these paths (attention is the dense masked softmax,
    as in the reference), and none may launch.
-21. ``kernels``: every ported kernel with its launches on its main path,
+21. ``rglru_bwd`` / ``kernel_time``: ``rglru_scan_bwd``
+   (csrc/rglru_scan_bwd.cu) against ``rglru_scan_bwd_plain`` in float64
+   on ``rglru_check.BWD_CASES`` (the train shape B = 2, S = 2048,
+   W = 4096; ragged S and W; S below the chunk; S = 1; the reduced
+   width; long memory; log_a near 0, where 1 - exp(2 log_a) rounds to 0),
+   every element within ``rglru_check.rglru_bwd_allowance``, a bitwise
+   repeat, each planted fault (``rglru_check.BWD_FAULTS``) failing a
+   case; its time at the train shape.
+22. ``mlstm_bwd`` / ``kernel_time``: ``mlstm_chunkwise_bwd``
+   (csrc/mlstm_chunk_bwd.cu) against ``mlstm_chunkwise_bwd_plain`` in
+   float64 on ``mlstm_check.BWD_CASES`` (the train shape B = 4, H = 4,
+   S = 1024, Dq = Dv = 512, chunk 256 in bf16 and float32, the reduced
+   float32 shape, ragged S, S below the chunk, S = 1, head dims and a
+   chunk off the tile, the stabilizer stress, rows where the clamp
+   holds), within ``mlstm_check.mlstm_bwd_rounding_scale``, a bitwise
+   repeat, each of ``mlstm_check.BWD_FAULTS`` failing a case; its time.
+23. ``train``, ``train_rg``, ``train_dense``: ``make_train_step`` (AdamW,
+   remat as configured) on xlstm-350m (24 layers, B = 4, S = 1024, 4
+   steps), recurrentgemma-9b at full width cut to 3 layers (B = 2,
+   S = 2048, 4 steps in 2 microbatches) and smollm-360m (32 layers,
+   B = 4, S = 1024, 8 steps), bf16, seed-0 weights, ``SyntheticLMData``.
+   Off the main path, step 0: every gradient leaf finite and not all
+   zero, the step again bitwise equal (torch's deterministic algorithms
+   on), and the step with the cells' plain forward and backward within
+   ``LOSS_ATOL`` / ``GRAD_RTOL`` / ``GRAD_FLOOR``.  The main path (counters
+   at 0 first): the steps, a checkpoint every 2 into a LARK store and a
+   quorum-log store (4 workers, rf 2), worker 3 lost mid-run; the cells'
+   forward kernels launched (remat recomputes included) and backward
+   kernels as predicted, the plain versions never; LARK committing every
+   checkpoint, the baseline pausing.  Prints the loss per step, warm
+   ms per step and train tokens/s, peak memory, and the kernels' shares
+   of one profiled step's device time, beside the card's name and power
+   limit.
+24. ``train_cpu``: the reduced xlstm (float32) and 5-layer reduced
+   recurrentgemma: loss and every gradient leaf on the card against the
+   CPU within the tests' whole-model tolerance.
+25. ``elastic``: the reduced xlstm on the card through
+   ``ElasticTrainer``: checkpoint, a worker leaves, restore, continue;
+   bitwise equal to an uninterrupted run.
+26. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time.  ``node_count``'s launches are
    those of the counts mode, which does its work on the main path; its
@@ -195,7 +237,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -206,8 +250,13 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# cuBLAS's deterministic workspace, read when cuBLAS starts: the train
+# phases check that a step repeats bit for bit
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from repro_torch import microsim_tables  # noqa: E402
+from repro_torch import microsim_tables, tree  # noqa: E402
+from repro_torch.checkpoint import LarkStore, QuorumLogStore  # noqa: E402
+from repro_torch.configs.base import MLSTM, RGLRU  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core import availability_batched as ab  # noqa: E402
 from repro_torch.core import client_latency as cl  # noqa: E402
@@ -230,7 +279,11 @@ from repro_torch.kernels import rglru_scan as rk  # noqa: E402
 from repro_torch.models import (batch_prefix, build_model,  # noqa: E402
                                 decode_input)
 from repro_torch.serving import LarkSessionStore, ServeLoop  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.models.transformer import layer_kinds  # noqa
+from repro_torch.profile_train import (leaf_distances,  # noqa: E402
+                                       plain_cells, profile_step)
+from repro_torch.training import (ElasticTrainer,  # noqa: E402
+                                  accumulate_grads, make_train_step)
 
 #: paper tile (runner.py --full scale): nodes, partitions, trials
 N, P, B = 155, 4096, 8
@@ -282,6 +335,14 @@ SOURCES = {
         "src/repro/kernels/flash_attention.py:27"),
     "microsim_scan": ("src/repro_torch/kernels/csrc/microsim_scan.cu",
                       "repro/core/microsim.py: _simulate_batch (lax.scan)"),
+    "rglru_scan_bwd": (
+        "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        "src/repro/kernels/rglru_scan.py:47 (its gradient: no Pallas "
+        "backward; jax.value_and_grad through ref.rglru_scan_ref)"),
+    "mlstm_chunkwise_bwd": (
+        "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
+        "src/repro/kernels/mlstm_chunk.py:76 (its gradient: no Pallas "
+        "backward; jax.value_and_grad through ref.mlstm_chunkwise)"),
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
 #: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
@@ -315,6 +376,10 @@ FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
                                 rk._ARGTYPES),
                  "microsim_scan": (msk.FAULTS, "microsim_scan_launch",
                                    msk._ARGTYPES),
+                 "rglru_scan_bwd": (rc.BWD_FAULTS, "rglru_scan_bwd_launch",
+                                    rk.BWD_ARGTYPES),
+                 "mlstm_chunk_bwd": (mc.BWD_FAULTS, "mlstm_chunk_bwd_launch",
+                                     mk.BWD_ARGTYPES),
                  **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
                     for src, faults in fc.FAULTS.items()},
                  **{src: (faults, *mk.ROUTES[mc.SOURCE_ROUTE[src]][1:])
@@ -836,6 +901,11 @@ def counters():
             "mlstm_chunkwise_plain": (mk.mlstm_chunkwise_plain, "calls"),
             "rglru_scan": (rk.rglru_scan, "launches"),
             "rglru_scan_plain": (rk.rglru_scan_plain, "calls"),
+            "rglru_scan_bwd": (rk.rglru_scan_bwd, "launches"),
+            "rglru_scan_bwd_plain": (rk.rglru_scan_bwd_plain, "calls"),
+            "mlstm_chunkwise_bwd": (mk.mlstm_chunkwise_bwd, "launches"),
+            "mlstm_chunkwise_bwd_plain": (mk.mlstm_chunkwise_bwd_plain,
+                                          "calls"),
             "flash_attention_fwd": (fa.flash_attention_fwd,
                                     "simt_launches"),
             "flash_attention_fwd_sm90": (fa.flash_attention_fwd,
@@ -1343,9 +1413,7 @@ def watch_logits(loop, finite):
 
 
 def state_bytes(state):
-    total = []
-    tree_map(lambda t: total.append(t.numel() * t.element_size()), state)
-    return sum(total)
+    return sum(t.numel() * t.element_size() for t in tree.leaves(state))
 
 
 def check_serve():
@@ -1358,10 +1426,7 @@ def check_serve():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model["init_params"](gen)
-    leaves = []
-    tree_map(leaves.append, params)
-    n_params = sum(t.numel() for t in leaves)
-    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    n_params, p_bytes = param_count(params)
     data = SyntheticLMData(cfg, SERVE_BATCH, SERVE_PROMPT)
     batch = {"tokens": data.batch_at(0)["tokens"]}
     tokens = torch.from_numpy(batch["tokens"]).to(dev)
@@ -1452,7 +1517,7 @@ def check_serve_cpu():
     gen = torch.Generator()
     gen.manual_seed(0)
     params = model["init_params"](gen)
-    gpu_params = tree_map(lambda t: t.to(DEVICE), params)
+    gpu_params = tree.map_leaves(lambda t: t.to(DEVICE), params)
     prompt = SyntheticLMData(cfg, 2, 300).batch_at(0)["tokens"]
     tok = torch.from_numpy(prompt)
     reset_counts()
@@ -1596,7 +1661,12 @@ PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "mlstm_output_kernel": "output_NV",
                 "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained",
                 "row_eval_kernel": "mode", "node_count_kernel": "node_count",
-                "microsim_scan_kernel": "ticks"}
+                "microsim_scan_kernel": "ticks",
+                "rglru_scan_bwd_kernel": "reverse_chained",
+                "bwd_gates_kernel": "gates", "bwd_dgates_kernel": "dgates",
+                **{f"bwd_{k}_kernelI{t}": f"{k}_{n}"
+                   for k in ("fstates", "rows", "dstates", "cols")
+                   for t, n in (("f", "f32"), ("13__nv_bfloat16", "bf16"))}}
 #: what a bool second template argument set to true adds to the label
 PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts"}
 
@@ -1821,11 +1891,7 @@ def check_serve_rg():
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = model["init_params"](gen)
-    leaves = []
-    tree_map(leaves.append, params)
-    n_params = sum(t.numel() for t in leaves)
-    p_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    del leaves
+    n_params, p_bytes = param_count(params)
     data = SyntheticLMData(cfg, SERVE_BATCH, RG_PROMPT)
     batch = {"tokens": data.batch_at(0)["tokens"]}
     tokens = torch.from_numpy(batch["tokens"]).to(dev)
@@ -1923,7 +1989,7 @@ def check_serve_rg_cpu():
     gen = torch.Generator()
     gen.manual_seed(0)
     params = model["init_params"](gen)
-    gpu_params = tree_map(lambda t: t.to(DEVICE), params)
+    gpu_params = tree.map_leaves(lambda t: t.to(DEVICE), params)
     prompt = SyntheticLMData(cfg, 2, 48).batch_at(0)["tokens"]
     tok = torch.from_numpy(prompt)
     max_len = 56
@@ -2116,10 +2182,9 @@ def init_model(cfg, device=None):
     return model, model["init_params"](gen)
 
 
-def param_count(tree):
+def param_count(params):
     """(elements, bytes) of every tensor leaf."""
-    leaves = []
-    tree_map(leaves.append, tree)
+    leaves = tree.leaves(params)
     return (sum(t.numel() for t in leaves),
             sum(t.numel() * t.element_size() for t in leaves))
 
@@ -2295,7 +2360,7 @@ def family_cpu_check(arch: str):
     1e-3 of the largest, and FAMILY_DECODE greedy argmax ids equal."""
     cfg = reduced_config(arch)
     model, params = init_model(cfg, "cpu")
-    gpu_params = tree_map(lambda t: t.to(DEVICE), params)
+    gpu_params = tree.map_leaves(lambda t: t.to(DEVICE), params)
     S = FAMILY_CPU_PROMPT
     max_len = S + FAMILY_DECODE
     out = {}
@@ -2403,6 +2468,600 @@ def check_families():
         raise SystemExit(f"the families phase failed: {sorted(failed)}")
 
 
+# ---------------------------------------------------------------------------
+# training: the backward kernels, the train step and its stores
+# ---------------------------------------------------------------------------
+
+def mlstm_bwd_flops(B, H, S, Dq, Dv, chunk):
+    """Float ops the mLSTM gradient needs from q, k, v, the gates and dh:
+    per (b, h, chunk of l positions) the causal pairs' q k^T and dh v^T
+    (once each), their weights times k for dq, q for dk and delta for dv
+    (2 (Dq + Dv + Dq + Dq + Dv) per pair); and per chunk the state terms,
+    2 l Dq Dv each: the chunk-start state C (every chunk but the last),
+    C dh (num's carry, reused for dq's) and G's update (every chunk but
+    the first), G v and G^T k (every chunk but the last).  The kernel's
+    second q k^T and dh v^T (its columns pass) are not counted."""
+    total, nC = 0, -(-S // chunk)
+    for c in range(nC):
+        ln = min(chunk, S - c * chunk)
+        pairs = ln * (ln + 1) // 2
+        total += 2 * pairs * (3 * Dq + 2 * Dv)
+        states = (c + 1 < nC) * 3 + (c > 0) * 2
+        total += states * 2 * ln * Dq * Dv
+    return B * H * total
+
+
+def mlstm_bwd_bytes(B, H, S, Dq, Dv, dtype):
+    """Each input read once, each output written once: q, k, v, dh in and
+    dq, dk, dv out in `dtype`, log_f and log_i in and their gradients out
+    in float32."""
+    isz = torch.tensor([], dtype=dtype).element_size()
+    return isz * B * H * S * (4 * Dq + 3 * Dv) + 16 * B * H * S
+
+
+def check_rglru_bwd_kernel(bw, faults):
+    """Phase 22: rglru_scan_bwd against its plain version in float64 on
+    the card (``rglru_check.BWD_CASES``: the train shape, ragged S and W,
+    S below the chunk, S = 1, the reduced width, long memory and log_a
+    near 0), each element within ``rglru_check.rglru_bwd_allowance``, a
+    bitwise repeat, each planted fault (``rglru_check.BWD_FAULTS``, run on
+    outputs filled with NaN) failing a case; then its time at the train
+    shape."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(24)
+    caught = {name: [] for name in faults}
+    worst = 0.0
+    for case, S, W, kind in rc.BWD_CASES:
+        x, la, h, dh = rc.rglru_bwd_inputs(gen, rc.BWD_BATCH, S, W, kind)
+        got = rk.rglru_scan_bwd(x, la, h, dh)
+        torch.cuda.synchronize()
+        again = rk.rglru_scan_bwd(x, la, h, dh)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want, allowed = rc.bwd_reference(x, la, h, dh)
+        err = rc.rglru_bwd_error(got, want, allowed)
+        abs_err = max((g.double() - w).abs().max().item()
+                      for g, w in zip(got, want))
+        if case == "train":           # the kernels line's max_abs_err
+            worst = abs_err
+        fault_errs = {}
+        for name, fn in faults.items():
+            fault_errs[name] = rc.rglru_bwd_error(
+                rc.run_bwd(fn, x, la, h, dh), want, allowed)
+            if fault_errs[name] > 1.0:
+                caught[name].append(case)
+        ok = err <= 1.0 and same
+        emit({"phase": "rglru_bwd", "case": case,
+              "shape": [rc.BWD_BATCH, S, W], "gates": kind,
+              "error_over_allowed": err, "deterministic": same,
+              "max_abs_err": abs_err, "faults_error_over_allowed":
+              fault_errs})
+        if not ok:
+            raise SystemExit(f"rglru_scan_bwd disagrees with its plain "
+                             f"version ({case}): {err}, {same}")
+        del x, la, h, dh, got, again, want, allowed
+    held_faults("rglru_scan_bwd", caught)
+
+    Bq, S, W = rc.BWD_TIMED_SHAPE
+    x, la, h, dh = rc.rglru_bwd_inputs(gen, Bq, S, W, "model")
+    fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch",
+                         rk.BWD_ARGTYPES)
+    _, args, keep = rk.bwd_launch_args(x, la, h, dh)
+
+    def launch(stream):
+        return fn(*args, stream)
+
+    ms = mcc.event_ms(launch, reps=50)
+    wrap_ms = time_ms(lambda: rk.rglru_scan_bwd(x, la, h, dh), 50)
+    plain_ms = time_ms(lambda: rk.rglru_scan_bwd_plain(x, la, h, dh), 2)
+    n = Bq * S * W
+    # x, log_a, h, dh in, dx, dla out, float32; two exp, a sqrt, a divide
+    # and ~10 other float ops per element on the float32 CUDA cores
+    rec = record("rglru_scan_bwd", 6 * 4 * n, 0, ms, wrap_ms, plain_ms,
+                 worst, bw, ops=15 * n, rate=FLOAT_PEAK[torch.float32],
+                 launch=launch)
+    del keep
+    return rec
+
+
+def check_mlstm_bwd_kernel(bw, faults):
+    """Phase 23: mlstm_chunkwise_bwd against its plain version in float64
+    on the card (``mlstm_check.BWD_CASES``: the train shape in bf16 and
+    float32, the reduced float32 shape, ragged S, S below the chunk, S =
+    1, head dims and a chunk off the 64-wide tile, the stabilizer stress
+    and rows where the clamp holds), each output within
+    ``mlstm_check.mlstm_bwd_rounding_scale``, a bitwise repeat, each
+    planted fault (``mlstm_check.BWD_FAULTS``) failing a case; then its
+    time at the train shape."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(25)
+    caught = {name: [] for name in faults}
+    worst = 0.0
+    for case, dtype, B, H, S, Dq, Dv, L, kind in mc.BWD_CASES:
+        args = mc.mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, dtype, kind)
+        got = mk.mlstm_chunkwise_bwd(*args, chunk=L)
+        torch.cuda.synchronize()
+        again = mk.mlstm_chunkwise_bwd(*args, chunk=L)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        want, scales = mc.bwd_reference((*args, L))
+        errs = mc.mlstm_bwd_errors(got, want, scales)
+        abs_err = {n: (g.double() - w).abs().max().item() for n, g, w in
+                   zip(("dq", "dk", "dv", "dlog_f", "dlog_i"), got, want)}
+        if case == "train_bf16":      # the kernels line's max_abs_err
+            worst = max(abs_err.values())
+        fault_errs = {}
+        for name, fn in faults.items():
+            e = mc.mlstm_bwd_errors(mc.run_bwd(fn, *args, L), want, scales)
+            fault_errs[name] = max(e.values())
+            if fault_errs[name] > 1.0:
+                caught[name].append(case)
+        ok = all(e <= 1.0 for e in errs.values()) and same
+        emit({"phase": "mlstm_bwd", "case": case, "dtype": str(dtype),
+              "shape": [B, H, S, Dq, Dv, L], "gates": kind,
+              "clamp_rows": mc.clamp_rows(*args, L),
+              "errors_over_allowed": errs, "gamma": mc.BWD_GAMMA,
+              "out_step": mc.OUT_STEP[dtype], "deterministic": same,
+              "max_abs_err": abs_err,
+              "faults_error_over_allowed": fault_errs})
+        if not ok:
+            raise SystemExit(f"mlstm_chunkwise_bwd disagrees with its plain "
+                             f"version ({case}): {errs}, {same}")
+        del args, got, again, want, scales
+    held_faults("mlstm_chunkwise_bwd", caught)
+
+    B, H, S, D, L = 4, 4, 1024, 512, 256
+    args = mc.mlstm_bwd_inputs(gen, B, H, S, D, D, torch.bfloat16, "gates")
+    fn = _build.function("mlstm_chunk_bwd", "mlstm_chunk_bwd_launch",
+                         mk.BWD_ARGTYPES)
+    a, _, keep = mk.bwd_launch_args(*args, L)
+
+    def launch(stream):
+        return fn(*a[:-1], stream)
+
+    ms = mcc.event_ms(launch, reps=20)
+    wrap_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd(*args, chunk=L), 20)
+    plain_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd_plain(*args, chunk=L),
+                       3)
+    flops = mlstm_bwd_flops(B, H, S, D, D, L)
+    # bf16 operands: the card's bf16 rate bounds the work, as for the
+    # forward; the float32 CUDA-core figure, the rate this SIMT kernel can
+    # reach, is printed beside it
+    rec = record("mlstm_chunkwise_bwd",
+                 mlstm_bwd_bytes(B, H, S, D, D, torch.bfloat16), 0, ms,
+                 wrap_ms, plain_ms, worst, bw, ops=flops,
+                 rate=FLOAT_PEAK[torch.bfloat16], launch=launch)
+    emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise_bwd",
+          "shape": [B, H, S, D, D, L], "dtype": "bfloat16", "flops": flops,
+          "tflops": flops / ms / 1e9,
+          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3})
+    del keep
+    return rec
+
+
+#: the train phases: (arch, depth or None for the config's, batch, seq,
+#: steps, microbatches or None for the config's, the step at which
+#: worker 3 is lost).  xlstm-350m whole, 4 steps: a step takes ~12 s,
+#: 330,000 kernel launches of the sLSTM's per-token loop (forward, remat
+#: recompute, backward; measured on one H100);
+#: recurrentgemma-9b at full width cut to one (RGLRU, RGLRU, LOCAL_ATTN)
+#: pattern (its 9.40 B parameters with float32 gradients and AdamW's
+#: float32 moments need about 131 GB; 3 layers need ~40), in the train
+#: launcher's 2 microbatches; smollm-360m whole
+TRAIN_CELLS = {"train": ("xlstm_350m", None, 4, 1024, 4, None, 1),
+               "train_rg": ("recurrentgemma_9b", 3, 2, 2048, 4, 2, 1),
+               "train_dense": ("smollm_360m", None, 4, 1024, 8, None, 4)}
+#: the stores of the launch.train loop: 4 workers at rf 2, a checkpoint
+#: every TRAIN_EVERY steps; keys ckpt/2 and ckpt/6 have worker 3 as a
+#: data replica, so the baseline's hydration window (20 steps) shows
+TRAIN_EVERY, TRAIN_LR = 2, 1e-3
+#: kernels against plain versions on step 0 (bf16 models with a cell
+#: kernel), all gated: the loss within LOSS_ATOL (~1e-3 of ~10.8); at the
+#: cells, on step 0's own inputs and upstream gradients (``CellSpy``),
+#: each kernel's forward and backward within the float32 allowance of
+#: ``rglru_check`` / ``mlstm_check`` against its plain version in
+#: float64, at the first, middle and last call of each cell kind; and the
+#: whole gradient, against the plain versions with float32 sums (g_plain)
+#: and with float64 sums (g_f64).  Over the leaves, the median of |g -
+#: g_f64| / |g_f64| within GRAD_MEDIAN_FACTOR times the plain versions'
+#: own median: at full depth in bf16 rounding alone moves xlstm-350m's
+#: leaves by a median 24.5 % (``python -m repro_torch.profile_train
+#: --conditioning``, measured on one H100), the kernels 30.6 %, so no
+#: per-leaf tolerance there tells a wrong kernel from rounding.  In the
+#: phases of LEAF_GATE, where rounding moves no leaf by more than ~1 %
+#: (recurrentgemma: 0.63 % median, 0.88 % largest), also every leaf:
+#: |g - g_plain| within GRAD_RTOL |g_plain| plus GRAD_FLOOR times the
+#: whole plain gradient's norm (the floor: an mLSTM head's h does not
+#: change when all its log_i shift together, so b_i's gradient is a sum
+#: that cancels)
+LOSS_ATOL, GRAD_MEDIAN_FACTOR = 1e-2, 2.0
+GRAD_RTOL, GRAD_FLOOR = 0.05, 1e-3
+LEAF_GATE = {"train_rg"}
+#: the kernels each cell's blocks launch: (forward counter, backward
+#: counter, plain forward, plain backward)
+CELL_KERNELS = {"mLSTM": ("mlstm_chunkwise_sm90", "mlstm_chunkwise_bwd",
+                          "mlstm_chunkwise_plain",
+                          "mlstm_chunkwise_bwd_plain"),
+                "RG-LRU": ("rglru_scan", "rglru_scan_bwd",
+                           "rglru_scan_plain", "rglru_scan_bwd_plain")}
+
+
+class deterministic:
+    """Within: torch's deterministic algorithms (an op without one warns),
+    so that a train step repeats bit for bit."""
+
+    def __enter__(self):
+        self.was = torch.are_deterministic_algorithms_enabled()
+        self.fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        # torch.empty's buffers stay unfilled: every kernel writes its own
+        torch.utils.deterministic.fill_uninitialized_memory = False
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.was)
+        torch.utils.deterministic.fill_uninitialized_memory = self.fill
+
+
+class CellSpy:
+    """Within: ``ops.mlstm_chunkwise`` and ``ops.rglru_scan`` record, while
+    ``on`` (inside the loss function ``loss_fn`` wraps, not in a remat
+    recompute), each call's inputs and, by a hook on its output, the
+    gradient that reaches h; ``check`` then holds the kernels against
+    their plain versions in float64 on those inputs."""
+
+    def __enter__(self):
+        self.saved = (ops.mlstm_chunkwise, ops.rglru_scan)
+        self.on, self.calls = False, []
+        ops.mlstm_chunkwise = self._spy(self.saved[0], "mLSTM")
+        ops.rglru_scan = self._spy(self.saved[1], "RG-LRU")
+        return self
+
+    def __exit__(self, *exc):
+        ops.mlstm_chunkwise, ops.rglru_scan = self.saved
+
+    def _spy(self, fn, kind):
+        def spy(*args, **kw):
+            out = fn(*args, **kw)
+            if self.on:
+                entry = {"kind": kind, "args": [a.detach() for a in args]}
+                h = out[0] if kind == "mLSTM" else out
+                if h.requires_grad:
+                    h.register_hook(
+                        lambda g, e=entry: e.__setitem__("dh", g.detach()))
+                self.calls.append(entry)
+            return out
+        return spy
+
+    def loss_fn(self, fn):
+        def wrapped(params, batch):
+            self.on = True
+            try:
+                return fn(params, batch)
+            finally:
+                self.on = False
+        return wrapped
+
+    def check(self):
+        """{kind: [per checked call: largest error over its allowance of
+        the forward and of the backward]}, at the first, middle and last
+        call of each kind."""
+        out = {}
+        for kind in ("mLSTM", "RG-LRU"):
+            calls = [c for c in self.calls if c["kind"] == kind]
+            picks = sorted({0, len(calls) // 2, len(calls) - 1}) \
+                if calls else []
+            out[kind] = [self._held(kind, calls[i]) for i in picks]
+        self.calls = []
+        return {k: v for k, v in out.items() if v}
+
+    @staticmethod
+    def _held(kind, call):
+        """The kernels' errors over their allowances ("fwd", "bwd"), and
+        the plain versions' in float32 beside them ("*_plain").  For the
+        mLSTM, whose forward is held against the plain float32 h, also
+        the share of bf16 h elements that differ from the float64 sums'
+        h rounded to bf16, for the kernel and for the plain version."""
+        dh = call["dh"]
+        with torch.no_grad():
+            if kind == "mLSTM":
+                args = call["args"]
+                h, state = mk.mlstm_chunkwise(*args)
+                (wh, wst), scales = mc.reference(args, 256, None)
+                fwd = mc.mlstm_errors(h, state, wh, wst, scales)
+                h_plain = mk.mlstm_chunkwise_plain(*args)[0]
+                with plain_cells(f64=True):
+                    h64 = mk.mlstm_chunkwise_plain(*args)[0]
+                want, bsc = mc.bwd_reference((*args, dh, 256))
+                bwd = mc.mlstm_bwd_errors(mk.mlstm_chunkwise_bwd(*args, dh),
+                                          want, bsc)
+                bwd_p = mc.mlstm_bwd_errors(
+                    mk.mlstm_chunkwise_bwd_plain(*args, dh), want, bsc)
+                return {"fwd": max(fwd.values()), "bwd": max(bwd.values()),
+                        "bwd_plain": max(bwd_p.values()),
+                        "h_differs_kernel": (h != h64).float().mean().item(),
+                        "h_differs_plain": (h_plain != h64).float().mean()
+                        .item(),
+                        "clamp_rows": mc.clamp_rows(*args, dh, 256)}
+            x, la = call["args"]
+            h = rk.rglru_scan(x, la)
+            want, allowed = rc.reference(x, la)
+            fwd = rc.rglru_error(h, want, allowed)
+            fwd_p = rc.rglru_error(rk.rglru_scan_plain(x, la), want, allowed)
+            want, allowed = rc.bwd_reference(x, la, h, dh)
+            bwd = rc.rglru_bwd_error(rk.rglru_scan_bwd(x, la, h, dh), want,
+                                     allowed)
+            bwd_p = rc.rglru_bwd_error(rk.rglru_scan_bwd_plain(x, la, h, dh),
+                                       want, allowed)
+            return {"fwd": fwd, "bwd": bwd, "fwd_plain": fwd_p,
+                    "bwd_plain": bwd_p}
+
+
+def train_batch(data, step):
+    return {k: torch.from_numpy(v).to(DEVICE)
+            for k, v in data.batch_at(step).items()}
+
+
+def step0_checks(model, params, batch, nmb, leaf_gate):
+    """Step 0's gradient, checked off the main path: every leaf finite
+    and not all zero; the same step again bitwise equal; where the model
+    has a cell kernel, the kernels at the cells against their plain
+    versions on this step's inputs and upstream gradients (``CellSpy``)
+    and the same step with the cells' plain forward and backward, with
+    float32 and with float64 sums: the loss and the gradient as the
+    comment on LOSS_ATOL says, every leaf too with `leaf_gate`."""
+    def grads(fn=model["loss_fn"]):
+        return accumulate_grads(fn, params, batch, nmb)
+
+    with CellSpy() as spy:
+        loss, g = grads(spy.loss_fn(model["loss_fn"]))
+        cells = spy.check()
+    flat = tree.leaves_with_paths(g)
+    arrived = {tree.path_name(p): bool(torch.isfinite(x).all().item() and
+                                       (x != 0).any().item())
+               for p, x in flat}
+    loss2, g2 = grads()
+    same = torch.equal(loss, loss2) and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(g), tree.leaves(g2)))
+    del g2
+    out = {"grads_arrive": all(arrived.values()),
+           "missing_grads": sorted(k for k, v in arrived.items() if not v),
+           "leaves": len(arrived), "deterministic": same,
+           "loss_kernel": loss.item()}
+    if not cells:
+        # no cell kernel: a plain pass would repeat this one
+        return out
+    with plain_cells():
+        loss_p, g_p = grads()
+    with plain_cells(f64=True):
+        loss_64, g_64 = grads()
+    rows = leaf_distances(g, g_p, g_64)
+    del g, g_p, g_64
+    total = math.sqrt(sum(r["plain_norm"] ** 2 for r in rows))
+    moved = sorted(r["leaf"] for r in rows if r["kernels_vs_plain"] >
+                   GRAD_RTOL * r["plain_norm"] + GRAD_FLOOR * total)
+    rel = sorted(r["kernels_vs_plain"] / max(r["plain_norm"], 1e-30)
+                 for r in rows)
+    med_k = statistics.median(r["kernels_vs_f64"] for r in rows)
+    med_p = statistics.median(r["plain_vs_f64"] for r in rows)
+    cells_ok = all(e["fwd"] <= 1.0 and e["bwd"] <= 1.0
+                   for v in cells.values() for e in v)
+    loss_ok = abs(loss.item() - loss_p.item()) <= LOSS_ATOL
+    median_ok = med_k <= GRAD_MEDIAN_FACTOR * med_p
+    out.update({
+        "loss_plain": loss_p.item(), "loss_plain_f64": loss_64.item(),
+        "loss_vs_plain": abs(loss.item() - loss_p.item()),
+        "cells_vs_plain_f64": cells, "cells_match_plain": cells_ok,
+        "grad_norm_plain": total,
+        "grad_median_kernels_vs_f64": med_k,
+        "grad_median_plain_vs_f64": med_p,
+        "grad_rel_vs_plain_median": rel[len(rel) // 2],
+        "grad_rel_vs_plain_max": rel[-1],
+        "leaves_moved": len(moved), "leaf_gate": leaf_gate,
+        "kernels_match_plain": loss_ok and cells_ok and median_ok and
+        (not leaf_gate or not moved)})
+    return out
+
+
+def check_train(phase, gpu):
+    """The train phases: one cell of ``TRAIN_CELLS`` at full width through
+    ``make_train_step`` with AdamW and remat as configured, random seed-0
+    weights and ``SyntheticLMData`` traffic.  Step 0 off the main path
+    (``step0_checks``); then the main path, every counter at 0 first:
+    the steps (the last under the profiler), a checkpoint every
+    TRAIN_EVERY steps into the LARK store and the quorum-log baseline,
+    worker 3 lost at the cell's step; the cells' kernel launches as the
+    layers, remat and microbatches predict, their plain versions never
+    run; LARK committing every checkpoint, the baseline pausing.
+    Returns the cells' launches."""
+    t_phase = time.monotonic()
+    arch, depth, Bn, S, steps, nmb, fail_at = TRAIN_CELLS[phase]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch)
+    cfg = full.replace(num_layers=depth or full.num_layers,
+                       microbatches_train=nmb or full.microbatches_train)
+    nmb = max(1, cfg.microbatches_train)
+    model = build_model(cfg)
+    init_fn, step_fn, _ = make_train_step(cfg, peak_lr=TRAIN_LR)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    params, opt_state = init_fn(gen)
+    n_params, p_bytes = param_count(params)
+    data = SyntheticLMData(cfg, Bn, S)
+    t_checks = time.monotonic()
+    checks = step0_checks(model, params, train_batch(data, 0), nmb,
+                          phase in LEAF_GATE)
+    checks_wall = time.monotonic() - t_checks
+
+    kinds = layer_kinds(cfg)
+    cells = {"mLSTM": kinds.count(MLSTM), "RG-LRU": kinds.count(RGLRU)}
+    lark = LarkStore(4, rf=2, num_partitions=16)
+    base = QuorumLogStore(4, rf=2, num_partitions=16, partition_bytes=1e8,
+                          bandwidth=5e6)
+    records, walls = [], []
+    reset_counts()
+    torch.cuda.synchronize()
+    t_main = time.monotonic()
+    for step in range(steps):
+        if step == fail_at:
+            lark.fail_node(3)
+            base.fail_node(3)
+        t0 = time.monotonic()
+        batch = train_batch(data, step)
+        if step < steps - 1:
+            params, opt_state, m = step_fn(params, opt_state, batch)
+        else:                       # the last step, under the profiler
+            out = []
+            prof = profile_step(lambda: out.append(
+                step_fn(params, opt_state, batch)), top=8)
+            (params, opt_state, m), = out
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        base.advance(1.0)
+        rec = {"step": step, "loss": m["loss"].item(),
+               "grad_norm": m["grad_norm"].item()}
+        if step % TRAIN_EVERY == 0:
+            ok, tot = lark.put_pytree(f"ckpt/{step}",
+                                      {"loss": np.float32(rec["loss"])})
+            rec.update(lark_commit=ok == tot,
+                       baseline_commit=base.put(f"ckpt/{step}", rec["loss"]))
+        records.append(rec)
+    main_wall = time.monotonic() - t_main
+    counts = read_counts(counters())
+    launches = {k: v for k, v in counts.items() if v}
+    remat = 2 if cfg.remat else 1
+    want = {}
+    for cell, n in cells.items():
+        if n:
+            fwd, bwd, pf, pb = CELL_KERNELS[cell]
+            want.update({fwd: steps * nmb * n * remat, bwd: steps * nmb * n,
+                         pf: 0, pb: 0})
+    checks["launches_as_predicted"] = \
+        all(counts[k] == v for k, v in want.items()) and \
+        set(launches) == {k for k, v in want.items() if v}
+    commits = [r for r in records if "lark_commit" in r]
+    checks["lark_commits_through_failure"] = all(r["lark_commit"]
+                                                 for r in commits)
+    checks["baseline_pauses"] = any(not r["baseline_commit"]
+                                    for r in commits if r["step"] >=
+                                    fail_at)
+    checks["losses_finite"] = all(math.isfinite(r["loss"]) for r in records)
+    # step 0 is cold, the last step profiled: the rest are warm
+    warm = walls[1:-1]
+    shares = {"wall_s": prof["wall_s"], "trace_s": prof["trace_s"],
+              "device_busy_s": prof["device_busy_s"],
+              "idle_share_of_warm_step": 1 - prof["device_busy_s"] *
+              len(warm) / sum(warm),
+              "shares": prof["cell_shares"], "top": prof["top"]}
+    gated = ["grads_arrive", "deterministic", "launches_as_predicted",
+             "lark_commits_through_failure", "baseline_pauses",
+             "losses_finite"] + (["kernels_match_plain"] if
+                                 "kernels_match_plain" in checks else [])
+    ok = all(checks[k] for k in gated)
+    emit({"phase": phase, "gpu": gpu, "arch": arch, "layers": cfg.num_layers,
+          "depth_cut": None if cfg.num_layers == full.num_layers else
+          f"{full.num_layers} -> {cfg.num_layers} layers",
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+          "dtype": cfg.act_dtype, "params": n_params, "param_bytes": p_bytes,
+          "optimizer": cfg.optimizer, "remat": cfg.remat,
+          "microbatches": nmb, "batch": Bn, "seq": S, "steps": steps,
+          "worker_lost_at": fail_at,
+          "cells": cells, "predicted_launches": want, "launches": launches,
+          "records": records,
+          "loss_per_step": [r["loss"] for r in records],
+          "ms_per_step_warm": 1e3 * sum(warm) / len(warm),
+          "train_tokens_per_s_warm": Bn * S * len(warm) / sum(warm),
+          "step0_wall_s": walls[0], "main_path_wall_s": main_wall,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "profiled_step": shares, "step0_checks_wall_s": checks_wall,
+          "loss_atol": LOSS_ATOL, "grad_median_factor": GRAD_MEDIAN_FACTOR,
+          "grad_rtol": GRAD_RTOL, "grad_floor": GRAD_FLOOR, **checks,
+          "gated": gated, "wall_s": time.monotonic() - t_phase})
+    if not ok:
+        raise SystemExit(f"the {phase} phase failed: {checks}")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want if want[k]}
+
+
+def check_train_cpu():
+    """Phase train_cpu: the reduced xlstm config (float32: the forward
+    takes the simt route, the backward kernel its float32 path) over 300
+    positions (two chunks) and the 5-layer reduced recurrentgemma over 48
+    (past its 32-token window): loss and every gradient leaf on the card
+    against the CPU, within the whole-model tolerance of
+    ``tests/_torch_lm.py`` (rtol 1e-3, atol 1e-3 of the leaf's largest
+    magnitude)."""
+    failed = []
+    for arch, S in (("xlstm_350m", 300), ("recurrentgemma_9b", 48)):
+        cfg = reduced_config(arch)
+        model, params = init_model(cfg, "cpu")
+        batch = SyntheticLMData(cfg, 2, S).batch_at(0)
+        out = {}
+        for dev in ("cpu", DEVICE):
+            p = tree.map_leaves(lambda t: t.to(dev), params)
+            b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            reset_counts()
+            loss, grads = accumulate_grads(model["loss_fn"], p, b)
+            out[dev] = (loss.cpu(),
+                        tree.map_leaves(lambda t: t.cpu(), grads),
+                        {k: v for k, v in read_counts(counters()).items()
+                         if v})
+        (lc, gc, _), (lg, gg, launches) = out["cpu"], out[DEVICE]
+        worst = 0.0
+        close = torch.allclose(lg, lc, rtol=1e-3, atol=1e-3)
+        for g, w in zip(tree.leaves(gg), tree.leaves(gc)):
+            scale = max(1.0, w.abs().max().item())
+            worst = max(worst, ((g - w).abs().max().item()) / scale)
+            close &= torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale)
+        emit({"phase": "train_cpu", "arch": arch, "layers": cfg.num_layers,
+              "seq": S, "loss_cpu": lc.item(), "loss_cuda": lg.item(),
+              "worst_abs_over_scale": worst, "close": close,
+              "launches": launches})
+        if not close:
+            failed.append(arch)
+    if failed:
+        raise SystemExit(f"train_cpu: the card's gradients differ from the "
+                         f"CPU's for {failed}")
+
+
+def check_elastic():
+    """Phase elastic: the reduced xlstm (float32, the kernels on the
+    card) through ``ElasticTrainer``: 2 steps, a checkpoint to the LARK
+    store, worker 3 leaves (store membership follows), the live state
+    lost and restored from the store, 2 more steps; parameters and
+    optimizer state bitwise equal to 4 uninterrupted steps."""
+    cfg = reduced_config("xlstm_350m")
+    data = SyntheticLMData(cfg, 2, 300)
+    init_fn, step_fn, _ = make_train_step(cfg, peak_lr=1e-2)
+
+    def fresh():
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        return init_fn(gen)
+
+    whole = fresh()
+    for i in range(4):
+        whole = step_fn(*whole, train_batch(data, i))[:2]
+    et = ElasticTrainer(4, lambda workers: step_fn)
+    run = fresh()
+    for i in range(2):
+        run = et.run_step(*run, train_batch(data, i))[:2]
+    committed = et.checkpoint(run)
+    like = run
+    run = tuple(tree.map_leaves(torch.zeros_like, r) for r in run)
+    run = et.on_membership_change([0, 1, 2], run, like)
+    for i in range(2, 4):
+        run = et.run_step(*run, train_batch(data, i))[:2]
+    equal = all(torch.equal(a, b) for a, b in zip(tree.leaves(run),
+                                                   tree.leaves(whole)))
+    checks = {"committed": committed, "regime": et.state.regime == 2,
+              "restored": et.state.restores == 1,
+              "bitwise_equal_to_uninterrupted": equal}
+    emit({"phase": "elastic", "arch": cfg.name, "steps": 4,
+          "workers_after": et.state.workers, **checks})
+    if not all(checks.values()):
+        raise SystemExit(f"the elastic phase failed: {checks}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -2434,6 +3093,10 @@ def main() -> int:
               logs.get("fused_downtime", "")),
           "downtime_eval_ptxas": ptxas_usage(logs.get("downtime_eval", "")),
           "microsim_scan_ptxas": ptxas_usage(logs.get("microsim_scan", "")),
+          "rglru_scan_bwd_ptxas": ptxas_usage(logs.get("rglru_scan_bwd",
+                                                       "")),
+          "mlstm_chunk_bwd_ptxas": ptxas_usage(logs.get("mlstm_chunk_bwd",
+                                                        "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -2464,6 +3127,18 @@ def main() -> int:
         bw, faults["microsim_scan"])
     check_serve_dense()
     check_families()
+    rec["rglru_scan_bwd"] = check_rglru_bwd_kernel(bw,
+                                                   faults["rglru_scan_bwd"])
+    rec["mlstm_chunkwise_bwd"] = check_mlstm_bwd_kernel(
+        bw, faults["mlstm_chunk_bwd"])
+    with deterministic():
+        launches["mlstm_chunkwise_bwd"] = check_train(
+            "train", smi)["mlstm_chunkwise_bwd"]
+        launches["rglru_scan_bwd"] = check_train(
+            "train_rg", smi)["rglru_scan_bwd"]
+        check_train("train_dense", smi)
+        check_train_cpu()
+        check_elastic()
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

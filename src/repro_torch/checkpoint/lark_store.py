@@ -12,14 +12,17 @@ put/get return (ok, value) and never block: an unavailable partition fails
 fast, exactly like the production system's client-visible behavior.
 
 Port of ``repro/checkpoint/lark_store.py`` over the port's copies of the
-protocol modules.  The reference's ``put_pytree``/``get_pytree`` (jax
-pytrees of checkpoint shards) wait for the training slice; serving stores
-whole session blobs through ``put``/``get``.
+protocol modules.  ``put_pytree``/``get_pytree`` store a tree's leaves
+(``repro_torch.tree``: dicts, lists and tuples) under the reference's
+keys ``<prefix>/<leafpath>``; a tensor leaf is stored detached, as the
+value it holds now (the port's train step builds new tensors and never
+updates a stored one in place).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Tuple
 
+from repro_torch import tree as _tree
 from repro_torch.core.pac import ALL_CONDITIONS
 from repro_torch.core.simulator import LarkSim
 from repro_torch.core.succession import key_partition
@@ -77,3 +80,26 @@ class LarkStore:
         if res and res.ok:
             return True, res.value
         return False, None
+
+    # -- pytree checkpointing --------------------------------------------
+    def put_pytree(self, prefix: str, tree) -> Tuple[int, int]:
+        """Store every leaf under '<prefix>/<leafpath>'.  Returns (ok,
+        total)."""
+        ok = total = 0
+        for path, leaf in _tree.leaves_with_paths(tree):
+            if hasattr(leaf, "detach"):
+                leaf = leaf.detach()
+            total += 1
+            ok += self.put(prefix + "/" + _tree.path_name(path), leaf)
+        return ok, total
+
+    def get_pytree(self, prefix: str, like) -> Tuple[bool, Any]:
+        """Every leaf of `like`'s structure from '<prefix>/<leafpath>':
+        (True, the tree), or (False, None) when one cannot be read."""
+        leaves = []
+        for path, _ in _tree.leaves_with_paths(like):
+            good, val = self.get(prefix + "/" + _tree.path_name(path))
+            if not good:
+                return False, None
+            leaves.append(val)
+        return True, _tree.unflatten(like, leaves)

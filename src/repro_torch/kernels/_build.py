@@ -32,7 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 #: kernel sources, one shared library each
 SOURCES = ("downtime_eval", "fused_downtime", "latency_charge",
            "mlstm_chunk", "rglru_scan", "flash_attention",
-           "flash_attention_sm90", "mlstm_chunk_sm90", "microsim_scan")
+           "flash_attention_sm90", "mlstm_chunk_sm90", "microsim_scan",
+           "rglru_scan_bwd", "mlstm_chunk_bwd")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

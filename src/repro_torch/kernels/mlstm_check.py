@@ -22,7 +22,10 @@ launcher (the float32 case on the simt source alone: the sm90 route
 takes bf16 only), and prints per source, variant and case the largest
 error over what rounding allows, beside the verdict of a tolerance scaled
 by the largest |h|.  It exits 0 when each source passes every case it
-takes and every fault fails at least one.  Needs nvcc and a card.
+takes and every fault fails at least one.  Then the same for the
+backward (csrc/mlstm_chunk_bwd.cu) on ``BWD_CASES`` against the plain
+backward in float64, within ``mlstm_bwd_rounding_scale``, with each of
+``BWD_FAULTS``.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -240,6 +243,159 @@ FAULTS = {
                           "acc[jj] *= 0.f;"),
     },
 }
+# ---------------------------------------------------------------------------
+# the backward (csrc/mlstm_chunk_bwd.cu)
+# ---------------------------------------------------------------------------
+
+#: the backward's card-side cases: (name, input type, B, H, S, Dq, Dv,
+#: chunk, gate kind).  Gate kinds: "gates" and "stress" as ``CASES``'
+#: (stress: log_f near 0, log_i over +-10, a wide spread of stabilizers);
+#: "clamp": log_i = -6 + 3 N(0, 1), where many rows have |den| below the
+#: clamp e^{-m_t} and many above it.  The train shape first, then a
+#: reduced float32 one (the reduced xlstm's head dim), ragged S, S below
+#: the chunk, S = 1, head dims that are not multiples of the 64-wide tile
+#: and a chunk that is not either
+BWD_CASES = (("train_bf16", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
+              "gates"),
+             ("train_f32", torch.float32, 4, 4, 1024, 512, 512, 256,
+              "gates"),
+             ("reduced_f32", torch.float32, 2, 4, 96, 32, 32, 256,
+              "gates"),
+             ("ragged_1000", torch.bfloat16, 4, 4, 1000, 512, 512, 256,
+              "gates"),
+             ("short_100", torch.bfloat16, 4, 4, 100, 512, 512, 256,
+              "gates"),
+             ("one_position", torch.bfloat16, 4, 4, 1, 512, 512, 256,
+              "gates"),
+             ("odd_dims", torch.float32, 2, 3, 300, 40, 72, 96, "gates"),
+             ("stabilizer", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
+              "stress"),
+             ("clamp", torch.bfloat16, 4, 4, 1024, 512, 512, 256, "clamp"))
+#: float32 rounding allowed per unit of ``mlstm_bwd_rounding_scale``: the
+#: sums hold up to Dq + Dv + L terms, as h's do (``GAMMA["h"]``)
+BWD_GAMMA = 2.0 ** -16
+
+
+def mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, dtype, kind):
+    """q, k, v, log_f, log_i as ``mlstm_inputs`` (kind "clamp" as
+    ``BWD_CASES``) and dh standard normal in `dtype`."""
+    (q, k, v, log_f, log_i), _ = mlstm_inputs(gen, B, H, S, Dq, Dv, dtype,
+                                              stress=kind == "stress")
+    if kind == "clamp":
+        log_i = torch.randn((B, H, S), generator=gen, device=gen.device) \
+            * 3 - 6
+    dh = torch.randn((B, H, S, Dv), generator=gen, device=gen.device) \
+        .to(dtype)
+    return q, k, v, log_f, log_i, dh
+
+
+def mlstm_bwd_rounding_scale(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
+    """The scale of float32 rounding in each output of the backward
+    (float64, the outputs' shapes): the backward's linear part
+    (``mlstm_chunk._bwd_apply``) run over |q|, |k|, |v|, |dh| and
+    carried states of absolute values, with each row's scalars widened by
+    their own sensitivity.  1 / N_t (N_t = max(|den_t|, e^{-m_t})) moves
+    by e_den / N^2 per unit of den's rounding scale e_den, and dd_t =
+    -sign(den) dh.num / N^2 by (e_num + 2 |dh.num| e_den / N) / N^2;
+    where |den_t| lies within BWD_GAMMA (e_den + e^{-m_t}) of the clamp,
+    float32 may take the other branch, so dd_t's whole |dh.num| / N^2
+    counts.  Returns (edq, edk, edv, edlog_f, edlog_i); the gates' scales
+    are k.dk's and its suffix sums with q.dq's."""
+    B, H, S, Dq = q.shape
+    scale = 1.0 / math.sqrt(Dq)
+    args = [a.double() for a in (q, k, v, log_f, log_i, dh)]
+    chunks = mk._bwd_chunks(*args, chunk)
+    absd = [a.abs() for a in args[:3]] + args[3:5] + [args[5].abs()]
+    achunks = mk._bwd_chunks(*absd, chunk)
+    rows = []
+    for ch, ach in zip(chunks, achunks):
+        den, dhnum = mk._bwd_sums(ch, scale)
+        e_den, e_num = mk._bwd_sums(ach, scale)
+        clamp = torch.exp(-ch["m_t"])
+        n_t = torch.maximum(den.abs(), clamp)
+        inv = 1.0 / n_t
+        near = (den.abs() - clamp).abs() <= BWD_GAMMA * (e_den + clamp)
+        dd_w = (e_num + 2.0 * dhnum.abs() * e_den * inv) * inv * inv + \
+            torch.where(near, dhnum.abs() * inv * inv / BWD_GAMMA, 0.0)
+        dd = torch.where(den.abs() > clamp, dhnum.abs() * inv * inv, 0.0)
+        rows.append((inv + e_den * inv * inv, dd + dd_w))
+    parts = mk._bwd_apply(achunks, rows, scale)
+    edq, edk, edv, eR, eLi = (torch.cat([p[i] for p in parts], dim=2)
+                              [:, :, :S] for i in range(5))
+    edlf = torch.flip(torch.cumsum(torch.flip(eR + eLi, [-1]), -1), [-1])
+    return edq, edk, edv, edlf, eLi
+
+
+def mlstm_bwd_errors(got, want, scales):
+    """Each output's largest |got - want| over what rounding allows,
+    BWD_GAMMA * scale + OUT_STEP * |want| (the step of dq, dk, dv's type;
+    the gates are float32), with `want` the plain backward in float64:
+    {"dq", "dk", "dv", "dlog_f", "dlog_i": x}, every x <= 1 when the two
+    agree; infinite where got holds a NaN."""
+    out = {}
+    for name, g, w, e in zip(("dq", "dk", "dv", "dlog_f", "dlog_i"), got,
+                             want, scales):
+        allowed = BWD_GAMMA * e + OUT_STEP[g.dtype] * w.abs()
+        err = ((g.double() - w).abs() / allowed.clamp_min(1e-300)).max() \
+            .item()
+        out[name] = math.inf if math.isnan(err) else err
+    return out
+
+
+def bwd_reference(args):
+    """The plain backward in float64 on the same inputs, and the rounding
+    scale; args = (q, k, v, log_f, log_i, dh), chunk last."""
+    *ins, chunk = args
+    return mk.mlstm_chunkwise_bwd_plain(*(a.double() for a in ins),
+                                        chunk=chunk), \
+        mlstm_bwd_rounding_scale(*ins, chunk=chunk)
+
+
+def clamp_rows(q, k, v, log_f, log_i, dh, chunk) -> float:
+    """The share of real rows where the clamp holds (|den_t| <=
+    e^{-m_t}), from the float64 sums."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    chunks = mk._bwd_chunks(*(a.double() for a in (q, k, v, log_f, log_i,
+                                                   dh)), chunk)
+    held = []
+    for ch in chunks:
+        den, _ = mk._bwd_sums(ch, scale)
+        held.append(den.abs() <= torch.exp(-ch["m_t"]))
+    return torch.cat(held, dim=2)[:, :, :q.shape[2]].double().mean().item()
+
+
+def run_bwd(fn, q, k, v, log_f, log_i, dh, chunk):
+    """(dq, dk, dv, dlog_f, dlog_i) of one raw launch of a backward
+    variant `fn`, its outputs filled with NaN first."""
+    args, out, _ = mk.bwd_launch_args(q, k, v, log_f, log_i, dh, chunk,
+                                      fill=float("nan"))
+    _build.check(fn(*args), "mlstm_chunkwise_bwd (raw)")
+    return out
+
+
+#: planted faults of csrc/mlstm_chunk_bwd.cu: (text, replacement)
+BWD_FAULTS = {
+    # dq without the chunk-start state's term (C_c delta + n_c dd)
+    "state_carry_dropped": ("const bool carry = c > 0;",
+                            "const bool carry = false;"),
+    # dk, dv without the gradient carried back from later chunks
+    "grad_carry_dropped": ("const bool carry_in = c + 1 < d.nC;",
+                           "const bool carry_in = false;"),
+    # G_c = G_{c+1} + ...: the inter-chunk decay of dC (and dn) dropped
+    "dC_decay_dropped": ("const float decay = expf(mc - ML[bh * d.nC + c]);",
+                         "const float decay = 1.f;"),
+    # den's gradient dropped where the clamp does not hold
+    "den_grad_dropped": (
+        "ddv = active ? -copysignf(1.f, den) * rNum[tid] * inv * inv : 0.f;",
+        "ddv = 0.f;"),
+    # den's gradient taken where the clamp holds
+    "clamp_ignored": ("const bool active = fabsf(den) > clamp;",
+                      "const bool active = true;"),
+    # dlog_f_r summed over the pairs s <= r, not s < r
+    "dlf_off_by_one": ("dlf[out + t] = run;", "dlf[out + t] = run + li_t;"),
+}
+
+
 #: each source's route (``mlstm_chunk.ROUTES``)
 SOURCE_ROUTE = {"mlstm_chunk": "simt", "mlstm_chunk_sm90": "sm90"}
 
@@ -273,6 +429,8 @@ def main() -> int:
                   for src, faults in FAULTS.items()}
     source_ok = True
     with tempfile.TemporaryDirectory() as tmp:
+        bwd_procs = _build.start_variants("mlstm_chunk_bwd", BWD_FAULTS,
+                                          Path(tmp))
         fns = build_variants(Path(tmp))
         for case, dtype, S, initial, stress in CASES:
             args, init = mlstm_inputs(gen, B, H, S, D, D, dtype,
@@ -300,6 +458,24 @@ def main() -> int:
                             caught[src][name].append(case)
                         if not old_ok:
                             old_caught[src][name].append(case)
+        bwd_fns = _build.finish_variants(bwd_procs, "mlstm_chunk_bwd_launch",
+                                         mk.BWD_ARGTYPES)
+        caught["mlstm_chunk_bwd"] = {name: [] for name in BWD_FAULTS}
+        for case, dtype, B, H, S, Dq, Dv, L, kind in BWD_CASES:
+            args = mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, dtype, kind)
+            want, scales = bwd_reference((*args, L))
+            for name, fn in bwd_fns.items():
+                errs = mlstm_bwd_errors(run_bwd(fn, *args, L), want, scales)
+                ok = all(e <= 1.0 for e in errs.values())
+                print(json.dumps({"source": "mlstm_chunk_bwd",
+                                  "variant": name, "case": case,
+                                  "errors_over_allowed": errs, "ok": ok}),
+                      flush=True)
+                if name == "source":
+                    source_ok &= ok
+                elif not ok:
+                    caught["mlstm_chunk_bwd"][name].append(case)
+            del args, want, scales
     missed = [f"{src}:{name}" for src, faults in caught.items()
               for name, cases in faults.items() if not cases]
     print(json.dumps({"sources_pass": source_ok, "caught_in": caught,

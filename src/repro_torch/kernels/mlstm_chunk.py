@@ -27,6 +27,16 @@ recurrence ``mlstm_step_plain`` that decode uses.
     CUDA cores.
 
   ``mlstm_check`` holds both against the plain version.
+* ``mlstm_chunkwise_bwd`` (csrc/mlstm_chunk_bwd.cu) is its gradient for
+  ``initial=None``, beside ``mlstm_chunkwise_bwd_plain``; the reference
+  has no backward kernel (its training differentiates the oracle).  See
+  ``mlstm_chunkwise_bwd_plain`` for the math.
+* ``mlstm_chunkwise`` is a ``torch.autograd.Function`` when no initial
+  state is given: its forward saves q, k, v, log_f and log_i, its
+  backward launches the backward kernel, and the final (C, n, m) is not
+  differentiable.  ``mlstm_chunkwise_reference`` is the same Function
+  over the plain versions on any device, which checks on the card
+  compare the kernels with.
 * ``mlstm_step_plain`` is ``ref.py: mlstm_step``; the reference has no
   kernel for it, and neither has the port.
 
@@ -105,11 +115,11 @@ def mlstm_chunkwise_plain(q, k, v, log_f, log_i, *, chunk: int = 256,
     nC = (S + pad) // chunk
 
     if initial is None:
-        C = torch.zeros((B, H, Dq, Dv), dtype=torch.float32, device=dev)
-        n = torch.zeros((B, H, Dq), dtype=torch.float32, device=dev)
-        m = torch.full((B, H), NEG, dtype=torch.float32, device=dev)
-    else:
-        C, n, m = _f32(*initial)
+        initial = (torch.zeros((B, H, Dq, Dv), dtype=torch.float32,
+                               device=dev),
+                   torch.zeros((B, H, Dq), dtype=torch.float32, device=dev),
+                   torch.full((B, H), NEG, dtype=torch.float32, device=dev))
+    C, n, m = _f32(*initial)
 
     scale = 1.0 / math.sqrt(Dq)
     lpos = torch.arange(chunk, device=dev)
@@ -215,9 +225,11 @@ def _check(q, k, v, log_f, log_i, chunk, initial):
         raise ValueError(f"log_f and log_i must be {(B, H, S)}; got "
                          f"{tuple(log_f.shape)}, {tuple(log_i.shape)}")
     if not (q.dtype == k.dtype == v.dtype) or \
-            q.dtype not in (torch.float32, torch.bfloat16):
+            q.dtype not in (torch.float32, torch.bfloat16, torch.float64) \
+            or (q.dtype == torch.float64 and q.device.type == "cuda"):
         raise TypeError(f"q, k, v must share one dtype, float32 or "
-                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"bfloat16 (float64 too on the CPU); got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype} on {q.device}")
     if S < 1 or chunk < 1:
         raise ValueError(f"need S >= 1 and chunk >= 1; got S={S}, "
                          f"chunk={chunk}")
@@ -244,14 +256,66 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, *, chunk: int = 256,
     as ``mlstm_chunkwise_plain``.  CUDA tensors launch the kernel of
     ``_route`` (``mlstm_chunkwise.launches`` counts all launches,
     ``.sm90_launches`` and ``.simt_launches`` each route's); CPU tensors
-    run the plain version."""
+    run the plain version.  Without `initial`, h is differentiable in q,
+    k, v, log_f and log_i (backwards ``mlstm_chunkwise_bwd``); with it,
+    nothing is."""
     _check(q, k, v, log_f, log_i, chunk, initial)
-    if q.device.type == "cpu":
-        return mlstm_chunkwise_plain(q, k, v, log_f, log_i, chunk=chunk,
-                                     initial=initial)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"mlstm_chunkwise runs on cuda or cpu, not "
                          f"{q.device}")
+    plain = q.device.type == "cpu"
+    if initial is None:
+        h, C, n, m = _MlstmChunkwise.apply(q, k, v, log_f, log_i, chunk,
+                                           plain)
+        return h, (C, n, m)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, log_f, log_i, *initial)):
+        raise NotImplementedError("mlstm_chunkwise has no gradient with an "
+                                  "initial state")
+    if plain:
+        return mlstm_chunkwise_plain(q, k, v, log_f, log_i, chunk=chunk,
+                                     initial=initial)
+    return _forward_kernel(q, k, v, log_f, log_i, chunk, initial)
+
+
+def mlstm_chunkwise_reference(q, k, v, log_f, log_i, *, chunk: int = 256):
+    """``mlstm_chunkwise`` without an initial state over the plain forward
+    and backward on any device: what checks on the card hold the kernels'
+    gradients against."""
+    _check(q, k, v, log_f, log_i, chunk, None)
+    h, C, n, m = _MlstmChunkwise.apply(q, k, v, log_f, log_i, chunk, True)
+    return h, (C, n, m)
+
+
+class _MlstmChunkwise(torch.autograd.Function):
+    """(h, C, n, m) = mlstm_chunkwise(q, k, v, log_f, log_i) from a zero
+    state, with the gradient of h: the kernels on the card, the plain
+    versions on the CPU or when `plain` is set."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_f, log_i, chunk, plain):
+        if plain:
+            h, (C, n, m) = mlstm_chunkwise_plain(q, k, v, log_f, log_i,
+                                                 chunk=chunk)
+        else:
+            h, (C, n, m) = _forward_kernel(q, k, v, log_f, log_i, chunk,
+                                           None)
+        ctx.mark_non_differentiable(C, n, m)
+        ctx.save_for_backward(q, k, v, log_f, log_i)
+        ctx.chunk, ctx.plain = chunk, plain
+        return h, C, n, m
+
+    @staticmethod
+    def backward(ctx, dh, dC, dn, dm):
+        q, k, v, log_f, log_i = ctx.saved_tensors
+        bwd = mlstm_chunkwise_bwd_plain if ctx.plain else mlstm_chunkwise_bwd
+        dq, dk, dv, dlf, dli = bwd(q, k, v, log_f, log_i, dh,
+                                   chunk=ctx.chunk)
+        return dq, dk, dv, dlf.to(log_f.dtype), dli.to(log_i.dtype), \
+            None, None
+
+
+def _forward_kernel(q, k, v, log_f, log_i, chunk, initial):
     route = _route(q.dtype, q.shape[3], v.shape[3], chunk)
     launch = _build.function(*ROUTES[route])
     out = launch_with(launch, q, k, v, log_f, log_i, chunk, initial,
@@ -262,6 +326,245 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, *, chunk: int = 256,
     else:
         mlstm_chunkwise.simt_launches += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the backward
+# ---------------------------------------------------------------------------
+
+def _bwd_chunks(q, k, v, log_f, log_i, dh, chunk):
+    """The forward's per-chunk quantities for the backward, in the
+    working type (float64 when an input is, else float32), padded to
+    whole chunks: a list of dicts with the chunk's q, k, v, dh, D (the
+    stabilized causal weights exp(g_s - M_t)), w_carry, wv, decay, m_t
+    and the chunk-start state C, n (zero for the first chunk)."""
+    dt = torch.float64 if any(t.dtype == torch.float64 for t in
+                              (q, k, v, log_f, log_i, dh)) else torch.float32
+    B, H, S, Dq = q.shape
+    Dv = v.shape[-1]
+    dev = q.device
+    pad = (-S) % chunk
+    q, k, v, dh = (a.to(dt) for a in (q, k, v, dh))
+    log_f, log_i = log_f.to(dt), log_i.to(dt)
+    if pad:
+        q, k, v, dh = (torch.nn.functional.pad(a, (0, 0, 0, pad))
+                       for a in (q, k, v, dh))
+        log_f = torch.nn.functional.pad(log_f, (0, pad))
+        log_i = torch.nn.functional.pad(log_i, (0, pad), value=NEG)
+    nC = (S + pad) // chunk
+    C = torch.zeros((B, H, Dq, Dv), dtype=dt, device=dev)
+    n = torch.zeros((B, H, Dq), dtype=dt, device=dev)
+    m = torch.full((B, H), NEG, dtype=dt, device=dev)
+    lpos = torch.arange(chunk, device=dev)
+    causal = lpos[:, None] >= lpos[None, :]
+    out = []
+    for c in range(nC):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        lf, li = log_f[:, :, sl], log_i[:, :, sl]
+        F = torch.cumsum(lf, dim=-1)
+        g = li - F
+        Mt = torch.maximum(m[..., None], torch.cummax(g, dim=-1).values)
+        ML = Mt[..., -1]
+        wv = torch.exp(g - ML[..., None])
+        decay = torch.exp(m - ML)
+        ch = {"q": q[:, :, sl], "k": k[:, :, sl], "v": v[:, :, sl],
+              "dh": dh[:, :, sl], "m_t": F + Mt, "C": C, "n": n,
+              "w_carry": torch.exp(m[..., None] - Mt),
+              "D": torch.where(causal, torch.exp(g[:, :, None, :] -
+                                                 Mt[..., None]), 0.0),
+              "wv": wv, "decay": decay}
+        out.append(ch)
+        C = decay[..., None, None] * C + torch.einsum(
+            "bhld,bhlv->bhdv", wv[..., None] * ch["k"], ch["v"])
+        n = decay[..., None] * n + (wv[..., None] * ch["k"]).sum(dim=-2)
+        m = F[..., -1] + ML
+    return out
+
+
+def _bwd_sums(ch, scale):
+    """A chunk's recomputed stabilized den_t and dh_t.num_t."""
+    q, k, v, dh, D, wc = (ch[n] for n in ("q", "k", "v", "dh", "D",
+                                          "w_carry"))
+    DS = D * torch.einsum("bhld,bhsd->bhls", q, k) * scale
+    num = wc[..., None] * scale * torch.einsum("bhld,bhdv->bhlv", q,
+                                               ch["C"]) + \
+        torch.einsum("bhls,bhsv->bhlv", DS, v)
+    den = wc * scale * torch.einsum("bhld,bhd->bhl", q, ch["n"]) + \
+        DS.sum(dim=-1)
+    return den, (dh * num).sum(dim=-1)
+
+
+def _bwd_rows(ch, scale):
+    """A chunk's row scalars: 1 / max(|den_t|, e^{-m_t}) and the gradient
+    dd_t of the loss with respect to the stabilized den_t, both from the
+    recomputed stabilized num and den.  dd is taken where |den_t| >
+    e^{-m_t} and is 0 where the clamp holds, ties included."""
+    den, dhnum = _bwd_sums(ch, scale)
+    clamp = torch.exp(-ch["m_t"])
+    active = den.abs() > clamp
+    inv = 1.0 / torch.maximum(den.abs(), clamp)
+    dd = torch.where(active, -torch.sign(den) * dhnum * inv * inv, 0.0)
+    return inv, dd
+
+
+def _bwd_apply(chunks, rows, scale):
+    """The reverse chunk loop, linear in the chunks' q, k, v, dh and the
+    rows' (inv, dd): returns per chunk (dq, dk, dv, R = q.dq, Li = k.dk)
+    in the working type.  G and dn carry the gradient of the stabilized
+    chunk-start state C, n backwards with the forward's decay."""
+    G = torch.zeros_like(chunks[-1]["C"])
+    dn = torch.zeros_like(chunks[-1]["n"])
+    out = [None] * len(chunks)
+    for c in range(len(chunks) - 1, -1, -1):
+        ch = chunks[c]
+        inv, dd = rows[c]
+        q, k, v, dh, D, wc, wv = (ch[n] for n in ("q", "k", "v", "dh", "D",
+                                                  "w_carry", "wv"))
+        delta = dh * inv[..., None]
+        Dsc = D * scale
+        coef = Dsc * (torch.einsum("bhtv,bhsv->bhts", delta, v) +
+                      dd[..., None])
+        P = Dsc * torch.einsum("bhtd,bhsd->bhts", q, k)
+        wcs = (wc * scale)[..., None]
+        dq = torch.einsum("bhts,bhsd->bhtd", coef, k) + wcs * (
+            torch.einsum("bhtv,bhdv->bhtd", delta, ch["C"]) +
+            dd[..., None] * ch["n"][:, :, None, :])
+        dk = torch.einsum("bhts,bhtd->bhsd", coef, q) + wv[..., None] * (
+            torch.einsum("bhsv,bhdv->bhsd", v, G) + dn[:, :, None, :])
+        dv = torch.einsum("bhts,bhtv->bhsv", P, delta) + wv[..., None] * \
+            torch.einsum("bhsd,bhdv->bhsv", k, G)
+        out[c] = (dq, dk, dv, (q * dq).sum(-1), (k * dk).sum(-1))
+        G = ch["decay"][..., None, None] * G + torch.einsum(
+            "bhtd,bhtv->bhdv", wcs * q, delta)
+        dn = ch["decay"][..., None] * dn + torch.einsum(
+            "bhtd,bht->bhd", wcs * q, dd)
+    return out
+
+
+def _bwd_gates(R, Li):
+    """dlog_f_r = sum over t >= r of (R_t - Li_t) (the pairs s < r <= t),
+    dlog_i = Li; R, Li (B, H, S)."""
+    return torch.flip(torch.cumsum(torch.flip(R - Li, [-1]), -1), [-1]), Li
+
+
+def mlstm_chunkwise_bwd_plain(q, k, v, log_f, log_i, dh, *,
+                              chunk: int = 256):
+    """The gradient of h = mlstm_chunkwise(q, k, v, log_f, log_i) (zero
+    initial state) given dh (B, H, S, Dv): an explicit reverse chunk loop,
+    the function csrc/mlstm_chunk_bwd.cu computes.  Returns (dq, dk, dv in
+    q's dtype, dlog_f, dlog_i float32), float64 throughout when an input
+    is float64.
+
+    The stabilizer cancels out of h: with w_ts = exp(li_s + sum_{s<r<=t}
+    lf_r), num_t = sum_{s<=t} w_ts scale (q_t.k_s) v_s and den_t the same
+    sum over 1, h_t = num_t / max(|den_t|, 1).  Both of the reference's
+    branches, max(|den|, exp(-m_t)) on the stabilized sums, divide num
+    and den by e^{m_t}, so h does not depend on m, and the gradients that
+    the reference's autodiff takes through m (the cummax and max of the
+    stabilizer chain) sum to zero analytically and to rounding
+    numerically.  This function differentiates the unstabilized form and
+    uses m only to keep exponentials in range: with delta_t = dh_t /
+    max(|den_t|, e^{-m_t}) and dd_t the gradient of the stabilized den_t,
+    and the per-pair terms P_ts = D_ts scale (q_t.k_s)(v_s.delta_t +
+    dd_t), dlog_i_s = sum_t P_ts = k_s.dk_s and dlog_f_r = sum_{t>=r}
+    sum_{s<r} P_ts = sum_{t>=r} (q_t.dq_t - k_t.dk_t).  Where |den_t|
+    equals e^{-m_t} the whole gradient goes to the clamp (dd_t = 0);
+    JAX's maximum splits it 0.5 / 0.5 there."""
+    mlstm_chunkwise_bwd_plain.calls += 1
+    B, H, S, Dq = q.shape
+    scale = 1.0 / math.sqrt(Dq)
+    chunks = _bwd_chunks(q, k, v, log_f, log_i, dh, chunk)
+    rows = [_bwd_rows(ch, scale) for ch in chunks]
+    parts = _bwd_apply(chunks, rows, scale)
+    dq, dk, dv, R, Li = (torch.cat([p[i] for p in parts], dim=2)[:, :, :S]
+                         for i in range(5))
+    dlf, dli = _bwd_gates(R, Li)
+    gate_dt = torch.float64 if dlf.dtype == torch.float64 else torch.float32
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), \
+        dlf.to(gate_dt), dli.to(gate_dt)
+
+
+mlstm_chunkwise_bwd_plain.calls = 0
+
+#: the backward kernel's tiles: 64 x 64 outputs, 32-deep slabs padded to
+#: 65 columns, and per block one (64, chunk rounded up to 64, + 1) float32
+#: buffer (the rows kernel) or two (the columns kernel)
+BWD_TILE, BWD_SLAB, BWD_PAD = 64, 32, 65
+
+
+def bwd_smem_bytes(chunk: int) -> int:
+    """Dynamic shared memory of csrc/mlstm_chunk_bwd.cu's larger kernel
+    (the columns kernel) at this chunk."""
+    Lp = -(-chunk // BWD_TILE) * BWD_TILE
+    return 4 * (2 * BWD_SLAB * BWD_PAD + 2 * BWD_TILE * (Lp + 1))
+
+
+def mlstm_chunkwise_bwd(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
+    """(dq, dk, dv, dlog_f, dlog_i) as ``mlstm_chunkwise_bwd_plain``: CUDA
+    tensors launch csrc/mlstm_chunk_bwd.cu (``mlstm_chunkwise_bwd.
+    launches`` counts the calls), CPU tensors run the plain version."""
+    _check(q, k, v, log_f, log_i, chunk, None)
+    if dh.shape != v.shape:
+        raise ValueError(f"dh must be v's shape {tuple(v.shape)}; got "
+                         f"{tuple(dh.shape)}")
+    if q.device.type == "cpu":
+        return mlstm_chunkwise_bwd_plain(q, k, v, log_f, log_i, dh,
+                                         chunk=chunk)
+    if q.device.type != "cuda" or dh.device != q.device:
+        raise ValueError(f"mlstm_chunkwise_bwd runs on one cuda or cpu "
+                         f"device; got {q.device}, {dh.device}")
+    launch = _build.function("mlstm_chunk_bwd", "mlstm_chunk_bwd_launch",
+                             BWD_ARGTYPES)
+    args, out, _ = bwd_launch_args(q, k, v, log_f, log_i, dh, chunk)
+    _build.check(launch(*args), "mlstm_chunkwise_bwd")
+    mlstm_chunkwise_bwd.launches += 1
+    return out
+
+
+#: csrc/mlstm_chunk_bwd.cu: mlstm_chunk_bwd_launch
+BWD_ARGTYPES = (ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 6 + \
+    (ctypes.c_void_p,)
+
+
+def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, fill=None):
+    """The arguments of one call of csrc/mlstm_chunk_bwd.cu's launcher on
+    checked CUDA tensors, the stream last, with the outputs (filled with
+    `fill` when given) and scratch allocated.  Returns (args, (dq, dk, dv,
+    dlog_f, dlog_i), the tensors the pointers refer to)."""
+    B, H, S, Dq = q.shape
+    Dv = v.shape[-1]
+    dev = q.device
+    if bwd_smem_bytes(chunk) > SMEM_LIMIT:
+        raise ValueError(f"the backward kernel keeps (64, chunk) float32 "
+                         f"buffers in shared memory: chunk={chunk} needs "
+                         f"{bwd_smem_bytes(chunk)} bytes > {SMEM_LIMIT}")
+    dtype = q.dtype
+    q, k, v = (a.contiguous() for a in (q, k, v))
+    dh = dh.to(dtype).contiguous()
+    lf, li = (a.to(torch.float32).contiguous() for a in (log_f, log_i))
+    nC = -(-S // chunk)
+    BH, Sp = B * H, nC * chunk
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    outs = [torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+            f32(B, H, S), f32(B, H, S)]
+    if fill is not None:
+        for t in outs:
+            t.fill_(fill)
+    # the gates (g, M_t, m_t per position; M_L per chunk; the chunk-start
+    # m), the chunk-start states and their gradients, the rows' C_c dh_t,
+    # and per position 1 / max(|den|, e^{-m}), dd, q.dq and k.dk
+    scratch = (f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, nC),
+               f32(BH, nC + 1), f32(BH, nC, Dq, Dv), f32(BH, nC, Dq),
+               f32(BH, nC, Dq, Dv), f32(BH, nC, Dq), f32(BH, Sp, Dq),
+               f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, Sp))
+    tensors = (q, k, v, lf, li, dh, *outs, *scratch)
+    args = tuple(t.data_ptr() for t in tensors) + \
+        (BH, S, Dq, Dv, chunk, int(dtype == torch.bfloat16),
+         torch.cuda.current_stream(dev).cuda_stream)
+    return args, tuple(outs), tensors
 
 
 def launch_args(q, k, v, log_f, log_i, chunk, initial, *, route="simt",
@@ -332,7 +635,9 @@ def launch_with(launch, q, k, v, log_f, log_i, chunk, initial, *,
     return out
 
 
-#: kernel launches since the last reset: all, and by route
+#: kernel launches since the last reset: all, and by route; and the
+#: backward's
+mlstm_chunkwise_bwd.launches = 0
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.sm90_launches = 0
 mlstm_chunkwise.simt_launches = 0

@@ -23,8 +23,12 @@ ragged last chunk not stored, the decay 1 % high, sqrt(1 - a^2) replaced
 by 1 - a) under ``build/``, runs every case of ``CASES`` through each on
 the card, on outputs filled with NaN first (so a value left unwritten
 fails), and prints per variant and case the largest error over its
-allowance.  With ``--parent DIR`` (a checkout of an earlier commit, e.g.
-a ``git archive`` of it, whose rglru_scan.cu has the three-launch
+allowance.  The same for the backward, csrc/rglru_scan_bwd.cu, on
+``BWD_CASES`` against ``rglru_bwd_allowance`` with ``BWD_FAULTS`` (the
+reverse recurrence with a_t for a_{t+1}, h_t for h_{t-1}, the chunk carry
+dropped, the sqrt term of dla dropped, the clamp's 0 not taken).  With
+``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
+archive`` of it, whose rglru_scan.cu has the three-launch
 interface ``PARENT_ARGTYPES``) it also runs that source on every case and
 prints whether its h equals this source's bit for bit (else the first
 element that differs), then times both at the serve shape in turns,
@@ -133,6 +137,126 @@ def rglru_error(h, want, allowed) -> float:
     err = (d / allowed.clamp_min(1e-300)).max().item()
     return math.inf if math.isnan(err) else err
 
+
+#: the backward's card-side cases at the recurrentgemma-9b train width
+#: (B = 2): (name, S, W, gate kind), the kinds of ``CASES`` and "zero":
+#: log_a = -10^U(-10, -5), where 1 - exp(2 log_a) rounds to 0 in float32
+#: (|log_a| below about 3e-8) or keeps few bits, and the float64
+#: derivative of sqrt(1 - exp(2 log_a)) is large
+BWD_CASES = (("train", 2048, 4096, "model"),
+             ("ragged_2000_w4000", 2000, 4000, "uniform"),
+             ("short_50", 50, 4096, "uniform"),
+             ("one_position", 1, 4096, "uniform"),
+             ("reduced", 48, 64, "model"),
+             ("long_memory", 2048, 4096, "long"),
+             ("near_zero", 2048, 4096, "zero"))
+BWD_BATCH = 2
+
+
+def rglru_bwd_inputs(gen, B, S, W, kind):
+    """x, log_a as ``rglru_inputs`` (kind "zero" as ``BWD_CASES``), h the
+    forward in float64 rounded to float32, and dh standard normal."""
+    if kind == "zero":
+        x, _ = rglru_inputs(gen, B, S, W, "uniform")
+        u = torch.rand((B, S, W), generator=gen, device=gen.device)
+        la = -torch.pow(10.0, -10.0 + 5.0 * u)
+    else:
+        x, la = rglru_inputs(gen, B, S, W, kind)
+    h = rk.rglru_scan_plain(x.double(), la.double()).float()
+    dh = torch.randn((B, S, W), generator=gen, device=gen.device)
+    return x, la, h, dh
+
+
+def rglru_bwd_allowance(x, log_a, h, dh):
+    """How far a float32 evaluation of the backward may lie from the exact
+    one, per element of (dx, dla) (float64): the reverse recurrence over
+    |dh| (e_t = |dh_t| + a_{t+1} e_{t+1}) is the rounding scale of g, whose
+    error err_t = a_{t+1} err_{t+1} + GAMMA e_t + ETA runs backwards as the
+    forward's does; then
+      dx:  err s + |g| min(2^-10, Y_ERR / sqrt(y)) + GAMMA |g s|,
+      dla: err (|h_{t-1}| a + |x e2 / s|) + GAMMA |g h_{t-1} a|
+           + |g x e2 / s| (ill + GAMMA),
+    with y = 1 - e2 and e2 = exp(2 log_a).  float32 knows y only to
+    Y_ERR, and its smallest nonzero value is 2^-24, so the second term of
+    dla, proportional to 1 / sqrt(y), may be off by ill = sqrt(y /
+    max(y - Y_ERR, 2^-24)) - 1, and wholly (ill = 1: the kernel may take
+    the clamp's 0) where y <= Y_ERR.  h is an input, exact on both
+    sides."""
+    x, la, h, dh = (t.double() for t in (x, log_a, h, dh))
+    a = torch.exp(la)
+    e2 = torch.exp(2.0 * la)
+    y = torch.clamp(1.0 - e2, min=0.0)
+    s = torch.sqrt(y)
+    ds = torch.clamp(Y_ERR / s, max=2.0 ** -10)
+    big = torch.where(s > 0, (x * e2 / torch.where(s > 0, s, 1.0)).abs(),
+                      0.0)
+    low = torch.clamp(y - Y_ERR, min=2.0 ** -24)
+    ill = torch.where(y > Y_ERR, torch.sqrt(y / low) - 1.0, 1.0)
+    adx, adla = torch.empty_like(x), torch.empty_like(x)
+    g = torch.zeros_like(x[:, 0])
+    e = torch.zeros_like(g)
+    err = torch.zeros_like(g)
+    a_next = torch.zeros_like(g)
+    for t in range(x.shape[1] - 1, -1, -1):
+        g = dh[:, t] + a_next * g
+        e = dh[:, t].abs() + a_next * e
+        err = a_next * err + GAMMA * e + ETA
+        hp = h[:, t - 1].abs() if t else torch.zeros_like(g)
+        adx[:, t] = err * s[:, t] + g.abs() * ds[:, t] + \
+            GAMMA * (g * s[:, t]).abs() + ETA
+        adla[:, t] = err * (hp * a[:, t] + big[:, t]) + \
+            GAMMA * (g.abs() * hp * a[:, t]) + \
+            (g.abs() * big[:, t]) * (ill[:, t] + GAMMA) + ETA
+        a_next = a[:, t]
+    return adx, adla
+
+
+def bwd_reference(x, log_a, h, dh):
+    """The plain backward in float64 on the same inputs, and the
+    allowance."""
+    return rk.rglru_scan_bwd_plain(x.double(), log_a.double(), h.double(),
+                                   dh.double()), \
+        rglru_bwd_allowance(x, log_a, h, dh)
+
+
+def rglru_bwd_error(got, want, allowed) -> float:
+    """The largest error over its allowance of dx and dla."""
+    return max(rglru_error(g, w, a) for g, w, a in zip(got, want, allowed))
+
+
+def run_bwd(fn, x, log_a, h, dh):
+    """(dx, dla) of one raw launch of a backward variant `fn`, its outputs
+    filled with NaN first."""
+    out, args, _ = rk.bwd_launch_args(x, log_a, h, dh, fill=float("nan"))
+    _build.check(fn(*args, torch.cuda.current_stream().cuda_stream),
+                 "rglru_scan_bwd (raw)")
+    return out
+
+
+#: planted faults of csrc/rglru_scan_bwd.cu: (text, replacement) or a list
+#: of them
+BWD_FAULTS = {
+    # g_t = dh_t + a_t g_{t+1}: the decay of the wrong position
+    "a_t_for_a_next": [("const float g = gout[j] + G;",
+                        "const float g = gout[j] + a * G;"),
+                       ("        G = a * g;", "        G = g;")],
+    # h_t read for h_{t-1}
+    "h_t_for_h_prev": ("const float h_prev = t0 + j > 0 ? h[i - W] : 0.f;",
+                       "const float h_prev = h[i];"),
+    # the chain's incoming carry from the next chunk read as 0
+    "carry_dropped": ("gin = __uint_as_float(static_cast<uint32_t>(word));",
+                      "gin = 0.f;"),
+    # dla without -g x e2 / s
+    "sqrt_term_dropped": (
+        "const float clamped = s > 0.f ? g * x[i] * e / s : 0.f;",
+        "const float clamped = 0.f;"),
+    # the clamp branch's 0 not taken: inf or NaN where 1 - e2 rounds to 0
+    "clamp_unguarded": (
+        "const float clamped = s > 0.f ? g * x[i] * e / s : 0.f;",
+        "const float clamped = g * x[i] * e / s;"),
+}
+#: the backward is timed at the train shape
+BWD_TIMED_SHAPE = (BWD_BATCH, 2048, 4096)
 
 #: planted faults: (text of csrc/rglru_scan.cu, its replacement)
 FAULTS = {
@@ -291,6 +415,7 @@ def main(argv=()) -> int:
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = _build.start_variants("rglru_scan", FAULTS, out_dir)
+    bwd_procs = _build.start_variants("rglru_scan_bwd", BWD_FAULTS, out_dir)
     ablated = _build.start_variants(
         "rglru_scan", {f"ablate_{k}": v for k, v in ABLATIONS.items()},
         out_dir, with_source=False) if args.ablate else None
@@ -307,6 +432,7 @@ def main(argv=()) -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     caught = {name: [] for name in FAULTS}
+    caught.update({f"bwd_{name}": [] for name in BWD_FAULTS})
     source_ok = True
     all_equal = True
     for case, S, W, kind in CASES:
@@ -332,6 +458,22 @@ def main(argv=()) -> int:
             print(json.dumps({"parent": case, "bitwise_equal": diff is None,
                               "first_difference": diff}), flush=True)
         del x, la, want, allowed, source_h
+    bwd_fns = _build.finish_variants(bwd_procs, "rglru_scan_bwd_launch",
+                                     rk.BWD_ARGTYPES)
+    for case, S, W, kind in BWD_CASES:
+        x, la, h, dh = rglru_bwd_inputs(gen, BWD_BATCH, S, W, kind)
+        want, allowed = bwd_reference(x, la, h, dh)
+        for name, fn in bwd_fns.items():
+            err = rglru_bwd_error(run_bwd(fn, x, la, h, dh), want, allowed)
+            ok = err <= 1.0
+            print(json.dumps({"variant": f"bwd_{name}", "case": case,
+                              "error_over_allowed": err, "ok": ok}),
+                  flush=True)
+            if name == "source":
+                source_ok &= ok
+            elif not ok:
+                caught[f"bwd_{name}"].append(case)
+        del x, la, h, dh, want, allowed
     missed = [name for name, cases in caught.items() if not cases]
     summary = {"source_passes": source_ok, "caught_in": caught,
                "missed": missed, "gpu": torch.cuda.get_device_name(0)}

@@ -8,14 +8,16 @@ decoder layer adds cross-attention to the encoder output, whose keys and
 values are computed once at prefill and carried in the decode state
 (``ck``/``cv``).  Both stacks add sinusoidal positions: the reference's
 stated deviation from whisper's learned decoder positions, followed here.
+``loss_fn`` is the decoder's cross entropy alone, as the reference's
+(its metrics carry the aux loss; no MoE config is encoder-decoder).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from .layers import (apply_norm, dtype_of, embed_init, embed_tokens,
-                     norm_init, sinusoidal_positions, unembed)
+from .layers import (apply_norm, cross_entropy, dtype_of, embed_init,
+                     embed_tokens, norm_init, sinusoidal_positions, unembed)
 from .transformer import (block_init, encoder_config, layer_kinds,
                           layers_apply, layers_state_shape)
 
@@ -40,8 +42,8 @@ def build_encdec(cfg: ModelConfig):
         x = audio_embeds.to(dtype_of(cfg))
         pos = torch.arange(x.shape[1], device=x.device)
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
-        x, _ = layers_apply(enc_cfg, params["encoder"], x, mode="train",
-                            causal=False)
+        x, _, _ = layers_apply(enc_cfg, params["encoder"], x, mode="train",
+                               causal=False)
         return apply_norm(cfg, params["enc_ln"], x)
 
     def _embed_dec(params, tokens, offset=0):
@@ -49,19 +51,32 @@ def build_encdec(cfg: ModelConfig):
         pos = torch.arange(tokens.shape[1], device=x.device) + offset
         return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
 
+    def loss_fn(params, batch):
+        enc = encode(params, batch["audio_embeds"])
+        x = _embed_dec(params, batch["tokens"])
+        x, _, aux = layers_apply(cfg, params["decoder"], x, mode="train",
+                                 enc_out=enc)
+        x = apply_norm(cfg, params["ln_f"], x)
+        logits = unembed(cfg, params["embed"], x)
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss, {"loss": loss, "aux_loss": aux,
+                      "tokens": torch.tensor(float(batch["labels"].numel()),
+                                             device=loss.device)}
+
     def prefill(params, batch, max_len: int = 0):
         enc = encode(params, batch["audio_embeds"])
         x = _embed_dec(params, batch["tokens"])
-        x, states = layers_apply(cfg, params["decoder"], x, mode="prefill",
-                                 enc_out=enc, max_len=max_len)
+        x, states, _ = layers_apply(cfg, params["decoder"], x,
+                                    mode="prefill", enc_out=enc,
+                                    max_len=max_len)
         x = apply_norm(cfg, params["ln_f"], x)
         logits = unembed(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], states
 
     def decode_step(params, states, tokens, pos, positions=None):
         x = _embed_dec(params, tokens[:, None], offset=int(pos))
-        x, states = layers_apply(cfg, params["decoder"], x, mode="decode",
-                                 states=states, pos=pos)
+        x, states, _ = layers_apply(cfg, params["decoder"], x, mode="decode",
+                                    states=states, pos=pos)
         x = apply_norm(cfg, params["ln_f"], x)
         logits = unembed(cfg, params["embed"], x)
         return logits[:, 0], states
@@ -70,5 +85,5 @@ def build_encdec(cfg: ModelConfig):
         return layers_state_shape(cfg, batch, max_len, cross=True)
 
     return dict(config=cfg, init_params=init_params, encode=encode,
-                prefill=prefill, decode_step=decode_step,
+                loss_fn=loss_fn, prefill=prefill, decode_step=decode_step,
                 decode_state_shape=decode_state_shape)

@@ -1,10 +1,10 @@
-"""Shared layers (port of ``repro/models/layers.py``, the part the serve
-paths use): dtypes, the truncated-normal initializer, norms in float32,
-rotary position embeddings (plain and M-RoPE), whisper's sinusoidal
-positions, the feed-forward blocks, embedding and the unembedding.
+"""Shared layers (port of ``repro/models/layers.py``): dtypes, the
+truncated-normal initializer, norms in float32, rotary position
+embeddings (plain and M-RoPE), whisper's sinusoidal positions, the
+feed-forward blocks, embedding, the unembedding and the next-token
+cross entropy.
 
 Parameters are nested dicts of tensors, as the reference's pytrees.
-The loss comes with the training slice (ROADMAP Queue 1 item 18).
 """
 from __future__ import annotations
 
@@ -184,3 +184,18 @@ def unembed(cfg: ModelConfig, params, x):
     if cfg.tie_embeddings:
         return x @ params["embedding"].T.to(x.dtype)
     return x @ params["unembed"].to(x.dtype)
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean next-token CE in float32 (``layers.py: cross_entropy``):
+    logsumexp minus the gold logit, averaged over the positions, or over
+    the mask's weight when a mask is given.  logits (..., V); labels
+    (...) int."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

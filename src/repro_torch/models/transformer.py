@@ -15,6 +15,7 @@ across that map.
 
 Entry points produced by ``build_lm``:
   init_params(gen)                     -> params (on gen's device)
+  loss_fn(params, batch)               -> (loss + 0.01 aux, metrics)
   prefill(params, batch, max_len)      -> (last_logits, decode_state)
   decode_step(params, state, tok, pos, positions=None)
                                        -> (logits, decode_state)
@@ -24,9 +25,17 @@ Entry points produced by ``build_lm``:
 window) positions) and ``pos`` is the decoded token's position.  An
 embeds-input model (qwen2-vl) takes ``batch["embeds"]`` (B, S, d) and its
 (B, 3, S) M-RoPE ``positions`` at prefill, and the next input's
-embedding (B, d) in place of a token at decode.  ``loss_fn`` and
-training wait for the training slice (ROADMAP Queue 1 item 18); the MoE
-aux loss is dropped here, as serving drops it.
+embedding (B, d) in place of a token at decode.  ``loss_fn`` takes the
+batch's ``labels`` (and an optional ``loss_mask``) and returns the cross
+entropy plus 0.01 times the MoE aux loss summed over the layers, with
+metrics {"loss", "aux_loss", "tokens"}.
+
+In train mode with ``cfg.remat`` (and grad enabled) each repeat of a
+segment's pattern runs under ``torch.utils.checkpoint`` (non-reentrant):
+the reference's ``jax.checkpoint`` of its scan body, one pattern
+instance; ``cfg.remat_group`` > 1 (dividing the repeats) puts that many
+instances under one checkpoint, as the reference groups them.  The
+backward then runs each group's forward again, its kernels included.
 """
 from __future__ import annotations
 
@@ -34,13 +43,17 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.tree import map_leaves
+# the walker's name in tests/test_torch_gpu.py's import
+from repro_torch.tree import map_leaves as tree_map  # noqa: F401
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM,
                                       ModelConfig)
 from . import attention as attn
 from . import ssm
-from .layers import (apply_mlp, apply_norm, dtype_of, embed_init,
-                     embed_tokens, mlp_init, norm_init, unembed)
+from .layers import (apply_mlp, apply_norm, cross_entropy, dtype_of,
+                     embed_init, embed_tokens, mlp_init, norm_init, unembed)
 from .moe import apply_moe, moe_init
 
 
@@ -147,57 +160,105 @@ def _apply_attn_block(cfg: ModelConfig, kind: str, params, x, *, mode,
         x = x + xh
         if mode != "train":
             new_state = dict(new_state, ck=ck, cv=cv)
+    aux = None
     if "moe" in params:
-        h, _ = apply_moe(cfg, params["moe"],
-                         apply_norm(cfg, params["ln2"], x))
+        h, aux = apply_moe(cfg, params["moe"],
+                           apply_norm(cfg, params["ln2"], x))
         x = x + h
     elif "mlp" in params:
         x = x + apply_mlp(cfg, params["mlp"],
                           apply_norm(cfg, params["ln2"], x))
-    return x, new_state
+    return x, new_state, aux
 
 
 def block_apply(cfg: ModelConfig, kind: str, params, x, *, mode: str,
                 state=None, pos=None, positions=None, max_len: int = 0,
                 enc_out=None, causal: bool = True):
-    """Returns (x, new_state)."""
+    """Returns (x, new_state); ``layers_apply`` also sums the MoE aux
+    losses."""
+    x, st, _ = _block(cfg, kind, params, x, mode=mode, state=state, pos=pos,
+                      positions=positions, max_len=max_len, enc_out=enc_out,
+                      causal=causal)
+    return x, st
+
+
+def _block(cfg: ModelConfig, kind: str, params, x, *, mode, state, pos,
+           positions, max_len, enc_out, causal):
+    """(x, new_state, the MoE aux loss or None without an MoE)."""
+    aux = None
     if kind in (ATTN, LOCAL_ATTN):
-        return _apply_attn_block(cfg, kind, params, x, mode=mode,
-                                 state=state, pos=pos, positions=positions,
-                                 max_len=max_len, enc_out=enc_out,
-                                 causal=causal)
-    if kind == RGLRU:
+        x, st, aux = _apply_attn_block(cfg, kind, params, x, mode=mode,
+                                       state=state, pos=pos,
+                                       positions=positions, max_len=max_len,
+                                       enc_out=enc_out, causal=causal)
+    elif kind == RGLRU:
         h, st = ssm.apply_rglru(cfg, params["cell"],
                                 apply_norm(cfg, params["ln1"], x), mode=mode,
                                 state=None if state is None else state["cell"])
         x = x + h
         x = x + apply_mlp(cfg, params["mlp"],
                           apply_norm(cfg, params["ln2"], x))
-        return x, None if st is None else {"cell": st}
-    if kind not in (MLSTM, SLSTM):
+        st = None if st is None else {"cell": st}
+    elif kind in (MLSTM, SLSTM):
+        fn = ssm.apply_mlstm if kind == MLSTM else ssm.apply_slstm
+        h, st = fn(cfg, params["cell"], apply_norm(cfg, params["ln"], x),
+                   mode=mode, state=None if state is None else state["cell"])
+        x = x + h
+        st = None if st is None else {"cell": st}
+    else:
         raise ValueError(kind)
-    fn = ssm.apply_mlstm if kind == MLSTM else ssm.apply_slstm
-    h, st = fn(cfg, params["cell"], apply_norm(cfg, params["ln"], x),
-               mode=mode, state=None if state is None else state["cell"])
-    return x + h, None if st is None else {"cell": st}
+    return x, st, aux
 
 
 def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
                  pos=None, positions=None, max_len: int = 0, enc_out=None,
                  causal: bool = True):
     """All layers in order (the reference's segments_apply).  Returns
-    (x, new_states) with new_states None in train mode."""
+    (x, new_states, aux): new_states None in train mode, aux the MoE aux
+    losses summed over the layers (float32 0-d).  In train mode with
+    ``cfg.remat`` and grad enabled, each group of pattern instances runs
+    under a checkpoint."""
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
+    aux = None
     new_states = []
-    for li, kind in enumerate(layer_kinds(cfg)):
-        # a named range per block kind, for profile_serve's breakdown
-        with torch.profiler.record_function(f"block:{kind}"):
-            x, ns = block_apply(cfg, kind, blocks[li], x, mode=mode,
-                                state=None if states is None else states[li],
-                                pos=pos, positions=positions,
-                                max_len=max_len, enc_out=enc_out,
-                                causal=causal)
-        new_states.append(ns)
-    return x, (new_states if mode != "train" else None)
+
+    def add(total, a):
+        return a if total is None else total if a is None else total + a
+
+    def run(xx, lis):
+        a, outs = None, []
+        for li, kind in lis:
+            # a named range per block kind, for the profilers' breakdowns
+            with torch.profiler.record_function(f"block:{kind}"):
+                xx, ns, a_l = _block(
+                    cfg, kind, blocks[li], xx, mode=mode,
+                    state=None if states is None else states[li], pos=pos,
+                    positions=positions, max_len=max_len, enc_out=enc_out,
+                    causal=causal)
+            a = add(a, a_l)
+            outs.append(ns)
+        return xx, a, outs
+
+    li = 0
+    for pattern, repeats in cfg.layout:
+        n = len(pattern)
+        group = cfg.remat_group if remat and cfg.remat_group > 1 and \
+            repeats % cfg.remat_group == 0 else 1
+        for r in range(0, repeats, group):
+            lis = [(li + j, pattern[j % n])
+                   for j in range(r * n, (r + group) * n)]
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    lambda xx, lis=lis: run(xx, lis)[:2], x,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a, outs = run(x, lis)
+                new_states += outs
+            aux = add(aux, a)
+        li += repeats * n
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, (new_states if mode != "train" else None), aux
 
 
 def layers_state_shape(cfg: ModelConfig, batch: int, max_len: int = 0,
@@ -225,21 +286,36 @@ def build_lm(cfg: ModelConfig):
 
     def _backbone(params, x, *, mode, states=None, pos=None, positions=None,
                   max_len=0):
-        x, new_states = layers_apply(cfg, params["blocks"], x, mode=mode,
-                                     states=states, pos=pos,
-                                     positions=positions, max_len=max_len)
-        return apply_norm(cfg, params["ln_f"], x), new_states
+        x, new_states, aux = layers_apply(
+            cfg, params["blocks"], x, mode=mode, states=states, pos=pos,
+            positions=positions, max_len=max_len)
+        return apply_norm(cfg, params["ln_f"], x), new_states, aux
 
-    def prefill(params, batch, max_len: int = 0):
-        """max_len sizes the attention caches (recurrent blocks ignore
-        it)."""
+    def _inputs(params, batch):
         if cfg.embeds_input:
             x = batch["embeds"].to(dtype_of(cfg))
         else:
             x = embed_tokens(cfg, params["embed"], batch["tokens"])
-        positions = batch.get("positions") if cfg.position_inputs else None
-        x, states = _backbone(params, x, mode="prefill", positions=positions,
-                              max_len=max_len)
+        return x, batch.get("positions") if cfg.position_inputs else None
+
+    def loss_fn(params, batch):
+        """(loss + 0.01 aux, {"loss", "aux_loss", "tokens"}) on a batch
+        with ``labels`` (B, S) and an optional ``loss_mask``."""
+        x, positions = _inputs(params, batch)
+        x, _, aux = _backbone(params, x, mode="train", positions=positions)
+        logits = unembed(cfg, params["embed"], x)
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        return loss + 0.01 * aux, {
+            "loss": loss, "aux_loss": aux,
+            "tokens": torch.tensor(float(batch["labels"].numel()),
+                                   device=loss.device)}
+
+    def prefill(params, batch, max_len: int = 0):
+        """max_len sizes the attention caches (recurrent blocks ignore
+        it)."""
+        x, positions = _inputs(params, batch)
+        x, states, _ = _backbone(params, x, mode="prefill",
+                                 positions=positions, max_len=max_len)
         logits = unembed(cfg, params["embed"], x[:, -1:])
         return logits[:, 0], states
 
@@ -252,16 +328,16 @@ def build_lm(cfg: ModelConfig):
             x = tokens.to(dtype_of(cfg))[:, None, :]
         else:
             x = embed_tokens(cfg, params["embed"], tokens[:, None])
-        x, states = _backbone(params, x, mode="decode", states=states,
-                              pos=pos, positions=positions)
+        x, states, _ = _backbone(params, x, mode="decode", states=states,
+                                 pos=pos, positions=positions)
         logits = unembed(cfg, params["embed"], x)
         return logits[:, 0], states
 
     def decode_state_shape(batch: int, max_len: int = 0):
         return layers_state_shape(cfg, batch, max_len)
 
-    return dict(config=cfg, init_params=init_params, prefill=prefill,
-                decode_step=decode_step,
+    return dict(config=cfg, init_params=init_params, loss_fn=loss_fn,
+                prefill=prefill, decode_step=decode_step,
                 decode_state_shape=decode_state_shape)
 
 
@@ -289,16 +365,6 @@ def tensor_to_numpy(t):
     return t.numpy()
 
 
-def tree_map(fn, tree):
-    """fn applied to every leaf of nested dicts, lists and tuples (the
-    port's parameters and decode states)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _unstack(cfg: ModelConfig, segs, fn):
     """The reference's ((pattern position -> stacked leaf) per segment)
     as one entry per layer, each leaf passed through fn."""
@@ -306,7 +372,7 @@ def _unstack(cfg: ModelConfig, segs, fn):
     for si, (pattern, repeats) in enumerate(cfg.layout):
         for r in range(repeats):
             for bi in range(len(pattern)):
-                out.append(tree_map(lambda a: fn(np.asarray(a)[r]),
+                out.append(map_leaves(lambda a: fn(np.asarray(a)[r]),
                                     segs[si][bi]))
     return out
 
@@ -349,7 +415,7 @@ def params_from_jax(cfg: ModelConfig, params_np, device="cpu"):
     if cfg.is_encoder_decoder:
         stacks["encoder"] = encoder_config(cfg)
     return {name: _unstack(stacks[name], tree, conv) if name in stacks
-            else tree_map(conv, tree) for name, tree in params_np.items()}
+            else map_leaves(conv, tree) for name, tree in params_np.items()}
 
 
 def state_from_jax(cfg: ModelConfig, states_np, device="cpu"):
@@ -361,4 +427,4 @@ def state_from_jax(cfg: ModelConfig, states_np, device="cpu"):
 def state_to_jax(cfg: ModelConfig, states):
     """The port's per-layer states as the reference's decode-state pytree
     of numpy arrays (tuples of segments of stacked leaves)."""
-    return _stack(cfg, [tree_map(tensor_to_numpy, st) for st in states])
+    return _stack(cfg, [map_leaves(tensor_to_numpy, st) for st in states])

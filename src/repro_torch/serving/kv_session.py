@@ -18,13 +18,13 @@ from typing import Optional, Tuple
 import numpy as np
 
 from repro_torch.checkpoint.lark_store import LarkStore
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import map_leaves
 
 
 def to_host(state):
     """A copy of every tensor leaf on the CPU (never a view of the
     caller's storage)."""
-    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+    return map_leaves(lambda t: t.detach().to("cpu", copy=True), state)
 
 
 class LarkSessionStore:

@@ -22,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import map_leaves
 from .kv_session import LarkSessionStore
 
 
@@ -33,7 +33,7 @@ class ServeLoop:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
-        self.params = tree_map(lambda t: t.to(self.device), params)
+        self.params = map_leaves(lambda t: t.to(self.device), params)
         self.max_len = max_len
         self.sessions = session_store
         self.checkpoint_every = checkpoint_every
@@ -84,7 +84,7 @@ class ServeLoop:
         ok, blob = self.sessions.load_session(session_id)
         if not ok or blob is None:
             return None
-        state = tree_map(lambda t: t.to(self.device), blob["state"])
+        state = map_leaves(lambda t: t.to(self.device), blob["state"])
         toks = [blob["tokens"][:, i] for i in range(blob["tokens"].shape[1])]
         cur = torch.from_numpy(np.asarray(toks[-1])).to(self.device)
         for i in range(steps):

@@ -189,3 +189,34 @@ def lm_leaves(tree):
     """(path, leaf) pairs in the order jax flattens a dict."""
     flat, _ = jax.tree_util.tree_flatten_with_path(tree)
     return [(jax.tree_util.keystr(p), leaf) for p, leaf in flat]
+
+
+def train_batch(cfg, seq=16, rows=2, seed=0):
+    """The reference's make_batch for a train cell (labels included), as
+    numpy arrays."""
+    b = ref_make_batch(cfg, RefShape("t", seq, rows, "train"),
+                       np.random.default_rng(seed))
+    return {k: np.array(v) for k, v in b.items()}
+
+
+def ref_loss_and_grads(ref_model, pj, b):
+    """jax.value_and_grad of the reference's loss_fn on the numpy batch:
+    (total, metrics, grads as numpy float32)."""
+    fn = jax.jit(jax.value_and_grad(ref_model["loss_fn"], has_aux=True))
+    (total, metrics), grads = fn(pj, jax.tree.map(jnp.asarray, b))
+    return total, metrics, jax.tree.map(
+        lambda a: np.asarray(a, np.float32), grads)
+
+
+def grads_close(cfg, got, want_np):
+    """Every gradient leaf of the port (a tree of tensors in the port's
+    layout) within the whole-model tolerance of the reference's (its
+    pytree, as numpy), matched by ``params_from_jax``."""
+    from repro_torch import tree
+    want = params_from_jax(cfg, want_np)
+    got_leaves = tree.leaves_with_paths(got)
+    want_leaves = tree.leaves_with_paths(want)
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        assert g.shape == w.shape, path
+        close_deep(g.to(torch.float32), w.to(torch.float32))
