@@ -13,7 +13,9 @@ of the registry; the §5.2 micro-simulator's Tables 3-4 at the
 reference's 520,000 ticks; and training: the backward kernels of the
 mLSTM and RG-LRU cells, and the train step of xlstm-350m,
 recurrentgemma-9b (cut to 3 layers) and smollm-360m at full width behind
-the LARK and quorum-log checkpoint stores.
+the LARK and quorum-log checkpoint stores; and across ranks on the one
+card: the Monte Carlo's trials sharded over 2 and 4 processes, and
+smollm-360m's data-parallel train step on 2.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -51,7 +53,7 @@ One JSON line per phase:
    the profiler's kernel durations, ``graph_ms`` from a CUDA graph's
    replay and ``cold_ms`` with the L2 cold).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
-   packed, 2048 steps with the trajectory kept.  The two runs must
+   packed, 512 steps with the trajectory kept.  The two runs must
    agree exactly, the first 128 steps must equal a ``device="cpu"`` run,
    and both §5.1 kernels must have launched over this path.
 5. ``bench_row``: the BENCH_sweep i.i.d. row and the hetero-mttf row at
@@ -59,7 +61,7 @@ One JSON line per phase:
    unpacked, must equal the committed rows of
    ``benchmarks/BENCH_sweep.json`` byte for byte.
 6. ``downtime``: ``simulate_downtime_batched`` on cuda at rf = 2,
-   p = 1e-3, 2048 steps with the trajectory kept, for the fixed model
+   p = 1e-3, 512 steps with the trajectory kept, for the fixed model
    (default knobs, and with 1 GiB/s shared bandwidth) and for reconfig
    with zipf sizes (skew 1) and 1 GiB/s shared bandwidth, each unpacked
    and packed; the layouts must agree exactly, each §6 kernel of a
@@ -72,7 +74,7 @@ One JSON line per phase:
    BENCH_downtime_skew.json, rebuilt on cuda, packed and unpacked, must
    equal the committed row byte for byte.
 8. ``latency``: ``simulate_client_latency`` on cuda at rf = 2, p = 1e-3,
-   the fixed model, 2048 steps, unpacked and packed; the layouts must
+   the fixed model, 512 steps, unpacked and packed; the layouts must
    agree exactly, ``latency_charge`` must have launched on this path
    (and the §6 eval kernels beside it), and a 128-step run on cuda must
    equal the same run on the CPU.  ``latency_charge`` itself is held
@@ -222,7 +224,22 @@ One JSON line per phase:
 25. ``elastic``: the reduced xlstm on the card through
    ``ElasticTrainer``: checkpoint, a worker leaves, restore, continue;
    bitwise equal to an uninterrupted run.
-26. ``kernels``: every ported kernel with its launches on its main path,
+26. ``sharded``: the Monte Carlo's trials over worlds of 2 and 4 ranks
+   on the one card (``torch.multiprocessing`` spawn, ``gloo`` through a
+   ``file://`` store, ``devices = 8``): every path of phases 4, 6, 8 and
+   9, unpacked and packed, on every rank equal to those phases' own
+   one-process runs in every field and trajectory, every kernel of the
+   path launched on every rank (at 4 and 2 trials a grid); a §5.1 run
+   with the early stop live (default min_ticks, p = 2e-4) stopping at
+   the same step in 4 ranks as in one process.  Prints each rank's
+   steps/s and the spawn cost (start to a ready CUDA context).
+27. ``train_dp``: smollm-360m at full width and depth in float32, 4 x
+   1024 tokens, 2 steps: one process, then 2 ranks on the card each
+   taking 2 rows through ``make_train_step``'s data parallelism (gloo
+   all-reduce of the gradients): the loss, grad norm and every parameter
+   leaf within the float32 reduction-order tolerance of
+   ``tests/test_torch_train_dp.py``, the ranks' replicas equal.
+28. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time.  ``node_count``'s launches are
    those of the counts mode, which does its work on the main path; its
@@ -287,6 +304,12 @@ from repro_torch.training import (ElasticTrainer,  # noqa: E402
 
 #: paper tile (runner.py --full scale): nodes, partitions, trials
 N, P, B = 155, 4096, 8
+#: steps of each Monte Carlo main-path run, in chunks of MC_CHUNK steps
+#: (2048 steps in 512-step chunks until the sharded phase reused these
+#: runs as its one-process side): every main path and every sharded
+#: path crosses three chunk boundaries, where the drains, the gathers
+#: across ranks and the accumulator resets run
+MC_STEPS, MC_CHUNK = 512, 128
 DEVICE = "cuda"
 #: published HBM rates by card (NVIDIA data sheets), bytes/s
 HBM_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
@@ -927,9 +950,11 @@ def read_counts(names):
 
 def check_engine():
     """Phase 4, the §5.1 main path: the engine on cuda, unpacked and
-    packed.  Returns each §5.1 kernel's launches over the two runs."""
+    packed.  Returns each §5.1 kernel's launches over the two runs, and
+    the runs by packed."""
     kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
-              max_steps=2048, seed=0, trajectory=True)
+              max_steps=MC_STEPS, chunk_steps=MC_CHUNK, seed=0,
+              trajectory=True)
     reset_counts()
     runs = {}
     for packed in (False, True):
@@ -975,7 +1000,7 @@ def check_engine():
     if not cpu_same:
         raise SystemExit("cuda run disagrees with the cpu run over the "
                          "first chunk")
-    return launches
+    return launches, runs
 
 
 def check_bench_rows():
@@ -1043,12 +1068,15 @@ def check_downtime_engine():
     kernel's launches summed over those runs; node_count's are the
     launches that counted in flight, node_count alone never among them
     (the counts mode does its work on this path).  The roster eval
-    without counts does not launch here; phase 9 drives it."""
-    launches = {}
+    without counts does not launch here; phase 9 drives it.  Also
+    returns the runs by (config, packed)."""
+    launches, runs = {}, {}
     for name, (knobs, kernels) in DOWNTIME_CONFIGS.items():
-        r, got = check_engine_pair(
+        pair, got = check_engine_pair(
             "downtime", db.simulate_downtime_batched, downtime_fingerprint,
             kernels, dict(knobs, trajectory=True), config=name)
+        runs.update({(name, k): v for k, v in pair.items()})
+        r = pair[False]
         if r.quorum_events <= 0 or r.lark_events <= 0:
             raise SystemExit(f"no pause events in the §6 run ({name})")
         if got["node_count"] != 0:
@@ -1058,7 +1086,7 @@ def check_downtime_engine():
             launches[k] = launches.get(k, 0) + got[k]
     launches["node_count"] = launches["downtime_eval_counts"] + \
         launches["downtime_eval_roster_counts"]
-    return launches
+    return launches, runs
 
 
 def check_downtime_bench_rows():
@@ -1126,15 +1154,15 @@ def same_fingerprint(a, b) -> bool:
 
 
 def check_engine_pair(phase, simulate, fingerprint, kernels, knobs, *,
-                      steps=2048, config=None):
-    """Drive one §6 path on cuda at the paper tile for `steps` steps (a
-    multiple of the 512-step chunk), unpacked and packed, with the launch
+                      steps=MC_STEPS, config=None):
+    """Drive one §6 path on cuda at the paper tile for `steps` steps in
+    MC_CHUNK-step chunks, unpacked and packed, with the launch
     counts set to 0 just before and read just after: the layouts must
     agree exactly, every kernel of `kernels` must have launched, and a
-    128-step run on cuda must equal the CPU's.  Returns the unpacked run
-    and every kernel's launches over the two runs."""
+    128-step run on cuda must equal the CPU's.  Returns the runs by
+    packed and every kernel's launches over the two runs."""
     kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
-              max_steps=steps, seed=0, **knobs)
+              max_steps=steps, chunk_steps=MC_CHUNK, seed=0, **knobs)
     tag = {"phase": phase, "config": config}
     reset_counts()
     runs = {}
@@ -1168,15 +1196,17 @@ def check_engine_pair(phase, simulate, fingerprint, kernels, knobs, *,
     if not same:
         raise SystemExit(f"cuda {phase} run disagrees with the cpu run "
                          f"({config})")
-    return runs[False], launches
+    return runs, launches
 
 
 def check_latency_engine():
-    """Phase 8, the client-latency path: returns the launches."""
-    r, launches = check_engine_pair(
+    """Phase 8, the client-latency path: returns the launches and the
+    runs by packed."""
+    runs, launches = check_engine_pair(
         "latency", cl.simulate_client_latency, latency_fingerprint,
         ("latency_charge", "downtime_eval", "fused_downtime_eval"),
-        LATENCY_KNOBS)
+        dict(LATENCY_KNOBS, trajectory=True))
+    r = runs[False]
     raw = r.downtime.latency_raw
     finite = all(np.isfinite(v).all() for v in raw.values())
     emit({"phase": "latency", "finite": finite,
@@ -1186,18 +1216,20 @@ def check_latency_engine():
     if not finite or r.lat_lark <= 0 or r.lat_quorum <= 0 or \
             not r.p50_quorum <= r.p99_quorum <= r.p999_quorum:
         raise SystemExit("the latency run charged nothing or is not finite")
-    return launches
+    return launches, runs
 
 
 def check_zoo_engine():
-    """Phase 9, the protocol zoo: returns the launches."""
-    r, launches = check_engine_pair(
+    """Phase 9, the protocol zoo: returns the launches and the runs by
+    packed."""
+    runs, launches = check_engine_pair(
         "zoo", db.simulate_downtime_batched, downtime_fingerprint,
         ("downtime_eval_roster", "fused_downtime_eval"),
         dict(ZOO_KNOBS, trajectory=True))
+    r = runs[False]
     if r.hermes_events <= 0 or r.spinnaker_events <= 0:
         raise SystemExit("no hermes or spinnaker pause events in the zoo run")
-    return launches
+    return launches, runs
 
 
 def check_zoo_bench_rows():
@@ -3062,6 +3094,328 @@ def check_elastic():
         raise SystemExit(f"the elastic phase failed: {checks}")
 
 
+# ---------------------------------------------------------------------------
+# Across ranks: the Monte Carlo's trials and the data-parallel train step
+# ---------------------------------------------------------------------------
+
+#: the sharded phase: worlds of ranks on the one card (gloo), and the
+#: `devices` every run asks for (the committed configs' 8, which both
+#: worlds divide)
+SHARD_WORLDS, SHARD_DEVICES = (2, 4), 8
+#: the §5.1 run with the early stop live (default min_ticks 50,000, 200
+#: events): p = 2e-4 reaches 50,000 ticks in ~3,100 steps, with ~1,300
+#: LARK and majority outage events over the 8 trials by then
+SHARD_STOP = dict(n=N, partitions=P, rf=2, p=2e-4, trials=B, seed=0,
+                  trajectory=True)
+#: the data-parallel train step: smollm-360m at full width and depth in
+#: float32 (so the CPU test's float32 tolerance applies), 4 x 1024
+#: tokens split over 2 ranks, 2 steps
+DP_ARCH, DP_WORLD, DP_ROWS, DP_SEQ, DP_STEPS = "smollm_360m", 2, 4, 1024, 2
+
+
+def shard_paths():
+    """name -> (simulate, knobs, (unpacked kernels, packed kernels)):
+    every Monte Carlo path of the engine, downtime, latency and zoo
+    phases with their knobs (paper tile, MC_STEPS steps in MC_CHUNK-step
+    chunks, trajectory kept)."""
+    base = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B,
+                min_ticks=10 ** 9, max_steps=MC_STEPS, chunk_steps=MC_CHUNK,
+                seed=0, trajectory=True)
+    paths = {"engine": (ab.simulate_availability_batched, base,
+                        (("pac_eval",), ("fused_pac_eval",)))}
+    for name, (knobs, (unpacked, packed)) in DOWNTIME_CONFIGS.items():
+        paths[f"downtime:{name}"] = (db.simulate_downtime_batched,
+                                     dict(base, **knobs),
+                                     ((unpacked,), (packed,)))
+    paths["latency"] = (cl.simulate_client_latency,
+                        dict(base, **LATENCY_KNOBS),
+                        (("latency_charge", "downtime_eval"),
+                         ("latency_charge", "fused_downtime_eval")))
+    paths["zoo"] = (db.simulate_downtime_batched, dict(base, **ZOO_KNOBS),
+                    (("downtime_eval_roster",), ("fused_downtime_eval",)))
+    return paths
+
+
+def result_fingerprint(r, prefix=""):
+    """Every field of a Monte Carlo result (nested results and dicts
+    flattened) but the device and the requested `devices`."""
+    out = {}
+    for f in dataclasses.fields(r):
+        if f.name in ("device", "devices"):
+            continue
+        v = getattr(r, f.name)
+        if dataclasses.is_dataclass(v):
+            out.update(result_fingerprint(v, f"{prefix}{f.name}."))
+        elif isinstance(v, dict):
+            out.update({f"{prefix}{f.name}:{k}": x for k, x in v.items()})
+        else:
+            out[prefix + f.name] = v
+    return out
+
+
+def run_shard_case(simulate, knobs, packed, devices, device):
+    """(fingerprint, launches of every kernel that launched, steps,
+    wall s) of one run, the counts set to 0 just before."""
+    reset_counts()
+    torch.cuda.synchronize(device)
+    t0 = time.monotonic()
+    r = simulate(packed=packed, devices=devices, device=device, **knobs)
+    torch.cuda.synchronize(device)
+    wall = time.monotonic() - t0
+    fp = result_fingerprint(r)
+    steps = len(fp.get("trajectory:times", fp.get("downtime.trajectory:times",
+                                                  ())))
+    return fp, {k: v for k, v in read_counts(counters()).items() if v}, \
+        steps, wall
+
+
+def sharded_rank(rank, world, store, out_dir, t_spawn):
+    """One rank of the sharded phase: every path of ``shard_paths``,
+    unpacked and packed, with its share of the trials (and, in the
+    largest world, the early-stop run); pickles what it saw."""
+    import pickle
+    from repro_torch.launch import dist as rdist
+    # the chip's machine has no network: gloo's pairs use the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    rdist.init(f"file://{store}", rank=rank, world_size=world,
+               timeout_s=300)
+    try:
+        dev = rdist.local_device()
+        torch.empty(1, device=dev)
+        ready = time.time() - t_spawn
+        got = {"ready_s": ready}
+        for name, (simulate, knobs, _) in shard_paths().items():
+            for packed in (False, True):
+                got[name, packed] = run_shard_case(
+                    simulate, knobs, packed, SHARD_DEVICES, dev)
+        if world == max(SHARD_WORLDS):
+            got["stop"] = run_shard_case(ab.simulate_availability_batched,
+                                         SHARD_STOP, False, SHARD_DEVICES,
+                                         dev)
+    finally:
+        rdist.shutdown()
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(got))
+
+
+def check_sharded(one_process):
+    """Phase sharded: the Monte Carlo's trials over 2 and 4 ranks on the
+    one card (gloo through a file store), every path of the engine,
+    downtime, latency and zoo phases, unpacked and packed (MC_STEPS
+    steps in MC_CHUNK-step chunks): every rank's result equal to the
+    one-process devices = 1 run in every field and trajectory
+    (`one_process`: those phases' own runs by (path, packed)), every
+    kernel of the path launched on every rank; and a §5.1 run with the
+    early stop live stopping at the same step as one process."""
+    import pickle
+    import tempfile
+    from repro_torch.launch import dist as rdist
+    paths = shard_paths()
+    single = {key: (result_fingerprint(one_process[key]),)
+              for key in ((name, packed) for name in paths
+                          for packed in (False, True))}
+    t0 = time.monotonic()
+    single["stop"] = run_shard_case(ab.simulate_availability_batched,
+                                    SHARD_STOP, False, 1, DEVICE)
+    emit({"phase": "sharded", "world": 1, "wall_s": time.monotonic() - t0,
+          "stop_steps": single["stop"][2],
+          "stop_steps_per_s": single["stop"][2] / single["stop"][3],
+          "stopped_early": bool(single["stop"][0]["stopped_early"])})
+    if not single["stop"][0]["stopped_early"]:
+        raise SystemExit("sharded: the early-stop run did not stop early")
+    bad = []
+    for world in SHARD_WORLDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t_spawn = time.time()
+            rdist.spawn(sharded_rank, world,
+                        (world, str(Path(tmp, "store")), tmp, t_spawn),
+                        timeout_s=600)
+            wall = time.time() - t_spawn
+            ranks = [pickle.loads(Path(tmp, f"rank{r}.pkl").read_bytes())
+                     for r in range(world)]
+        for r, got in enumerate(ranks):
+            rates, equal, launched = {}, True, True
+            for key, val in got.items():
+                if key == "ready_s":
+                    continue
+                fp, launches, steps, rwall = val
+                same = same_fingerprint(single[key][0], fp)
+                kernels = ("pac_eval",) if key == "stop" else \
+                    paths[key[0]][2][key[1]]
+                ok = all(launches.get(k, 0) > 0 for k in kernels)
+                tag = key if key == "stop" else \
+                    f"{key[0]}:{'packed' if key[1] else 'bool'}"
+                rates[tag] = steps / rwall
+                equal &= same
+                launched &= ok
+                if not (same and ok):
+                    bad.append((world, r, tag, same, launches))
+            emit({"phase": "sharded", "world": world, "rank": r,
+                  "trials": B // world, "devices": SHARD_DEVICES,
+                  "ready_s": got["ready_s"], "steps_per_s": rates,
+                  "equal_to_one_process": equal,
+                  "every_kernel_launched": launched,
+                  **({"stop_steps": got["stop"][2]} if "stop" in got
+                     else {})})
+        emit({"phase": "sharded", "world": world, "spawn_s": max(
+            g["ready_s"] for g in ranks), "wall_s": wall})
+    emit({"phase": "sharded", "total_wall_s": time.monotonic() - t0})
+    if bad:
+        raise SystemExit(f"sharded: ranks differ from one process or a "
+                         f"kernel did not launch: {bad}")
+
+
+def dp_config():
+    return get_config(DP_ARCH).replace(param_dtype="float32",
+                                       act_dtype="float32")
+
+
+def dp_batches(cfg, device):
+    data = SyntheticLMData(cfg, DP_ROWS, DP_SEQ)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(s).items()} for s in range(DP_STEPS)]
+
+
+def dp_train(step_fn, params, opt_state, batches, device):
+    """(params, opt_state, [loss], [grad_norm], [ms per step])."""
+    losses, norms, ms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize(device)
+        t0 = time.monotonic()
+        params, opt_state, m = step_fn(params, opt_state, b)
+        torch.cuda.synchronize(device)
+        ms.append((time.monotonic() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return params, opt_state, losses, norms, ms
+
+
+def dp_rank(rank, world, store, out_dir):
+    """One rank of the train_dp phase: the data-parallel step on a
+    (world, 1) ("data", "model") mesh; rank 0 saves the parameters and
+    the optimizer state, and every rank the sums of its parameter leaves
+    (the replicas must agree)."""
+    import pickle
+    from repro_torch.launch import dist as rdist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import (batch_shardings,
+                                              grad_shardings)
+    # the chip's machine has no network: gloo's pairs use the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    rdist.init(f"file://{store}", rank=rank, world_size=world,
+               timeout_s=300)
+    try:
+        dev = rdist.local_device()
+        cfg = dp_config()
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model["init_params"](gen)
+        mesh = make_host_mesh((world, 1), ("data", "model"))
+        batches = dp_batches(cfg, dev)
+        init_fn, step_fn, opt = make_train_step(
+            cfg, grad_shardings=grad_shardings(cfg, mesh, params),
+            batch_shardings=batch_shardings(cfg, mesh, batches[0], DP_ROWS))
+        params, opt_state, losses, norms, ms = dp_train(
+            step_fn, params, opt.init(params), batches, dev)
+        sums = [float(t.double().sum()) for t in tree.leaves(params)]
+        if rank == 0:
+            torch.save([[t.cpu() for t in tree.leaves(x)]
+                        for x in (params, opt_state)],
+                       Path(out_dir, "params.pt"))
+    finally:
+        rdist.shutdown()
+    Path(out_dir, f"dp{rank}.pkl").write_bytes(pickle.dumps(
+        {"losses": losses, "norms": norms, "ms": ms, "sums": sums}))
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want| (0 where both are 0)."""
+    scale = want.abs().max().item()
+    diff = (got - want).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def check_train_dp(smi):
+    """Phase train_dp: smollm-360m at full width and depth (float32), 2
+    steps on 4 x 1024 tokens, one process against 2 ranks on the card
+    (gloo), each rank taking 2 rows and all-reduce-averaging the
+    gradients.  Held: the loss and grad norm within rtol 1e-3 and every
+    parameter leaf within rtol 1e-3 / atol 1e-3 of its largest magnitude
+    (tests/test_torch_train_dp.py's float32 reduction-order tolerance);
+    the AdamW moments m and v, which are linear in the averaged
+    gradients and their squares, each leaf within 1e-3 of its own
+    largest magnitude; the update (parameters after less before) of
+    every leaf within 1e-2 of its own norm in L2, and not zero where
+    one process moved the leaf (per
+    element the update is ~lr sign(g), so an element whose gradient is
+    within rounding of 0 may flip, which the max-norm error, reported,
+    cannot tell from a fault); the two ranks' replicas equal."""
+    import pickle
+    import tempfile
+    from repro_torch.launch import dist as rdist
+    t_phase = time.monotonic()
+    cfg = dp_config()
+    model, params = init_model(cfg)
+    start = [t.cpu() for t in tree.leaves(params)]
+    batches = dp_batches(cfg, DEVICE)
+    _, step_fn, opt = make_train_step(cfg)
+    want, want_opt, losses, norms, ms = dp_train(
+        step_fn, params, opt.init(params), batches, DEVICE)
+    want = [t.cpu() for t in tree.leaves(want)]
+    want_opt = [t.cpu() for t in tree.leaves(want_opt)]
+    del params
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        rdist.spawn(dp_rank, DP_WORLD, (DP_WORLD, str(Path(tmp, "store")),
+                                        tmp), timeout_s=600)
+        wall = time.monotonic() - t0
+        ranks = [pickle.loads(Path(tmp, f"dp{r}.pkl").read_bytes())
+                 for r in range(DP_WORLD)]
+        got, got_opt = torch.load(Path(tmp, "params.pt"))
+    worst, close = 0.0, True
+    for g, w in zip(got, want):
+        scale = max(1.0, w.abs().max().item())
+        worst = max(worst, (g - w).abs().max().item() / scale)
+        close &= torch.allclose(g, w, rtol=1e-3, atol=1e-3 * scale)
+    moment_worst = max(rel_err(g, w) for g, w in zip(got_opt, want_opt)
+                       if w.is_floating_point())
+    counts_equal = all(torch.equal(g, w) for g, w in zip(got_opt, want_opt)
+                       if not w.is_floating_point())
+    update_l2, update_max, moved = 0.0, 0.0, []
+    for g, w, s0 in zip(got, want, start):
+        dg, dw = g - s0, w - s0
+        norm = dw.norm().item()
+        if norm:
+            moved.append(dg.norm().item() > 0)
+        update_l2 = max(update_l2, (dg - dw).norm().item() / norm
+                        if norm else (dg - dw).norm().item())
+        update_max = max(update_max, rel_err(dg, dw))
+    moved = bool(moved) and all(moved)
+    update_ok = moved and update_l2 <= 1e-2 and moment_worst <= 1e-3 \
+        and counts_equal
+    r0 = ranks[0]
+    metrics_close = np.allclose(r0["losses"], losses, rtol=1e-3) and \
+        np.allclose(r0["norms"], norms, rtol=1e-3)
+    replicated = all(r["sums"] == r0["sums"] and r["losses"] ==
+                     r0["losses"] for r in ranks)
+    emit({"phase": "train_dp", "arch": DP_ARCH, "dtype": "float32",
+          "world": DP_WORLD, "rows": DP_ROWS, "seq": DP_SEQ, "gpu": smi,
+          "loss_one_process": losses, "loss_ranks": r0["losses"],
+          "grad_norm_one_process": norms, "grad_norm_ranks": r0["norms"],
+          "ms_one_process": ms, "ms_ranks": [r["ms"] for r in ranks],
+          "worst_abs_over_scale": worst, "leaves_close": close,
+          "moment_worst_over_own_max": moment_worst,
+          "update_worst_l2_over_own_l2": update_l2,
+          "update_worst_max_over_own_max": update_max,
+          "every_leaf_moved": moved, "update_close": update_ok,
+          "metrics_close": metrics_close, "replicated": replicated,
+          "spawn_and_run_s": wall, "wall_s": time.monotonic() - t_phase})
+    if not (close and update_ok and metrics_close and replicated):
+        raise SystemExit("train_dp: the data-parallel step differs from "
+                         "one process")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3104,15 +3458,24 @@ def main() -> int:
     rec.update(check_downtime_kernels(bw, faults["downtime_eval"],
                                       faults["fused_downtime"]))
     rec["latency_charge"] = check_latency_kernel(bw, faults["latency_charge"])
-    launches = check_engine()
+    # every Monte Carlo main-path run by (path, packed): the one-process
+    # side of the sharded phase
+    mc_runs = {}
+    launches, runs = check_engine()
+    mc_runs.update({("engine", k): v for k, v in runs.items()})
     check_bench_rows()
-    launches.update(check_downtime_engine())
+    got, runs = check_downtime_engine()
+    launches.update(got)
+    mc_runs.update({(f"downtime:{c}", k): v for (c, k), v in runs.items()})
     check_downtime_bench_rows()
-    launches["latency_charge"] = check_latency_engine()["latency_charge"]
+    got, runs = check_latency_engine()
+    launches["latency_charge"] = got["latency_charge"]
+    mc_runs.update({("latency", k): v for k, v in runs.items()})
     # the roster eval without counts runs on the zoo's path (reconfig
     # without shared bandwidth); under bandwidth it is the counts mode
-    launches["downtime_eval_roster"] = \
-        check_zoo_engine()["downtime_eval_roster"]
+    got, runs = check_zoo_engine()
+    launches["downtime_eval_roster"] = got["downtime_eval_roster"]
+    mc_runs.update({("zoo", k): v for k, v in runs.items()})
     check_zoo_bench_rows()
     rec.update(check_mlstm_kernel(bw, faults))
     launches["mlstm_chunkwise_sm90"] = check_serve()
@@ -3139,6 +3502,8 @@ def main() -> int:
         check_train("train_dense", smi)
         check_train_cpu()
         check_elastic()
+    check_sharded(mc_runs)
+    check_train_dp(smi)
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

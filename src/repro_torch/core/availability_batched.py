@@ -31,9 +31,18 @@ knobs:
 
 ``carry_from_numpy`` / ``carry_to_numpy`` move an engine carry between
 the reference's numpy arrays and the port's tensors, so both engines can
-be started from one mid-run state.  Multi-device sharding is not ported:
-``devices > 1`` is validated and the trials run as one batch on one
-device, which invariant 2 makes identical to the sharded run.
+be started from one mid-run state.
+
+``devices = D`` shards the trials over the ranks of the default process
+group (``launch/dist.py``), a world of R ranks with ``D % R == 0``: rank
+r holds the contiguous trials ``[r·B/R, (r+1)·B/R)``, D/R of the
+reference's shards, and runs them as one batch (invariant 2: a trial's
+trajectory depends on its global lane alone).  Each chunk's drains are
+gathered in global trial order over the "trials" mesh
+(``launch/mesh.make_trials_mesh``) before any sum over trials, so every
+rank computes the same totals, the same early stop and the same result,
+bit for bit the single-process run's.  Without a process group the
+world is one rank, and ``devices = 8`` runs all trials as one batch.
 """
 from __future__ import annotations
 
@@ -47,6 +56,8 @@ import torch
 from ..device import resolve_device
 from ..kernels import bitpack
 from ..kernels.ops import StepSpec, step_eval
+from ..launch import dist as rdist
+from ..launch.mesh import make_trials_mesh
 from .availability import t975
 from .succession import succession_matrix_fast
 
@@ -219,11 +230,13 @@ def _make_node_advance(*, n: int, horizon: int, dt_vec, geo_masks,
 
 def _initial_node_state(*, B: int, n: int, seed_mix: int, geo_masks,
                         geo_tables, restart_period: int, horizon: int,
-                        device):
-    """(lane0, up0, ev0, rr_t0) — everyone up, first failures at
-    geometric gaps drawn at step counter 0 (steps start at 1).  lane0
-    (int64, values < 2^32) is each trial's first global lane id."""
-    lane0 = torch.arange(B, dtype=torch.int64, device=device) * n & _MASK32
+                        device, trial0: int = 0):
+    """(lane0, up0, ev0, rr_t0) for the B trials from global trial
+    `trial0` on — everyone up, first failures at geometric gaps drawn at
+    step counter 0 (steps start at 1).  lane0 (int64, values < 2^32) is
+    each trial's first global lane id, ``trial · n mod 2^32``."""
+    lane0 = (trial0 + torch.arange(B, dtype=torch.int64, device=device)) \
+        * n & _MASK32
     up0 = torch.ones((B, n), dtype=torch.bool, device=device)
     ev0 = _geometric_multi(
         _uniforms(seed_mix, 0, _GEO_SALT, _lane_keys(lane0, n)),
@@ -275,6 +288,33 @@ def _validate_batched_args(*, devices: int, trials: int, wave_width: int,
                          f"devices ({devices})")
     if not 1 <= wave_width <= n:
         raise ValueError("wave_width must be in [1, n]")
+
+
+class _TrialShards:
+    """This rank's share of the trials and the gather of its drains.
+
+    shard=False, or no process group: one rank holds all B trials and
+    `gather` returns its arrays.  Otherwise the default group's R ranks
+    (R must divide `devices`) each hold B/R contiguous trials from
+    ``lo``, and `gather` concatenates every rank's arrays in rank order
+    over the "trials" mesh's group."""
+
+    def __init__(self, trials: int, devices: int, shard: bool):
+        self.group = None
+        world, rank = 1, 0
+        if shard and torch.distributed.is_initialized():
+            world, rank = rdist.world_size(), rdist.rank()
+            rdist.check_divides(devices, world)
+            self.group = make_trials_mesh(world).get_group()
+        self.local = trials // world
+        self.lo = rank * self.local
+
+    def gather(self, arrays, axes):
+        """Every rank's per-trial `arrays`, trials on the matching entry
+        of `axes`, in global trial order."""
+        if self.group is None:
+            return list(arrays)
+        return rdist.all_gather_numpy(arrays, axes, self.group)
 
 
 def _engine_setup(*, n: int, partitions: int, seed: int, p: float,
@@ -434,17 +474,19 @@ def simulate_availability_batched(
         wave_width: int = 1, p_node=None, downtime_node=None,
         devices: int = 1, chunk_steps: int = 512,
         max_steps: Optional[int] = None, trajectory: bool = False,
-        voters: Optional[int] = None, packed: bool = False,
-        device=None) -> BatchedAvailabilityResult:
+        voters: Optional[int] = None, use_shard_map: Optional[bool] = None,
+        packed: bool = False, device=None) -> BatchedAvailabilityResult:
     """Batched Monte Carlo over `trials` trajectories sharing one
     succession matrix (seeded); failure randomness is independent per
     trial.  Same knobs and results as the reference engine.
 
     device: ``None`` runs on ``cuda`` (and raises without a card);
-    ``"cpu"`` runs the plain PyTorch kernels.  devices > 1 is the
-    reference's trials-sharding request: it is validated (trials must
-    divide) and the trials run as one batch on `device`, bit-identical
-    to the sharded run.
+    ``"cpu"`` runs the plain PyTorch kernels.  devices > 1 shards the
+    trials over the default process group's ranks (see the module
+    docstring; a world that does not divide `devices` raises), or runs
+    them as one batch without a group — bit-identical either way.
+    `use_shard_map` forces the sharded path (its gathers over a group of
+    one rank) at devices = 1, as the reference's knob forces shard_map.
 
     voters overrides the baseline quorum size (default 2*(rf-1)+1).
     packed=True carries the holder masks as (B, W, P) int32 words and
@@ -454,7 +496,9 @@ def simulate_availability_batched(
     _validate_batched_args(devices=devices, trials=trials,
                            wave_width=wave_width, n=n)
     dev = resolve_device(device)
-    B, P, horizon = trials, partitions, max_ticks
+    shards = _TrialShards(trials, devices, use_shard_map
+                          if use_shard_map is not None else devices > 1)
+    B, b, P, horizon = trials, shards.local, partitions, max_ticks
     voters = voters if voters is not None else 2 * (rf - 1) + 1
     if not 1 <= voters <= n:
         raise ValueError("voters must be in [1, n]")
@@ -478,16 +522,16 @@ def simulate_availability_batched(
                       packed=packed)
 
     lane0, up0, ev0, rr_t0 = _initial_node_state(
-        B=B, n=n, seed_mix=seed_mix, geo_masks=geo_masks,
+        B=b, n=n, seed_mix=seed_mix, geo_masks=geo_masks,
         geo_tables=geo_tables, restart_period=restart_period,
-        horizon=horizon, device=dev)
+        horizon=horizon, device=dev, trial0=shards.lo)
     full0, (lark0, maj0, _creps0) = _initial_full_state(
-        pac_fn, up0, succ, B=B, P=P, n=n, rf=rf, packed=packed)
-    zi = torch.zeros((B,), dtype=torch.int32, device=dev)
-    zf = torch.zeros((B,), dtype=torch.float32, device=dev)
+        pac_fn, up0, succ, B=b, P=P, n=n, rf=rf, packed=packed)
+    zi = torch.zeros((b,), dtype=torch.int32, device=dev)
+    zf = torch.zeros((b,), dtype=torch.float32, device=dev)
     carry = (zi, up0, ev0, full0,
-             ~lark0.reshape(B, P),                 # dnl (per-partition)
-             ~maj0.reshape(B, P),                  # dnm
+             ~lark0.reshape(b, P),                 # dnl (per-partition)
+             ~maj0.reshape(b, P),                  # dnm
              zf, zf, zi, zi, rr_t0, zi, lane0)
 
     if max_steps is None:
@@ -497,20 +541,25 @@ def simulate_availability_batched(
     lpt_tot = np.zeros(B)
     mpt_tot = np.zeros(B)
     le_tot = me_tot = 0
+    now = np.zeros(B, dtype=np.int64)
     traj = [] if trajectory else None
     stopped = False
     s0 = 1
     while s0 < max_steps:
         carry, ys = _run_chunk(step, carry, s0, chunk_steps, trajectory)
         s0 += chunk_steps
+        # drain per-chunk accumulators into float64/int totals, every
+        # per-trial array gathered in global trial order first
+        drained = shards.gather(
+            [c.cpu().numpy() for c in carry[:1] + carry[6:10]]
+            + list(ys or ()), [0] * 5 + [1] * len(ys or ()))
         if trajectory:
-            traj.append(ys)
-        # drain per-chunk accumulators into float64/int totals
-        now = carry[0].cpu().numpy().astype(np.int64)
-        lpt_tot += carry[6].cpu().numpy().astype(np.float64)
-        mpt_tot += carry[7].cpu().numpy().astype(np.float64)
-        le_tot += int(carry[8].cpu().numpy().sum())
-        me_tot += int(carry[9].cpu().numpy().sum())
+            traj.append(drained[5:])
+        now = drained[0].astype(np.int64)
+        lpt_tot += drained[1].astype(np.float64)
+        mpt_tot += drained[2].astype(np.float64)
+        le_tot += int(drained[3].sum())
+        me_tot += int(drained[4].sum())
         carry = carry[:6] + (zf, zf, zi, zi) + carry[10:]
         if (now >= horizon).all():
             break
@@ -526,7 +575,7 @@ def simulate_availability_batched(
                 stopped = True
                 break
 
-    now = np.maximum(carry[0].cpu().numpy().astype(np.int64), 1)
+    now = np.maximum(now, 1)
     pt_b = P * now.astype(np.float64)
     pt = float(pt_b.sum())
     u_l = float(lpt_tot.sum()) / pt

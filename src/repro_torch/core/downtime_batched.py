@@ -61,7 +61,8 @@ from .availability_batched import (_default_max_steps, _engine_setup,
                                    _initial_full_state, _initial_node_state,
                                    _lane_keys, _make_node_advance,
                                    _pack_holders, _run_chunk, _seed_mix,
-                                   _uniforms, _validate_batched_args)
+                                   _TrialShards, _uniforms,
+                                   _validate_batched_args)
 
 _SIZE_SALT = 0x94D049BB
 
@@ -1042,16 +1043,19 @@ def simulate_downtime_batched(
         params: Optional[DowntimeParams] = None, packed: bool = False,
         engines: tuple = ("lark", "quorum"), lease_ticks: int = 0,
         view_change_ticks: int = 0, _disable_predicates: tuple = (),
-        _lat_plan=None, device=None) -> BatchedDowntimeResult:
+        _lat_plan=None, use_shard_map: Optional[bool] = None,
+        device=None) -> BatchedDowntimeResult:
     """Batched §6 commit-pause Monte Carlo over `trials` trajectories —
     the reference's knobs and results (see its docstring for each knob).
 
     The protocol/rebuild knobs come individually or as one validated
     ``params=DowntimeParams(...)``, which then takes precedence.
     device: ``None`` runs on ``cuda`` (and raises without a card);
-    ``"cpu"`` runs the plain PyTorch kernels.  devices > 1 is validated
-    (trials must divide) and the trials run as one batch on `device`,
-    bit-identical to the sharded run.  packed=True carries the holder
+    ``"cpu"`` runs the plain PyTorch kernels.  devices > 1 shards the
+    trials over the default process group's ranks, as the availability
+    engine does (``use_shard_map`` forces that path at devices = 1), or
+    runs them as one batch without a group — bit-identical either way.
+    packed=True carries the holder
     masks as (B, W, P) int32 words and evaluates each step with one
     ``fused_downtime_eval`` launch — layout only, bit-identical.
 
@@ -1094,7 +1098,9 @@ def simulate_downtime_batched(
                          f"catch-up countdowns (<= "
                          f"{(2 ** 31 - 1) // _REB_SCALE - 2})")
     dev = resolve_device(device)
-    B, P, horizon = trials, partitions, max_ticks
+    shards = _TrialShards(trials, devices, use_shard_map
+                          if use_shard_map is not None else devices > 1)
+    B, P, horizon = shards.local, partitions, max_ticks   # this rank's B
     (succ, seed_mix, geo_masks, geo_tables, dt_vec, pair_perm,
      p_arr, dt_arr) = _engine_setup(
         n=n, partitions=P, seed=seed, p=p, downtime=downtime,
@@ -1164,7 +1170,7 @@ def simulate_downtime_batched(
     lane0, up0, ev0, rr_t0 = _initial_node_state(
         B=B, n=n, seed_mix=seed_mix, geo_masks=geo_masks,
         geo_tables=geo_tables, restart_period=restart_period,
-        horizon=horizon, device=dev)
+        horizon=horizon, device=dev, trial0=shards.lo)
     full0, outs0 = _initial_full_state(dt_fn, up0, succ, B=B, P=P, n=n,
                                        rf=rf, packed=packed)
     lark0 = outs0[0].reshape(B, P)
@@ -1226,8 +1232,9 @@ def simulate_downtime_batched(
     def host(t, dtype):
         return t.cpu().numpy().astype(dtype)
 
-    lpt_tot = np.zeros(B)
-    qpt_tot = np.zeros(B)
+    Bg = trials                       # the totals hold every rank's trials
+    lpt_tot = np.zeros(Bg)
+    qpt_tot = np.zeros(Bg)
     lev_tot = qev_tot = 0
     lhist_tot = np.zeros(hist_bins, dtype=np.int64)
     qhist_tot = np.zeros(hist_bins, dtype=np.int64)
@@ -1235,53 +1242,71 @@ def simulate_downtime_batched(
     for name, k0, on in (("hermes", h0, hermes_on),
                          ("spinnaker", s0_i, spinnaker_on)):
         if on:
-            zoo_tot[name] = (k0, [np.zeros(B), 0,
+            zoo_tot[name] = (k0, [np.zeros(Bg), 0,
                                   np.zeros(hist_bins, dtype=np.int64)])
+    lat_wfp = None
     if _lat_plan is not None:
-        lat_dup = np.zeros((B, _lat_plan.kf.shape[0]))
-        lat_qhist = np.zeros((B, _lat_plan.nbins))
-        lat_qslo = np.zeros(B)
-        lat_qsum = np.zeros(B)
-        lat_wfp = None
+        lat_dup = np.zeros((Bg, _lat_plan.kf.shape[0]))
+        lat_qhist = np.zeros((Bg, _lat_plan.nbins))
+        lat_qslo = np.zeros(Bg)
+        lat_qsum = np.zeros(Bg)
         if _lat_plan.wfp is not None:
             # skewed write mix: pool a second, write-fraction-weighted
             # view of the same dup charges (hermes pays dup-res on writes
             # only, so its share is per-partition under write_skew)
             lat_wfp = np.asarray(_lat_plan.wfp, dtype=np.float64)
-            lat_dupw = np.zeros((B, _lat_plan.kf.shape[0]))
+            lat_dupw = np.zeros((Bg, _lat_plan.kf.shape[0]))
+    now = np.zeros(Bg, dtype=np.int64)
     traj = [] if trajectory else None
     stopped = False
     s0 = 1
     while s0 < max_steps:
         carry, ys = _run_chunk(step, carry, s0, chunk_steps, trajectory)
         s0 += chunk_steps
-        if trajectory:
-            traj.append(ys)
-        # drain per-chunk accumulators into float64/int totals
-        now = host(carry[0], np.int64)
-        lpt_tot += host(carry[14], np.float64)
-        qpt_tot += host(carry[15], np.float64)
-        lev_tot += int(carry[16].cpu().numpy().sum())
-        qev_tot += int(carry[17].cpu().numpy().sum())
-        lhist_tot += host(carry[18], np.int64).sum(axis=0)
-        qhist_tot += host(carry[19], np.int64).sum(axis=0)
-        for k0, tot in zoo_tot.values():
-            tot[0] += host(carry[k0 + 4], np.float64)
-            tot[1] += int(carry[k0 + 5].cpu().numpy().sum())
-            tot[2] += host(carry[k0 + 6], np.int64).sum(axis=0)
+        # drain per-chunk accumulators into float64/int totals: every
+        # per-trial array (the latency charges already pooled over
+        # partitions, host-side in float64 in the reference's order) is
+        # gathered in global trial order before any sum over trials
+        local = [host(carry[0], np.int64), host(carry[14], np.float64),
+                 host(carry[15], np.float64)] + \
+            [carry[i].cpu().numpy() for i in range(16, 20)]
+        for k0, _ in zoo_tot.values():
+            local += [host(carry[k0 + 4], np.float64),
+                      carry[k0 + 5].cpu().numpy(),
+                      host(carry[k0 + 6], np.int64)]
         if _lat_plan is not None:
-            # pool the per-(trial, partition) float32 charges over
-            # partitions here, host-side in float64, in the reference's
-            # order (the dirty fractions persist; the charges restart)
             lt_ = carry[lat_i:]
             dup_bp = host(lt_[1], np.float64)
-            lat_dup += dup_bp.sum(axis=1)
+            local += [dup_bp.sum(axis=1)] + [
+                host(t, np.float64).sum(axis=1) for t in lt_[2:5]]
             if lat_wfp is not None:
-                lat_dupw += (dup_bp * lat_wfp[None, :, None]).sum(axis=1)
-            lat_qhist += host(lt_[2], np.float64).sum(axis=1)
-            lat_qslo += host(lt_[3], np.float64).sum(axis=1)
-            lat_qsum += host(lt_[4], np.float64).sum(axis=1)
+                local.append((dup_bp * lat_wfp[None, :, None]).sum(axis=1))
+            # the dirty fractions persist; the charges restart
             carry = carry[:lat_i] + (lt_[0], lz_nb, lz_hb, lz_bp, lz_bp)
+        nl = len(local)
+        got = shards.gather(local + list(ys or ()),
+                            [0] * nl + [1] * len(ys or ()))
+        if trajectory:
+            traj.append(got[nl:])
+        now, lpt_c, qpt_c, lev_c, qev_c, lh_c, qh_c = got[:7]
+        lpt_tot += lpt_c
+        qpt_tot += qpt_c
+        lev_tot += int(lev_c.sum())
+        qev_tot += int(qev_c.sum())
+        lhist_tot += lh_c.astype(np.int64).sum(axis=0)
+        qhist_tot += qh_c.astype(np.int64).sum(axis=0)
+        it = iter(got[7:nl])
+        for _, tot in zoo_tot.values():
+            tot[0] += next(it)
+            tot[1] += int(next(it).sum())
+            tot[2] += next(it).sum(axis=0)
+        if _lat_plan is not None:
+            lat_dup += next(it)
+            lat_qhist += next(it)
+            lat_qslo += next(it)
+            lat_qsum += next(it)
+            if lat_wfp is not None:
+                lat_dupw += next(it)
         carry = tuple(acc_reset.get(i, c) for i, c in enumerate(carry))
         if (now >= horizon).all():
             break
@@ -1298,7 +1323,8 @@ def simulate_downtime_batched(
                 stopped = True
                 break
 
-    now = np.maximum(host(carry[0], np.int64), 1)
+    now = np.maximum(now, 1)
+    B = Bg                            # every rank's trials from here on
     pt_b = P * now.astype(np.float64)
     pt = float(pt_b.sum())
     # the instantaneous dup-res charge can overshoot wall time under

@@ -5,7 +5,7 @@ Same mapping as the reference — spec hash, config path and hash, git
 tree, seed and RNG salts, requested geometry, wall-clock — except that
 ``observed`` records torch's view of the device the run actually used
 (platform ``gpu``/``cpu``, the card's name, the visible device count),
-not jax's.  Rows carry none of this.
+not jax's, and the world size of the ranks that ran it.  Rows carry none of this.
 """
 from __future__ import annotations
 
@@ -18,6 +18,7 @@ import torch
 
 from ..core.client_latency import _KEY_SALT
 from ..core.downtime_batched import _SIZE_SALT
+from ..launch import dist as rdist
 
 
 def file_sha256(path: str) -> str:
@@ -76,7 +77,8 @@ def build_provenance(spec, *, config_path=None, wall_s=None,
         "rng_salts": rng_salts(),
         "requested": {"backend": spec.backend, "devices": spec.devices,
                       "trials": spec.trials},
-        "observed": device_geometry(device),
+        "observed": {**device_geometry(device),
+                     "world_size": rdist.world_size()},
         "python": sys.version.split()[0],
         "started_unix": started_unix if started_unix is not None
         else time.time(),

@@ -15,10 +15,13 @@ rows byte for byte (``benchmarks/check_regression.py --identical``).
 * ``run_batch(specs)`` — several specs back to back.
 
 Backends: the spec's ``numpy``, ``jax`` and ``pallas`` all run the port's
-engine (the reference proves them row-identical).  ``devices > 1`` is
-checked (trials must divide) and runs all trials as one batch on one
-card, which invariant 2 makes equal to the sharded run; provenance
-records the requested geometry beside the observed one.  Availability
+engine (the reference proves them row-identical).  ``devices = D`` shards
+each batched run's trials over the default process group's R ranks (R
+must divide D; ``torchrun --nproc-per-node R -m repro_torch.sweep``), or
+runs them as one batch without a group, bit-identical either way.  Every
+rank runs every row (the drains are collectives); only rank 0 prints,
+streams events and writes the summary, whose provenance records the
+requested geometry beside the observed one and the world size.  Availability
 rows under ``backend="event"`` run the scalar event engine
 (``core/availability.py``, host numpy) once per seed, as the reference's
 do; scenario, downtime and latency rows under ``"event"`` run the batched
@@ -40,6 +43,7 @@ from ..core.client_latency import simulate_client_latency
 from ..core.downtime_batched import DowntimeParams, simulate_downtime_batched
 from ..core.scenarios import get_scenario
 from ..device import resolve_device
+from ..launch import dist as rdist
 from .provenance import build_provenance
 from .schema import SCHEMA_VERSION, row_key
 from .spec import ExperimentSpec
@@ -391,8 +395,8 @@ def iter_rows(spec: ExperimentSpec, device=None):
 
 
 class ExperimentRunner:
-    """Execute one spec on one device: stream rows (CSV progress + JSONL
-    events) and assemble the provenance-stamped summary.
+    """Execute one spec on this rank's device: stream rows (CSV progress
+    + JSONL events) and assemble the provenance-stamped summary.
 
     ``events_path`` appends one JSON object per line: run_start, one row
     record per result row (index, kind, row-key label, wall-clock t_s /
@@ -402,10 +406,12 @@ class ExperimentRunner:
 
     def __init__(self, spec: ExperimentSpec, *, config_path=None,
                  events_path=None, emit=print, device=None):
+        rdist.check_divides(spec.devices, rdist.world_size())
+        lead = rdist.rank() == 0
         self.spec = spec
         self.config_path = config_path
-        self.events_path = events_path
-        self.emit = emit
+        self.events_path = events_path if lead else None
+        self.emit = emit if lead else None
         self.device = resolve_device(device)
         self.rows = None
         self._started_unix = None
@@ -475,9 +481,12 @@ class ExperimentRunner:
         return {"meta": meta, "rows": [_json_safe(r) for r in rows]}
 
     def write_summary(self, path: str, rows=None) -> dict:
+        """Write the summary (rank 0 only; every rank returns it)."""
         doc = self.summary(rows)
-        with open(path, "w") as fh:
-            json.dump(doc, fh, indent=1, sort_keys=True, allow_nan=False)
+        if rdist.rank() == 0:
+            with open(path, "w") as fh:
+                json.dump(doc, fh, indent=1, sort_keys=True,
+                          allow_nan=False)
         return doc
 
 

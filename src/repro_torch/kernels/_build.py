@@ -28,6 +28,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+#: devices whose tensors the model kernels' wrappers give to the plain
+#: versions: the CPU, and meta (shapes only: the dry run's traced step)
+PLAIN_DEVICES = ("cpu", "meta")
 
 #: kernel sources, one shared library each
 SOURCES = ("downtime_eval", "fused_downtime", "latency_charge",

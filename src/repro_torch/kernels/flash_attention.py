@@ -136,13 +136,13 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     (float32 or bfloat16, D and Dv <= 256) launch the kernel of
     ``_route`` (``flash_attention_fwd.launches`` counts all launches,
     ``.sm90_launches`` and ``.simt_launches`` each route's); CPU tensors
-    run the plain version."""
+    (and meta tensors, which only carry shapes) run the plain version."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not "
+        raise ValueError(f"flash_attention_fwd runs on cuda, cpu or meta, not "
                          f"{q.device}")
     route = _route(q.dtype, q.shape[3], v.shape[3])
     launch = _build.function(*ROUTES[route])

@@ -900,7 +900,8 @@ def latency_checks(gen, faults, *, entry=None, nbins=16):
 # device time apart from launch rate
 # ---------------------------------------------------------------------------
 
-def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
+def device_times(launch, *, reps: int = 200, cold_reps: int = 20,
+                 attempts: int = 3) -> dict:
     """Times of one raw launch; ``launch(stream)`` makes it on the CUDA
     stream whose handle it is given and returns its cudaError_t (the
     first launch's is checked).
@@ -908,7 +909,12 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
     device_ms: the device time per launch under torch.profiler over
     `reps` back-to-back launches (the card's time, no launch gaps: the
     durations of all its kernels and memsets, ``device_ops`` of them a
-    launch);
+    launch), read from the profiler's trace events; the profiler now and
+    then hands back a trace with no device event at all, so the pass is
+    made up to `attempts` times, and if every trace is empty device_ms is
+    the CUDA-event time of the same launches (launch gaps included) and
+    device_ops is None; ``device_ms_by`` says which ("profiler" or
+    "cuda_events"), ``profiler_attempts`` how many passes were made;
     graph_ms: per launch, replaying a CUDA graph of `reps` launches (the
     handle is read inside the capture, so they land on its stream);
     cold_ms: the mean time of one launch right after 128 MiB were written
@@ -919,26 +925,28 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..profile_step import _device_self_us
-
     def stream():
         return torch.cuda.current_stream().cuda_stream
 
     _build.check(launch(stream()), "timed launch")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            launch(stream())
-        torch.cuda.synchronize()
-    total = count = 0
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            total += _device_self_us(evt)
-            count += evt.count
-    if count == 0 or total <= 0:
-        raise RuntimeError("torch.profiler saw no kernel of the launches")
-    device_ops = count / reps
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                launch(stream())
+            torch.cuda.synchronize()
+        total_ns = count = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                total_ns += e.duration_ns()
+                count += 1
+        if count and total_ns > 0:
+            device_ms, device_ops, by = total_ns / reps / 1e6, count / reps, \
+                "profiler"
+            break
+    else:
+        device_ms, device_ops, by = event_ms(launch, reps), None, \
+            "cuda_events"
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -974,7 +982,8 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20) -> dict:
         pairs.append((a, b))
     torch.cuda.synchronize()
     cold_ms = sum(a.elapsed_time(b) for a, b in pairs) / cold_reps
-    return {"device_ms": total / reps / 1e3, "device_ops": device_ops,
+    return {"device_ms": device_ms, "device_ops": device_ops,
+            "device_ms_by": by, "profiler_attempts": attempt,
             "graph_ms": graph_ms, "cold_ms": cold_ms}
 
 

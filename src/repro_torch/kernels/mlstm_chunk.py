@@ -255,15 +255,15 @@ def mlstm_chunkwise(q, k, v, log_f, log_i, *, chunk: int = 256,
     log_i (B, H, S); optional initial (C, n, m).  Returns (h, (C, n, m))
     as ``mlstm_chunkwise_plain``.  CUDA tensors launch the kernel of
     ``_route`` (``mlstm_chunkwise.launches`` counts all launches,
-    ``.sm90_launches`` and ``.simt_launches`` each route's); CPU tensors
-    run the plain version.  Without `initial`, h is differentiable in q,
+    ``.sm90_launches`` and ``.simt_launches`` each route's); CPU and meta
+    tensors run the plain version.  Without `initial`, h is differentiable in q,
     k, v, log_f and log_i (backwards ``mlstm_chunkwise_bwd``); with it,
     nothing is."""
     _check(q, k, v, log_f, log_i, chunk, initial)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"mlstm_chunkwise runs on cuda or cpu, not "
+    if q.device.type not in ("cuda",) + _build.PLAIN_DEVICES:
+        raise ValueError(f"mlstm_chunkwise runs on cuda, cpu or meta, not "
                          f"{q.device}")
-    plain = q.device.type == "cpu"
+    plain = q.device.type in _build.PLAIN_DEVICES
     if initial is None:
         h, C, n, m = _MlstmChunkwise.apply(q, k, v, log_f, log_i, chunk,
                                            plain)
@@ -502,12 +502,13 @@ def bwd_smem_bytes(chunk: int) -> int:
 def mlstm_chunkwise_bwd(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
     """(dq, dk, dv, dlog_f, dlog_i) as ``mlstm_chunkwise_bwd_plain``: CUDA
     tensors launch csrc/mlstm_chunk_bwd.cu (``mlstm_chunkwise_bwd.
-    launches`` counts the calls), CPU tensors run the plain version."""
+    launches`` counts the calls), CPU and meta tensors run the plain
+    version."""
     _check(q, k, v, log_f, log_i, chunk, None)
     if dh.shape != v.shape:
         raise ValueError(f"dh must be v's shape {tuple(v.shape)}; got "
                          f"{tuple(dh.shape)}")
-    if q.device.type == "cpu":
+    if q.device.type in _build.PLAIN_DEVICES:
         return mlstm_chunkwise_bwd_plain(q, k, v, log_f, log_i, dh,
                                          chunk=chunk)
     if q.device.type != "cuda" or dh.device != q.device:

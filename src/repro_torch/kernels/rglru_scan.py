@@ -167,11 +167,13 @@ def rglru_scan(x, log_a):
     """x, log_a (B, S, W), any float type.  Returns h (B, S, W) float32
     as ``rglru_scan_plain``, differentiable in x and log_a.  CUDA tensors
     launch the kernel (``rglru_scan.launches`` counts the calls) and,
-    backwards, ``rglru_scan_bwd``; CPU tensors run the plain versions."""
+    backwards, ``rglru_scan_bwd``; CPU and meta tensors run the plain
+    versions."""
     _check(x, log_a)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"rglru_scan runs on cuda or cpu, not {x.device}")
-    return _RglruScan.apply(x, log_a, x.device.type == "cpu")
+    if x.device.type not in ("cuda",) + _build.PLAIN_DEVICES:
+        raise ValueError(f"rglru_scan runs on cuda, cpu or meta, not "
+                         f"{x.device}")
+    return _RglruScan.apply(x, log_a, x.device.type in _build.PLAIN_DEVICES)
 
 
 def rglru_scan_reference(x, log_a):
@@ -193,13 +195,13 @@ def _scan_kernel(x, log_a):
 def rglru_scan_bwd(x, log_a, h, dh):
     """(dx, dlog_a) float32 as ``rglru_scan_bwd_plain``: CUDA tensors
     launch csrc/rglru_scan_bwd.cu (``rglru_scan_bwd.launches`` counts the
-    calls), CPU tensors run the plain version."""
+    calls), CPU and meta tensors run the plain version."""
     _check(x, log_a)
     if h.shape != x.shape or dh.shape != x.shape:
         raise ValueError(f"rglru_scan_bwd takes h and dh of x's shape "
                          f"{tuple(x.shape)}; got {tuple(h.shape)}, "
                          f"{tuple(dh.shape)}")
-    if x.device.type == "cpu":
+    if x.device.type in _build.PLAIN_DEVICES:
         return rglru_scan_bwd_plain(x, log_a, h, dh)
     if x.device.type != "cuda" or h.device != x.device or \
             dh.device != x.device:

@@ -20,13 +20,22 @@ config, as in ``benchmarks/configs/downtime*.toml``,
 protocol zoo).  Availability under ``--backend event`` and
 ``autotune`` are not ported; the runner raises ``NotImplementedError``
 for them.  ``--device`` defaults to cuda.
+
+Across ranks, ``torchrun --nproc-per-node R -m repro_torch.sweep ...``
+runs the spec on R ranks (``gloo``; R must divide the spec's
+``devices``, 8 in every committed config): each rank takes its share
+of every run's trials on ``cuda:LOCAL_RANK % device_count`` (or the CPU
+with ``--device cpu``), and rank 0 alone prints and writes, rows equal
+to a one-process run's.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .experiments.runner import ExperimentRunner
+from .launch import dist as rdist
 from .experiments.spec import ExperimentSpec, SpecError
 
 #: argparse dest -> ExperimentSpec field for the availability flags
@@ -60,8 +69,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("availability", "downtime", "latency"))
     ap.add_argument("--trials", type=int, default=None)
     ap.add_argument("--devices", type=int, default=None,
-                    help="requested trial shards; all trials run as one "
-                         "batch on one card")
+                    help="trial shards: split over the ranks of a "
+                         "torchrun world (which must divide it), else run "
+                         "as one batch")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--scenario", action="append", metavar="NAME",
                     help="append a registered scenario's grid (repeatable, "
@@ -112,11 +122,19 @@ def build_spec(argv=None):
 
 def main(argv=None) -> int:
     spec, args = build_spec(argv)
-    runner = ExperimentRunner(spec, config_path=args.config,
-                              events_path=args.events, device=args.device)
-    runner.run()
-    if args.json:
-        runner.write_summary(args.json)
+    ranked = "WORLD_SIZE" in os.environ
+    if ranked:
+        rdist.init()
+    try:
+        runner = ExperimentRunner(spec, config_path=args.config,
+                                  events_path=args.events,
+                                  device=rdist.local_device(args.device))
+        runner.run()
+        if args.json:
+            runner.write_summary(args.json)
+    finally:
+        if ranked:
+            rdist.shutdown()
     return 0
 
 

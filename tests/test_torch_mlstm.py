@@ -178,10 +178,13 @@ def test_wrapper_dispatches_by_device_without_fallback():
     assert T.mlstm_chunkwise_plain.calls == before[1] + 1
     want, _ = T.mlstm_chunkwise_plain(q, k, v, lf, li, chunk=16)
     assert torch.equal(h, want)
+    # meta tensors (the dry run's traced step) take the plain version's
+    # shapes, and launch nothing
     meta = torch.device("meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        T.mlstm_chunkwise(q.to(meta), k.to(meta), v.to(meta), lf.to(meta),
-                          li.to(meta))
+    hm, (Cm, _, _) = T.mlstm_chunkwise(q.to(meta), k.to(meta), v.to(meta),
+                                       lf.to(meta), li.to(meta))
+    assert hm.device == meta and hm.shape == h.shape
+    assert T.mlstm_chunkwise.launches == before[0]
     with pytest.raises(TypeError):
         T.mlstm_chunkwise(q.double(), k, v, lf, li)
     with pytest.raises(ValueError, match="log_f"):

@@ -1,8 +1,8 @@
 """One ``make_train_step`` step of the port against the reference's
 (``repro.training.make_train_step``) from the same weights and batch:
 the metrics and every updated parameter, with 1 and 2 microbatches;
-remat on and off giving equal gradients; the sharding arguments refused
-on one card; ``make_serve_steps``; and the loss falling on a tiny model
+remat on and off giving equal gradients; sharding arguments that are not
+NamedSharding trees refused; ``make_serve_steps``; and the loss falling on a tiny model
 (``tests/test_models_smoke.py::test_loss_decreases_quickly_on_tiny_model``).
 
 Tolerance: the whole-model one of ``tests/_torch_lm.py`` (rtol 1e-3,
@@ -67,8 +67,11 @@ def test_remat_on_and_off_give_equal_gradients():
 
 
 def test_sharding_arguments_are_refused_on_one_card():
+    """Sharding arguments must be launch.shardings.NamedSharding trees
+    (a mesh's step: tests/test_torch_train_dp.py runs it on a one-rank
+    mesh and on two ranks)."""
     cfg = reduced_config("smollm_360m")
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         make_train_step(cfg, grad_shardings={"w": object()})
 
 
