@@ -26,11 +26,14 @@ One JSON line per phase:
    ``downtime_eval.cu`` (per mode, with and without the counts); beside
    them, at the same time, the copies of ``downtime_eval.cu``,
    ``latency_charge.cu``, ``fused_downtime.cu``, ``rglru_scan.cu``, both
-   flash sources, both mLSTM sources and ``microsim_scan.cu`` with one
-   planted fault each (``mc_check.FAULTS``, ``rglru_check.FAULTS``,
-   ``flash_check.FAULTS``, ``mlstm_check.FAULTS``,
+   flash sources, both mLSTM sources, both mLSTM backward sources and
+   ``microsim_scan.cu`` with one planted fault each
+   (``mc_check.FAULTS``, ``rglru_check.FAULTS``, ``flash_check.FAULTS``,
+   ``mlstm_check.FAULTS``, ``mlstm_check.BWD_SOURCE_FAULTS``,
    ``microsim_scan.FAULTS``); and the registers and spills of
-   ``microsim_scan.cu``.
+   ``microsim_scan.cu`` and of each instantiation of
+   ``mlstm_chunk_bwd_sm90.cu`` (walks per NV and direction, A B^T per
+   NT and hi/lo, the weight products per mode and NT).
 3. ``kernel``: each kernel against its plain PyTorch version on the
    card, ``torch.equal`` on random tiles at the paper tile (rf 2, 3, 4;
    n_pad 155 and 160; rosters, extras and counts on and off), the packed
@@ -153,15 +156,20 @@ One JSON line per phase:
    and 4, LARK and baseline, ``torch.equal`` on every output, at the
    paper's constants over 2,600 ticks and with a short outage (failure
    at 200, return at 1,200, partitions 1,000 times smaller) over 4,000
-   ticks; each planted fault (``microsim_scan.FAULTS``) must fail a case.
-   Then the main path: both tables at 520,000 ticks through
-   ``microsim_tables.run``, one launch a table and the plain loop never
+   ticks, one launch a table and one of both tables' grids together;
+   each planted fault (``microsim_scan.FAULTS``: the outage count
+   unfused, the RTT dropped, the key chain read a tick late, a lane's
+   partial dropped from the warp sum) must fail a case; one dependent
+   Threefry hash's latency, times 520,000, the key chain's floor.  Then
+   the main path: both tables at 520,000 ticks through
+   ``microsim_tables.run``, one launch for both and the plain loop never
    run, whose 24 lines must equal
    ``experiments/microsim_tables_ref.csv`` (the reference's own output)
-   byte for byte; the kernel's time per table and the plain loop's per
-   tick; and the runner's two smoke rows under backend "event" (the
-   scalar §5.1 engine, host numpy) equal to the reference's, pinned in
-   ``EVENT_SMOKE_ROWS``.
+   byte for byte; the launch's device time (its memset and kernel, every
+   event of a run counted, profiled again if one was lost), the check
+   case's time per table and the plain loop's per tick; and the runner's
+   two smoke rows under backend "event" (the scalar §5.1 engine, host
+   numpy) equal to the reference's, pinned in ``EVENT_SMOKE_ROWS``.
 19. ``serve_dense``: smollm-360m (the reference's serve default) at full
    width and depth (32 layers, d_model 960, 15 heads over 5 KV heads of
    64, vocab 49152, bf16, tied embeddings, seed-0 weights) with the serve
@@ -193,14 +201,23 @@ One JSON line per phase:
    every element within ``rglru_check.rglru_bwd_allowance``, a bitwise
    repeat, each planted fault (``rglru_check.BWD_FAULTS``) failing a
    case; its time at the train shape.
-22. ``mlstm_bwd`` / ``kernel_time``: ``mlstm_chunkwise_bwd``
-   (csrc/mlstm_chunk_bwd.cu) against ``mlstm_chunkwise_bwd_plain`` in
-   float64 on ``mlstm_check.BWD_CASES`` (the train shape B = 4, H = 4,
-   S = 1024, Dq = Dv = 512, chunk 256 in bf16 and float32, the reduced
-   float32 shape, ragged S, S below the chunk, S = 1, head dims and a
-   chunk off the tile, the stabilizer stress, rows where the clamp
-   holds), within ``mlstm_check.mlstm_bwd_rounding_scale``, a bitwise
-   repeat, each of ``mlstm_check.BWD_FAULTS`` failing a case; its time.
+22. ``mlstm_bwd`` / ``kernel_time``: ``mlstm_chunkwise_bwd`` against
+   ``mlstm_chunkwise_bwd_plain`` in float64 on ``mlstm_check.BWD_CASES``
+   (the train shape B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256 in
+   bf16 and float32, the reduced float32 shapes, ragged S, S below the
+   chunk, S = 1, head dims and a chunk off the tile, the stabilizer
+   stress, rows where the clamp holds, and sm90 shapes off the 256 grid:
+   Dq 128 / Dv 192 at chunk 128, Dq 320 at chunk 192, chunk 1024), within
+   ``mlstm_check.mlstm_bwd_rounding_scale``, through the entry point
+   (``mlstm_chunk.bwd_route``: the bf16 cases at 64-multiple dims on
+   csrc/mlstm_chunk_bwd_sm90.cu, the rest on csrc/mlstm_chunk_bwd.cu)
+   with a bitwise repeat and each route's launches counted, and the SIMT
+   source by its launcher on every case its shared memory holds; each
+   source's planted faults (``mlstm_check.BWD_FAULTS``,
+   ``BWD_FAULTS_SM90``, ``w_lo_dropped`` among them) failing a case; each
+   source's time at its main path's shape (sm90: the xlstm-350m train
+   shape in bf16; SIMT: the reduced xlstm's, B = 2, H = 4, S = 300,
+   Dq = Dv = 32, float32).
 23. ``train``, ``train_rg``, ``train_dense``: ``make_train_step`` (AdamW,
    remat as configured) on xlstm-350m (24 layers, B = 4, S = 1024, 4
    steps), recurrentgemma-9b at full width cut to 3 layers (B = 2,
@@ -220,7 +237,8 @@ One JSON line per phase:
    limit.
 24. ``train_cpu``: the reduced xlstm (float32) and 5-layer reduced
    recurrentgemma: loss and every gradient leaf on the card against the
-   CPU within the tests' whole-model tolerance.
+   CPU within the tests' whole-model tolerance; the main path of the
+   SIMT mLSTM backward (float32), whose launches it counts.
 25. ``elastic``: the reduced xlstm on the card through
    ``ElasticTrainer``: checkpoint, a worker leaves, restore, continue;
    bitwise equal to an uninterrupted run.
@@ -366,6 +384,10 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/mlstm_chunk_bwd.cu",
         "src/repro/kernels/mlstm_chunk.py:76 (its gradient: no Pallas "
         "backward; jax.value_and_grad through ref.mlstm_chunkwise)"),
+    "mlstm_chunkwise_bwd_sm90": (
+        "src/repro_torch/kernels/csrc/mlstm_chunk_bwd_sm90.cu",
+        "src/repro/kernels/mlstm_chunk.py:76 (its gradient: no Pallas "
+        "backward; jax.value_and_grad through ref.mlstm_chunkwise)"),
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
 #: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
@@ -401,16 +423,22 @@ FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
                                    msk._ARGTYPES),
                  "rglru_scan_bwd": (rc.BWD_FAULTS, "rglru_scan_bwd_launch",
                                     rk.BWD_ARGTYPES),
-                 "mlstm_chunk_bwd": (mc.BWD_FAULTS, "mlstm_chunk_bwd_launch",
-                                     mk.BWD_ARGTYPES),
+                 **{src: (faults, *mk.BWD_ROUTES[mc.BWD_SOURCE_ROUTE[src]][1:])
+                    for src, faults in mc.BWD_SOURCE_FAULTS.items()},
                  **{src: (faults, *fa.ROUTES[fc.SOURCE_ROUTE[src]][1:])
                     for src, faults in fc.FAULTS.items()},
                  **{src: (faults, *mk.ROUTES[mc.SOURCE_ROUTE[src]][1:])
                     for src, faults in mc.FAULTS.items()}}
 
 
+#: the script's start, for each emitted line's seconds since it
+T_START = time.monotonic()
+
+
 def emit(obj):
-    print(json.dumps(obj, sort_keys=True), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**obj, "t_s": time.monotonic() - T_START},
+                     sort_keys=True), flush=True)
 
 
 def hbm_bw(name: str) -> float:
@@ -579,7 +607,7 @@ def check_kernels(bw, faults, fused_faults):
 
 
 def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
-           rate=INT_OPS, launch=None):
+           rate=INT_OPS, launch=None, events=None):
     """One kernel's timing record: its bound is the larger of its bytes
     over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
     `rate` (the 32-bit lane rate unless given).  `ms` is back-to-back
@@ -596,7 +624,7 @@ def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if launch is not None:
-        rec.update(mcc.device_times(launch))
+        rec.update(mcc.device_times(launch, events=events))
     emit({"phase": "kernel_time", "kernel": name, **rec})
     return rec
 
@@ -926,7 +954,9 @@ def counters():
             "rglru_scan_plain": (rk.rglru_scan_plain, "calls"),
             "rglru_scan_bwd": (rk.rglru_scan_bwd, "launches"),
             "rglru_scan_bwd_plain": (rk.rglru_scan_bwd_plain, "calls"),
-            "mlstm_chunkwise_bwd": (mk.mlstm_chunkwise_bwd, "launches"),
+            "mlstm_chunkwise_bwd": (mk.mlstm_chunkwise_bwd, "simt_launches"),
+            "mlstm_chunkwise_bwd_sm90": (mk.mlstm_chunkwise_bwd,
+                                         "sm90_launches"),
             "mlstm_chunkwise_bwd_plain": (mk.mlstm_chunkwise_bwd_plain,
                                           "calls"),
             "flash_attention_fwd": (fa.flash_attention_fwd,
@@ -1695,12 +1725,18 @@ PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "row_eval_kernel": "mode", "node_count_kernel": "node_count",
                 "microsim_scan_kernel": "ticks",
                 "rglru_scan_bwd_kernel": "reverse_chained",
+                "bwd90_walk_kernel": "walk_NV", "bwd90_abt_kernel": "abt_NT",
+                "bwd90_apply_kernel": "apply_mode",
+                "bwd90_gates_kernel": "gates", "bwd90_rows_kernel": "rows",
+                "bwd90_weights_kernel": "weights",
+                "bwd90_dgates_kernel": "dgates",
                 "bwd_gates_kernel": "gates", "bwd_dgates_kernel": "dgates",
                 **{f"bwd_{k}_kernelI{t}": f"{k}_{n}"
                    for k in ("fstates", "rows", "dstates", "cols")
                    for t, n in (("f", "f32"), ("13__nv_bfloat16", "bf16"))}}
 #: what a bool second template argument set to true adds to the label
-PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts"}
+PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts",
+               "bwd90_walk_kernel": "_rev", "bwd90_abt_kernel": "_lo"}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1710,14 +1746,16 @@ def ptxas_usage(log: str) -> dict:
     instructions are serialized" notes, C7510-C7520: for want of
     registers, or an accumulator live across divergent paths).  Labels:
     ``PTXAS_LABELS`` and the template argument (``D256``,
-    ``states_NV256``, ``W5_pac``, ``mode2_counts``; ``W0`` is the
-    loop)."""
+    ``states_NV256``, ``W5_pac``, ``mode2_counts``, ``apply_mode1_256``
+    (a second int argument after an underscore); ``W0`` is the loop)."""
     def label(text):
         for kernel, tag in PTXAS_LABELS.items():
-            m = re.search(kernel + r"(?:ILi(\d+)E(Lb1E)?)?", text)
+            m = re.search(kernel + r"(?:ILi(\d+)E(?:Li(\d+)E)?(Lb1E)?)?",
+                          text)
             if m:
                 return tag + (m.group(1) or "") + \
-                    (PTXAS_FLAGS[kernel] if m.group(2) else "")
+                    (f"_{m.group(2)}" if m.group(2) else "") + \
+                    (PTXAS_FLAGS[kernel] if m.group(3) else "")
         return None
 
     usage, head = {}, None
@@ -2064,41 +2102,57 @@ def check_microsim(bw, faults):
     tables, LARK and baseline, ``torch.equal`` on every output, for each
     of ``microsim_scan.CASES`` (the paper's constants over 2,600 ticks; a
     short outage over 4,000 ticks with small partitions, so the backfill
-    ends inside the run), with each planted fault (copies of
-    microsim_scan.cu in `faults`) failing a case; then the main path:
+    ends inside the run): one launch a table, and one launch of both
+    tables' grids concatenated (``rows_per_table`` 12, as the main path
+    runs them), each planted fault (copies of microsim_scan.cu in
+    `faults`) failing a case of the two-table launch; one dependent
+    Threefry hash's latency (the key chain's floor).  Then the main path:
     Tables 3-4 at 520,000 ticks through ``microsim_tables.run``, counts
-    read around it, its 24 lines equal to the committed reference's byte
-    for byte; the kernel's time per table beside the plain version's
-    per-tick time and the bounds; and the port runner's two smoke rows
-    under backend "event" (host numpy) equal to the pinned reference
-    rows.  Returns (the kernels-line record, the main path's launches)."""
+    read around it, one launch, its 24 lines equal to the committed
+    reference's byte for byte; the launch's device time (memset and
+    kernel, every event of a run counted), the two-table launch's time at
+    the check case beside the plain loop's (both tables, both modes, one
+    pass a case) and the bounds;
+    and the port runner's two smoke rows under backend "event" (host
+    numpy) equal to the pinned reference rows.  Returns (the kernels-line
+    record, the main path's launches)."""
     t_phase = time.monotonic()
     dev = torch.device(DEVICE)
     caught = {name: [] for name in faults}
     worst, plain_s, timed = 0.0, {}, None
+    tables = sorted(microsim.TABLES)    # t3, t4: the main path's order
+    rows = len(microsim.TABLE_GRID)
     for case, ticks, fail_t, recover_t, scale in msk.CASES:
         with msk.outage(fail_t, recover_t):
-            for table in microsim.TABLES:
+            # the plain loop once over both tables' grids (each table's
+            # own draws), sliced per table
+            both = [torch.cat(cs) for cs in zip(
+                *(msk.case_configs(t, scale, dev) for t in tables))]
+
+            def split(out):
+                return {t: {m: {k: v[rows * i:rows * (i + 1)]
+                                for k, v in out[m].items()}
+                            for m in msk.MODES}
+                        for i, t in enumerate(tables)}
+
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            plain = {m: microsim._simulate_batch_plain(
+                         *both, m == "lark", ticks, 0, draw_rows=rows)
+                     for m in msk.MODES}
+            end.record()
+            torch.cuda.synchronize()
+            plain_s[case] = start.elapsed_time(end) / 1e3
+            wants = split(plain)
+            per = {}
+            for table in tables:
                 x = msk.case_configs(table, scale, dev)
                 got = msk.microsim_scan(*x, ticks=ticks)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                want = {m: microsim._simulate_batch_plain(
-                            *x, m == "lark", ticks, 0) for m in msk.MODES}
-                end.record()
-                torch.cuda.synchronize()
-                plain_s[f"{case}/{table}"] = start.elapsed_time(end) / 1e3
+                want = wants[table]
                 same = microsim_equal(got, want)
                 worst = max(worst, microsim_abs_err(got, want))
-                for name, fn in faults.items():
-                    out, args, keep = msk.launch_args(*x, ticks=ticks)
-                    _build.check(fn(*args, torch.cuda.current_stream()
-                                    .cuda_stream), f"microsim_scan {name}")
-                    torch.cuda.synchronize()
-                    if not microsim_equal(out, want):
-                        caught[name].append(f"{case}/{table}")
-                    del keep
+                per[table] = same
                 # with the return inside the run, every row's backfill ends
                 backfill_ends = bool(
                     (want["lark"]["pending_ts"][:, -1] < 0.5).all()) \
@@ -2108,14 +2162,40 @@ def check_microsim(bw, faults):
                       "recover_t": recover_t, "ps_scale": scale,
                       "equal": same, "backfill_ends": backfill_ends,
                       "completions": want["lark"]["per_tick_done"]
-                      .sum().item(),
-                      "plain_s": plain_s[f"{case}/{table}"]})
-                if not same:
-                    raise SystemExit(f"microsim_scan disagrees with its "
-                                     f"plain version ({case}, {table})")
-                if case == "paper_constants" and table == "t4":
-                    timed = (x, ticks, plain_s[f"{case}/{table}"])
+                      .sum().item()})
+            # both tables in one launch, as the main path runs them
+            joint = split(msk.microsim_scan(*both, ticks=ticks,
+                                            rows_per_table=rows))
+            joint_same = all(microsim_equal(joint[t], wants[t])
+                             for t in tables)
+            for name, fn in faults.items():
+                out, args, keep = msk.launch_args(*both, ticks=ticks,
+                                                  rows_per_table=rows)
+                _build.check(fn(*args, torch.cuda.current_stream()
+                                .cuda_stream), f"microsim_scan {name}")
+                torch.cuda.synchronize()
+                if not all(microsim_equal(o, wants[t])
+                           for t, o in split(out).items()):
+                    caught[name].append(case)
+                del keep
+            emit({"phase": "microsim", "case": case, "tables": tables,
+                  "one_launch": True, "equal": joint_same,
+                  "plain_s": plain_s[case]})
+            if not (all(per.values()) and joint_same):
+                raise SystemExit(f"microsim_scan disagrees with its "
+                                 f"plain version ({case}): {per}, "
+                                 f"two tables {joint_same}")
+            if case == "paper_constants":
+                timed = (both, ticks, plain_s[case])
     held_faults("microsim_scan", caught)
+    chain = msk.chain_ns_per_hash(dev)
+    latency_bound_ms = chain["ns_per_hash"] * microsim_tables.TICKS / 1e6
+    emit({"phase": "microsim_chain", **chain,
+          "ticks": microsim_tables.TICKS,
+          "latency_bound_ms": latency_bound_ms})
+    if not chain["key_equal"]:
+        raise SystemExit("the key chain's end key differs from "
+                         "threefry.split_chain's")
 
     # the main path: both tables through the entry point a user calls
     names = ("microsim_scan", "microsim_plain")
@@ -2126,45 +2206,58 @@ def check_microsim(bw, faults):
     launches = read_counts(names)
     same_lines = lines == microsim_tables.reference_lines()
 
+    # the check case's launch: both tables at 2,600 ticks
     x, ticks, plain_t = timed
-    ms = time_ms(lambda: msk.microsim_scan(*x, ticks=ticks), 10)
+    ms = time_ms(lambda: msk.microsim_scan(*x, ticks=ticks,
+                                           rows_per_table=rows), 10)
     fn = _build.function("microsim_scan", "microsim_scan_launch",
                          msk._ARGTYPES)
-    _, args, keep = msk.launch_args(*x, ticks=ticks)
+    _, args, keep = msk.launch_args(*x, ticks=ticks, rows_per_table=rows)
 
     def launch(stream):
         return fn(*args, stream)
-    xt = msk.case_configs("t4", 1.0, dev)
-    table_ms = time_ms(
-        lambda: msk.microsim_scan(*xt, ticks=microsim_tables.TICKS), 3)
-    R = x[0].shape[0]
+    # the main path's launch: both tables' 24 rows at 520,000 ticks
+    xt = microsim._config_tensors(
+        [c for t in tables for c in microsim.table_configs(
+            *microsim.TABLES[t])], dev)
+    _, targs, tkeep = msk.launch_args(*xt, ticks=microsim_tables.TICKS,
+                                      rows_per_table=rows)
+
+    def table_launch(stream):
+        return fn(*targs, stream)
+    # every device event of a run counted: its memset and its kernel
+    main = mcc.device_times(table_launch, reps=3, cold_reps=1, events=2)
+    R = x[0].shape[0]                 # both tables' rows
     nbytes, flops, iops = msk.work(R, ticks)
     # the record adds the profiler's device time, a CUDA graph's replay
     # and the L2-cold time of the same launch (mc_check.device_times)
     rec = record("microsim_scan", nbytes, 0, ms, ms, plain_t * 1e3, worst,
                  bw, ops=max(flops / FLOAT_PEAK[torch.float32],
-                             iops / INT_OPS) * INT_OPS, launch=launch)
-    del keep
+                             iops / INT_OPS) * INT_OPS, launch=launch,
+                 events=2)
+    del keep, tkeep
     tb, tf, ti = msk.work(R, microsim_tables.TICKS)
 
     # the runner's event branch (host numpy) on this machine
     t0 = time.monotonic()
-    rows = [json.dumps(runner._json_safe(r), sort_keys=True)
-            for r in runner.iter_rows(ExperimentSpec.create(smoke=True),
-                                      device=DEVICE)]
+    rows_ev = [json.dumps(runner._json_safe(r), sort_keys=True)
+               for r in runner.iter_rows(ExperimentSpec.create(smoke=True),
+                                         device=DEVICE)]
     event_s = time.monotonic() - t0
     checks = {"tables_equal_reference": same_lines,
-              "launches": launches["microsim_scan"] == len(microsim.TABLES),
+              "launches": launches["microsim_scan"] == 1,
               "plain_never_ran": launches["microsim_plain"] == 0,
-              "event_rows_equal_reference": rows == EVENT_SMOKE_ROWS}
+              "event_rows_equal_reference": rows_ev == EVENT_SMOKE_ROWS}
     emit({"phase": "microsim_tables", "ticks": microsim_tables.TICKS,
           "rows": R, "tables_s": tables_s, "launches": launches,
-          "kernel_ms_per_table": table_ms,
-          "kernel_us_per_tick": table_ms * 1e3 / microsim_tables.TICKS,
+          "main_launch": main,
+          "kernel_us_per_tick": main["device_ms"] * 1e3 /
+          microsim_tables.TICKS,
           "plain_ms_per_tick": plain_t * 1e3 / ticks,
           "table_bytes": tb, "table_bytes_bound_ms": tb / bw * 1e3,
           "table_ops_bound_ms": max(tf / FLOAT_PEAK[torch.float32],
                                     ti / INT_OPS) * 1e3,
+          "latency_bound_ms": latency_bound_ms,
           "check_ticks": ticks, "check_ms": ms,
           "event_rows_s": event_s, "lines_head": lines[:2], **checks,
           "wall_s": time.monotonic() - t_phase})
@@ -2598,75 +2691,121 @@ def check_rglru_bwd_kernel(bw, faults):
 def check_mlstm_bwd_kernel(bw, faults):
     """Phase 23: mlstm_chunkwise_bwd against its plain version in float64
     on the card (``mlstm_check.BWD_CASES``: the train shape in bf16 and
-    float32, the reduced float32 shape, ragged S, S below the chunk, S =
-    1, head dims and a chunk off the 64-wide tile, the stabilizer stress
-    and rows where the clamp holds), each output within
-    ``mlstm_check.mlstm_bwd_rounding_scale``, a bitwise repeat, each
-    planted fault (``mlstm_check.BWD_FAULTS``) failing a case; then its
-    time at the train shape."""
+    float32, the reduced float32 shapes, ragged S, S below the chunk, S =
+    1, head dims and a chunk off the 64-wide tile, the stabilizer stress,
+    rows where the clamp holds, and sm90 shapes off the 256 grid), each
+    output within
+    ``mlstm_check.mlstm_bwd_rounding_scale``: through the entry point,
+    which takes the route of ``mlstm_chunk.bwd_route`` (the bf16 cases
+    at 64-multiple dims: csrc/mlstm_chunk_bwd_sm90.cu; the float32 ones:
+    csrc/mlstm_chunk_bwd.cu), with a bitwise repeat and each route's
+    launches counted; the SIMT source also by its launcher on every case
+    its shared memory holds; each source's planted faults
+    (``mlstm_check.BWD_SOURCE_FAULTS``, in `faults` by source) failing a
+    case it takes; then each source's time at its main path's shape.
+    Returns {kernel: record}."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(25)
-    caught = {name: [] for name in faults}
-    worst = 0.0
+    caught = {src: {name: [] for name in faults[src]}
+              for src in mc.BWD_SOURCE_FAULTS}
+    worst = {"mlstm_chunkwise_bwd": 0.0, "mlstm_chunkwise_bwd_sm90": 0.0}
+    simt = _build.function(*mk.BWD_ROUTES["simt"])
+    reset_counts()
+    routes = {}
     for case, dtype, B, H, S, Dq, Dv, L, kind in mc.BWD_CASES:
         args = mc.mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, dtype, kind)
+        route = mk.bwd_route(dtype, Dq, Dv, L)
+        routes[case] = route
         got = mk.mlstm_chunkwise_bwd(*args, chunk=L)
         torch.cuda.synchronize()
         again = mk.mlstm_chunkwise_bwd(*args, chunk=L)
         same = all(torch.equal(a, b) for a, b in zip(got, again))
         want, scales = mc.bwd_reference((*args, L))
         errs = mc.mlstm_bwd_errors(got, want, scales)
+        simt_errs = errs if route == "simt" else mc.mlstm_bwd_errors(
+            mc.run_bwd(simt, *args, L), want, scales) \
+            if mc.bwd_takes("mlstm_chunk_bwd", dtype, Dq, Dv, L) else {}
         abs_err = {n: (g.double() - w).abs().max().item() for n, g, w in
                    zip(("dq", "dk", "dv", "dlog_f", "dlog_i"), got, want)}
-        if case == "train_bf16":      # the kernels line's max_abs_err
-            worst = max(abs_err.values())
+        # the kernels line's max_abs_err: each source at its main path's
+        # shape (the xlstm-350m train step's, the reduced xlstm's)
+        if case == "train_bf16":
+            worst["mlstm_chunkwise_bwd_sm90"] = max(abs_err.values())
+        if case == "train_cpu_f32":
+            worst["mlstm_chunkwise_bwd"] = max(abs_err.values())
         fault_errs = {}
-        for name, fn in faults.items():
-            e = mc.mlstm_bwd_errors(mc.run_bwd(fn, *args, L), want, scales)
-            fault_errs[name] = max(e.values())
-            if fault_errs[name] > 1.0:
-                caught[name].append(case)
-        ok = all(e <= 1.0 for e in errs.values()) and same
+        for src, fns in faults.items():
+            if not mc.bwd_takes(src, dtype, Dq, Dv, L):
+                continue
+            for name, fn in fns.items():
+                e = mc.mlstm_bwd_errors(
+                    mc.run_bwd(fn, *args, L, mc.BWD_SOURCE_ROUTE[src]),
+                    want, scales)
+                fault_errs[f"{src}:{name}"] = max(e.values())
+                if fault_errs[f"{src}:{name}"] > 1.0:
+                    caught[src][name].append(case)
+        ok = all(e <= 1.0 for e in errs.values()) and same and \
+            all(e <= 1.0 for e in simt_errs.values())
         emit({"phase": "mlstm_bwd", "case": case, "dtype": str(dtype),
-              "shape": [B, H, S, Dq, Dv, L], "gates": kind,
+              "shape": [B, H, S, Dq, Dv, L], "gates": kind, "route": route,
               "clamp_rows": mc.clamp_rows(*args, L),
-              "errors_over_allowed": errs, "gamma": mc.BWD_GAMMA,
+              "errors_over_allowed": errs,
+              "simt_errors_over_allowed": simt_errs, "gamma": mc.BWD_GAMMA,
               "out_step": mc.OUT_STEP[dtype], "deterministic": same,
               "max_abs_err": abs_err,
               "faults_error_over_allowed": fault_errs})
         if not ok:
             raise SystemExit(f"mlstm_chunkwise_bwd disagrees with its plain "
-                             f"version ({case}): {errs}, {same}")
+                             f"version ({case}, {route}): {errs}, "
+                             f"simt {simt_errs}, {same}")
         del args, got, again, want, scales
-    held_faults("mlstm_chunkwise_bwd", caught)
+    counts = read_counts(("mlstm_chunkwise_bwd", "mlstm_chunkwise_bwd_sm90"))
+    want_counts = {"mlstm_chunkwise_bwd": 2 * sum(
+                       r == "simt" for r in routes.values()),
+                   "mlstm_chunkwise_bwd_sm90": 2 * sum(
+                       r == "sm90" for r in routes.values())}
+    emit({"phase": "mlstm_bwd", "routes": routes, "launches": counts,
+          "predicted_launches": want_counts})
+    if counts != want_counts or want_counts["mlstm_chunkwise_bwd_sm90"] == 0:
+        raise SystemExit(f"mlstm_chunkwise_bwd's routes launched {counts}, "
+                         f"not {want_counts}")
+    for src, got in caught.items():
+        held_faults(src, got)
 
-    B, H, S, D, L = 4, 4, 1024, 512, 256
-    args = mc.mlstm_bwd_inputs(gen, B, H, S, D, D, torch.bfloat16, "gates")
-    fn = _build.function("mlstm_chunk_bwd", "mlstm_chunk_bwd_launch",
-                         mk.BWD_ARGTYPES)
-    a, _, keep = mk.bwd_launch_args(*args, L)
+    recs = {}
+    # each source at its main path's shape through the entry point: the
+    # sm90 route at the xlstm-350m train step's (bf16, bound by the bf16
+    # tensor-core rate; the float32 CUDA-core figure printed beside it),
+    # the SIMT source at the reduced xlstm's (train_cpu: float32, bound
+    # by the float32 CUDA-core rate)
+    for kname, route, (B, H, S, D, L), dtype in (
+            ("mlstm_chunkwise_bwd_sm90", "sm90", (4, 4, 1024, 512, 256),
+             torch.bfloat16),
+            ("mlstm_chunkwise_bwd", "simt", (2, 4, 300, 32, 256),
+             torch.float32)):
+        args = mc.mlstm_bwd_inputs(gen, B, H, S, D, D, dtype, "gates")
+        assert mk.bwd_route(dtype, D, D, L) == route
+        plain_ms = time_ms(
+            lambda: mk.mlstm_chunkwise_bwd_plain(*args, chunk=L), 3)
+        flops = mlstm_bwd_flops(B, H, S, D, D, L)
+        fn = _build.function(*mk.BWD_ROUTES[route])
+        a, _, keep = mk.bwd_launch_args(*args, L, route=route)
 
-    def launch(stream):
-        return fn(*a[:-1], stream)
+        def launch(stream, fn=fn, a=a):
+            return fn(*a[:-1], stream)
 
-    ms = mcc.event_ms(launch, reps=20)
-    wrap_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd(*args, chunk=L), 20)
-    plain_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd_plain(*args, chunk=L),
-                       3)
-    flops = mlstm_bwd_flops(B, H, S, D, D, L)
-    # bf16 operands: the card's bf16 rate bounds the work, as for the
-    # forward; the float32 CUDA-core figure, the rate this SIMT kernel can
-    # reach, is printed beside it
-    rec = record("mlstm_chunkwise_bwd",
-                 mlstm_bwd_bytes(B, H, S, D, D, torch.bfloat16), 0, ms,
-                 wrap_ms, plain_ms, worst, bw, ops=flops,
-                 rate=FLOAT_PEAK[torch.bfloat16], launch=launch)
-    emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise_bwd",
-          "shape": [B, H, S, D, D, L], "dtype": "bfloat16", "flops": flops,
-          "tflops": flops / ms / 1e9,
-          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3})
-    del keep
-    return rec
+        ms = mcc.event_ms(launch, reps=20)
+        wrap_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd(*args, chunk=L), 20)
+        recs[kname] = record(kname, mlstm_bwd_bytes(B, H, S, D, D, dtype),
+                             0, ms, wrap_ms, plain_ms, worst[kname], bw,
+                             ops=flops, rate=FLOAT_PEAK[dtype], launch=launch)
+        emit({"phase": "kernel_time", "kernel": kname, "route": route,
+              "shape": [B, H, S, D, D, L], "dtype": str(dtype),
+              "flops": flops, "tflops": flops / ms / 1e9,
+              "f32_cuda_core_bound_ms":
+              flops / FLOAT_PEAK[torch.float32] * 1e3})
+        del args, keep
+    return recs
 
 
 #: the train phases: (arch, depth or None for the config's, batch, seq,
@@ -2709,7 +2848,7 @@ GRAD_RTOL, GRAD_FLOOR = 0.05, 1e-3
 LEAF_GATE = {"train_rg"}
 #: the kernels each cell's blocks launch: (forward counter, backward
 #: counter, plain forward, plain backward)
-CELL_KERNELS = {"mLSTM": ("mlstm_chunkwise_sm90", "mlstm_chunkwise_bwd",
+CELL_KERNELS = {"mLSTM": ("mlstm_chunkwise_sm90", "mlstm_chunkwise_bwd_sm90",
                           "mlstm_chunkwise_plain",
                           "mlstm_chunkwise_bwd_plain"),
                 "RG-LRU": ("rglru_scan", "rglru_scan_bwd",
@@ -3021,8 +3160,9 @@ def check_train_cpu():
     (past its 32-token window): loss and every gradient leaf on the card
     against the CPU, within the whole-model tolerance of
     ``tests/_torch_lm.py`` (rtol 1e-3, atol 1e-3 of the leaf's largest
-    magnitude)."""
-    failed = []
+    magnitude).  Returns the card's launches of the kernels (the
+    xlstm's SIMT backward among them)."""
+    failed, total = [], {}
     for arch, S in (("xlstm_350m", 300), ("recurrentgemma_9b", 48)):
         cfg = reduced_config(arch)
         model, params = init_model(cfg, "cpu")
@@ -3050,9 +3190,15 @@ def check_train_cpu():
               "launches": launches})
         if not close:
             failed.append(arch)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
     if failed:
         raise SystemExit(f"train_cpu: the card's gradients differ from the "
                          f"CPU's for {failed}")
+    if not total.get("mlstm_chunkwise_bwd"):
+        raise SystemExit(f"train_cpu: the SIMT mLSTM backward did not "
+                         f"launch: {total}")
+    return total
 
 
 def check_elastic():
@@ -3451,6 +3597,8 @@ def main() -> int:
                                                        "")),
           "mlstm_chunk_bwd_ptxas": ptxas_usage(logs.get("mlstm_chunk_bwd",
                                                         "")),
+          "mlstm_chunk_bwd_sm90_ptxas": ptxas_usage(
+              logs.get("mlstm_chunk_bwd_sm90", "")),
           "fault_copies": {k: sorted(v) for k, v in faults.items()}})
 
     bw = hbm_bw(name)
@@ -3492,15 +3640,17 @@ def main() -> int:
     check_families()
     rec["rglru_scan_bwd"] = check_rglru_bwd_kernel(bw,
                                                    faults["rglru_scan_bwd"])
-    rec["mlstm_chunkwise_bwd"] = check_mlstm_bwd_kernel(
-        bw, faults["mlstm_chunk_bwd"])
+    rec.update(check_mlstm_bwd_kernel(
+        bw, {src: faults[src] for src in mc.BWD_SOURCE_FAULTS}))
     with deterministic():
-        launches["mlstm_chunkwise_bwd"] = check_train(
-            "train", smi)["mlstm_chunkwise_bwd"]
+        launches["mlstm_chunkwise_bwd_sm90"] = check_train(
+            "train", smi)["mlstm_chunkwise_bwd_sm90"]
         launches["rglru_scan_bwd"] = check_train(
             "train_rg", smi)["rglru_scan_bwd"]
         check_train("train_dense", smi)
-        check_train_cpu()
+        # the reduced float32 xlstm: the SIMT backward's main path
+        launches["mlstm_chunkwise_bwd"] = check_train_cpu()[
+            "mlstm_chunkwise_bwd"]
         check_elastic()
     check_sharded(mc_runs)
     check_train_dp(smi)

@@ -17,10 +17,13 @@ equal to the reference's ``_sim_jit`` as XLA compiles it for the CPU:
   * ``_simulate_batch_plain`` — plain PyTorch, one tick per Python step,
     on any device (the CPU tests and the card-side check use it);
   * ``kernels/microsim_scan.py: microsim_scan`` — the CUDA kernel, one
-    block per (row, mode), every tick inside the block.
+    warp per (row, mode), the arrivals counted ahead of the queues.
 
-``run_table`` launches the kernel on a CUDA device and runs the plain
-version on the CPU.
+Both take the arrivals from one pre-pass, ``arrivals_plain`` here: a
+tick's read and write counts depend on the seed, the tick, the row's rate
+accumulator and its read fraction alone, never on the queue.
+``run_table`` and ``run_tables`` (both tables in one call) launch the
+kernel on a CUDA device and run the plain version on the CPU.
 
 What XLA does to the reference's float32 arithmetic, and the port with it
 (read from the CPU compile's object code: three fusions hold a
@@ -130,12 +133,50 @@ def row_constants(rs, ps, bw, u, lf, read_frac):
     }
 
 
+def arrivals_plain(rate_pt, read_frac, ticks: int, seed: int, *,
+                   draw_rows: int | None = None):
+    """The arrivals of every tick before the queue sees them: (n_read,
+    n_write), each (R, ticks) int32.  Per row the rate accumulator (acc
+    += rate_pt, n_arr = floor(acc), acc -= n_arr, in float32); per tick
+    the key chain's sub-key and the reference's uniform(sub, (draw_rows,
+    MAX_ARR)), row r taking row r mod draw_rows (default R: one table);
+    lane i arrives when i < n_arr, as a read when its draw < read_frac.
+    The baseline's pause is applied later, in the queue."""
+    dev = rate_pt.device
+    f32 = torch.float32
+    R = rate_pt.shape[0]
+    draw_rows = draw_rows or R
+    rate_pt, read_frac = rate_pt.to(f32), read_frac.to(f32)
+    lane = torch.arange(MAX_ARR, dtype=f32, device=dev)
+    n_read = torch.empty((R, ticks), dtype=torch.int32, device=dev)
+    n_write = torch.empty((R, ticks), dtype=torch.int32, device=dev)
+    acc = torch.zeros(R, dtype=f32, device=dev)
+    key = threefry.prng_key(seed)
+    for t0 in range(0, ticks, _DRAW_CHUNK):
+        n = min(_DRAW_CHUNK, ticks - t0)
+        key, subs = threefry.split_chain(key, n)
+        draws = threefry.uniform(subs, (draw_rows, MAX_ARR), device=dev)
+        is_read = draws.repeat(1, R // draw_rows, 1) < read_frac[None, :,
+                                                                 None]
+        n_arr = torch.empty((n, R), dtype=f32, device=dev)
+        for i in range(n):
+            acc = acc + rate_pt
+            n_arr[i] = torch.floor(acc)
+            acc = acc - n_arr[i]
+        arr = lane < n_arr[..., None]
+        n_read[:, t0:t0 + n] = (arr & is_read).sum(dim=2).T
+        n_write[:, t0:t0 + n] = (arr & ~is_read).sum(dim=2).T
+    return n_read, n_write
+
+
 def _simulate_batch_plain(rs, ps, bw, u, lf, read_frac, is_lark: bool,
-                          ticks: int, seed: int, *, check_counts=None):
+                          ticks: int, seed: int, *, draw_rows=None,
+                          check_counts=None):
     """The reference's ``_simulate_batch`` tick by tick in plain PyTorch,
-    on the device of `rs`.  All configs are (R,) float32 tensors.
-    Returns {hist (R, AGES), per_tick_done (R, ticks), pending_ts (R,
-    ticks), base_down_ticks (R,)}, float32.
+    on the device of `rs`, fed by ``arrivals_plain`` (`draw_rows` as
+    there).  All configs are (R,) float32 tensors.  Returns {hist (R,
+    AGES), per_tick_done (R, ticks), pending_ts (R, ticks),
+    base_down_ticks (R,)}, float32.
 
     `check_counts`, when a list, gets one entry per tick: whether every
     cohort count, the total and the completions were integers within the
@@ -146,41 +187,26 @@ def _simulate_batch_plain(rs, ps, bw, u, lf, read_frac, is_lark: bool,
     f32 = torch.float32
     R = rs.shape[0]
     k = row_constants(rs, ps, bw, u, lf, read_frac)
-    rate_pt, n_keys, w_rate = k["rate_pt"], k["n_keys"], k["w_rate"]
-    read_frac = read_frac.to(f32)
+    n_keys, w_rate = k["n_keys"], k["w_rate"]
     rem = torch.zeros((R, AGES, 2), dtype=f32, device=dev)
     cnt = torch.zeros((R, AGES, 2), dtype=f32, device=dev)
-    acc = torch.zeros(R, dtype=f32, device=dev)
     pending = torch.zeros(R, dtype=f32, device=dev)
     okeys = torch.zeros(R, dtype=f32, device=dev)
     hist = torch.zeros((R, AGES), dtype=f32, device=dev)
     per_tick = torch.empty((R, ticks), dtype=f32, device=dev)
     pending_ts = torch.empty((R, ticks), dtype=f32, device=dev)
-    lane = torch.arange(MAX_ARR, dtype=f32, device=dev)
     age_ok = (torch.arange(AGES, device=dev) >= 1)[None, :, None]
     new_rem = torch.stack([rs.to(f32), k["wbytes"]], dim=1)
-    key = threefry.prng_key(seed)
-    r_draws = None
+    reads, writes = (a.to(f32) for a in arrivals_plain(
+        k["rate_pt"], read_frac, ticks, seed, draw_rows=draw_rows))
     for t in range(ticks):
-        if t % _DRAW_CHUNK == 0:     # the reference's uniform(sub, (R, 64))
-            key, subs = threefry.split_chain(key,
-                                             min(_DRAW_CHUNK, ticks - t))
-            r_draws = threefry.uniform(subs, (R, MAX_ARR), device=dev)
         in_outage = FAIL_T <= t < RECOVER_T
         backfilling = is_lark and t >= RECOVER_T
         base_paused = (not is_lark and t >= FAIL_T) & (t < k["base_end"])
 
-        # ---- arrivals --------------------------------------------------
-        acc = acc + rate_pt
-        n_arr = torch.floor(acc)
-        acc = acc - n_arr
-        r_draw = r_draws[t % _DRAW_CHUNK]
-        arr = lane[None, :] < n_arr[:, None]
-        is_read = r_draw < read_frac[:, None]
-        n_read = (arr & is_read).sum(dim=1).to(f32)
-        n_write = (arr & ~is_read).sum(dim=1).to(f32)
-        n_read = torch.where(base_paused, 0.0, n_read)
-        n_write = torch.where(base_paused, 0.0, n_write)
+        # ---- arrivals (rejected while the baseline pauses) ----------------
+        n_read = torch.where(base_paused, 0.0, reads[:, t])
+        n_write = torch.where(base_paused, 0.0, writes[:, t])
 
         # age-advance: the oldest cohort (age AGES-1) drops out
         rem = torch.roll(rem, 1, dims=1)
@@ -248,43 +274,62 @@ def run_table(configs: List[MicroConfig], *, ticks: int = 1_000_000,
     """The reference's ``run_table``: one row per config, summarised on
     the host in float64.  ``device=None`` means ``cuda``: one launch of
     the kernel runs both modes; the CPU runs the plain version."""
+    return run_tables({"table": configs}, ticks=ticks, seed=seed,
+                      device=device)["table"]
+
+
+def run_tables(tables: Dict[str, List[MicroConfig]], *,
+               ticks: int = 1_000_000, seed: int = 0,
+               device=None) -> Dict[str, List[Dict]]:
+    """``run_table`` of each table, {name: rows}, in one call of
+    ``microsim_scan`` over the tables' grids concatenated (each table of
+    the same length draws its arrivals alone, as the reference's
+    ``run_table`` does)."""
     # the kernel's module imports this one
     from ..kernels.microsim_scan import microsim_scan
+    grids = list(tables.values())
+    rows = len(grids[0])
+    if any(len(g) != rows for g in grids):
+        raise ValueError("run_tables takes tables of one length")
     dev = resolve_device(device)
-    out = microsim_scan(*_config_tensors(configs, dev), ticks=ticks,
-                        seed=seed)
+    out = microsim_scan(*_config_tensors([c for g in grids for c in g], dev),
+                        ticks=ticks, seed=seed, rows_per_table=rows)
     lark, base = ({k: v.cpu().numpy() for k, v in out[m].items()}
                   for m in ("lark", "base"))
+    return {name: [_summary(cfg, lark, base, i * rows + j, ticks)
+                   for j, cfg in enumerate(grid)]
+            for i, (name, grid) in enumerate(tables.items())}
 
-    out = []
-    for i, cfg in enumerate(configs):
-        pend = lark["pending_ts"][i]
-        after = np.where(pend[RECOVER_T + 1:] < 0.5)[0]  # backfilling gate
-        backfill_end = RECOVER_T + 1 + (after[0] if len(after) else
-                                        len(pend) - RECOVER_T - 1)
-        W = min(int(backfill_end), ticks)
 
-        def summary(r):
-            done_w = float(r["per_tick_done"][i, :W].sum())
-            h = r["hist"][i].astype(np.float64)
-            tot = h.sum()
-            avg = (h * np.arange(len(h))).sum() / max(tot, 1)
-            cum = np.cumsum(h) / max(tot, 1)
-            p99 = int(np.searchsorted(cum, 0.99))
-            return dict(throughput=done_w / (W / TICKS_PER_S), avg_ms=avg,
-                        p99_ms=p99, completed=done_w)
+def _summary(cfg: MicroConfig, lark, base, i: int, ticks: int) -> Dict:
+    """The reference's ``run_table`` row of config row `i` of the
+    outputs."""
+    pend = lark["pending_ts"][i]
+    after = np.where(pend[RECOVER_T + 1:] < 0.5)[0]  # backfilling gate
+    backfill_end = RECOVER_T + 1 + (after[0] if len(after) else
+                                    len(pend) - RECOVER_T - 1)
+    W = min(int(backfill_end), ticks)
 
-        ls, bs = summary(lark), summary(base)
-        out.append({
-            "config": cfg, "window_s": W / TICKS_PER_S,
-            "lark": ls, "base": bs,
-            "throughput_ratio": ls["throughput"] / max(bs["throughput"], 1e-9),
-            "lark_backfill_s": (backfill_end - RECOVER_T) / TICKS_PER_S,
-            "base_down_s": float(base["base_down_ticks"][i]) / TICKS_PER_S,
-            "lark_ts": lark["per_tick_done"][i],
-            "base_ts": base["per_tick_done"][i],
-        })
-    return out
+    def summary(r):
+        done_w = float(r["per_tick_done"][i, :W].sum())
+        h = r["hist"][i].astype(np.float64)
+        tot = h.sum()
+        avg = (h * np.arange(len(h))).sum() / max(tot, 1)
+        cum = np.cumsum(h) / max(tot, 1)
+        p99 = int(np.searchsorted(cum, 0.99))
+        return dict(throughput=done_w / (W / TICKS_PER_S), avg_ms=avg,
+                    p99_ms=p99, completed=done_w)
+
+    ls, bs = summary(lark), summary(base)
+    return {
+        "config": cfg, "window_s": W / TICKS_PER_S,
+        "lark": ls, "base": bs,
+        "throughput_ratio": ls["throughput"] / max(bs["throughput"], 1e-9),
+        "lark_backfill_s": (backfill_end - RECOVER_T) / TICKS_PER_S,
+        "base_down_s": float(base["base_down_ticks"][i]) / TICKS_PER_S,
+        "lark_ts": lark["per_tick_done"][i],
+        "base_ts": base["per_tick_done"][i],
+    }
 
 
 # Paper Tables 3-4 grid: decimal values from §5.2.1 (displayed in the tables

@@ -36,7 +36,7 @@ PLAIN_DEVICES = ("cpu", "meta")
 SOURCES = ("downtime_eval", "fused_downtime", "latency_charge",
            "mlstm_chunk", "rglru_scan", "flash_attention",
            "flash_attention_sm90", "mlstm_chunk_sm90", "microsim_scan",
-           "rglru_scan_bwd", "mlstm_chunk_bwd")
+           "rglru_scan_bwd", "mlstm_chunk_bwd", "mlstm_chunk_bwd_sm90")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

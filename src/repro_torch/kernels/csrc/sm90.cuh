@@ -2,8 +2,8 @@
 // kernels: mbarriers, TMA tile loads through tensor maps, wgmma shared-
 // memory descriptors for 128-byte-swizzled tiles, bf16 wgmma with float32
 // accumulators (A from shared memory or from registers, B K-major or
-// MN-major), transposed ldmatrix, and the host-side encoding of a tensor
-// map.
+// MN-major, N up to 256 either way), transposed ldmatrix, and the
+// host-side encoding of a tensor map.
 //
 // Everything is inline PTX or a plain C++ inline function: the including
 // source stays a plain C interface built by nvcc alone (no PyTorch
@@ -339,6 +339,58 @@ __device__ __forceinline__ void wgmma_m64k16_ss_tb<256>(float* d,
       "setp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
       ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : SM90_OUT128(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x N, float32) += A B^T for N in {64, 128, 256}: A 64 x 16 and B
+// N x 16 (N x K), both bf16, K-major, in shared memory (as
+// wgmma_m64n64k16_ss's; B's N rows in 8-row atoms 1024 bytes apart).
+// d in the layout above.
+template <int N>
+__device__ __forceinline__ void wgmma_m64k16_ss_kb(float* d, uint64_t da,
+                                                   uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_kb<64>(float* d, uint64_t da,
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_OUT32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_kb<128>(float* d,
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64
+      ", %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64k16_ss_kb<256>(float* d,
+                                                       uint64_t da,
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
+      ", %128, %129, p, 1, 1, 0, 0;\n"
       "}\n"
       : SM90_OUT128(d)
       : "l"(da), "l"(db), "r"(1));

@@ -901,7 +901,7 @@ def latency_checks(gen, faults, *, entry=None, nbins=16):
 # ---------------------------------------------------------------------------
 
 def device_times(launch, *, reps: int = 200, cold_reps: int = 20,
-                 attempts: int = 3) -> dict:
+                 attempts: int = 3, events=None) -> dict:
     """Times of one raw launch; ``launch(stream)`` makes it on the CUDA
     stream whose handle it is given and returns its cudaError_t (the
     first launch's is checked).
@@ -910,10 +910,12 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20,
     `reps` back-to-back launches (the card's time, no launch gaps: the
     durations of all its kernels and memsets, ``device_ops`` of them a
     launch), read from the profiler's trace events; the profiler now and
-    then hands back a trace with no device event at all, so the pass is
-    made up to `attempts` times, and if every trace is empty device_ms is
-    the CUDA-event time of the same launches (launch gaps included) and
-    device_ops is None; ``device_ms_by`` says which ("profiler" or
+    then hands back a trace with no device event at all (or, where a
+    launch makes `events` device events, one that lost some), so the pass
+    is made up to `attempts` times, and if every trace falls short
+    device_ms is the CUDA-event time of the same launches (launch gaps
+    included) and device_ops the last trace's count a launch (None when
+    it was empty); ``device_ms_by`` says which ("profiler" or
     "cuda_events"), ``profiler_attempts`` how many passes were made;
     graph_ms: per launch, replaying a CUDA graph of `reps` launches (the
     handle is read inside the capture, so they land on its stream);
@@ -940,13 +942,14 @@ def device_times(launch, *, reps: int = 200, cold_reps: int = 20,
             if e.device_type() == DeviceType.CUDA:
                 total_ns += e.duration_ns()
                 count += 1
-        if count and total_ns > 0:
+        if count and total_ns > 0 and (events is None or
+                                       count == reps * events):
             device_ms, device_ops, by = total_ns / reps / 1e6, count / reps, \
                 "profiler"
             break
     else:
-        device_ms, device_ops, by = event_ms(launch, reps), None, \
-            "cuda_events"
+        device_ms, device_ops, by = event_ms(launch, reps), \
+            count / reps if count else None, "cuda_events"
 
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

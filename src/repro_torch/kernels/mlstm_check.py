@@ -23,9 +23,12 @@ takes bf16 only), and prints per source, variant and case the largest
 error over what rounding allows, beside the verdict of a tolerance scaled
 by the largest |h|.  It exits 0 when each source passes every case it
 takes and every fault fails at least one.  Then the same for the
-backward (csrc/mlstm_chunk_bwd.cu) on ``BWD_CASES`` against the plain
-backward in float64, within ``mlstm_bwd_rounding_scale``, with each of
-``BWD_FAULTS``.  Needs nvcc and a card.
+backward's two sources on ``BWD_CASES`` against the plain backward in
+float64, within ``mlstm_bwd_rounding_scale``: csrc/mlstm_chunk_bwd.cu
+(SIMT) on every case, with each of ``BWD_FAULTS``, and
+csrc/mlstm_chunk_bwd_sm90.cu on the cases its route takes
+(``mlstm_chunk.bwd_route``), with each of ``BWD_FAULTS_SM90``.  Needs
+nvcc and a card.
 """
 from __future__ import annotations
 
@@ -252,14 +255,21 @@ FAULTS = {
 #: (stress: log_f near 0, log_i over +-10, a wide spread of stabilizers);
 #: "clamp": log_i = -6 + 3 N(0, 1), where many rows have |den| below the
 #: clamp e^{-m_t} and many above it.  The train shape first, then a
-#: reduced float32 one (the reduced xlstm's head dim), ragged S, S below
-#: the chunk, S = 1, head dims that are not multiples of the 64-wide tile
-#: and a chunk that is not either
+#: reduced float32 one (the reduced xlstm's head dim) and the reduced
+#: xlstm's own call (chip_smoke.py train_cpu: B = 2, S = 300, the SIMT
+#: source's main path), ragged S, S below the chunk, S = 1, head dims
+#: that are not multiples of the 64-wide tile and a chunk that is not
+#: either; then sm90 shapes off the 256 grid: Dq 128 and Dv 192 at chunk
+#: 128 (64- and 256-wide column tiles, the 64-column walks), Dq 320 at
+#: chunk 192 (64-row S and dP tiles), and chunk 1024 (32 positions a lane
+#: in the gate scans; past the SIMT source's shared memory)
 BWD_CASES = (("train_bf16", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
               "gates"),
              ("train_f32", torch.float32, 4, 4, 1024, 512, 512, 256,
               "gates"),
              ("reduced_f32", torch.float32, 2, 4, 96, 32, 32, 256,
+              "gates"),
+             ("train_cpu_f32", torch.float32, 2, 4, 300, 32, 32, 256,
               "gates"),
              ("ragged_1000", torch.bfloat16, 4, 4, 1000, 512, 512, 256,
               "gates"),
@@ -270,7 +280,13 @@ BWD_CASES = (("train_bf16", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
              ("odd_dims", torch.float32, 2, 3, 300, 40, 72, 96, "gates"),
              ("stabilizer", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
               "stress"),
-             ("clamp", torch.bfloat16, 4, 4, 1024, 512, 512, 256, "clamp"))
+             ("clamp", torch.bfloat16, 4, 4, 1024, 512, 512, 256, "clamp"),
+             ("dims_128_192", torch.bfloat16, 1, 2, 300, 128, 192, 128,
+              "gates"),
+             ("chunk_192", torch.bfloat16, 2, 2, 500, 320, 64, 192,
+              "stress"),
+             ("chunk_1024", torch.bfloat16, 1, 2, 1100, 64, 64, 1024,
+              "gates"))
 #: float32 rounding allowed per unit of ``mlstm_bwd_rounding_scale``: the
 #: sums hold up to Dq + Dv + L terms, as h's do (``GAMMA["h"]``)
 BWD_GAMMA = 2.0 ** -16
@@ -364,11 +380,12 @@ def clamp_rows(q, k, v, log_f, log_i, dh, chunk) -> float:
     return torch.cat(held, dim=2)[:, :, :q.shape[2]].double().mean().item()
 
 
-def run_bwd(fn, q, k, v, log_f, log_i, dh, chunk):
+def run_bwd(fn, q, k, v, log_f, log_i, dh, chunk, route="simt"):
     """(dq, dk, dv, dlog_f, dlog_i) of one raw launch of a backward
-    variant `fn`, its outputs filled with NaN first."""
+    variant `fn` of `route`'s source, its outputs filled with NaN
+    first."""
     args, out, _ = mk.bwd_launch_args(q, k, v, log_f, log_i, dh, chunk,
-                                      fill=float("nan"))
+                                      route=route, fill=float("nan"))
     _build.check(fn(*args), "mlstm_chunkwise_bwd (raw)")
     return out
 
@@ -394,6 +411,55 @@ BWD_FAULTS = {
     # dlog_f_r summed over the pairs s <= r, not s < r
     "dlf_off_by_one": ("dlf[out + t] = run;", "dlf[out + t] = run + li_t;"),
 }
+
+
+#: planted faults of csrc/mlstm_chunk_bwd_sm90.cu, the kinds of
+#: ``BWD_FAULTS`` and one lo product left out: (text, replacement) or a
+#: list of them
+BWD_FAULTS_SM90 = {
+    # dq, den and num without the chunk-start state's terms
+    "state_carry_dropped": [("const bool carry = c > 0;",
+                             "const bool carry = false;"),
+                            ("const bool state_carry = c > 0;",
+                             "const bool state_carry = false;")],
+    # dk, dv without the gradient carried back from later chunks
+    "grad_carry_dropped": ("const bool carry_in = c + 1 < d.nC;",
+                           "const bool carry_in = false;"),
+    # G_c = G_{c+1} + ...: the inter-chunk decay of dC (and dn) dropped in
+    # the reverse walk
+    "dC_decay_dropped": [
+        ("for (int jj = 0; jj < NV / 2; ++jj) acc[jj] *= decay;",
+         "for (int jj = 0; jj < NV / 2; ++jj) acc[jj] *= REV ? 1.f : decay;"),
+        ("nreg0 *= decay;", "nreg0 *= REV ? 1.f : decay;"),
+        ("nreg1 *= decay;", "nreg1 *= REV ? 1.f : decay;")],
+    # den's gradient dropped where the clamp does not hold
+    "den_grad_dropped": (
+        "const float ddv = active ? -copysignf(1.f, den) * num * iv * iv : "
+        "0.f;", "const float ddv = 0.f;"),
+    # den's gradient taken where the clamp holds
+    "clamp_ignored": ("const bool active = fabsf(den) > clamp;",
+                      "const bool active = true;"),
+    # dlog_f_r summed over the pairs s <= r, not s < r
+    "dlf_off_by_one": ("dlf[out + t] = run;", "dlf[out + t] = run + li_t;"),
+    # the weights' lo halves left out of dq, dk and dv
+    "w_lo_dropped": (
+        "sm90::wgmma_m64k16_ss_tb<NT>(acc, dal + 2 * kk, db + 128 * kk);",
+        ""),
+}
+#: each backward source's route (``mlstm_chunk.BWD_ROUTES``) and faults
+BWD_SOURCE_ROUTE = {"mlstm_chunk_bwd": "simt",
+                    "mlstm_chunk_bwd_sm90": "sm90"}
+BWD_SOURCE_FAULTS = {"mlstm_chunk_bwd": BWD_FAULTS,
+                     "mlstm_chunk_bwd_sm90": BWD_FAULTS_SM90}
+
+
+def bwd_takes(src: str, dtype, Dq: int, Dv: int, chunk: int) -> bool:
+    """Whether backward source `src` runs a case: the SIMT source every
+    one whose chunk fits its shared memory, the sm90 source those of its
+    route."""
+    if BWD_SOURCE_ROUTE[src] == "simt":
+        return mk.bwd_smem_bytes(chunk) <= mk.SMEM_LIMIT
+    return mk.bwd_route(dtype, Dq, Dv, chunk) == "sm90"
 
 
 #: each source's route (``mlstm_chunk.ROUTES``)
@@ -429,8 +495,8 @@ def main() -> int:
                   for src, faults in FAULTS.items()}
     source_ok = True
     with tempfile.TemporaryDirectory() as tmp:
-        bwd_procs = _build.start_variants("mlstm_chunk_bwd", BWD_FAULTS,
-                                          Path(tmp))
+        bwd_procs = {src: _build.start_variants(src, faults, Path(tmp))
+                     for src, faults in BWD_SOURCE_FAULTS.items()}
         fns = build_variants(Path(tmp))
         for case, dtype, S, initial, stress in CASES:
             args, init = mlstm_inputs(gen, B, H, S, D, D, dtype,
@@ -458,23 +524,30 @@ def main() -> int:
                             caught[src][name].append(case)
                         if not old_ok:
                             old_caught[src][name].append(case)
-        bwd_fns = _build.finish_variants(bwd_procs, "mlstm_chunk_bwd_launch",
-                                         mk.BWD_ARGTYPES)
-        caught["mlstm_chunk_bwd"] = {name: [] for name in BWD_FAULTS}
+        bwd_fns = {src: _build.finish_variants(
+            bwd_procs[src], *mk.BWD_ROUTES[route][1:])
+            for src, route in BWD_SOURCE_ROUTE.items()}
+        for src, faults in BWD_SOURCE_FAULTS.items():
+            caught[src] = {name: [] for name in faults}
         for case, dtype, B, H, S, Dq, Dv, L, kind in BWD_CASES:
             args = mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, dtype, kind)
             want, scales = bwd_reference((*args, L))
-            for name, fn in bwd_fns.items():
-                errs = mlstm_bwd_errors(run_bwd(fn, *args, L), want, scales)
-                ok = all(e <= 1.0 for e in errs.values())
-                print(json.dumps({"source": "mlstm_chunk_bwd",
-                                  "variant": name, "case": case,
-                                  "errors_over_allowed": errs, "ok": ok}),
-                      flush=True)
-                if name == "source":
-                    source_ok &= ok
-                elif not ok:
-                    caught["mlstm_chunk_bwd"][name].append(case)
+            for src, variants in bwd_fns.items():
+                if not bwd_takes(src, dtype, Dq, Dv, L):
+                    continue
+                for name, fn in variants.items():
+                    errs = mlstm_bwd_errors(
+                        run_bwd(fn, *args, L, BWD_SOURCE_ROUTE[src]), want,
+                        scales)
+                    ok = all(e <= 1.0 for e in errs.values())
+                    print(json.dumps({"source": src, "variant": name,
+                                      "case": case,
+                                      "errors_over_allowed": errs,
+                                      "ok": ok}), flush=True)
+                    if name == "source":
+                        source_ok &= ok
+                    elif not ok:
+                        caught[src][name].append(case)
             del args, want, scales
     missed = [f"{src}:{name}" for src, faults in caught.items()
               for name, cases in faults.items() if not cases]

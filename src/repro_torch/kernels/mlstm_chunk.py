@@ -27,10 +27,14 @@ recurrence ``mlstm_step_plain`` that decode uses.
     CUDA cores.
 
   ``mlstm_check`` holds both against the plain version.
-* ``mlstm_chunkwise_bwd`` (csrc/mlstm_chunk_bwd.cu) is its gradient for
-  ``initial=None``, beside ``mlstm_chunkwise_bwd_plain``; the reference
-  has no backward kernel (its training differentiates the oracle).  See
-  ``mlstm_chunkwise_bwd_plain`` for the math.
+* ``mlstm_chunkwise_bwd`` is its gradient for ``initial=None``, beside
+  ``mlstm_chunkwise_bwd_plain``; the reference has no backward kernel
+  (its training differentiates the oracle).  See
+  ``mlstm_chunkwise_bwd_plain`` for the math.  Two CUDA sources, chosen
+  by ``bwd_route``: the forward's sm90 predicate and the backward's own
+  shared memory take csrc/mlstm_chunk_bwd_sm90.cu (bf16 wgmma on TMA-fed
+  tiles, every float32 operand split hi/lo), the rest
+  csrc/mlstm_chunk_bwd.cu (SIMT, float32 on the CUDA cores).
 * ``mlstm_chunkwise`` is a ``torch.autograd.Function`` when no initial
   state is given: its forward saves q, k, v, log_f and log_i, its
   backward launches the backward kernel, and the final (C, n, m) is not
@@ -499,10 +503,70 @@ def bwd_smem_bytes(chunk: int) -> int:
     return 4 * (2 * BWD_SLAB * BWD_PAD + 2 * BWD_TILE * (Lp + 1))
 
 
+def _tile_of(n: int) -> int:
+    """The column tile of an sm90 backward product with n columns: 256
+    where it divides n, else 64 (csrc/mlstm_chunk_bwd_sm90.cu's
+    tile_of)."""
+    return 256 if n % 256 == 0 else 64
+
+
+#: the sm90 backward's rings: slots of its GEMM kernels and of its walks
+BWD_SM90_STAGES, BWD_SM90_WALK_STAGES = 2, 4
+
+
+def bwd_sm90_smem_bytes(Dq: int, Dv: int, chunk: int) -> int:
+    """Dynamic shared memory of csrc/mlstm_chunk_bwd_sm90.cu's larger
+    kernel: a walk's ring of X (64 positions x 128 d) and Y (64 x NV)
+    slabs and two chunks' coefficients (a and b, chunk floats each), or a
+    GEMM kernel's two slots of 128 x 64 A tiles (two with hi and lo) and
+    an NT x 64 B tile (two with hi and lo), NT 256 where it divides the
+    columns, else 64; each with 1024 bytes to align the swizzled
+    tiles."""
+    nv = _tile_of(Dv)
+    walk = BWD_SM90_WALK_STAGES * (2 + nv // 64) * 64 * 128 + 1024 + \
+        16 * chunk
+    nt = max(_tile_of(Dq), _tile_of(Dv))
+    tile = 128 * 128
+    gemm = BWD_SM90_STAGES * max(tile + 2 * nt * 128, 2 * tile + nt * 128) \
+        + 1024
+    return max(walk, gemm)
+
+
+def bwd_sm90_workspace_bytes(BH: int, S: int, Dq: int, Dv: int,
+                             chunk: int) -> int:
+    """Scratch bytes of one sm90 backward call, carved in the order of
+    csrc/mlstm_chunk_bwd_sm90.cu's ``carve`` (each region 256-byte
+    aligned): per position g, M_t, m_t, wv, the dstates walk's two row
+    weights, inv and dd; M_L and the m chain; C_c and G_{c+1} as bf16 hi
+    and lo, n_c and dn_{c+1}; S, dP (chunk x chunk a chunk) and C_c dh
+    (chunk x Dq) in float32; the weights Wk, Wk^T and Wv^T as bf16 hi and
+    lo; per position and Dq column tile q.dq and k.dk."""
+    nC = -(-S // chunk)
+    Sp, Z = nC * chunk, BH * nC
+    nN = Dq // _tile_of(Dq)
+    sizes = [4 * BH * Sp] * 8 + [4 * BH * nC, 4 * BH * (nC + 1)] + \
+        [2 * Z * Dq * Dv] * 4 + [4 * Z * Dq] * 2 + \
+        [4 * Z * chunk * chunk] * 2 + [4 * Z * chunk * Dq] + \
+        [2 * Z * chunk * chunk] * 6 + [4 * BH * Sp * nN] * 2
+    return sum(-(-b // 256) * 256 for b in sizes)
+
+
+def bwd_route(dtype, Dq: int, Dv: int, chunk: int) -> str:
+    """The CUDA source that computes the backward on these inputs: "sm90"
+    where the forward's route is (``_route``: bf16, Dq and Dv multiples of
+    64 in [64, 512], chunk a multiple of 64) and the sm90 backward's
+    kernels fit a block's shared memory, else "simt"."""
+    if _route(dtype, Dq, Dv, chunk) == "sm90" and \
+            bwd_sm90_smem_bytes(Dq, Dv, chunk) + SM90_STATIC <= SMEM_LIMIT:
+        return "sm90"
+    return "simt"
+
+
 def mlstm_chunkwise_bwd(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
     """(dq, dk, dv, dlog_f, dlog_i) as ``mlstm_chunkwise_bwd_plain``: CUDA
-    tensors launch csrc/mlstm_chunk_bwd.cu (``mlstm_chunkwise_bwd.
-    launches`` counts the calls), CPU and meta tensors run the plain
+    tensors launch the source of ``bwd_route`` (``mlstm_chunkwise_bwd.
+    launches`` counts the calls, ``.sm90_launches`` and
+    ``.simt_launches`` each route's), CPU and meta tensors run the plain
     version."""
     _check(q, k, v, log_f, log_i, chunk, None)
     if dh.shape != v.shape:
@@ -514,37 +578,67 @@ def mlstm_chunkwise_bwd(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
     if q.device.type != "cuda" or dh.device != q.device:
         raise ValueError(f"mlstm_chunkwise_bwd runs on one cuda or cpu "
                          f"device; got {q.device}, {dh.device}")
-    launch = _build.function("mlstm_chunk_bwd", "mlstm_chunk_bwd_launch",
-                             BWD_ARGTYPES)
-    args, out, _ = bwd_launch_args(q, k, v, log_f, log_i, dh, chunk)
-    _build.check(launch(*args), "mlstm_chunkwise_bwd")
+    route = bwd_route(q.dtype, q.shape[3], v.shape[3], chunk)
+    launch = _build.function(*BWD_ROUTES[route])
+    args, out, _ = bwd_launch_args(q, k, v, log_f, log_i, dh, chunk,
+                                   route=route)
+    _build.check(launch(*args), f"mlstm_chunkwise_bwd ({route})")
     mlstm_chunkwise_bwd.launches += 1
+    if route == "sm90":
+        mlstm_chunkwise_bwd.sm90_launches += 1
+    else:
+        mlstm_chunkwise_bwd.simt_launches += 1
     return out
 
 
 #: csrc/mlstm_chunk_bwd.cu: mlstm_chunk_bwd_launch
 BWD_ARGTYPES = (ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 6 + \
     (ctypes.c_void_p,)
+#: csrc/mlstm_chunk_bwd_sm90.cu: mlstm_chunk_bwd_sm90_launch
+BWD_ARGTYPES_SM90 = (ctypes.c_void_p,) * 12 + (ctypes.c_longlong,) + \
+    (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+#: route: (source, C symbol, argtypes) of the backward
+BWD_ROUTES = {"sm90": ("mlstm_chunk_bwd_sm90", "mlstm_chunk_bwd_sm90_launch",
+                       BWD_ARGTYPES_SM90),
+              "simt": ("mlstm_chunk_bwd", "mlstm_chunk_bwd_launch",
+                       BWD_ARGTYPES)}
 
 
-def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, fill=None):
-    """The arguments of one call of csrc/mlstm_chunk_bwd.cu's launcher on
-    checked CUDA tensors, the stream last, with the outputs (filled with
-    `fill` when given) and scratch allocated.  Returns (args, (dq, dk, dv,
-    dlog_f, dlog_i), the tensors the pointers refer to)."""
+def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, route="simt",
+                    fill=None):
+    """The arguments of one call of `route`'s backward launcher
+    (``BWD_ROUTES``) on checked CUDA tensors, the stream last, with the
+    outputs (filled with `fill` when given) and scratch allocated.
+    Returns (args, (dq, dk, dv, dlog_f, dlog_i), the tensors the pointers
+    refer to)."""
     B, H, S, Dq = q.shape
     Dv = v.shape[-1]
     dev = q.device
-    if bwd_smem_bytes(chunk) > SMEM_LIMIT:
+    dtype = q.dtype
+    nC = -(-S // chunk)
+    BH, Sp = B * H, nC * chunk
+    if route == "sm90":
+        if bwd_route(dtype, Dq, Dv, chunk) != "sm90":
+            raise ValueError(f"the sm90 backward takes bf16 with Dq, Dv "
+                             f"multiples of 64 in [64, 512] and chunk a "
+                             f"multiple of 64 within its shared memory; got "
+                             f"{dtype}, Dq={Dq}, Dv={Dv}, chunk={chunk}")
+        # its one-dimensional grids (the launcher's check); the workspace
+        # of such a call would not fit a card
+        if BH * Sp >= 2 ** 31 or BH * Sp // 64 * (chunk // 64 + 8) >= 2 ** 31:
+            raise ValueError(f"the sm90 backward numbers B H ceil(S / chunk) "
+                             f"chunk = {BH * Sp} positions' blocks in one "
+                             f"grid dimension: too many")
+    elif bwd_smem_bytes(chunk) > SMEM_LIMIT:
         raise ValueError(f"the backward kernel keeps (64, chunk) float32 "
                          f"buffers in shared memory: chunk={chunk} needs "
                          f"{bwd_smem_bytes(chunk)} bytes > {SMEM_LIMIT}")
-    dtype = q.dtype
     q, k, v = (a.contiguous() for a in (q, k, v))
     dh = dh.to(dtype).contiguous()
+    if route == "sm90":     # TMA reads from 16-byte aligned bases
+        q, k, v, dh = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (q, k, v, dh))
     lf, li = (a.to(torch.float32).contiguous() for a in (log_f, log_i))
-    nC = -(-S // chunk)
-    BH, Sp = B * H, nC * chunk
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -554,6 +648,14 @@ def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, fill=None):
     if fill is not None:
         for t in outs:
             t.fill_(fill)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "sm90":
+        nbytes = bwd_sm90_workspace_bytes(BH, S, Dq, Dv, chunk)
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        tensors = (q, k, v, lf, li, dh, *outs, work)
+        args = tuple(t.data_ptr() for t in tensors) + \
+            (nbytes, BH, S, Dq, Dv, chunk, stream)
+        return args, tuple(outs), tensors
     # the gates (g, M_t, m_t per position; M_L per chunk; the chunk-start
     # m), the chunk-start states and their gradients, the rows' C_c dh_t,
     # and per position 1 / max(|den|, e^{-m}), dd, q.dq and k.dk
@@ -563,8 +665,7 @@ def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, fill=None):
                f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, Sp))
     tensors = (q, k, v, lf, li, dh, *outs, *scratch)
     args = tuple(t.data_ptr() for t in tensors) + \
-        (BH, S, Dq, Dv, chunk, int(dtype == torch.bfloat16),
-         torch.cuda.current_stream(dev).cuda_stream)
+        (BH, S, Dq, Dv, chunk, int(dtype == torch.bfloat16), stream)
     return args, tuple(outs), tensors
 
 
@@ -637,8 +738,10 @@ def launch_with(launch, q, k, v, log_f, log_i, chunk, initial, *,
 
 
 #: kernel launches since the last reset: all, and by route; and the
-#: backward's
+#: backward's, all and by route
 mlstm_chunkwise_bwd.launches = 0
+mlstm_chunkwise_bwd.sm90_launches = 0
+mlstm_chunkwise_bwd.simt_launches = 0
 mlstm_chunkwise.launches = 0
 mlstm_chunkwise.sm90_launches = 0
 mlstm_chunkwise.simt_launches = 0

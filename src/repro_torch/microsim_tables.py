@@ -9,9 +9,10 @@ Prints one CSV line per table cell, as the reference:
                            p99L=...;p99B=...;backfill=...;down=...;
                            paper_thrL=...;paper_backfill=...;paper_down=...
 
-at the reference's 520,000 ticks.  On the card each table is one launch
-of ``microsim_scan``; on the CPU the plain tick loop runs (minutes a
-table: use ``--ticks`` or ``run(ticks=...)`` for a short run).
+at the reference's 520,000 ticks.  On the card both tables are one launch
+of ``microsim_scan`` (``core/microsim.run_tables``); on the CPU the plain
+tick loop runs (minutes a table: use ``--ticks`` or ``run(ticks=...)``
+for a short run).
 ``experiments/microsim_tables_ref.csv`` holds the reference's own lines
 at 520,000 ticks, which ``chip_smoke.py`` holds these against.
 """
@@ -21,7 +22,7 @@ import argparse
 import sys
 from pathlib import Path
 
-from .core.microsim import TABLES, run_table, table_configs
+from .core.microsim import TABLES, run_tables, table_configs
 
 TICKS = 520_000
 #: the reference's lines, committed (header line: command, jax, commit)
@@ -42,10 +43,11 @@ PAPER_T4 = [(3326, 3153, 69, 20), (33327, 33118, 8, 2), (3316, 1926, 172, 200),
 
 
 def run(ticks: int = TICKS, device=None) -> dict:
-    """{table name: run_table rows} for both tables."""
-    return {name: run_table(table_configs(u, lf), ticks=ticks,
-                            device=device)
-            for name, (u, lf) in TABLES.items()}
+    """{table name: run_table rows} for both tables, in one call of
+    ``run_tables``."""
+    return run_tables({name: table_configs(u, lf)
+                       for name, (u, lf) in TABLES.items()},
+                      ticks=ticks, device=device)
 
 
 def lines(results: dict) -> list:

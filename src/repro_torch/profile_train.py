@@ -47,6 +47,7 @@ from repro_torch.training import accumulate_grads, make_train_step
 CELL_KERNELS = {"mlstm_chunkwise_bwd": ("bwd_gates_kernel", "bwd_fstates",
                                         "bwd_rows", "bwd_dstates",
                                         "bwd_cols", "bwd_dgates"),
+                "mlstm_chunkwise_bwd_sm90": ("bwd90_",),
                 "mlstm_chunkwise_sm90": ("mlstm_gates_kernel",
                                          "mlstm_states_kernel",
                                          "mlstm_output_kernel"),

@@ -4,8 +4,9 @@ version (the Monte Carlo kernels bitwise, ``mlstm_chunkwise``,
 their planted faults), the engines (§5.1, §6 with the protocol zoo, and
 client latency) on cuda against the same runs on the CPU, and the
 reduced xLSTM and recurrentgemma serve paths on cuda against the CPU,
-and the §5.2 micro-simulator's ``microsim_scan`` bitwise against its
-plain tick loop.
+the §5.2 micro-simulator's ``microsim_scan`` bitwise against its plain
+tick loop (a table a launch, and both tables in one), and the mLSTM
+backward's sm90 source within its allowance.
 
 This file imports neither jax nor repro, so it runs on a machine that
 has only torch and a card:
@@ -667,3 +668,47 @@ def test_cuda_microsim_scan_matches_plain(cuda, case, table):
     for mode in microsim_scan.MODES:
         for k, w in want[mode].items():
             assert torch.equal(got[mode][k].cpu(), w), (mode, k)
+
+
+def test_cuda_microsim_both_tables_in_one_launch(cuda):
+    """Both tables' grids in one launch (each table's own Threefry
+    counters) equal the CPU's plain loop table by table, bitwise."""
+    tables = sorted(microsim.TABLES)
+    per = [microsim_scan.case_configs(t, 1.0, "cpu") for t in tables]
+    both = [torch.cat(cs) for cs in zip(*per)]
+    before = microsim_scan.microsim_scan.launches
+    got = microsim_scan.microsim_scan(*(c.to(cuda) for c in both),
+                                      ticks=2100, rows_per_table=12)
+    torch.cuda.synchronize()
+    assert microsim_scan.microsim_scan.launches == before + 1
+    for i, cs in enumerate(per):
+        want = microsim_scan.microsim_scan(*cs, ticks=2100)
+        for mode in microsim_scan.MODES:
+            for k, w in want[mode].items():
+                assert torch.equal(got[mode][k][12 * i:12 * (i + 1)].cpu(),
+                                   w), (i, mode, k)
+
+
+@pytest.mark.parametrize("S,kind,Dq,Dv,L", [
+    (512, "gates", 128, 192, 128), (300, "clamp", 128, 192, 128),
+    (500, "stress", 320, 64, 192),        # 64-row S and dP tiles
+    (1100, "gates", 64, 64, 1024),        # 32 positions a lane in the gates
+])
+def test_cuda_mlstm_bwd_sm90_matches_plain(cuda, S, kind, Dq, Dv, L):
+    """The bf16 backward at 64-multiple head dims takes the sm90 source,
+    within ``mlstm_check``'s allowance of the float64 plain backward,
+    and repeats bitwise."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(S)
+    args = mlstm_check.mlstm_bwd_inputs(gen, 1, 2, S, Dq, Dv,
+                                        torch.bfloat16, kind)
+    assert mlstm_chunk.bwd_route(torch.bfloat16, Dq, Dv, L) == "sm90"
+    before = mlstm_chunk.mlstm_chunkwise_bwd.sm90_launches
+    got = mlstm_chunk.mlstm_chunkwise_bwd(*args, chunk=L)
+    again = mlstm_chunk.mlstm_chunkwise_bwd(*args, chunk=L)
+    torch.cuda.synchronize()
+    assert mlstm_chunk.mlstm_chunkwise_bwd.sm90_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want, scales = mlstm_check.bwd_reference((*args, L))
+    errs = mlstm_check.mlstm_bwd_errors(got, want, scales)
+    assert max(errs.values()) <= 1.0, errs

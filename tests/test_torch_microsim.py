@@ -269,7 +269,10 @@ def test_launcher_signature_matches_argtypes():
 def test_work_counts():
     nbytes, flops, iops = ms.work(12, 520_000)
     assert nbytes == 4 * (6 * 12 + 4 * 12 * 520_000 + 2 * 12 * 512 + 24)
-    assert (flops, iops) == (24 * 520_000 * 4 * 1024, 24 * 520_000 * 66 * 80)
+    # the arrivals' hashes once per row (both modes share them), and the
+    # key chain's two a tick once per launch
+    assert (flops, iops) == (24 * 520_000 * 4 * 1024,
+                             (12 * 64 + 2) * 520_000 * 80)
     with pytest.raises(ValueError, match="2\\^31"):
         ms.launch_args(*ms.case_configs("t3", 1.0, "cpu"), ticks=2 ** 30)
 
