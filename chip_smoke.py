@@ -200,7 +200,9 @@ One JSON line per phase:
    width; long memory; log_a near 0, where 1 - exp(2 log_a) rounds to 0),
    every element within ``rglru_check.rglru_bwd_allowance``, a bitwise
    repeat, each planted fault (``rglru_check.BWD_FAULTS``) failing a
-   case; its time at the train shape.
+   case; its time at each of ``rglru_check.BWD_TIMED_SHAPES``: B = 2,
+   and B = 1, the train path's microbatch, whose record the kernels line
+   carries.
 22. ``mlstm_bwd`` / ``kernel_time``: ``mlstm_chunkwise_bwd`` against
    ``mlstm_chunkwise_bwd_plain`` in float64 on ``mlstm_check.BWD_CASES``
    (the train shape B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256 in
@@ -607,14 +609,15 @@ def check_kernels(bw, faults, fused_faults):
 
 
 def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
-           rate=INT_OPS, launch=None, events=None):
+           rate=INT_OPS, launch=None, events=None, shape=None):
     """One kernel's timing record: its bound is the larger of its bytes
     over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
     `rate` (the 32-bit lane rate unless given).  `ms` is back-to-back
     launches by CUDA events, launch rate and device time together; with
     `launch` (one raw launch on a given stream) the record adds
     ``mc_check.device_times``: device_ms (the profiler's kernel duration),
-    graph_ms (a CUDA graph's replay) and cold_ms (L2 cold)."""
+    graph_ms (a CUDA graph's replay) and cold_ms (L2 cold).  `shape`, where
+    given, tags the emitted line."""
     bytes_ms = nbytes / bw * 1e3
     if ops is None:
         ops = lanes * OPS_PER_LANE[name]
@@ -625,6 +628,8 @@ def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if launch is not None:
         rec.update(mcc.device_times(launch, events=events))
+    if shape is not None:
+        rec["shape"] = list(shape)
     emit({"phase": "kernel_time", "kernel": name, **rec})
     return rec
 
@@ -2630,8 +2635,10 @@ def check_rglru_bwd_kernel(bw, faults):
     S below the chunk, S = 1, the reduced width, long memory and log_a
     near 0), each element within ``rglru_check.rglru_bwd_allowance``, a
     bitwise repeat, each planted fault (``rglru_check.BWD_FAULTS``, run on
-    outputs filled with NaN) failing a case; then its time at the train
-    shape."""
+    outputs filled with NaN) failing a case; then its time at each of
+    ``rglru_check.BWD_TIMED_SHAPES``, each on a kernel_time line of its
+    own.  Returns the record at the last, the train path's microbatch
+    (B = 1), for the kernels line."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(24)
     caught = {name: [] for name in faults}
@@ -2666,25 +2673,26 @@ def check_rglru_bwd_kernel(bw, faults):
         del x, la, h, dh, got, again, want, allowed
     held_faults("rglru_scan_bwd", caught)
 
-    Bq, S, W = rc.BWD_TIMED_SHAPE
-    x, la, h, dh = rc.rglru_bwd_inputs(gen, Bq, S, W, "model")
     fn = _build.function("rglru_scan_bwd", "rglru_scan_bwd_launch",
                          rk.BWD_ARGTYPES)
-    _, args, keep = rk.bwd_launch_args(x, la, h, dh)
+    for shape in rc.BWD_TIMED_SHAPES:
+        x, la, h, dh = rc.rglru_bwd_inputs(gen, *shape, "model")
+        _, args, keep = rk.bwd_launch_args(x, la, h, dh)
 
-    def launch(stream):
-        return fn(*args, stream)
+        def launch(stream):
+            return fn(*args, stream)
 
-    ms = mcc.event_ms(launch, reps=50)
-    wrap_ms = time_ms(lambda: rk.rglru_scan_bwd(x, la, h, dh), 50)
-    plain_ms = time_ms(lambda: rk.rglru_scan_bwd_plain(x, la, h, dh), 2)
-    n = Bq * S * W
-    # x, log_a, h, dh in, dx, dla out, float32; two exp, a sqrt, a divide
-    # and ~10 other float ops per element on the float32 CUDA cores
-    rec = record("rglru_scan_bwd", 6 * 4 * n, 0, ms, wrap_ms, plain_ms,
-                 worst, bw, ops=15 * n, rate=FLOAT_PEAK[torch.float32],
-                 launch=launch)
-    del keep
+        ms = mcc.event_ms(launch, reps=50)
+        wrap_ms = time_ms(lambda: rk.rglru_scan_bwd(x, la, h, dh), 50)
+        plain_ms = time_ms(lambda: rk.rglru_scan_bwd_plain(x, la, h, dh), 2)
+        n = math.prod(shape)
+        # x, log_a, h, dh in, dx, dla out, float32; three exp, a sqrt, a
+        # divide and ~10 other float ops per element on the float32 CUDA
+        # cores
+        rec = record("rglru_scan_bwd", 6 * 4 * n, 0, ms, wrap_ms, plain_ms,
+                     worst, bw, ops=15 * n, rate=FLOAT_PEAK[torch.float32],
+                     launch=launch, shape=shape)
+        del x, la, h, dh, keep
     return rec
 
 

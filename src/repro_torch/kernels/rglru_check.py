@@ -26,17 +26,20 @@ fails), and prints per variant and case the largest error over its
 allowance.  The same for the backward, csrc/rglru_scan_bwd.cu, on
 ``BWD_CASES`` against ``rglru_bwd_allowance`` with ``BWD_FAULTS`` (the
 reverse recurrence with a_t for a_{t+1}, h_t for h_{t-1}, the chunk carry
-dropped, the sqrt term of dla dropped, the clamp's 0 not taken).  With
-``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
-archive`` of it, whose rglru_scan.cu has the three-launch
-interface ``PARENT_ARGTYPES``) it also runs that source on every case and
-prints whether its h equals this source's bit for bit (else the first
-element that differs), then times both at the serve shape in turns,
+dropped, the sqrt term of dla dropped, the clamp's 0 not taken, a stage
+row one position off).  With ``--parent DIR`` (a checkout of an earlier
+commit, e.g. a ``git archive`` of it) it also builds that commit's
+rglru_scan.cu and rglru_scan_bwd.cu, binds each by the launcher signature
+its own text declares (``launcher_argtypes``: the one-launch forward, or
+the three-launch one of ``PARENT_ARGTYPES``), runs both on every case and
+prints whether the parent's h, dx and dla equal this source's bit for bit
+(else the first element that differs), then times each pair in turns,
 parent, change, change, parent (``mc_check.device_times``: device, graph
-and L2-cold); ``--ablate`` times copies with one part of the work taken
-out (``ABLATIONS``) beside the source at that shape.  It exits 0 when the
-source passes every case and every fault fails at least one.  Needs nvcc
-and a card.
+and L2-cold): the forward at the serve shape, the backward at each of
+``BWD_TIMED_SHAPES``.  ``--ablate`` times copies with one part of the
+work taken out (``ABLATIONS``, ``BWD_ABLATIONS``) beside the sources at
+those shapes.  It exits 0 when the sources pass every case and every
+fault fails at least one.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ import argparse
 import ctypes
 import json
 import math
+import re
 import sys
 from pathlib import Path
 
@@ -237,26 +241,84 @@ def run_bwd(fn, x, log_a, h, dh):
 #: of them
 BWD_FAULTS = {
     # g_t = dh_t + a_t g_{t+1}: the decay of the wrong position
-    "a_t_for_a_next": [("const float g = gout[j] + G;",
-                        "const float g = gout[j] + a * G;"),
-                       ("        G = a * g;", "        G = g;")],
-    # h_t read for h_{t-1}
-    "h_t_for_h_prev": ("const float h_prev = t0 + j > 0 ? h[i - W] : 0.f;",
-                       "const float h_prev = h[i];"),
+    "a_t_for_a_next": [("const float g = __fadd_rn(in(kDh, j), G);",
+                        "const float g = __fadd_rn(in(kDh, j), "
+                        "__fmul_rn(a, G));"),
+                       ("        G = __fmul_rn(a, g);", "        G = g;")],
+    # h_t staged for h_{t-1}
+    "h_t_for_h_prev": ("cp_async4(slot(col, kHPrev, j), h + i - W);",
+                       "cp_async4(slot(col, kHPrev, j), h + i);"),
     # the chain's incoming carry from the next chunk read as 0
     "carry_dropped": ("gin = __uint_as_float(static_cast<uint32_t>(word));",
                       "gin = 0.f;"),
     # dla without -g x e2 / s
     "sqrt_term_dropped": (
-        "const float clamped = s > 0.f ? g * x[i] * e / s : 0.f;",
-        "const float clamped = 0.f;"),
+        "s > 0.f ? __fdiv_rn(__fmul_rn(__fmul_rn(g, in(kX, j)), e), s)\n"
+        "                    : 0.f;", "0.f;"),
     # the clamp branch's 0 not taken: inf or NaN where 1 - e2 rounds to 0
     "clamp_unguarded": (
-        "const float clamped = s > 0.f ? g * x[i] * e / s : 0.f;",
-        "const float clamped = g * x[i] * e / s;"),
+        "s > 0.f ? __fdiv_rn(__fmul_rn(__fmul_rn(g, in(kX, j)), e), s)\n"
+        "                    : 0.f;",
+        "__fdiv_rn(__fmul_rn(__fmul_rn(g, in(kX, j)), e), s);"),
+    # x read from the stage row one position on, one that the next unit's
+    # copies may already fill
+    "stage_row_off_by_one": ("__fmul_rn(g, in(kX, j))",
+                             "__fmul_rn(g, in(kX, (j + 1) % kChunk))"),
 }
-#: the backward is timed at the train shape
-BWD_TIMED_SHAPE = (BWD_BATCH, 2048, 4096)
+#: the backward is timed at the train path's microbatch (recurrentgemma-9b
+#: train_rg: a batch of 2 in 2 microbatches, so each launch has B = 1) and
+#: at a batch of 2
+BWD_TIMED_SHAPES = ((2, 2048, 4096), (1, 2048, 4096))
+#: copies timed by --ablate, one part of the backward's work taken out, or
+#: (``probe_``) another chunk, tile or blocks an SM: (text, replacement)
+#: pairs; their outputs are not held to the allowance, only reported
+BWD_ABLATIONS = {
+    # the launch, the memset and one ticket a block, nothing else
+    "empty": [("  if (mine >= units) return;                // block-uniform",
+               "  if (mine < units + 1u) return;           // block-uniform")],
+    # no chunk waits for its successor's carry
+    "no_chain_wait": [("const int succ = u.c + 1;", "const int succ = NC;")],
+    # dx and dla computed but not stored
+    "no_stores": [("__stcs(dx + i, ", "if (g == 1234.5f) __stcs(dx + i, "),
+                  ("__stcs(dla + i, ", "if (g == 1234.5f) __stcs(dla + i, ")],
+    # a_t = e_t = log_a_t, s_t = e_t: no expf, no sqrtf
+    "no_coefficients": [
+        ("{ return expf(la); }", "{ return la; }"),
+        ("{ return expf(2.f * la); }", "{ return la; }"),
+        ("return sqrtf(fmaxf(__fsub_rn(1.f, e), 0.f));", "return e;")],
+    # no stage: no copies, the walks read their inputs from global memory
+    "no_stage": [
+        ("  const size_t i = u.base + static_cast<size_t>(j) * W;   "
+         "// position t0 + j\n",
+         "  return;\n  const size_t i = u.base + static_cast<size_t>(j) * W;\n"),
+        ("      return *slot(col, k, j);\n",
+         "      const size_t i = u.base + static_cast<size_t>(j) * W;\n"
+         "      return k == kLogA ? log_a[i] : k == kDh ? dh[i]\n"
+         "           : k == kX ? x[i] : (u.c > 0 || j > 0) ? h[i - W] : 0.f;\n")],
+    # the next ticket asked for before the first walk, not after the wait
+    "probe_ticket_first": [
+        ("    cp_async_wait_all();                    // this column's copies "
+         "landed\n",
+         "    unsigned asked = 0;\n"
+         "    if (threadIdx.x == 0) asked = atomicAdd(ticket, 1u);\n"
+         "    cp_async_wait_all();\n"),
+        ("    if (threadIdx.x == 0) s_ticket[round & 1] = atomicAdd(ticket, 1u);\n",
+         "    if (threadIdx.x == 0) s_ticket[round & 1] = asked;\n")],
+    # no sleep between two polls of the chain
+    "probe_poll_spin": [("          __nanosleep(64);\n", "")],
+    # chunks of 32 positions (a 64 KB stage), three blocks an SM
+    "probe_chunk32": [
+        ("constexpr int kChunk = 16;", "constexpr int kChunk = 32;"),
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 3;")],
+    # chunks of 24 positions (a 48 KB stage), four blocks an SM
+    "probe_chunk24": [
+        ("constexpr int kChunk = 16;", "constexpr int kChunk = 24;"),
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 4;")],
+    # tiles of 64 channels (a 16 KB stage), twelve blocks an SM
+    "probe_tile64": [
+        ("constexpr int kThreads = 128;", "constexpr int kThreads = 64;"),
+        ("constexpr int kMinBlocks = 6;", "constexpr int kMinBlocks = 12;")],
+}
 
 #: planted faults: (text of csrc/rglru_scan.cu, its replacement)
 FAULTS = {
@@ -308,13 +370,24 @@ ABLATIONS = {
          "      const float la = a[j];\n")],
 }
 
-#: the C interface of the three-launch source this kernel replaced:
-#: (x, log_a, h, Ac, Bc, Hin, B, S, W, stream), Ac, Bc and Hin scratch of
-#: (B, ceil(S / 64), W) float32 each
+#: the C interface of the three-launch source the forward's one launch
+#: replaced: (x, log_a, h, Ac, Bc, Hin, B, S, W, stream), Ac, Bc and Hin
+#: scratch of (B, ceil(S / 64), W) float32 each
 PARENT_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + \
     (ctypes.c_void_p,)
-#: the serve shape both sources are timed at: (B, S, W)
+#: the serve shape both forward sources are timed at: (B, S, W)
 TIMED_SHAPE = (BATCH, 3072, 4096)
+
+
+def launcher_argtypes(text: str, symbol: str) -> tuple:
+    """The ctypes argtypes of the C launcher `symbol` as the source `text`
+    declares it: c_void_p for each pointer and the stream, c_int for each
+    int."""
+    m = re.search(r"int " + symbol + r"\((.*?)\)", text, re.S)
+    if m is None:
+        raise ValueError(f"no launcher {symbol} in the source")
+    return tuple(ctypes.c_void_p if "*" in prm else ctypes.c_int
+                 for prm in m.group(1).split(","))
 
 
 def parent_args(x, log_a, *, fill=None):
@@ -331,6 +404,11 @@ def parent_args(x, log_a, *, fill=None):
     args = (x.data_ptr(), la.data_ptr(), h.data_ptr(),
             *(t.data_ptr() for t in scratch), B, S, W)
     return h, args, (x, la, *scratch)
+
+
+#: the forward's launch arguments by the interface a source declares
+FORWARD_ARGS = {tuple(rk._ARGTYPES): rk.launch_args,
+                tuple(PARENT_ARGTYPES): parent_args}
 
 
 def run(fn, make_args, x, log_a):
@@ -360,8 +438,13 @@ def first_difference(parent, change):
             "change": change[tuple(index)].item(), "count": count}
 
 
+def _times(launch) -> dict:
+    return {"ms": mc_check.event_ms(launch, reps=50),
+            **mc_check.device_times(launch, reps=50, cold_reps=10)}
+
+
 def ablation_times(fns: dict) -> list:
-    """``mc_check.device_times`` of each copy in `fns` ({variant: ctypes
+    """``_times`` of each forward copy in `fns` ({variant: ctypes
     launcher}, the unchanged "source" among them) at ``TIMED_SHAPE``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
@@ -375,39 +458,104 @@ def ablation_times(fns: dict) -> list:
             return fn(*args, stream)
 
         out.append({"variant": name, "shape": list(TIMED_SHAPE),
-                    **mc_check.device_times(launch, reps=50, cold_reps=10)})
+                    **_times(launch)})
     del keep
     return out
 
 
-def timed_turns(parent, change) -> list:
-    """Both sources at ``TIMED_SHAPE`` (uniform gates) in turns parent,
-    change, change, parent: CUDA-event ms and ``mc_check.device_times``
-    per turn."""
+def bwd_ablation_times(fns: dict) -> list:
+    """``_times`` of each backward copy in `fns` (the unchanged "source"
+    among them) at each of ``BWD_TIMED_SHAPES`` (the train path's gates),
+    with its outputs' error over the allowance on those inputs."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    out = []
+    for shape in BWD_TIMED_SHAPES:
+        ins = rglru_bwd_inputs(gen, *shape, "model")
+        want, allowed = bwd_reference(*ins)
+        for name, fn in fns.items():
+            got, args, keep = rk.bwd_launch_args(*ins, fill=float("nan"))
+
+            def launch(stream, fn=fn, args=args):
+                return fn(*args, stream)
+
+            _build.check(launch(torch.cuda.current_stream().cuda_stream),
+                         f"rglru_scan_bwd ({name})")
+            err = rglru_bwd_error(got, want, allowed)
+            out.append({"variant": name, "shape": list(shape),
+                        "error_over_allowed": err, **_times(launch)})
+            del got, keep
+        del ins, want, allowed
+    return out
+
+
+def timed_turns(sides: dict, shape) -> list:
+    """Both sides' launches ({side: launch(stream)}) in turns parent,
+    change, change, parent at `shape`: CUDA-event ms and
+    ``mc_check.device_times`` per turn."""
+    out = []
+    for side in ("parent", "change", "change", "parent"):
+        out.append({"side": side, "shape": list(shape),
+                    **_times(sides[side])})
+    return out
+
+
+def forward_turns(parent, parent_make, change) -> list:
+    """The forward sources at ``TIMED_SHAPE`` (uniform gates) in turns."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
     x, la = rglru_inputs(gen, *TIMED_SHAPE, "uniform")
-    sides = {"parent": (parent, parent_args(x, la)),
-             "change": (change, rk.launch_args(x, la))}
+    # the outputs and scratch behind the pointers stay alive: device_times
+    # captures a CUDA graph, which first frees PyTorch's cached blocks
+    sides, keep = {}, []
+    for side, fn, make in (("parent", parent, parent_make),
+                           ("change", change, rk.launch_args)):
+        out, args, held = make(x, la)
+        keep.append((out, held))
+        sides[side] = (lambda s, fn=fn, args=args: fn(*args, s))
+    return timed_turns(sides, TIMED_SHAPE)
+
+
+def backward_turns(parent, change) -> list:
+    """The backward sources at each of ``BWD_TIMED_SHAPES`` (the train
+    path's gates) in turns."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
     out = []
-    for side in ("parent", "change", "change", "parent"):
-        fn, (_, args, _) = sides[side]
-
-        def launch(stream, fn=fn, args=args):
-            return fn(*args, stream)
-
-        out.append({"side": side, "shape": list(TIMED_SHAPE),
-                    "ms": mc_check.event_ms(launch, reps=50),
-                    **mc_check.device_times(launch, reps=50, cold_reps=10)})
+    for shape in BWD_TIMED_SHAPES:
+        ins = rglru_bwd_inputs(gen, *shape, "model")
+        sides, keep = {}, []
+        for side, fn in (("parent", parent), ("change", change)):
+            out_, args, held = rk.bwd_launch_args(*ins)
+            keep.append((out_, held))
+            sides[side] = (lambda s, fn=fn, args=args: fn(*args, s))
+        out += timed_turns(sides, shape)
+        del ins, keep
     return out
+
+
+def build_parent(root, out_dir):
+    """nvcc, started, on the parent checkout `root`'s forward and backward
+    sources: {name: (handle for ``_build.finish_variants``, argtypes,
+    text)}, each bound by the launcher its own text declares."""
+    found = {}
+    for name in ("rglru_scan", "rglru_scan_bwd"):
+        src = Path(root) / "src" / "repro_torch" / "kernels" / "csrc" / \
+            f"{name}.cu"
+        text = src.read_text()
+        so = out_dir / f"lib{name}-parent.so"
+        found[name] = ({"parent": (_build._nvcc(so, src), so)},
+                       launcher_argtypes(text, f"{name}_launch"), text)
+    return found
 
 
 def main(argv=()) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="checkout of the commit to compare "
-                    "with (its src/repro_torch/kernels/csrc/rglru_scan.cu)")
+                    "with (its src/repro_torch/kernels/csrc/rglru_scan.cu "
+                    "and rglru_scan_bwd.cu)")
     ap.add_argument("--ablate", action="store_true",
-                    help="also time the ABLATIONS copies")
+                    help="also time the ABLATIONS and BWD_ABLATIONS copies")
     args = ap.parse_args(list(argv))
     if not torch.cuda.is_available():
         print("rglru_check: needs an NVIDIA card", file=sys.stderr)
@@ -416,25 +564,44 @@ def main(argv=()) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = _build.start_variants("rglru_scan", FAULTS, out_dir)
     bwd_procs = _build.start_variants("rglru_scan_bwd", BWD_FAULTS, out_dir)
-    ablated = _build.start_variants(
-        "rglru_scan", {f"ablate_{k}": v for k, v in ABLATIONS.items()},
-        out_dir, with_source=False) if args.ablate else None
-    parent = None
-    if args.parent:
-        src = Path(args.parent) / "src" / "repro_torch" / "kernels" / \
-            "csrc" / "rglru_scan.cu"
-        so = out_dir / "librglru_scan-parent.so"
-        parent = {"parent": (_build._nvcc(so, src), so)}
+    ablated = bwd_ablated = None
+    if args.ablate:
+        ablated = _build.start_variants(
+            "rglru_scan", {f"ablate_{k}": v for k, v in ABLATIONS.items()},
+            out_dir, with_source=False)
+        bwd_ablated = _build.start_variants(
+            "rglru_scan_bwd",
+            {f"ablate_{k}": v for k, v in BWD_ABLATIONS.items()}, out_dir,
+            with_source=False)
+    parent = build_parent(args.parent, out_dir) if args.parent else None
     fns = _build.finish_variants(procs, "rglru_scan_launch", rk._ARGTYPES)
+    parent_fwd = parent_bwd = None
     if parent is not None:
-        parent = _build.finish_variants(parent, "rglru_scan_launch",
-                                        PARENT_ARGTYPES)["parent"]
+        handle, types, _ = parent["rglru_scan"]
+        if types not in FORWARD_ARGS:
+            raise SystemExit(f"rglru_check: the parent's rglru_scan_launch "
+                             f"has {len(types)} parameters of an unknown "
+                             f"interface")
+        parent_fwd = (_build.finish_variants(handle, "rglru_scan_launch",
+                                             types)["parent"],
+                      FORWARD_ARGS[types])
+        handle, types, text = parent["rglru_scan_bwd"]
+        if types != tuple(rk.BWD_ARGTYPES):
+            raise SystemExit("rglru_check: the parent's rglru_scan_bwd_launch "
+                             "is not this source's interface")
+        if int(re.search(r"constexpr int kChunk = (\d+);", text)
+               .group(1)) < rk.BWD_CHUNK:
+            raise SystemExit("rglru_check: the parent's backward has a "
+                             "smaller chunk than bwd_launch_args' scratch "
+                             "serves")
+        parent_bwd = _build.finish_variants(handle, "rglru_scan_bwd_launch",
+                                            types)["parent"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(15)
     caught = {name: [] for name in FAULTS}
     caught.update({f"bwd_{name}": [] for name in BWD_FAULTS})
     source_ok = True
-    all_equal = True
+    all_equal = bwd_all_equal = True
     for case, S, W, kind in CASES:
         x, la = rglru_inputs(gen, BATCH, S, W, kind)
         want, allowed = reference(x, la)
@@ -451,9 +618,8 @@ def main(argv=()) -> int:
             elif not ok:
                 caught[name].append(case)
             del h
-        if parent is not None:
-            diff = first_difference(run(parent, parent_args, x, la),
-                                    source_h)
+        if parent_fwd is not None:
+            diff = first_difference(run(*parent_fwd, x, la), source_h)
             all_equal &= diff is None
             print(json.dumps({"parent": case, "bitwise_equal": diff is None,
                               "first_difference": diff}), flush=True)
@@ -464,28 +630,45 @@ def main(argv=()) -> int:
         x, la, h, dh = rglru_bwd_inputs(gen, BWD_BATCH, S, W, kind)
         want, allowed = bwd_reference(x, la, h, dh)
         for name, fn in bwd_fns.items():
-            err = rglru_bwd_error(run_bwd(fn, x, la, h, dh), want, allowed)
+            got = run_bwd(fn, x, la, h, dh)
+            err = rglru_bwd_error(got, want, allowed)
             ok = err <= 1.0
             print(json.dumps({"variant": f"bwd_{name}", "case": case,
                               "error_over_allowed": err, "ok": ok}),
                   flush=True)
             if name == "source":
                 source_ok &= ok
+                source_got = got
             elif not ok:
                 caught[f"bwd_{name}"].append(case)
-        del x, la, h, dh, want, allowed
+            del got
+        if parent_bwd is not None:
+            diffs = {k: first_difference(p, c) for k, p, c in zip(
+                ("dx", "dla"), run_bwd(parent_bwd, x, la, h, dh), source_got)}
+            equal = all(d is None for d in diffs.values())
+            bwd_all_equal &= equal
+            print(json.dumps({"parent_bwd": case, "bitwise_equal": equal,
+                              "first_difference": diffs}), flush=True)
+        del x, la, h, dh, want, allowed, source_got
     missed = [name for name, cases in caught.items() if not cases]
     summary = {"source_passes": source_ok, "caught_in": caught,
                "missed": missed, "gpu": torch.cuda.get_device_name(0)}
     if parent is not None:
-        for rec in timed_turns(parent, fns["source"]):
+        for rec in forward_turns(*parent_fwd, fns["source"]):
             print(json.dumps({"ab": rec}), flush=True)
+        for rec in backward_turns(parent_bwd, bwd_fns["source"]):
+            print(json.dumps({"ab_bwd": rec}), flush=True)
         summary["parent_bitwise_equal_on_every_case"] = all_equal
+        summary["parent_bwd_bitwise_equal_on_every_case"] = bwd_all_equal
     if ablated is not None:
         copies = {"source": fns["source"], **_build.finish_variants(
             ablated, "rglru_scan_launch", rk._ARGTYPES)}
         for rec in ablation_times(copies):
             print(json.dumps({"ablate": rec}), flush=True)
+        copies = {"source": bwd_fns["source"], **_build.finish_variants(
+            bwd_ablated, "rglru_scan_bwd_launch", rk.BWD_ARGTYPES)}
+        for rec in bwd_ablation_times(copies):
+            print(json.dumps({"ablate_bwd": rec}), flush=True)
     print(json.dumps(summary), flush=True)
     return 0 if source_ok and not missed else 1
 

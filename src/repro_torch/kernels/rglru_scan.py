@@ -49,6 +49,10 @@ from . import _build
 #: kChunk, kThreads); the scratch of a call is one 64-bit carry word per
 #: (b, chunk, channel) and the ticket
 CHUNK, TILE = 64, 128
+#: the backward's chunk (csrc/rglru_scan_bwd.cu kChunk; its tile is TILE):
+#: a quarter of the forward's, so its shared-memory stage of four inputs
+#: fits six blocks an SM
+BWD_CHUNK = 16
 
 
 def _work_dtype(*xs):
@@ -242,12 +246,14 @@ def launch_args(x, log_a, *, fill=None):
 def bwd_launch_args(x, log_a, h, dh, *, fill=None):
     """One launch of csrc/rglru_scan_bwd.cu's C interface on checked CUDA
     tensors: returns ((dx, dla), args, keep) as ``launch_args``, the
-    outputs float32 (``torch.empty``, or filled with `fill`)."""
+    outputs float32 (``torch.empty``, or filled with `fill`).  The carry
+    scratch also serves a build with a larger kChunk (``rglru_check``'s
+    parent and probes)."""
     B, S, W = x.shape
-    units = B * -(-S // CHUNK) * -(-W // TILE)
+    units = B * -(-S // BWD_CHUNK) * -(-W // TILE)
     if S < 1 or W < 1 or units >= 2 ** 31:
         raise ValueError(f"rglru_scan_bwd: need S, W >= 1 and B * ceil(S / "
-                         f"{CHUNK}) * ceil(W / {TILE}) < 2^31; got "
+                         f"{BWD_CHUNK}) * ceil(W / {TILE}) < 2^31; got "
                          f"{(B, S, W)}")
     ins = tuple(t.to(torch.float32).contiguous() for t in (x, log_a, h, dh))
     dx, dla = (torch.empty((B, S, W), dtype=torch.float32, device=x.device)
@@ -255,7 +261,7 @@ def bwd_launch_args(x, log_a, h, dh, *, fill=None):
     if fill is not None:
         dx.fill_(fill)
         dla.fill_(fill)
-    carry = torch.empty(B * -(-S // CHUNK) * W + 1, dtype=torch.int64,
+    carry = torch.empty(B * -(-S // BWD_CHUNK) * W + 1, dtype=torch.int64,
                         device=x.device)
     args = tuple(t.data_ptr() for t in (*ins, dx, dla, carry)) + (B, S, W)
     return (dx, dla), args, (*ins, carry)

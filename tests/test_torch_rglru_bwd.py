@@ -158,6 +158,53 @@ def test_each_backward_fault_text_occurs_once_in_the_source(fault):
         assert old != new and text.count(old) == 1
 
 
+@pytest.mark.parametrize("variant", sorted(RC.BWD_ABLATIONS))
+def test_each_backward_ablation_text_occurs_once_in_the_source(variant):
+    text = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
+    for old, new in RC.BWD_ABLATIONS[variant]:
+        assert old != new and text.count(old) == 1
+
+
+def test_backward_is_timed_at_the_train_paths_microbatch():
+    """chip_smoke.py's train_rg cell cuts its batch into microbatches, so
+    each rglru_scan_bwd launch of its main path has B = batch /
+    microbatches rows of S positions and lru_width channels: that shape
+    is among the timed ones."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs import get_config
+    arch, _, batch, S, _, nmb, _ = chip_smoke.TRAIN_CELLS["train_rg"]
+    assert batch % nmb == 0
+    shape = (batch // nmb, S, get_config(arch).lru_width)
+    assert shape == (1, 2048, 4096)
+    assert shape in RC.BWD_TIMED_SHAPES
+
+
+@pytest.mark.parametrize("name,n_args", [("rglru_scan", 8),
+                                         ("rglru_scan_bwd", 11)])
+def test_signature_parser_binds_each_source(name, n_args):
+    """``rglru_check --parent`` binds a parent's sources by the launcher
+    signature their own text declares: today's one-launch forward (8
+    parameters) and the backward (11), each the wrapper's argtypes; the
+    forward's earlier three-launch interface (10) maps to
+    ``PARENT_ARGTYPES`` and its own argument layout."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    got = RC.launcher_argtypes(text, f"{name}_launch")
+    assert len(got) == n_args
+    assert got == tuple({"rglru_scan": T._ARGTYPES,
+                         "rglru_scan_bwd": T.BWD_ARGTYPES}[name])
+    if name == "rglru_scan":
+        assert RC.FORWARD_ARGS[got] is T.launch_args
+        old = ("int rglru_scan_launch(const float* x, const float* log_a, "
+               "float* h,\n    float* Ac, float* Bc, float* Hin, int B, int "
+               "S, int W,\n    void* stream) {")
+        three = RC.launcher_argtypes(old, "rglru_scan_launch")
+        assert three == tuple(RC.PARENT_ARGTYPES)
+        assert RC.FORWARD_ARGS[three] is RC.parent_args
+
+
 def test_backward_argtypes_name_the_c_parameters():
     assert "rglru_scan_bwd" in _build.SOURCES
     text = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
@@ -177,8 +224,11 @@ def test_bwd_launch_args_lay_out_one_launch():
     assert args[-3:] == (3, 130, 200)
     assert args[4:6] == (dx.data_ptr(), dla.data_ptr())
     assert keep[0].dtype == torch.float32 and keep[0].is_contiguous()
-    # one carry word per (b, chunk, channel) and the ticket
-    assert keep[-1].numel() == 3 * 3 * 200 + 1
+    # one carry word per (b, chunk of BWD_CHUNK positions, channel) and
+    # the ticket; BWD_CHUNK is the source's kChunk
+    text = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
+    assert f"constexpr int kChunk = {T.BWD_CHUNK};" in text
+    assert keep[-1].numel() == 3 * -(-130 // T.BWD_CHUNK) * 200 + 1
 
 
 @pytest.mark.parametrize("kind", ["uniform", "model", "long", "zero"])
