@@ -14,8 +14,9 @@ reference's 520,000 ticks; and training: the backward kernels of the
 mLSTM and RG-LRU cells, and the train step of xlstm-350m,
 recurrentgemma-9b (cut to 3 layers) and smollm-360m at full width behind
 the LARK and quorum-log checkpoint stores; and across ranks on the one
-card: the Monte Carlo's trials sharded over 2 and 4 processes, and
-smollm-360m's data-parallel train step on 2.
+card: the Monte Carlo's trials sharded over 2 and 4 processes,
+smollm-360m's data-parallel train step on 2, and recurrentgemma-9b
+tensor-parallel over 2.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -259,7 +260,22 @@ One JSON line per phase:
    all-reduce of the gradients): the loss, grad norm and every parameter
    leaf within the float32 reduction-order tolerance of
    ``tests/test_torch_train_dp.py``, the ranks' replicas equal.
-28. ``kernels``: every ported kernel with its launches on its main path,
+28. ``tp``: recurrentgemma-9b at full width cut to ``train_rg``'s 3
+   layers, bf16, seed 0, tensor-parallel over a (1, 2) ("data", "model")
+   mesh of 2 ranks on the card (gloo, DTensor parameters under the
+   reference's specs) against one process on the card, run first and
+   saved: a prefill of 1 x 2048 tokens, 8 greedy decode steps, then 2
+   AdamW steps on 1 x 2048.  Held: the prefill and decode logits within
+   ``DECODE_TOL`` of the largest logit, the greedy tokens equal, the
+   loss and grad norm within rtol 1e-3, every parameter leaf within 2 %
+   of its largest magnitude; each rank launches ``rglru_scan`` and
+   ``rglru_scan_bwd`` at the local width 2048, as often as the one
+   process does at 4096; both kernels at the local shape (1, 2048, 2048),
+   on the RG-LRU block's own gates, each element within its
+   ``rglru_check`` allowance of the plain version in float64.  Prints
+   each rank's step ms beside the one process's and the kernels' µs at
+   the local shape; the phase must end within ``TP_BOX_S``.
+29. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time.  ``node_count``'s launches are
    those of the counts mode, which does its work on the main path; its
@@ -3570,6 +3586,220 @@ def check_train_dp(smi):
                          "one process")
 
 
+#: the tp phase: 2 ranks of one card, recurrentgemma-9b cut to train_rg's
+#: layers, a 1 x TP_PROMPT prefill, TP_DECODE greedy steps, TP_STEPS AdamW
+#: steps on 1 x TP_PROMPT; the phase's time box in seconds
+TP_WORLD, TP_PROMPT, TP_DECODE, TP_STEPS, TP_BOX_S = 2, 2048, 8, 2, 150.0
+#: every parameter leaf after the steps within this share of its largest
+#: magnitude (bf16 parameters whose float32 sums split across ranks)
+TP_LEAF_TOL = 0.02
+
+
+def tp_config():
+    arch, layers = TRAIN_CELLS["train_rg"][:2]
+    return get_config(arch).replace(num_layers=layers, microbatches_train=1)
+
+
+class ScanWidths:
+    """Within: the widths of ``rglru_scan``'s and ``rglru_scan_bwd``'s
+    launches (their launchers' argument builders, called once a
+    launch)."""
+
+    def __enter__(self):
+        self.saved = (rk.launch_args, rk.bwd_launch_args)
+        self.fwd, self.bwd = [], []
+
+        def fwd(x, *a, **kw):
+            self.fwd.append(x.shape[-1])
+            return self.saved[0](x, *a, **kw)
+
+        def bwd(x, *a, **kw):
+            self.bwd.append(x.shape[-1])
+            return self.saved[1](x, *a, **kw)
+        rk.launch_args, rk.bwd_launch_args = fwd, bwd
+        return self
+
+    def __exit__(self, *exc):
+        rk.launch_args, rk.bwd_launch_args = self.saved
+
+
+def tp_run(cfg, params, mesh, device):
+    """The tp phase's work on one process (mesh None) or on a rank:
+    {"logits": prefill and decode logits (float32, CPU), "tokens",
+    "loss", "grad_norm", "ms", "launches", "widths"}, and the parameters
+    after the steps."""
+    from repro_torch.launch.shardings import (batch_shardings,
+                                              grad_shardings)
+    from repro_torch.training import make_serve_steps
+    data = SyntheticLMData(cfg, 1, TP_PROMPT)
+    raw = data.batch_at(0)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+    prompt = {"tokens": batch["tokens"]}
+    prefill_fn, decode_fn, _ = make_serve_steps(cfg, mesh)
+    if mesh is None:
+        _, step_fn, opt = make_train_step(cfg, peak_lr=TRAIN_LR)
+    else:
+        _, step_fn, opt = make_train_step(
+            cfg, peak_lr=TRAIN_LR,
+            grad_shardings=grad_shardings(cfg, mesh, params),
+            batch_shardings=batch_shardings(cfg, mesh, batch, 1))
+
+    def whole(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.float().cpu()
+    out = {"logits": [], "tokens": [], "loss": [], "grad_norm": [],
+           "ms": []}
+    rk.rglru_scan.launches = rk.rglru_scan_bwd.launches = 0
+    with ScanWidths() as widths:
+        logits, state = prefill_fn(params, prompt, TP_PROMPT + TP_DECODE)
+        for i in range(TP_DECODE + 1):
+            out["logits"].append(whole(logits))
+            tok = out["logits"][-1].argmax(-1).to(torch.int32)
+            out["tokens"].append(tok.tolist())
+            if i < TP_DECODE:
+                logits, state = decode_fn(params, state, tok.to(device),
+                                          TP_PROMPT + i)
+        del state
+        opt_state = opt.init(params)
+        for _ in range(TP_STEPS):
+            torch.cuda.synchronize(device)
+            t0 = time.monotonic()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize(device)
+            out["ms"].append((time.monotonic() - t0) * 1e3)
+            out["loss"].append(float(m["loss"]))
+            out["grad_norm"].append(float(m["grad_norm"]))
+    out["launches"] = {"rglru_scan": rk.rglru_scan.launches,
+                       "rglru_scan_bwd": rk.rglru_scan_bwd.launches}
+    out["widths"] = {"rglru_scan": sorted(set(widths.fwd)),
+                     "rglru_scan_bwd": sorted(set(widths.bwd))}
+    return out, params
+
+
+def tp_rank(rank, world, store, out_dir):
+    """One rank of the tp phase: the seed-0 weights distributed under
+    the reference's specs on a (1, world) ("data", "model") mesh of CUDA
+    shards, the phase's work, and each parameter leaf after the steps
+    against the one process's slice of it (``tp_one.pt``)."""
+    import pickle
+    from repro_torch.launch import dist as rdist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch import tp
+    from repro_torch.launch.shardings import (distribute, param_shardings,
+                                              spec_of)
+    # the chip's machine has no network: gloo's pairs use the loopback
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    rdist.init(f"file://{store}", rank=rank, world_size=world,
+               timeout_s=300)
+    try:
+        dev = rdist.local_device()
+        torch.cuda.set_device(dev)
+        cfg = tp_config()
+        mesh = make_host_mesh((1, world), ("data", "model"),
+                              device_type="cuda")
+        _, whole = init_model(cfg, dev)
+        params = distribute(whole, param_shardings(cfg, mesh, whole), mesh)
+        del whole
+        torch.cuda.empty_cache()
+        out, params = tp_run(cfg, params, mesh, dev)
+        want = torch.load(Path(out_dir, "tp_one.pt"), mmap=True)
+        worst = 0.0
+        for p, w in zip(tree.leaves(params), want):
+            local = p.to_local()
+            w = tp.local_shard(w, spec_of(p), mesh)
+            scale = max(w.float().abs().max().item(), 1e-30)
+            worst = max(worst, (local.float().cpu() - w.float())
+                        .abs().max().item() / scale)
+        out["leaf_worst"] = worst
+    finally:
+        rdist.shutdown()
+    Path(out_dir, f"tp{rank}.pkl").write_bytes(pickle.dumps(out))
+
+
+def check_tp(smi):
+    """Phase tp (see the module doc)."""
+    import pickle
+    import tempfile
+    from repro_torch.launch import dist as rdist
+    t_phase = time.monotonic()
+    cfg = tp_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, params = init_model(cfg)
+        one, params = tp_run(cfg, params, None, DEVICE)
+        torch.save([t.cpu() for t in tree.leaves(params)],
+                   Path(tmp, "tp_one.pt"))
+        del params
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        rdist.spawn(tp_rank, TP_WORLD, (TP_WORLD, str(Path(tmp, "store")),
+                                        tmp), timeout_s=TP_BOX_S)
+        spawn_s = time.monotonic() - t0
+        ranks = [pickle.loads(Path(tmp, f"tp{r}.pkl").read_bytes())
+                 for r in range(TP_WORLD)]
+    # the kernels at the local shape (the card is free again), held
+    # against their plain versions in float64 within their allowances
+    local = cfg.lru_width // TP_WORLD
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1)
+    x, la, h, dh = rc.rglru_bwd_inputs(gen, 1, TP_PROMPT, local, "model")
+    with torch.no_grad():
+        fwd_err = rc.rglru_error(rk.rglru_scan(x, la), *rc.reference(x, la))
+    bwd_err = rc.rglru_bwd_error(rk.rglru_scan_bwd(x, la, h, dh),
+                                 *rc.bwd_reference(x, la, h, dh))
+    with torch.no_grad():
+        fwd_us = time_ms(lambda: rk.rglru_scan(x, la), 20) * 1e3
+    bwd_us = time_ms(lambda: rk.rglru_scan_bwd(x, la, h, dh), 20) * 1e3
+    r0 = ranks[0]
+    logit_err = []
+    for got, want in zip(r0["logits"], one["logits"]):
+        scale = want.abs().max().item()
+        logit_err.append((got - want).abs().max().item() / scale)
+    tokens_equal = r0["tokens"] == one["tokens"]
+    metrics_close = np.allclose(r0["loss"], one["loss"], rtol=1e-3) and \
+        np.allclose(r0["grad_norm"], one["grad_norm"], rtol=1e-3)
+    leaf_worst = max(r["leaf_worst"] for r in ranks)
+    widths_ok = all(r["widths"] == {"rglru_scan": [local],
+                                    "rglru_scan_bwd": [local]}
+                    for r in ranks)
+    launches_ok = all(r["launches"] == one["launches"] and
+                      min(r["launches"].values()) > 0 for r in ranks)
+    wall = time.monotonic() - t_phase
+    emit({"phase": "tp", "arch": cfg.name, "layers": cfg.num_layers,
+          "dtype": cfg.param_dtype, "world": TP_WORLD, "mesh": "(1, 2)",
+          "prompt": TP_PROMPT, "decode_steps": TP_DECODE,
+          "train_steps": TP_STEPS, "gpu": smi,
+          "logits_err_over_max": logit_err, "decode_tol": DECODE_TOL,
+          "tokens_equal": tokens_equal,
+          "loss_one_process": one["loss"], "loss_ranks": r0["loss"],
+          "grad_norm_one_process": one["grad_norm"],
+          "grad_norm_ranks": r0["grad_norm"],
+          "leaf_worst_over_max": leaf_worst, "leaf_tol": TP_LEAF_TOL,
+          "launches_one_process": one["launches"],
+          "launches_ranks": [r["launches"] for r in ranks],
+          "widths_one_process": one["widths"],
+          "widths_ranks": [r["widths"] for r in ranks]})
+    emit({"phase": "tp_time", "gpu": smi,
+          "step_ms_one_process": one["ms"],
+          "step_ms_ranks": [r["ms"] for r in ranks],
+          "local_shape": [1, TP_PROMPT, local],
+          "rglru_scan_us": fwd_us, "rglru_scan_bwd_us": bwd_us,
+          "rglru_scan_error_over_allowed": fwd_err,
+          "rglru_scan_bwd_error_over_allowed": bwd_err,
+          "spawn_and_run_s": spawn_s, "wall_s": wall, "box_s": TP_BOX_S})
+    ok = max(logit_err) <= DECODE_TOL and tokens_equal and metrics_close \
+        and leaf_worst <= TP_LEAF_TOL and widths_ok and launches_ok
+    if not ok:
+        raise SystemExit("tp: the tensor-parallel ranks differ from one "
+                         "process, or a kernel did not launch at the "
+                         "local width")
+    if not (fwd_err <= 1.0 and bwd_err <= 1.0):
+        raise SystemExit(f"tp: rglru_scan / rglru_scan_bwd at the local "
+                         f"shape (1, {TP_PROMPT}, {local}) disagree with "
+                         f"their plain versions: {fwd_err}, {bwd_err}")
+    if wall > TP_BOX_S:
+        raise SystemExit(f"tp: {wall:.1f} s, past its {TP_BOX_S} s box")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -3662,6 +3892,7 @@ def main() -> int:
         check_elastic()
     check_sharded(mc_runs)
     check_train_dp(smi)
+    check_tp(smi)
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

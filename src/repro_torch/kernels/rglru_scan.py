@@ -154,7 +154,12 @@ class _RglruScan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, log_a, plain):
-        h = rglru_scan_plain(x, log_a) if plain else _scan_kernel(x, log_a)
+        if x.is_meta:                    # shapes only: no walk to take
+            h = torch.empty(x.shape, dtype=_work_dtype(x, log_a),
+                            device="meta")
+        else:
+            h = rglru_scan_plain(x, log_a) if plain else \
+                _scan_kernel(x, log_a)
         ctx.save_for_backward(x, log_a, h)
         ctx.plain = plain
         return h
@@ -162,7 +167,8 @@ class _RglruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh):
         x, log_a, h = ctx.saved_tensors
-        bwd = rglru_scan_bwd_plain if ctx.plain else rglru_scan_bwd
+        bwd = rglru_scan_bwd_plain if ctx.plain and not x.is_meta else \
+            rglru_scan_bwd
         dx, dla = bwd(x, log_a, h, dh)
         return dx.to(x.dtype), dla.to(log_a.dtype), None
 
@@ -171,8 +177,10 @@ def rglru_scan(x, log_a):
     """x, log_a (B, S, W), any float type.  Returns h (B, S, W) float32
     as ``rglru_scan_plain``, differentiable in x and log_a.  CUDA tensors
     launch the kernel (``rglru_scan.launches`` counts the calls) and,
-    backwards, ``rglru_scan_bwd``; CPU and meta tensors run the plain
-    versions."""
+    backwards, ``rglru_scan_bwd``; CPU tensors run the plain versions,
+    and meta tensors (the dry run's shapes) give the result's shape and
+    type without a walk.  A tensor-parallel step calls it on each rank's
+    local width shard (``models/ssm.py``)."""
     _check(x, log_a)
     if x.device.type not in ("cuda",) + _build.PLAIN_DEVICES:
         raise ValueError(f"rglru_scan runs on cuda, cpu or meta, not "
@@ -199,12 +207,17 @@ def _scan_kernel(x, log_a):
 def rglru_scan_bwd(x, log_a, h, dh):
     """(dx, dlog_a) float32 as ``rglru_scan_bwd_plain``: CUDA tensors
     launch csrc/rglru_scan_bwd.cu (``rglru_scan_bwd.launches`` counts the
-    calls), CPU and meta tensors run the plain version."""
+    calls), CPU tensors run the plain version, meta tensors give the
+    results' shapes and type."""
     _check(x, log_a)
     if h.shape != x.shape or dh.shape != x.shape:
         raise ValueError(f"rglru_scan_bwd takes h and dh of x's shape "
                          f"{tuple(x.shape)}; got {tuple(h.shape)}, "
                          f"{tuple(dh.shape)}")
+    if x.is_meta:                        # shapes only: no walk to take
+        dt = _work_dtype(x, log_a, h, dh)
+        return tuple(torch.empty(x.shape, dtype=dt, device="meta")
+                     for _ in range(2))
     if x.device.type in _build.PLAIN_DEVICES:
         return rglru_scan_bwd_plain(x, log_a, h, dh)
     if x.device.type != "cuda" or h.device != x.device or \

@@ -22,9 +22,13 @@ computes, as host arithmetic on meta tensors (the counterpart of
   state (train), the batch, and the decode state (prefill's output,
   decode's input);
 * ``op_analysis`` (``launch/op_analysis.py``): one rank's step traced on
-  meta tensors, where the port can execute the cell: data parallelism
-  only, so a cell whose specs need tensor- or sequence-parallel
-  execution records ``"not traced"`` and the reason.
+  meta tensors: the parameters, optimizer state and decode state as meta
+  DTensors under the cell's specs (``shardings.distribute``), so the
+  step is the sharded one (``training/train_loop.py``,
+  ``training/sharded.py``; on batch-only specs it is data parallelism);
+  its collectives also by mesh axis (``collectives_by_axis``).  A cell
+  that cannot be traced records ``"not traced"``, the op and the
+  reason.
 
 XLA's ``memory_analysis`` temporaries have no counterpart here and are
 recorded as not measured.  Every byte count is host arithmetic on
@@ -33,6 +37,7 @@ shapes, not a device measurement.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import traceback
@@ -52,7 +57,7 @@ from repro_torch.optim import make_optimizer
 from . import op_analysis
 from .mesh import make_production_mesh
 from .shardings import (NamedSharding, batch_axes, batch_shardings,
-                        grad_shardings, opt_state_shardings,
+                        distribute, grad_shardings, opt_state_shardings,
                         param_shardings, shard_shape, state_shardings)
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / \
@@ -185,63 +190,52 @@ def _f32(t):
     return tree.map_leaves(lambda x: _meta(x.shape, torch.float32), t)
 
 
-def _dp_blocker(cfg, mesh, baxes, shardings):
-    """Why the port cannot execute the cell as data parallelism, or
-    None: a tensor-parallel arch on a model axis above 1, or an input
-    spec naming an axis outside the batch axes (sequence parallelism)."""
-    msize = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))["model"]
-    if cfg.tensor_parallel and msize > 1:
-        return ("tensor-parallel execution of the model axis is not "
-                "ported (ROADMAP Queue 1 item 21)")
-    for s in shardings:
-        for entry in s.spec:
-            names = entry if isinstance(entry, tuple) else (entry,)
-            if any(a is not None and a not in baxes for a in names):
-                return (f"the spec {s.spec} shards over an axis outside "
-                        f"the batch axes {tuple(baxes)}: sequence-parallel "
-                        "execution is not ported (ROADMAP Queue 1 item "
-                        "21)")
-    return None
+def _axis_names(mesh):
+    """{process group name: mesh axes} of every set of `mesh`'s axes in
+    mesh order, one axis or a flattened run (``tp.axis``)."""
+    from . import tp
+    dims = mesh.mesh_dim_names
+    return {tp.group(mesh, names).group_name: "+".join(names)
+            for k in range(1, len(dims) + 1)
+            for names in itertools.combinations(dims, k)}
 
 
-def _local(t, shardings, mesh):
-    """This rank's meta tensors of `t` under its shardings."""
-    return tree.unflatten(t, [
-        _meta(shard_shape(x.shape, s.spec, mesh), x.dtype)
-        for x, s in zip(tree.leaves(t), tree.flatten_up_to(t, shardings))])
-
-
-def _trace(cfg, shape, mesh, baxes, inputs, shardings):
-    """op_analysis of one rank's step, or "not traced" and why."""
-    flat = [s for sh in shardings for s in tree.leaves(sh)]
-    why = _dp_blocker(cfg, mesh, baxes, flat)
-    if why is not None:
-        return {"status": "not traced", "reason": why}
+def _trace(cfg, shape, mesh, inputs, bshard):
+    """op_analysis of one rank's step, or "not traced", the op and why."""
     from repro_torch.training import make_serve_steps, make_train_step
     try:
         if shape.kind == "train":
             params, opt_state, batch = inputs
-            _, step_fn, _ = make_train_step(
-                cfg, grad_shardings=shardings[0],
-                batch_shardings=shardings[1])
+            _, step_fn, _ = make_train_step(cfg, batch_shardings=bshard)
             res = op_analysis.analyze(step_fn, params, opt_state, batch)
         elif shape.kind == "prefill":
             params, batch = inputs
-            prefill_fn, _, _ = make_serve_steps(cfg)
-            res = op_analysis.analyze(
-                prefill_fn, params, _local(batch, shardings[0], mesh),
-                shape.seq_len)
+            prefill_fn, _, _ = make_serve_steps(cfg, mesh)
+            res = op_analysis.analyze(prefill_fn, params, batch,
+                                      shape.seq_len)
         else:
             params, dec = inputs
-            _, decode_fn, _ = make_serve_steps(cfg)
-            res = op_analysis.analyze(
-                decode_fn, params,
-                _local(dec["state"], shardings[0], mesh),
-                _local(dec["tokens"], shardings[1], mesh), shape.seq_len - 1)
+            _, decode_fn, _ = make_serve_steps(cfg, mesh)
+            res = op_analysis.analyze(decode_fn, params, dec["state"],
+                                      dec["tokens"], shape.seq_len - 1)
     except Exception as e:               # recorded, the dry run goes on
+        where = traceback.extract_tb(e.__traceback__)[-1]
         return {"status": "not traced",
-                "reason": f"{type(e).__name__}: {e}"}
+                "reason": f"{type(e).__name__}: {e}",
+                "op": f"{Path(where.filename).name}:{where.lineno} "
+                      f"{where.line}"}
+    names = _axis_names(mesh)
+    res["collectives_by_axis"] = {
+        names.get(g, g): ops
+        for g, ops in res.pop("collectives_by_group").items()}
     return {"status": "ok", **res}
+
+
+def _specs_per_layer(cfg, specs_stacked):
+    """A stacked state's shardings as per-layer NamedShardings (the
+    stacked dim's entry dropped)."""
+    return _unstack(cfg.layout, specs_stacked, lambda sh:
+                    NamedSharding(sh.mesh, sh.spec[1:]))
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -278,13 +272,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         dev["batch"] = sharded_bytes(batch, bshard, mesh)
         if trace:
             local = per_layer_params(cfg, params)
+            local = distribute(local, param_shardings(cfg, mesh, local),
+                               mesh)
             rec["op_analysis"] = _trace(
-                cfg, shape, mesh, baxes,
+                cfg, shape, mesh,
                 (local, make_optimizer(cfg.optimizer).init(local), batch),
-                (None, bshard))
+                bshard)
     else:
         pshard = param_shardings(cfg, mesh, params, fsdp=cfg.tensor_parallel)
         dev["params"] = sharded_bytes(params, pshard, mesh)
+        if trace:
+            local = per_layer_params(cfg, params)
+            local = distribute(local, param_shardings(
+                cfg, mesh, local, fsdp=cfg.tensor_parallel), mesh)
         if shape.kind == "prefill":
             batch = abstract_batch(cfg, shape)
             bshard = batch_shardings(cfg, mesh, batch, B)
@@ -293,9 +293,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             dev["decode_state"] = sharded_bytes(
                 state, state_shardings(cfg, mesh, state, B), mesh)
             if trace:
-                rec["op_analysis"] = _trace(
-                    cfg, shape, mesh, baxes,
-                    (per_layer_params(cfg, params), batch), (bshard,))
+                rec["op_analysis"] = _trace(cfg, shape, mesh,
+                                            (local, batch), bshard)
         else:
             dec = abstract_decode_inputs(cfg, shape)
             sshard = state_shardings(cfg, mesh, dec["state"], B)
@@ -303,16 +302,14 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             dev["decode_state"] = sharded_bytes(dec["state"], sshard, mesh)
             dev["batch"] = sharded_bytes(dec["tokens"], tshard, mesh)
             if trace:
-                # the per-layer state and its specs, the stacked dim's
-                # entry dropped
-                state = {"state": _unstack(cfg.layout, dec["state"],
-                                           _drop_stack_dim),
-                         "tokens": dec["tokens"]}
-                specs = _unstack(cfg.layout, sshard, lambda sh:
-                                 NamedSharding(sh.mesh, sh.spec[1:]))
+                # the per-layer state as meta DTensors under its specs
+                state = distribute(
+                    _unstack(cfg.layout, dec["state"], _drop_stack_dim),
+                    _specs_per_layer(cfg, sshard), mesh)
                 rec["op_analysis"] = _trace(
-                    cfg, shape, mesh, baxes,
-                    (per_layer_params(cfg, params), state), (specs, tshard))
+                    cfg, shape, mesh,
+                    (local, {"state": state, "tokens": dec["tokens"]}),
+                    None)
     rec["per_device_bytes"] = dev
     rec["memory"] = {"temp_bytes": "not measured (XLA's memory_analysis "
                      "has no counterpart in an eager step)"}

@@ -20,7 +20,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 
-def _mesh(shape, axes, what: str) -> DeviceMesh:
+def _mesh(shape, axes, what: str, device_type: str = "cpu") -> DeviceMesh:
     n = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 0
     if world < n:
@@ -29,7 +29,7 @@ def _mesh(shape, axes, what: str) -> DeviceMesh:
             f"group has {world} (launch/dist.init, or the dry run's fake "
             "group)")
     ranks = torch.arange(n, dtype=torch.int64).reshape(shape)
-    return DeviceMesh("cpu", ranks, mesh_dim_names=tuple(axes))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=tuple(axes))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
@@ -51,6 +51,8 @@ def make_trials_mesh(devices: int) -> DeviceMesh:
     return _mesh((devices,), ("trials",), "a trials mesh")
 
 
-def make_host_mesh(shape=(2, 2), axes=("data", "model")) -> DeviceMesh:
-    """Small mesh over the first ranks of the world (tests)."""
-    return _mesh(tuple(shape), axes, "mesh")
+def make_host_mesh(shape=(2, 2), axes=("data", "model"),
+                   device_type: str = "cpu") -> DeviceMesh:
+    """Small mesh over the first ranks of the world (tests, and ranks
+    sharing one card)."""
+    return _mesh(tuple(shape), axes, "mesh", device_type)

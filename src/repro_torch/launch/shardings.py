@@ -328,6 +328,38 @@ def shard_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def distribute(tree_, shardings, mesh):
+    """Whole tensors, the same on every rank, as DTensors placed by their
+    NamedShardings (or bare specs) on `mesh`: each rank keeps its own
+    block, with no communication.  Meta tensors give meta DTensors (the
+    dry run's abstract shards)."""
+    from torch.distributed.tensor import DTensor
+    from .tp import local_shard
+
+    def one(x, sh):
+        spec = sh.spec if isinstance(sh, NamedSharding) else sh
+        return DTensor.from_local(
+            local_shard(x, spec, mesh).contiguous(), mesh,
+            placements(spec, mesh), run_check=False, shape=x.shape,
+            stride=x.stride())
+    return tree.map_leaves(one, tree_, shardings)
+
+
+def spec_of(dt, mesh=None) -> Spec:
+    """The spec of a DTensor's placements (the inverse of ``placements``;
+    a plain tensor is replicated: ``()``)."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(dt, DTensor):
+        return ()
+    names = dt.device_mesh.mesh_dim_names
+    out = [[] for _ in range(dt.dim())]
+    for name, p in zip(names, dt.placements):
+        if isinstance(p, Shard):
+            out[p.dim].append(name)
+    return tuple(None if not a else (a[0] if len(a) == 1 else tuple(a))
+                 for a in out)
+
+
 def placements(spec: Spec, mesh):
     """DTensor placements of `spec` on `mesh`: per mesh dim, ``Shard(d)``
     for the tensor dim d whose entry names it, else ``Replicate()``.  A

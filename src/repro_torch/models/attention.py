@@ -19,6 +19,19 @@ Cache layouts (per layer):
   mla:   c_kv (B, S_alloc, kv_rank) and k_pe (B, S_alloc, rope_dim), the
          latent cache, plus ``pos`` as the full cache's.
 Caches are updated out of place, as the reference's are.
+
+Under a tensor-parallel layout (``launch/tp.py``) a rank computes the
+heads its block of ``wo``'s rows reads (its own when the heads divide the
+model axis; the heads its block touches otherwise, MLA's 40 over 16),
+with the key and value heads those read: the local projection block when
+it is exactly those heads, else the gathered block, cut (recurrentgemma's
+one KV head, internlm2's 8 over 16).  Under sequence parallelism the
+queries are this rank's rows and the keys and values are gathered along
+the sequence.  Prefill hands back whole caches, which the step cuts to
+their storage layout; at decode a cache whose sequence is sharded
+(``tp.current().kv``) is scored slot by slot on its owner, the softmax's
+max, sum and weighted values combined across the ranks, and only the rank
+that owns slot ``pos`` writes it.
 """
 from __future__ import annotations
 
@@ -28,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import tp
 from .layers import (apply_rope, dense_init, dtype_of, mrope_angles,
                      pdtype_of, rms_norm_headwise, rope_angles)
 
@@ -96,9 +110,10 @@ def _gqa_block(q, k, v, *, scale, q_pos, k_pos, causal, window,
     return out.reshape(B, Sq, H, v.shape[-1])
 
 
-def mha(q, k, v, *, scale=None, causal=True, window=0, cross=False):
+def mha(q, k, v, *, scale=None, causal=True, window=0, cross=False, q0=0):
     """Sequence attention, q-chunked when large (never for ``cross``).
-    Shapes as in _gqa_block."""
+    Shapes as in _gqa_block; the queries sit at positions q0 .. q0 + Sq
+    (q0 > 0: this rank's rows of a sequence-parallel prefill)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -106,19 +121,20 @@ def mha(q, k, v, *, scale=None, causal=True, window=0, cross=False):
     k_pos = torch.arange(Sk, device=dev)
     if Sq * Sk <= _DENSE_LIMIT ** 2 or Sq % _QCHUNK or cross:
         return _gqa_block(q, k, v, scale=scale,
-                          q_pos=torch.arange(Sq, device=dev),
+                          q_pos=q0 + torch.arange(Sq, device=dev),
                           k_pos=k_pos, causal=causal, window=window,
                           cross=cross)
 
     outs = []
     for i in range(Sq // _QCHUNK):
         qi = q[:, i * _QCHUNK:(i + 1) * _QCHUNK]
-        qp = i * _QCHUNK + torch.arange(_QCHUNK, device=dev)
+        at = q0 + i * _QCHUNK
+        qp = at + torch.arange(_QCHUNK, device=dev)
         if window and window + _QCHUNK < Sk:
             # local attention: each q-chunk only sees the trailing `window`
             # keys (the start clamped so the slice stays in bounds)
             span = window + _QCHUNK
-            start = min(max(i * _QCHUNK - window, 0), Sk - span)
+            start = min(max(at - window, 0), Sk - span)
             outs.append(_gqa_block(
                 qi, k[:, start:start + span], v[:, start:start + span],
                 scale=scale, q_pos=qp,
@@ -132,9 +148,11 @@ def mha(q, k, v, *, scale=None, causal=True, window=0, cross=False):
 
 
 def decode_mha(q, k_cache, v_cache, k_pos, *, scale=None, cur_pos=None,
-               window=0):
+               window=0, sharded=True):
     """One-step decode: q (B,1,H,D) vs cache (B,T,KV,D); k_pos (T,)
-    globals."""
+    globals.  With the cache's sequence sharded (``tp.current().kv``;
+    `sharded` False for a cache held whole, such as the cross-attention
+    keys) the cache and k_pos are this rank's slots."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     B = k_cache.shape[0]
@@ -145,10 +163,39 @@ def decode_mha(q, k_cache, v_cache, k_pos, *, scale=None, cur_pos=None,
     mask = (k_pos <= cur_pos) & (k_pos >= 0)
     if window:
         mask = mask & (k_pos > cur_pos - window)
+    ax = tp.current().kv if sharded else tp.ONE
+    if ax.size > 1:
+        out = _combine(scores, mask, lambda p: torch.einsum(
+            "bkgqs,bskd->bqkgd", p, v_cache.to(torch.float32)), ax)
+        return out.to(v_cache.dtype).reshape(B, 1, H, v_cache.shape[-1])
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
     return out.reshape(B, 1, H, v_cache.shape[-1])
+
+
+def _combine(scores, mask, weigh, ax):
+    """Softmax attention over slots sharded across `ax`'s ranks: scores
+    (..., 1, T) float32 over this rank's slots, `mask` the live ones;
+    weigh(p) the unnormalized p-weighted values (the reduced dims of
+    scores moved as the einsum moves them).  The max, the sum and the
+    weighted values are combined across the ranks (flash-decode)."""
+    scores = torch.where(mask, scores, NEG_INF)
+    top = tp.all_max(scores.amax(dim=-1, keepdim=True), ax)
+    p = torch.where(mask, torch.exp(scores - top), 0.0)
+    total = tp.all_reduce(p.sum(dim=-1), ax)              # (..., 1)
+    o = tp.all_reduce(weigh(p), ax)
+    # o holds the query dim where scores held it: move the sums there
+    return o / _like(total, scores, o)
+
+
+def _like(total, scores, o):
+    """`total` (scores' dims without the slot dim) laid out as `o`: the
+    two attention einsums here map (b, k, g, q) -> (b, q, k, g) and
+    (b, h, q) -> (b, q, h), each with the value dim last."""
+    if scores.dim() == 5:                        # (B, KV, g, 1)
+        return total.permute(0, 3, 1, 2)[..., None]
+    return total.permute(0, 2, 1)[..., None]     # (B, h, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +219,24 @@ def kv_cache_shape(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def _cache_write(buf, val, slot: int):
-    """A copy of buf (B, T, ...) with val (B, 1, ...) at index slot."""
+    """A copy of buf (B, T, ...) with val (B, 1, ...) at index slot.  With
+    the cache's sequence sharded (``tp.current().kv``) buf holds this
+    rank's T slots of the whole, and only the slot's owner writes."""
+    ax = tp.current().kv
     out = buf.clone()
+    if ax.size > 1:
+        lo = ax.rank * buf.shape[1]
+        if not lo <= slot < lo + buf.shape[1]:
+            return out
+        slot -= lo
     out[:, slot:slot + 1] = val.to(buf.dtype)
     return out
+
+
+def _local_positions(kpos):
+    """This rank's slots of the slot -> position map (the whole map when
+    the cache's sequence is not sharded)."""
+    return tp.chunk(kpos, 0, tp.current().kv)
 
 
 def _ring_fill_prefill(vals, alloc: int):
@@ -217,6 +278,35 @@ def _positions(mode: str, S: int, pos, device):
     return torch.arange(S, device=device)
 
 
+def _rows(ax, total_heads: int, hd: int, wo):
+    """(row-parallel, lo, hi, h0, h1): whether `wo` (total_heads·hd rows)
+    is this rank's row block, the block's rows [lo, hi), and the heads
+    [h0, h1) they read (all of them when wo is whole)."""
+    width = total_heads * hd
+    if ax.size > 1 and wo.shape[0] < width:
+        lo, hi = tp.span(width, ax)
+        return (True, lo, hi) + tp.heads_of(lo, hi, hd)
+    return False, 0, width, 0, total_heads
+
+
+def _out_proj(out, par, lo, hi, h0, vd, wo, ax):
+    """(B, S, heads·vd) of heads [h0, ...) through wo: the columns of
+    this rank's rows [lo, hi), row-parallel, all-reduced."""
+    if not par:
+        return out @ wo
+    return tp.reduce(out[..., lo - h0 * vd:hi - h0 * vd] @ wo, ax)
+
+
+def _kv_heads(k, v, h0, h1, k0, g):
+    """k, v (B, S, KVn, D) of heads [k0, ...) for query heads [h0, h1)
+    in groups of g: as they are when the queries fill whole groups or
+    read one head, else one key and value head per query head."""
+    if (h0 % g == 0 and h1 % g == 0) or k.shape[2] == 1:
+        return k, v
+    idx = torch.arange(h0, h1, device=k.device) // g - k0
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
 def apply_attention(cfg: ModelConfig, params, x, *, mode: str,
                     window: int = 0, cache=None, pos=None, positions=None,
                     max_len: int = 0, cross_kv=None, causal: bool = True):
@@ -237,20 +327,37 @@ def apply_attention(cfg: ModelConfig, params, x, *, mode: str,
                           max_len=max_len)
     B, S, d = x.shape
     h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(B, S, h, dh)
-    if cross_kv is None:
-        k = (x @ params["wk"]).reshape(B, S, kv, dh)
-        v = (x @ params["wv"]).reshape(B, S, kv, dh)
-    else:
-        xk, xv = cross_kv
-        k = (xk @ params["wk"]).reshape(B, xk.shape[1], kv, dh)
-        v = (xv @ params["wv"]).reshape(B, xv.shape[1], kv, dh)
-    if cfg.qk_norm:
-        q = rms_norm_headwise(q, params["q_scale"])
-        k = rms_norm_headwise(k, params["k_scale"])
+    ctx = tp.current()
+    ax = ctx.tp
+    qs = ax.size > 1 and params["wq"].shape[-1] < h * dh
+    ks = ax.size > 1 and params["wk"].shape[-1] < kv * dh
+    par, lo, hi, h0, h1 = _rows(ax, h, dh, params["wo"])
+    if par:                    # the heads (and their K/V) are this rank's
+        x = tp.copy(x, ax)
+        if cross_kv is not None:
+            cross_kv = tuple(tp.copy(t, ax) for t in cross_kv)
+    if mode == "decode":
+        h0, h1 = 0, h                  # every head scores this rank's slots
+    g = h // kv
+    k0, k1 = (0, kv) if mode != "train" else (h0 // g, (h1 - 1) // g + 1)
+    q = tp.head_cols(x @ params["wq"], h, dh, h0, h1, ax, qs)
+    q = q.reshape(B, S, h1 - h0, dh)
+    xk, xv = (x, x) if cross_kv is None else cross_kv
+    k = tp.head_cols(xk @ params["wk"], kv, dh, k0, k1, ax, ks)
+    v = tp.head_cols(xv @ params["wv"], kv, dh, k0, k1, ax, ks)
+    k = k.reshape(B, xk.shape[1], k1 - k0, dh)
+    v = v.reshape(B, xv.shape[1], k1 - k0, dh)
+    if cfg.qk_norm:                # replicated scales on this rank's heads
+        scales = [params["q_scale"], params["k_scale"]]
+        if par:
+            scales = [tp.copy(t, ax) for t in scales]
+        q = rms_norm_headwise(q, scales[0])
+        k = rms_norm_headwise(k, scales[1])
 
+    sp = ctx.sp if cross_kv is None else tp.ONE
+    q0 = sp.rank * S
     if cfg.rope_theta and cross_kv is None:
-        p = _positions(mode, S, pos, x.device)
+        p = _positions(mode, S, pos, x.device) + q0
         if cfg.mrope_sections:
             if positions is None:
                 positions = p[None, None, :].expand(B, 3, S)
@@ -264,19 +371,25 @@ def apply_attention(cfg: ModelConfig, params, x, *, mode: str,
 
     if mode == "decode":
         assert cache is not None
-        alloc = cache["k"].shape[1]
+        alloc = cache["pos"].shape[0]
         slot = pos % alloc if window else pos
         kpos = cache["pos"].clone()
         kpos[slot] = pos
         new_cache = {"k": _cache_write(cache["k"], k, slot),
                      "v": _cache_write(cache["v"], v, slot), "pos": kpos}
-        out = decode_mha(q, new_cache["k"], new_cache["v"], kpos,
-                         cur_pos=pos, window=window)
+        out = decode_mha(q, new_cache["k"], new_cache["v"],
+                         _local_positions(kpos), cur_pos=pos, window=window)
     else:
-        out = mha(q, k, v, causal=causal and cross_kv is None, window=window,
-                  cross=cross_kv is not None)
+        k = tp.gather(k, 1, sp, scatter=True)
+        v = tp.gather(v, 1, sp, scatter=True)
+        kq, vq = k[:, :, h0 // g - k0:(h1 - 1) // g + 1 - k0], \
+            v[:, :, h0 // g - k0:(h1 - 1) // g + 1 - k0]
+        kq, vq = _kv_heads(kq, vq, h0, h1, h0 // g, g)
+        out = mha(q, kq, vq, causal=causal and cross_kv is None,
+                  window=window, cross=cross_kv is not None, q0=q0)
         new_cache = None
         if mode == "prefill" and cross_kv is None:
+            S = k.shape[1]
             alloc = min(max_len, window) if window else max_len
             if alloc < 1:
                 raise ValueError("prefill of an attention layer needs "
@@ -288,7 +401,8 @@ def apply_attention(cfg: ModelConfig, params, x, *, mode: str,
             else:
                 new_cache = {"k": _pad_to(k, alloc), "v": _pad_to(v, alloc),
                              "pos": _full_positions(S, alloc, x.device)}
-    return out.reshape(B, S, h * dh) @ params["wo"], new_cache
+    out = out.reshape(B, q.shape[1], -1)
+    return _out_proj(out, par, lo, hi, h0, dh, params["wo"], ax), new_cache
 
 
 def _full_positions(S: int, alloc: int, device):
@@ -304,15 +418,27 @@ def _full_positions(S: int, alloc: int, device):
 def _apply_mla(cfg: ModelConfig, params, x, *, mode, cache, pos, max_len):
     """Prefill and train expand the latent to every head's K and V (v's
     head dim may differ from q's); decode scores against the latent cache
-    through ``wk_b`` and projects the result through ``wv_b``."""
+    through ``wk_b`` and projects the result through ``wv_b``.  The
+    latent projection ``wkv_a`` is replicated under tensor parallelism;
+    ``wq_a``'s output is gathered for its norm."""
     m = cfg.mla
     B, S, d = x.shape
     h = cfg.num_heads
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    qk, vd = nope + rope, m.v_head_dim
     scale = 1.0 / math.sqrt(nope + rope)
-
-    cq = rms_norm_headwise(x @ params["wq_a"], params["q_norm"])
-    q = (cq @ params["wq_b"]).reshape(B, S, h, nope + rope)
+    ax = tp.current().tp
+    par, lo, hi, h0, h1 = _rows(ax, h, vd, params["wo"])
+    if mode == "decode":
+        h0, h1 = 0, h                  # every head scores this rank's slots
+    wqa_s = ax.size > 1 and params["wq_a"].shape[-1] < m.q_lora_rank
+    cq = (tp.copy(x, ax) if wqa_s else x) @ params["wq_a"]
+    if wqa_s:
+        cq = tp.gather(cq, -1, ax)
+    cq = rms_norm_headwise(cq, params["q_norm"])
+    qs = ax.size > 1 and params["wq_b"].shape[-1] < h * qk
+    q = tp.head_cols((tp.copy(cq, ax) if par else cq) @ params["wq_b"], h,
+                     qk, h0, h1, ax, qs).reshape(B, S, h1 - h0, qk)
     q_nope, q_pe = q[..., :nope], q[..., nope:]
 
     ckv_full = x @ params["wkv_a"]
@@ -324,6 +450,8 @@ def _apply_mla(cfg: ModelConfig, params, x, *, mode, cache, pos, max_len):
                            cfg.rope_theta)
     q_pe = apply_rope(q_pe, cos[None], sin[None])
     k_pe = apply_rope(k_pe[:, :, None, :], cos[None], sin[None])[:, :, 0, :]
+    ks = ax.size > 1 and params["wk_b"].shape[-1] < h * nope
+    vs = ax.size > 1 and params["wv_b"].shape[-1] < h * vd
 
     if mode == "decode":
         kpos = cache["pos"].clone()
@@ -332,22 +460,36 @@ def _apply_mla(cfg: ModelConfig, params, x, *, mode, cache, pos, max_len):
                      "k_pe": _cache_write(cache["k_pe"], k_pe, pos),
                      "pos": kpos}
         # absorbed: q_nope' = q_nope @ Wk_b^T scores against the latent
-        wk = params["wk_b"].reshape(m.kv_lora_rank, h, nope)
+        wk = tp.head_cols(params["wk_b"], h, nope, 0, h, ax, ks)
+        wk = wk.reshape(m.kv_lora_rank, h, nope)
         q_lat = torch.einsum("bqhd,chd->bqhc", q_nope, wk)   # (B,1,h,rank)
         scores = (torch.einsum("bqhc,btc->bhqt", q_lat, new_cache["c_kv"])
                   + torch.einsum("bqhd,btd->bhqt", q_pe, new_cache["k_pe"]))
         scores = scores.to(torch.float32) * scale
-        mask = (kpos <= pos) & (kpos >= 0)
-        scores = torch.where(mask, scores, NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        o_lat = torch.einsum("bhqt,btc->bqhc", probs, new_cache["c_kv"])
-        wv = params["wv_b"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-        out = torch.einsum("bqhc,chv->bqhv", o_lat, wv)
+        mine = _local_positions(kpos)
+        mask = (mine <= pos) & (mine >= 0)
+        kv_ax = tp.current().kv
+        if kv_ax.size > 1:
+            o_lat = _combine(scores, mask, lambda p: torch.einsum(
+                "bhqt,btc->bqhc", p, new_cache["c_kv"].to(torch.float32)),
+                kv_ax).to(x.dtype)
+        else:
+            scores = torch.where(mask, scores, NEG_INF)
+            probs = torch.softmax(scores, dim=-1).to(x.dtype)
+            o_lat = torch.einsum("bhqt,btc->bqhc", probs, new_cache["c_kv"])
+        if par:
+            h0, h1 = tp.heads_of(lo, hi, vd)
+        wv = tp.head_cols(params["wv_b"], h, vd, h0, h1, ax, vs)
+        wv = wv.reshape(m.kv_lora_rank, h1 - h0, vd)
+        out = torch.einsum("bqhc,chv->bqhv", o_lat[:, :, h0:h1], wv)
     else:
-        k_nope = (c_kv @ params["wk_b"]).reshape(B, S, h, nope)
-        v = (c_kv @ params["wv_b"]).reshape(B, S, h, m.v_head_dim)
-        k = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rope)],
-                      dim=-1)
+        cin = tp.copy(c_kv, ax) if par else c_kv
+        k_nope = tp.head_cols(cin @ params["wk_b"], h, nope, h0, h1, ax, ks)
+        v = tp.head_cols(cin @ params["wv_b"], h, vd, h0, h1, ax, vs)
+        k_nope = k_nope.reshape(B, S, h1 - h0, nope)
+        v = v.reshape(B, S, h1 - h0, vd)
+        k_pe_h = (tp.copy(k_pe, ax) if par else k_pe)[:, :, None, :]
+        k = torch.cat([k_nope, k_pe_h.expand(B, S, h1 - h0, rope)], dim=-1)
         out = mha(torch.cat([q_nope, q_pe], dim=-1), k, v, scale=scale,
                   causal=True)
         new_cache = None
@@ -358,4 +500,5 @@ def _apply_mla(cfg: ModelConfig, params, x, *, mode, cache, pos, max_len):
             new_cache = {"c_kv": _pad_to(c_kv, max_len),
                          "k_pe": _pad_to(k_pe, max_len),
                          "pos": _full_positions(S, max_len, x.device)}
-    return out.reshape(B, S, h * m.v_head_dim) @ params["wo"], new_cache
+    out = out.reshape(B, S, (h1 - h0) * vd)
+    return _out_proj(out, par, lo, hi, h0, vd, params["wo"], ax), new_cache

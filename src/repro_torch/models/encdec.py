@@ -13,11 +13,15 @@ stated deviation from whisper's learned decoder positions, followed here.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import tp
 from .layers import (apply_norm, cross_entropy, dtype_of, embed_init,
-                     embed_tokens, norm_init, sinusoidal_positions, unembed)
+                     embed_tokens, full_logits, last_logits, norm_init,
+                     sinusoidal_positions, unembed)
 from .transformer import (block_init, encoder_config, layer_kinds,
                           layers_apply, layers_state_shape)
 
@@ -38,17 +42,27 @@ def build_encdec(cfg: ModelConfig):
         }
 
     def encode(params, audio_embeds):
-        """The encoder output (B, enc_seq, d), normalized."""
+        """The encoder output (B, enc_seq, d), normalized.  Under sequence
+        parallelism the frames are this rank's block where the batch's
+        spec shards them (the encoder then runs sequence-parallel and its
+        output is gathered), else whole."""
         x = audio_embeds.to(dtype_of(cfg))
-        pos = torch.arange(x.shape[1], device=x.device)
+        ctx = tp.current()
+        sp = ctx.sp if x.shape[1] < cfg.enc_seq else tp.ONE
+        pos = torch.arange(x.shape[1], device=x.device) + \
+            sp.rank * x.shape[1]
         x = x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
-        x, _, _ = layers_apply(enc_cfg, params["encoder"], x, mode="train",
-                               causal=False)
-        return apply_norm(cfg, params["enc_ln"], x)
+        with tp.use(dataclasses.replace(ctx, sp=sp)):
+            x, _, _ = layers_apply(enc_cfg, params["encoder"], x,
+                                   mode="train", causal=False)
+        return tp.gather(apply_norm(cfg, params["enc_ln"], x), 1, sp,
+                         scatter=True)
 
     def _embed_dec(params, tokens, offset=0):
         x = embed_tokens(cfg, params["embed"], tokens)
-        pos = torch.arange(tokens.shape[1], device=x.device) + offset
+        S = tokens.shape[1]
+        pos = torch.arange(S, device=x.device) + offset + \
+            tp.current().sp.rank * S
         return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
 
     def loss_fn(params, batch):
@@ -58,7 +72,8 @@ def build_encdec(cfg: ModelConfig):
                                  enc_out=enc)
         x = apply_norm(cfg, params["ln_f"], x)
         logits = unembed(cfg, params["embed"], x)
-        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                             vocab=cfg.vocab_size)
         return loss, {"loss": loss, "aux_loss": aux,
                       "tokens": torch.tensor(float(batch["labels"].numel()),
                                              device=loss.device)}
@@ -70,15 +85,14 @@ def build_encdec(cfg: ModelConfig):
                                     mode="prefill", enc_out=enc,
                                     max_len=max_len)
         x = apply_norm(cfg, params["ln_f"], x)
-        logits = unembed(cfg, params["embed"], x[:, -1:])
-        return logits[:, 0], states
+        return last_logits(cfg, params["embed"], x), states
 
     def decode_step(params, states, tokens, pos, positions=None):
         x = _embed_dec(params, tokens[:, None], offset=int(pos))
         x, states, _ = layers_apply(cfg, params["decoder"], x, mode="decode",
                                     states=states, pos=pos)
         x = apply_norm(cfg, params["ln_f"], x)
-        logits = unembed(cfg, params["embed"], x)
+        logits = full_logits(cfg, unembed(cfg, params["embed"], x))
         return logits[:, 0], states
 
     def decode_state_shape(batch: int, max_len: int = 0):

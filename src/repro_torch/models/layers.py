@@ -5,6 +5,14 @@ feed-forward blocks, embedding, the unembedding and the next-token
 cross entropy.
 
 Parameters are nested dicts of tensors, as the reference's pytrees.
+
+Under a tensor-parallel layout (``launch/tp.py``) the feed-forward is
+column- then row-parallel, the embedding vocab-parallel (or sharded on
+d_model where the vocabulary does not divide), the logits vocab-parallel
+and the cross entropy taken over them without gathering (B, S, V); under
+sequence parallelism the cross entropy sums over every rank's positions.
+Each rule applies where the weight at hand is sharded: a leaf whose dims
+do not divide the model axis stays whole, and its layer runs whole.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import tp
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -109,9 +118,8 @@ def mrope_angles(pos_thw, dim: int, theta: float, sections):
     dev = pos_thw.device
     inv_freq = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
                                              device=dev) / dim))
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))                  # (dim // 2,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=dev)   # (dim // 2,)
     pos = pos_thw.to(torch.float32)[:, sec_id, :]            # (B, dim//2, S)
     ang = pos.transpose(1, 2) * inv_freq                     # (B, S, dim//2)
     return torch.cos(ang), torch.sin(ang)
@@ -145,7 +153,13 @@ def mlp_init(cfg: ModelConfig, gen: torch.Generator,
 
 def apply_mlp(cfg: ModelConfig, params, x):
     """``gelu`` is the tanh approximation, as ``jax.nn.gelu``'s default
-    (plain ``F.gelu`` is the erf form)."""
+    (plain ``F.gelu`` is the erf form).  Tensor-parallel where the hidden
+    width is sharded: column-parallel up-projections, a row-parallel
+    ``wo`` and one all-reduce."""
+    ax = tp.current().tp
+    par = params["wo"].shape[-2] * ax.size == cfg.d_ff and ax.size > 1
+    if par:
+        x = tp.copy(x, ax)
     if cfg.mlp == "swiglu":
         h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
     elif cfg.mlp == "gelu_glu":
@@ -157,7 +171,8 @@ def apply_mlp(cfg: ModelConfig, params, x):
         h = F.gelu(x @ params["wi_up"], approximate="tanh")
     else:
         raise ValueError(cfg.mlp)
-    return h @ params["wo"]
+    out = h @ params["wo"]
+    return tp.reduce(out, ax) if par else out
 
 
 # ---------------------------------------------------------------------------
@@ -174,27 +189,88 @@ def embed_init(cfg: ModelConfig, gen: torch.Generator):
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
-    emb = params["embedding"][tokens.long()].to(dtype_of(cfg))
+    """Vocab-parallel where the embedding's rows are sharded (each rank
+    looks up its rows, zeros the rest, one all-reduce); d_model-sharded
+    where its columns are (the columns gathered)."""
+    table = params["embedding"]
+    ax = tp.current().tp
+    if ax.size > 1 and table.shape[0] < cfg.vocab_size:
+        lo = ax.rank * table.shape[0]
+        ids = tokens.long() - lo
+        mine = (ids >= 0) & (ids < table.shape[0])
+        emb = table[torch.where(mine, ids, 0)]
+        emb = tp.reduce(torch.where(mine[..., None], emb, 0), ax)
+    elif ax.size > 1 and table.shape[1] < cfg.d_model:
+        emb = tp.gather(table[tokens.long()], -1, ax)
+    else:
+        emb = table[tokens.long()]
+    emb = emb.to(dtype_of(cfg))
     if cfg.scale_embeddings:
         emb = emb * math.sqrt(cfg.d_model)
     return emb
 
 
 def unembed(cfg: ModelConfig, params, x):
-    if cfg.tie_embeddings:
-        return x @ params["embedding"].T.to(x.dtype)
-    return x @ params["unembed"].to(x.dtype)
+    """The logits: under tensor parallelism this rank's vocabulary block
+    (V / model ways) where the vocabulary is sharded, else whole (a
+    d_model-sharded tied embedding contracts its block of x's columns and
+    all-reduces)."""
+    w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    ax = tp.current().tp
+    if ax.size > 1 and w.shape[0] < cfg.d_model:
+        return tp.reduce(tp.split(x, -1, ax) @ w.to(x.dtype), ax)
+    if ax.size > 1 and w.shape[1] < cfg.vocab_size:
+        x = tp.copy(x, ax)
+    return x @ w.to(x.dtype)
 
 
-def cross_entropy(logits, labels, mask=None):
+def full_logits(cfg: ModelConfig, logits):
+    """Logits over the whole vocabulary (this rank's block gathered where
+    ``unembed`` gave one); no gradient."""
+    ax = tp.current().tp
+    if logits.shape[-1] < cfg.vocab_size:
+        return tp.all_gather(logits, -1, ax)
+    return logits
+
+
+def last_logits(cfg: ModelConfig, params, x):
+    """Whole logits (B, V) of the last position of x (B, S, d): under
+    sequence parallelism the last rank's last row; no gradient."""
+    last = tp.all_gather(x[:, -1:], 1, tp.current().sp)[:, -1:]
+    return full_logits(cfg, unembed(cfg, params, last))[:, 0]
+
+
+def cross_entropy(logits, labels, mask=None, vocab: int = 0):
     """Mean next-token CE in float32 (``layers.py: cross_entropy``):
     logsumexp minus the gold logit, averaged over the positions, or over
     the mask's weight when a mask is given.  logits (..., V); labels
-    (...) int."""
+    (...) int.  Where `logits` hold this rank's block of a `vocab`-wide
+    vocabulary (tensor parallelism), the max, the sum of exponentials and
+    the gold logit are combined across the ranks; under sequence
+    parallelism the sums and the count run over every rank's positions."""
     lf = logits.to(torch.float32)
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    ctx = tp.current()
+    if vocab and lf.shape[-1] < vocab:
+        ax = ctx.tp
+        lo = ax.rank * lf.shape[-1]
+        with torch.no_grad():
+            top = tp.all_max(lf.amax(dim=-1, keepdim=True), ax)
+        lse = torch.log(tp.reduce(torch.exp(lf - top).sum(dim=-1), ax)) + \
+            top[..., 0]
+        ids = labels.long() - lo
+        mine = (ids >= 0) & (ids < lf.shape[-1])
+        gold = torch.gather(lf, -1, torch.where(mine, ids, 0)[..., None])
+        gold = tp.reduce(torch.where(mine, gold[..., 0], 0.0), ax)
+    else:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     nll = lse - gold
+    sp = ctx.sp
+    if sp.size > 1:
+        weight = torch.ones_like(nll) if mask is None else mask
+        total = tp.reduce((nll * weight).sum(), sp)
+        count = tp.all_reduce(weight.sum().detach(), sp)
+        return total / torch.clamp(count, min=1.0)
     if mask is not None:
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1.0)

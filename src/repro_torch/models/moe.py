@@ -12,6 +12,16 @@ capacity-bounded scatter dispatch.
 
 ``apply_moe`` returns a switch-style load-balancing aux loss beside the
 output, as the reference does; serving ignores it.
+
+Under tensor parallelism (``launch/tp.py``) the router and the slot
+ranking run whole on every rank (the tokens are replicated across the
+model axis).  Where the experts divide the axis (qwen3-moe: 128 over 16)
+each rank owns a block of experts: its buffer holds only its experts'
+slots, and the combine is one all-reduce of the weighted outputs; with
+the tokens already on every rank, the dispatch is a local selection and
+needs no all-to-all.  Where they do not (mixtral: 8 over 16) the expert
+FFN is tensor-parallel on its hidden width, ``wo`` row-parallel, and the
+expert outputs are all-reduced.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import tp
 from .layers import dense_init, pdtype_of
 
 
@@ -89,9 +100,10 @@ def apply_moe(cfg: ModelConfig, params, x):
     probs, top_w, top_e = route(cfg, params, x)
 
     # aux loss: E * sum_e(frac_tokens_e * mean_prob_e)
-    frac = F.one_hot(top_e, E).to(torch.float32).sum(dim=2) \
-        .mean(dim=(0, 1)) / K
-    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+    rows = tp.current().rows              # means over the whole batch
+    frac = tp.global_mean(F.one_hot(top_e, E).to(torch.float32).sum(dim=2)
+                          .mean(dim=(0, 1)), rows) / K
+    aux = E * torch.sum(frac * tp.global_mean(probs.mean(dim=(0, 1)), rows))
 
     # --- slot ranking per sequence row ------------------------------------
     slot_e = top_e.reshape(B, S * K)
@@ -100,12 +112,26 @@ def apply_moe(cfg: ModelConfig, params, x):
     keep = pos < C
     pos_safe = torch.where(keep, pos, C)            # C: the dropped slot
 
+    # --- this rank's experts (all of them outside expert parallelism) --
+    ax = tp.current().tp
+    el = params["wi_up"].shape[0]
+    ep = ax.size > 1 and el < E                      # expert-parallel
+    fp = ax.size > 1 and not ep and \
+        params["wo"].shape[-2] < cfg.d_ff             # hidden-width parallel
+    e0 = ax.rank * el if ep else 0
+    mine = keep & (slot_e >= e0) & (slot_e < e0 + el) if ep else keep
+    if ep or fp:
+        x = tp.copy(x, ax)
+    if ep:
+        slot_w = tp.copy(slot_w, ax)
+
     # --- scatter into expert buffers (slot C collects the dropped, cut) --
     xs = torch.repeat_interleave(x, K, dim=1)      # (B, SK, d)
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
-    buf = torch.zeros((B, E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_put_((bidx, slot_e, pos_safe.long()),
-                   torch.where(keep[..., None], xs, 0), accumulate=True)
+    le = torch.where(mine, slot_e - e0, 0) if ep else slot_e
+    buf = torch.zeros((B, el, C + 1, d), dtype=x.dtype, device=x.device)
+    buf.index_put_((bidx, le, torch.where(mine, pos_safe, C).long()),
+                   torch.where(mine[..., None], xs, 0), accumulate=True)
     buf = buf[:, :, :C]
 
     # --- expert FFN ---------------------------------------------------------
@@ -116,9 +142,13 @@ def apply_moe(cfg: ModelConfig, params, x):
         h = F.gelu(torch.einsum("becd,edf->becf", buf, params["wi_up"]),
                    approximate="tanh")
     out_buf = torch.einsum("becf,efd->becd", h, params["wo"])
+    if fp:
+        out_buf = tp.reduce(out_buf, ax)
 
     # --- gather + combine ---------------------------------------------------
-    y = out_buf[bidx, slot_e, torch.clamp(pos_safe, max=C - 1).long()]
-    y = torch.where(keep[..., None], y, 0) * slot_w[..., None].to(y.dtype)
+    y = out_buf[bidx, le, torch.clamp(pos_safe, max=C - 1).long()]
+    y = torch.where(mine[..., None], y, 0) * slot_w[..., None].to(y.dtype)
     y = y.reshape(B, S, K, d).sum(dim=2)
+    if ep:
+        y = tp.reduce(y, ax)
     return y.to(x.dtype), aux

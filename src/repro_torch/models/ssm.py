@@ -5,6 +5,15 @@ sequential) and the RG-LRU block of Griffin / RecurrentGemma (prefill
 through the ``rglru_scan`` kernel, decode through the one-step
 recurrence).
 
+Under tensor parallelism (``launch/tp.py``) the RG-LRU block is sharded on
+its width: ``w_x``, ``w_gate``, the conv and ``lam`` hold this rank's
+channels, the gates' (w, w) products take the whole conv'd input
+(gathered, as GSPMD must gather it) and give this rank's columns, the
+scan and its decode step run on the local (B, S, W / m) shard, and
+``w_out`` is row-parallel.  The xLSTM blocks belong to a data-parallel
+arch: their decode state arrives whole (the step gathers a sharded
+state before the block and cuts it after).
+
 Parameters and states are dicts of tensors under the reference's names,
 so ``repro_torch.models.transformer.params_from_jax`` maps one onto the
 other leaf for leaf.
@@ -18,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch import tp
 from .layers import dense_init, dtype_of, pdtype_of, rms_norm_headwise
 
 
@@ -275,31 +285,38 @@ def rglru_state_shape(cfg: ModelConfig, batch: int):
             "conv": ((batch, cfg.conv_width - 1, w), dtype_of(cfg))}
 
 
-def _rglru_gates(params, ucf):
+def _rglru_gates(params, ucf, ax=tp.ONE):
     """The gated input i * u and log a from the conv'd input ucf
-    (float32); the (w, w) gate products stay float32."""
-    r = torch.sigmoid(ucf @ params["w_rg"])
-    i = torch.sigmoid(ucf @ params["w_ig"])
+    (float32); the (w, w) gate products stay float32.  Width-parallel on
+    `ax`: ucf is this rank's channels, gathered whole for the products,
+    whose columns are this rank's."""
+    full = tp.gather(ucf, -1, ax, scatter=True)
+    r = torch.sigmoid(full @ params["w_rg"])
+    i = torch.sigmoid(full @ params["w_ig"])
     log_a = -_RG_C * F.softplus(params["lam"]) * r
     return i * ucf, log_a
 
 
 def apply_rglru(cfg: ModelConfig, params, x, *, mode: str, state=None):
+    ax = tp.current().tp
+    if not (ax.size > 1 and params["w_x"].shape[-1] < cfg.lru_width):
+        ax = tp.ONE
+    x = tp.copy(x, ax)
     u = x @ params["w_x"]
     g = F.gelu(x @ params["w_gate"], approximate="tanh")
 
     if mode == "decode":
         uc, conv_state = conv_step(u, params["conv"], state["conv"])
-        xin, log_a = _rglru_gates(params, uc[:, 0].to(torch.float32))
+        xin, log_a = _rglru_gates(params, uc[:, 0].to(torch.float32), ax)
         h = ops.rglru_step(xin, log_a, state["h"])
         y = h[:, None].to(x.dtype)
         new_state = {"h": h, "conv": conv_state}
     else:
         uc = causal_conv(u, params["conv"])
-        xin, log_a = _rglru_gates(params, uc.to(torch.float32))
+        xin, log_a = _rglru_gates(params, uc.to(torch.float32), ax)
         h = ops.rglru_scan(xin, log_a)                          # (B,S,w) f32
         y = h.to(x.dtype)
         new_state = None
         if mode == "prefill":
             new_state = {"h": h[:, -1].clone(), "conv": _conv_tail(cfg, u)}
-    return (y * g) @ params["w_out"], new_state
+    return tp.reduce((y * g) @ params["w_out"], ax), new_state

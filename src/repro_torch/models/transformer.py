@@ -50,10 +50,12 @@ from repro_torch.tree import map_leaves
 from repro_torch.tree import map_leaves as tree_map  # noqa: F401
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM,
                                       ModelConfig)
+from repro_torch.launch import tp
 from . import attention as attn
 from . import ssm
 from .layers import (apply_mlp, apply_norm, cross_entropy, dtype_of,
-                     embed_init, embed_tokens, mlp_init, norm_init, unembed)
+                     embed_init, embed_tokens, full_logits, last_logits,
+                     mlp_init, norm_init, unembed)
 from .moe import apply_moe, moe_init
 
 
@@ -132,7 +134,7 @@ def _cross_decode(cfg: ModelConfig, params, x, ck, cv):
     q = (x @ params["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
     T = ck.shape[1]
     out = attn.decode_mha(q, ck, cv, torch.arange(T, device=x.device),
-                          cur_pos=T - 1)
+                          cur_pos=T - 1, sharded=False)
     return out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ params["wo"]
 
 
@@ -248,8 +250,11 @@ def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
             lis = [(li + j, pattern[j % n])
                    for j in range(r * n, (r + group) * n)]
             if remat:
+                # the recompute runs in the backward pass: in this
+                # forward's tensor-parallel layout, whatever is current
                 x, a = torch.utils.checkpoint.checkpoint(
-                    lambda xx, lis=lis: run(xx, lis)[:2], x,
+                    lambda xx, lis=lis, ctx=tp.current():
+                    _in_layout(ctx, run, xx, lis)[:2], x,
                     use_reentrant=False, preserve_rng_state=False)
             else:
                 x, a, outs = run(x, lis)
@@ -259,6 +264,11 @@ def layers_apply(cfg: ModelConfig, blocks, x, *, mode: str, states=None,
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, (new_states if mode != "train" else None), aux
+
+
+def _in_layout(ctx, fn, *args):
+    with tp.use(ctx):
+        return fn(*args)
 
 
 def layers_state_shape(cfg: ModelConfig, batch: int, max_len: int = 0,
@@ -304,7 +314,8 @@ def build_lm(cfg: ModelConfig):
         x, positions = _inputs(params, batch)
         x, _, aux = _backbone(params, x, mode="train", positions=positions)
         logits = unembed(cfg, params["embed"], x)
-        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+        loss = cross_entropy(logits, batch["labels"], batch.get("loss_mask"),
+                             vocab=cfg.vocab_size)
         return loss + 0.01 * aux, {
             "loss": loss, "aux_loss": aux,
             "tokens": torch.tensor(float(batch["labels"].numel()),
@@ -316,8 +327,7 @@ def build_lm(cfg: ModelConfig):
         x, positions = _inputs(params, batch)
         x, states, _ = _backbone(params, x, mode="prefill",
                                  positions=positions, max_len=max_len)
-        logits = unembed(cfg, params["embed"], x[:, -1:])
-        return logits[:, 0], states
+        return last_logits(cfg, params["embed"], x), states
 
     def decode_step(params, states, tokens, pos=None, positions=None):
         """tokens (B,) int, or for an embeds-input model the next inputs'
@@ -330,7 +340,7 @@ def build_lm(cfg: ModelConfig):
             x = embed_tokens(cfg, params["embed"], tokens[:, None])
         x, states, _ = _backbone(params, x, mode="decode", states=states,
                                  pos=pos, positions=positions)
-        logits = unembed(cfg, params["embed"], x)
+        logits = full_logits(cfg, unembed(cfg, params["embed"], x))
         return logits[:, 0], states
 
     def decode_state_shape(batch: int, max_len: int = 0):

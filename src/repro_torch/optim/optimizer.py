@@ -10,6 +10,14 @@ as in the reference.  Moment dtypes are configurable (AdamW float32 by
 default, Adafactor's momentum bf16).  The step count is a 0-d int32
 tensor and every update is elementwise tensor arithmetic on the
 parameters' device.
+
+Across ranks (``training/train_loop.py``'s sharded step): ``init`` takes
+DTensor parameters and gives moments placed as their parameters (an
+Adafactor factor drops the parameter's dim it averages over);
+``clip_by_global_norm`` takes DTensor gradients and sums each shard's
+squares across the mesh axes that shard it; ``update`` runs on the local
+shards, and Adafactor's means over a sharded dim (its factors, the
+update's RMS) are combined across that dim's ranks (``shards``).
 """
 from __future__ import annotations
 
@@ -43,15 +51,94 @@ def warmup_cosine(peak_lr: float, warmup: int = 100, total: int = 10_000,
     return lr
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _rewrap(like, local):
+    """`local` as a DTensor placed as `like` (`local` itself when `like`
+    is a plain tensor)."""
+    if not _is_dtensor(like):
+        return local
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=like.shape,
+                              stride=like.stride())
+
+
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most max_norm, in their own
-    dtypes; the global norm, float32 0-d)."""
+    dtypes; the global norm, float32 0-d).  A DTensor leaf adds its local
+    squares, summed across the mesh axes that shard it (one all-reduce
+    for all the leaves sharded alike)."""
+    from repro_torch.launch import tp
     flat = tree.leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in flat))
+    parts = {}
+    for g in flat:
+        key, local = None, g
+        if _is_dtensor(g):
+            mesh = g.device_mesh
+            names = tuple(n for n, p in zip(mesh.mesh_dim_names,
+                                            g.placements) if p.is_shard())
+            key, local = (mesh, names) if names else None, g.to_local()
+        parts.setdefault(key, []).append(
+            torch.sum(torch.square(local.to(torch.float32))))
+    total = 0
+    for key, sums in parts.items():
+        s = sum(sums)
+        total = total + (s if key is None else
+                         tp.all_reduce(s, tp.axis(*key)))
+    gn = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree.map_leaves(
-        lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), gn
+
+    def clip(g):
+        local = g.to_local() if _is_dtensor(g) else g
+        return _rewrap(g, (local.to(torch.float32) * scale).to(g.dtype))
+    return tree.map_leaves(clip, grads), gn
+
+
+def _zeros(p, dtype, drop=None):
+    """Zeros of p's shape (dim `drop` removed) in `dtype`, placed as p
+    (a dropped dim's shard replicated) when p is a DTensor."""
+    shape = tuple(p.shape) if drop is None else \
+        tuple(p.shape[:drop]) + tuple(p.shape[drop + 1:])
+    if not _is_dtensor(p):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, placements, local = p.device_mesh, [], list(shape)
+    for size, pl in zip(mesh.mesh.shape, p.placements):
+        if pl.is_shard() and drop is not None:
+            d = pl.dim % p.dim()
+            pl = Replicate() if d == drop else Shard(d - (d > drop))
+        if pl.is_shard():
+            local[pl.dim] //= size
+        placements.append(pl)
+    return DTensor.from_local(
+        torch.zeros(local, dtype=dtype, device=p.to_local().device), mesh,
+        placements, run_check=False, shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _mean(x, dim: int, shards, pdim: int):
+    """x.mean(dim), combined across the ranks of `shards[pdim]` (the
+    parameter dim that `dim` of x stands for) where it is sharded."""
+    out = x.mean(dim=dim)
+    ax = shards.get(pdim) if shards else None
+    if ax is None:
+        return out
+    from repro_torch.launch import tp
+    return tp.all_reduce(out, ax) / ax.size
+
+
+def _mean_all(x, shards):
+    """The mean of every element of x, combined across every sharded
+    dim's ranks."""
+    out = torch.mean(x)
+    from repro_torch.launch import tp
+    for ax in (shards or {}).values():
+        out = tp.all_reduce(out, ax) / ax.size
+    return out
 
 
 
@@ -61,13 +148,13 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
 
     def init(params):
         def zeros(p):
-            return torch.zeros(p.shape, dtype=mdt, device=p.device)
+            return _zeros(p, mdt)
         dev = tree.leaves(params)[0].device
         return {"m": tree.map_leaves(zeros, params),
                 "v": tree.map_leaves(zeros, params),
                 "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, shards=None):
         c = state["count"] + 1
         cf = c.to(torch.float32)
         bc1 = 1 - b1 ** cf
@@ -110,23 +197,20 @@ def adafactor(lr: Callable, *, eps=1e-30, clip_threshold=1.0, decay=0.8,
         vs = []
         for p in tree.leaves(params):
             if factored(p):
-                vs.append({"vr": torch.zeros(p.shape[:-1], dtype=f32,
-                                             device=p.device),
-                           "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
-                                             dtype=f32, device=p.device)})
+                vs.append({"vr": _zeros(p, f32, p.dim() - 1),
+                           "vc": _zeros(p, f32, p.dim() - 2)})
             else:
-                vs.append({"v": torch.zeros(p.shape, dtype=f32,
-                                            device=p.device)})
+                vs.append({"v": _zeros(p, f32)})
         dev = tree.leaves(params)[0].device
         st = {"v": vs, "count": torch.zeros((), dtype=torch.int32,
                                             device=dev)}
         if momentum is not None:
-            st["m"] = tree.map_leaves(
-                lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device),
-                params)
+            st["m"] = tree.map_leaves(lambda p: _zeros(p, mdt), params)
         return st
 
-    def update(grads, state, params):
+    def update(grads, state, params, shards=None):
+        """`shards`: per parameter leaf (flattening order), {dim: the
+        tp.Axis sharding it} of the local shards given, or None."""
         c = state["count"] + 1
         cf = c.to(torch.float32)
         beta2 = 1.0 - cf ** (-decay)
@@ -136,13 +220,19 @@ def adafactor(lr: Callable, *, eps=1e-30, clip_threshold=1.0, decay=0.8,
         flat_m = tree.flatten_up_to(params, state["m"]) \
             if momentum is not None else [None] * len(flat_p)
         new_u, new_v, new_m = [], [], []
-        for g, v, p, m in zip(flat_g, state["v"], flat_p, flat_m):
+        shards = shards or [None] * len(flat_p)
+        for g, v, p, m, sh in zip(flat_g, state["v"], flat_p, flat_m,
+                                  shards):
             gf = torch.square(g.to(torch.float32)) + eps
             if factored(p):
-                vr = beta2 * v["vr"] + (1 - beta2) * gf.mean(dim=-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * gf.mean(dim=-2)
+                nd = p.dim()
+                vr = beta2 * v["vr"] + (1 - beta2) * _mean(gf, -1, sh,
+                                                           nd - 1)
+                vc = beta2 * v["vc"] + (1 - beta2) * _mean(gf, -2, sh,
+                                                           nd - 2)
                 rfac = torch.rsqrt(vr / torch.clamp(
-                    vr.mean(dim=-1, keepdim=True), min=eps))[..., None]
+                    _mean(vr, -1, sh, nd - 2)[..., None], min=eps))[
+                        ..., None]
                 cfac = torch.rsqrt(vc)[..., None, :]
                 u = g.to(torch.float32) * rfac * cfac
                 v_out = {"vr": vr, "vc": vc}
@@ -150,7 +240,7 @@ def adafactor(lr: Callable, *, eps=1e-30, clip_threshold=1.0, decay=0.8,
                 vv = beta2 * v["v"] + (1 - beta2) * gf
                 u = g.to(torch.float32) * torch.rsqrt(vv)
                 v_out = {"v": vv}
-            rms_u = torch.sqrt(torch.mean(torch.square(u)) + 1e-30)
+            rms_u = torch.sqrt(_mean_all(torch.square(u), sh) + 1e-30)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             if momentum is not None:
                 u = momentum * m.to(torch.float32) + (1 - momentum) * u

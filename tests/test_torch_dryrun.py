@@ -6,13 +6,19 @@ the op analysis: ``batch_axes``, ``param_count``,
 ``param_bytes_global`` and every per-rank byte count must equal the
 reference's numbers from ``jax.eval_shape`` and
 ``NamedSharding.shard_shape`` (``_torch_ref_specs``), and an unsupported
-cell is skipped with the reference's reason.  One cell is traced
-(smollm-360m train_4k on 16x16, data parallel over all 256 ranks): its
-one all-reduce carries every float32 gradient and the loss.  The CLI
-writes a record per cell.  ``op_analysis`` counts a matmul as 2·M·N·K,
-a loop of k matmuls as k times that (as ``tests/test_hlo_analysis.py``
-holds ``analyze_hlo``), bytes as inputs plus outputs with views free,
-and a collective's payload."""
+cell is skipped with the reference's reason.  Three cells are traced:
+smollm-360m train_4k on 16x16, data parallel over all 256 ranks (its one
+all-reduce carries every float32 gradient and the loss); internlm2-20b
+train_4k, tensor-parallel over the model axis (one rank's flops a small
+share of the whole step's, activations all-reduced over "model"); and
+smollm-360m decode_32k, whose cache's sequence is sharded over "model"
+(the step combines its softmax across ranks and gathers no cache).  The
+CLI writes a record per cell.  ``op_analysis`` counts a matmul as
+2·M·N·K, a loop of k matmuls as k times that (as
+``tests/test_hlo_analysis.py`` holds ``analyze_hlo``), bytes as inputs
+plus outputs with views free, and a collective's payload; on DTensors it
+counts one rank's local work and no autograd wrapper as a
+collective."""
 import json
 
 import pytest
@@ -78,8 +84,30 @@ def test_traced_train_cell(ref, fake512):
     # parameter and token
     assert oa["flops"] > 8 * n * 4096
     assert oa["bytes"] > rec["param_bytes_global"]
-    tp = D.run_cell("internlm2_20b", "train_4k", False)["op_analysis"]
-    assert tp["status"] == "not traced" and "tensor-parallel" in tp["reason"]
+    rec = D.run_cell("internlm2_20b", "train_4k", False)
+    tp = rec["op_analysis"]
+    assert tp["status"] == "ok", tp
+    n = rec["param_count"]
+    # the whole step: forward and backward over 256 x 4096 tokens; one
+    # rank (1/16 of the rows, 1/16 of the model) does ~1/256 of it, plus
+    # the remat recompute
+    whole = 6 * n * 256 * 4096
+    assert whole / 1024 < tp["flops"] < whole / 16
+    model = tp["collectives_by_axis"]["model"]["allreduce_"]
+    assert model["count"] > 0 and model["bytes"] > 0
+
+
+def test_traced_decode_cell_gathers_no_cache(ref, fake512):
+    rec = D.run_cell("smollm_360m", "decode_32k", False)
+    oa = rec["op_analysis"]
+    assert oa["status"] == "ok", oa
+    # the cache's sequence is this rank's 2048 of 32,768 slots: the step
+    # all-reduces the softmax's max, sum and weighted values, and gathers
+    # no cache
+    assert all(not op.startswith("_allgather") for ops in
+               oa["collectives_by_axis"].values() for op in ops)
+    assert 0 < oa["collective_bytes_total"] < \
+        rec["per_device_bytes"]["decode_state"] / 100
 
 
 def test_cli_writes_a_record_per_cell(tmp_path, monkeypatch):
@@ -115,3 +143,30 @@ def test_op_analysis_counts_matmuls_loops_bytes_and_collectives():
         torch.distributed.destroy_process_group()
     assert got["collectives"] == {"allreduce_": {"bytes": 128, "count": 1}}
     assert got["flops"] == 0
+
+
+def test_op_analysis_counts_a_dtensor_step_per_rank():
+    """(16,256)[S0,R] @ (256,128)[R,S1] @ (128,256)[R,S0] on a 2 x 2
+    ("data", "model") mesh, then redistributed to [S0, R]: one rank's two
+    local matmuls (2·8·256·64 + 2·8·64·256 = 524,288 flops; the global
+    shapes would give 2,097,152) and the one all-reduce of its (8, 256)
+    float32 partial sum, with no autograd wrapper counted."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.shardings import distribute
+    D.fake_world(4)
+    try:
+        mesh = make_host_mesh((2, 2), ("data", "model"))
+        a, b, c = distribute(
+            [torch.empty(s, device="meta")
+             for s in ((16, 256), (256, 128), (128, 256))],
+            [("data", None), (None, "model"), ("model", None)], mesh)
+
+        def step():
+            return ((a @ b) @ c).redistribute(mesh, [Shard(0), Replicate()])
+        got = op_analysis.analyze(step)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert got["flops"] == 524_288
+    assert got["collectives"] == {"all_reduce": {"bytes": 8192, "count": 1}}
+    assert got["collective_bytes_total"] == 8192

@@ -16,8 +16,9 @@ leaf within rtol 1e-3 and atol 1e-3 of the leaf's largest magnitude
 (``_torch_lm.close_deep``, the port's whole-model tolerance), the loss
 and grad_norm within rtol 1e-3; the two ranks equal bit for bit.  On a
 mesh of one rank the step is the unsharded step bit for bit; a
-tensor-parallel arch on a model axis above 1 raises, and so does a rank
-whose rows do not split into the microbatches."""
+tensor-parallel arch on a model axis above 1 takes the sharded step
+(held in tests/test_torch_tp.py), and a data-parallel rank whose rows do
+not split into the microbatches raises."""
 import pickle
 
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.launch.dryrun import fake_world
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.shardings import batch_shardings, grad_shardings
 from repro_torch.training import make_train_step
+from repro_torch.training.train_loop import _is_sharded
 
 torch.set_num_threads(1)
 
@@ -102,9 +104,11 @@ def test_tensor_parallel_arch_on_a_model_axis_raises():
         cfg = reduced_config("internlm2_20b")
         assert cfg.tensor_parallel
         batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="tensor-parallel"):
-            make_train_step(cfg, batch_shardings=batch_shardings(
-                cfg, mesh, batch, 4))
+        # a tensor-parallel arch on a model axis builds the sharded step
+        # (tests/test_torch_tp.py holds it against one process)
+        bsh = batch_shardings(cfg, mesh, batch, 4)
+        make_train_step(cfg, batch_shardings=bsh)
+        assert _is_sharded(cfg, mesh, {k: s.spec for k, s in bsh.items()})
         # a non-TP arch on the same mesh takes the model axis as data:
         # 4 ranks of one row cannot each split it into 2 microbatches
         dense = reduced_config("smollm_360m").replace(microbatches_train=2)
