@@ -90,6 +90,25 @@ One JSON line per phase:
    BENCH_latency.json and the three rows of that grid point in
    BENCH_shootout.json (downtime, hermes, spinnaker), rebuilt on cuda,
    packed and unpacked, byte for byte.
+10a. ``autotune``: the run-time tile of the Monte Carlo kernels
+   (``downtime_eval.cu``'s rows T, ``fused_downtime.cu``'s (block_t,
+   block_p)) and its tuners.  At the paper tile each of the six kinds
+   (pac, downtime, downtime_roster, fused_pac, fused_downtime,
+   fused_downtime_roster) runs every candidate, each ``torch.equal`` to
+   the plain version and to the default tile, then races them
+   (``ops.autotune_block_p`` / ``autotune_fused_blocks``: each
+   candidate's median µs and the choice); ``mc_check.tile_checks`` holds
+   the default, the smallest and the largest valid tile on the edge
+   cases made to tile (n_pad 31 / 63 / 160 / 2500 in column passes,
+   views at a byte offset, tiles across trials, B 1 / 8 / 9 / 16, W 1 /
+   5 / 8 / 9, the counts cases) and the default on the ragged ones (where
+   a named tile must be refused before any launch), with every planted
+   fault of both sources failing a case (``autotune_tiles`` names those
+   that fail one at a named tile); the smoke sweep (backend pallas) with
+   autotune, unpacked and packed, gives a measured ``autotune`` row and
+   then gated rows equal field for field to the sweep without it
+   (``SMOKE_ROWS``, the reference's rows).  The phase fails past
+   ``AUTOTUNE_BOX_S`` (90 s).
 11. ``mlstm`` / ``kernel_time``: ``mlstm_chunkwise`` against
    ``mlstm_chunkwise_plain`` on both CUDA sources at the xlstm-350m serve
    shape (B = 4, H = 4, S = 1024, Dq = Dv = 512, chunk 256) in bf16 and
@@ -277,9 +296,11 @@ One JSON line per phase:
    the local shape; the phase must end within ``TP_BOX_S``.
 29. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
-   the same function, that call's time.  ``node_count``'s launches are
-   those of the counts mode, which does its work on the main path; its
-   time is node_count alone.
+   the same function, that call's time; the Monte Carlo kernels with a
+   tile also its entry points (``step_eval``'s tile, the tuner) and the
+   race of phase 10a (choice, default, each candidate's µs).
+   ``node_count``'s launches are those of the counts mode, which does its
+   work on the main path; its time is node_count alone.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -431,6 +452,21 @@ EVENT_SMOKE_ROWS = [
     '"kind": "iid", "p": 0.01, "ratio": 8.233144621718992, "rf": 3, '
     '"ticks": 20003, "u_lark": 0.0007588705444183373, '
     '"u_maj": 0.006247890941358796}']
+#: the reference runner's two smoke-spec rows under a batched backend
+#: (the spec the autotune phase sweeps; every batched backend and layout
+#: gives these bits), serialized as the runner dumps them;
+#: tests/test_torch_sweep.py holds these strings against the reference
+SMOKE_ROWS = [
+    '{"analytic_ratio": 3, "analytic_u_lark": 0.0008483363182203787, '
+    '"ci_lark": 4.0724370269851914e-05, "ci_maj": 6.906650973244361e-05, '
+    '"kind": "iid", "p": 0.003, "ratio": 2.88080684596577, "rf": 2, '
+    '"ticks": 15202, "u_lark": 0.0008407610840678858, '
+    '"u_maj": 0.0024220702868043677}',
+    '{"analytic_ratio": 10, "analytic_u_lark": 0.0007513148009015778, '
+    '"ci_lark": 3.64308181534764e-05, "ci_maj": 0.00010938350359004267, '
+    '"kind": "iid", "p": 0.01, "ratio": 9.068359375, "rf": 3, '
+    '"ticks": 16467, "u_lark": 0.0007287301876480233, '
+    '"u_maj": 0.0066083872290034614}']
 #: the sources whose planted faults the kernel, mlstm, rglru and flash
 #: phases run: (faults, C symbol or symbols, argtypes)
 FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
@@ -590,8 +626,8 @@ def check_kernels(bw, faults, fused_faults):
     raw = _build.function("downtime_eval", "pac_eval_launch", pk._ARGTYPES)
     ptrs = [t.data_ptr() for t in (up, full, *outs)]
 
-    def pac_launch(stream):
-        return raw(*ptrs, R, N, N, rf, voters, stream)
+    def pac_launch(stream):                   # the default tile (0)
+        return raw(*ptrs, R, N, N, rf, voters, 0, stream)
 
     pac_ms = mcc.event_ms(pac_launch)
     pac_wrap_ms = time_ms(lambda: pk.pac_eval(up, full, rf=rf,
@@ -603,8 +639,8 @@ def check_kernels(bw, faults, fused_faults):
                            fk._ARGTYPES)
     fptrs = [t.data_ptr() for t in (upw, fullw, *fouts)]
 
-    def fused_launch(stream):
-        return fraw(*fptrs, B, W, P, N, rf, voters, stream)
+    def fused_launch(stream):                 # the default block (0, 0)
+        return fraw(*fptrs, B, W, P, N, rf, voters, 0, 0, stream)
 
     fused_ms = mcc.event_ms(fused_launch)
     fused_wrap_ms = time_ms(lambda: fk.fused_pac_eval(
@@ -864,7 +900,7 @@ def check_downtime_kernels(bw, faults, fused_faults):
     fargs = (upw.data_ptr(), fullw.data_ptr(), rost3.data_ptr(),
              rec.data_ptr(), act.data_ptr(),
              *(o.data_ptr() for o in fouts[:5]), None, None,
-             fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf)
+             fouts[5].data_ptr(), fouts[6].data_ptr(), B, W, P, N, rf, 0, 0)
 
     def fused_launch(stream):
         return fraw(*fargs, stream)
@@ -1312,6 +1348,129 @@ def check_zoo_bench_rows():
                                  f"got  {got}\nwant {want}")
 
 
+#: the autotune phase's box, seconds
+AUTOTUNE_BOX_S = 90.0
+#: the six kinds the tuners race
+AUTOTUNE_KINDS = ops.AUTOTUNE_KERNELS + ops.FUSED_KERNELS
+#: the kernels line's tile entry per Monte Carlo kernel: the race whose
+#: kind the kernel runs (the counts modes share their eval's row tile;
+#: node_count alone has no tile)
+KERNEL_RACE = {"pac_eval": "pac", "downtime_eval": "downtime",
+               "downtime_eval_counts": "downtime",
+               "downtime_eval_roster": "downtime_roster",
+               "downtime_eval_roster_counts": "downtime_roster",
+               "fused_pac_eval": "fused_pac",
+               "fused_downtime_eval": "fused_downtime_roster"}
+
+
+def check_autotune(faults, fused_faults):
+    """Phase 10a: the tile tuners and the run-time tile.  (1) At the paper
+    tile, each of the six kinds: every candidate's outputs ``torch.equal``
+    to the plain version's and to the default tile's, then the race
+    (``ops.autotune_block_p`` / ``autotune_fused_blocks``, each candidate's
+    median µs).  (2) ``mc_check.tile_checks``: the ragged edge cases at the
+    default tile (a named tile refused before any launch) and the cases
+    that tile at the default, the smallest and the largest valid tile,
+    through the wrappers and through each planted fault of both sources
+    (`faults`, `fused_faults`), every fault failing a case.  (3) The smoke
+    sweep (backend pallas) with autotune, unpacked and packed: an
+    ``autotune`` row measured on the card, then gated rows equal field
+    for field to the same sweep without autotune, ``SMOKE_ROWS`` (the
+    reference's rows, which the port's sweep gives on every device and in
+    both layouts; pinned so that the box is not spent sweeping twice).
+    Within ``AUTOTUNE_BOX_S``.  Returns {kind: the race's record}."""
+    t0 = time.monotonic()
+    dev = torch.device(DEVICE)
+    ops._AUTOTUNE_CACHE.clear()
+    races = {}
+    for kind in AUTOTUNE_KINDS:
+        fused = kind in ops.FUSED_KERNELS
+        dims = (B, P) if fused else (B * P,)
+        kw = dict(rf=2, voters=3, n_real=N)
+        cands = ops.fused_block_candidates(B, P, N, rf=2, kernel=kind) \
+            if fused else ops.block_p_candidates(B * P, N, rf=2, kernel=kind)
+        call, plain = ops.race_calls(kind, dims, N, device=dev, **kw)
+        want, default = plain(), call()
+        equal = {}
+        for c in cands:
+            got = call(c)
+            equal[str(c)] = mcc.same(got, want) and mcc.same(got, default)
+        torch.cuda.synchronize()
+        if not mcc.same(default, want) or not all(equal.values()):
+            raise SystemExit(f"autotune {kind}: a tile disagrees: {equal}")
+        res = ops.autotune_fused_blocks(B, P, N, kernel=kind, device=dev,
+                                        **kw) if fused else \
+            ops.autotune_block_p(B * P, N, kernel=kind, device=dev, **kw)
+        choice = [res.block_t, res.block_p] if fused else res.block_p
+        default_tile = list(fk.DEFAULT_BLOCK) if fused \
+            else pk.default_row_tile(B * P, N, rf=2,
+                                     roster=kind == "downtime_roster")
+        races[kind] = {"choice": choice, "default": default_tile,
+                       "source": res.source,
+                       "timings_us": {"x".join(map(str, c)) if fused
+                                      else str(c): us
+                                      for c, us in res.timings_us.items()}}
+        emit({"phase": "autotune", "kind": kind, "candidates": len(cands),
+              "equal_plain_and_default": all(equal.values()),
+              **races[kind]})
+        if res.source != "measured":
+            raise SystemExit(f"autotune {kind}: source {res.source}")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    srcs = {"downtime_eval": faults, "fused_downtime": fused_faults}
+    caught = {src: {f: [] for f in fl} for src, fl in srcs.items()}
+    at_tile = {src: {f: [] for f in fl} for src, fl in srcs.items()}
+    cases = refused = 0
+    for src, rec in mcc.tile_checks(gen, srcs):
+        cases += 1
+        if not rec["equal"] or not rec.get("refused", True):
+            emit({"phase": "autotune_tiles", **rec})
+            raise SystemExit(f"{rec['kernel']} at tile {rec['tile']} on "
+                             f"{rec['case']}: equal={rec['equal']}, "
+                             f"refused={rec.get('refused')}")
+        refused += "refused" in rec
+        for f in rec["faults_failed"]:
+            caught[src][f].append(f"{rec['kernel']}:{rec['case']}")
+            if rec["tile"] is not None:
+                at_tile[src][f].append(f"{rec['kernel']}:{rec['case']}:"
+                                       f"{rec['tile']}")
+    missed = [f for fl in caught.values() for f, c in fl.items() if not c]
+    emit({"phase": "autotune_tiles", "records": cases,
+          "ragged_refused": refused,
+          "faults_caught": {src: {f: len(c) for f, c in fl.items()}
+                            for src, fl in caught.items()},
+          "faults_caught_at_a_named_tile": {
+              src: sorted(f for f, c in fl.items() if c)
+              for src, fl in at_tile.items()},
+          "missed": missed})
+    if missed:
+        raise SystemExit(f"autotune: planted faults {missed} passed the "
+                         f"tile checks")
+    for packed in (False, True):
+        t1 = time.monotonic()
+        tuned = list(runner.iter_rows(ExperimentSpec.create(
+            smoke=True, backend="pallas", packed=packed, autotune=True),
+            device=DEVICE))
+        gated = [json.dumps(runner._json_safe(r), sort_keys=True)
+                 for r in tuned if runner.row_key(r) is not None]
+        head = tuned[0]
+        emit({"phase": "autotune_sweep", "packed": packed,
+              "row": head, "gated_rows": len(gated),
+              "identical": gated == SMOKE_ROWS,
+              "tuned_s": time.monotonic() - t1})
+        if head["kind"] != "autotune" or head["source"] != "measured" \
+                or gated != SMOKE_ROWS:
+            raise SystemExit(f"autotuned smoke sweep (packed={packed}) "
+                             f"differs:\n{gated}\n{SMOKE_ROWS}")
+    wall = time.monotonic() - t0
+    emit({"phase": "autotune_total", "wall_s": wall,
+          "box_s": AUTOTUNE_BOX_S})
+    if wall > AUTOTUNE_BOX_S:
+        raise SystemExit(f"autotune phase took {wall:.1f} s, past its "
+                         f"{AUTOTUNE_BOX_S} s box")
+    return races
+
+
 # ---------------------------------------------------------------------------
 # the LM serve path: mlstm_chunkwise and xlstm-350m behind the session store
 # ---------------------------------------------------------------------------
@@ -1742,7 +1901,8 @@ def sdpa_ms(q, k, v, *, window, reps):
 #: pac mode of fused_downtime_kernel), to a label
 PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "mlstm_output_kernel": "output_NV",
-                "fused_downtime_kernel": "W", "rglru_scan_kernel": "chained",
+                "fused_downtime_kernel": "W", "fused_named_kernel": "named_W",
+                "rglru_scan_kernel": "chained",
                 "row_eval_kernel": "mode", "node_count_kernel": "node_count",
                 "microsim_scan_kernel": "ticks",
                 "rglru_scan_bwd_kernel": "reverse_chained",
@@ -1756,7 +1916,8 @@ PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                    for k in ("fstates", "rows", "dstates", "cols")
                    for t, n in (("f", "f32"), ("13__nv_bfloat16", "bf16"))}}
 #: what a bool second template argument set to true adds to the label
-PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "row_eval_kernel": "_counts",
+PTXAS_FLAGS = {"fused_downtime_kernel": "_pac", "fused_named_kernel": "_pac",
+               "row_eval_kernel": "_counts",
                "bwd90_walk_kernel": "_rev", "bwd90_abt_kernel": "_lo"}
 
 
@@ -1767,16 +1928,19 @@ def ptxas_usage(log: str) -> dict:
     instructions are serialized" notes, C7510-C7520: for want of
     registers, or an accumulator live across divergent paths).  Labels:
     ``PTXAS_LABELS`` and the template argument (``D256``,
-    ``states_NV256``, ``W5_pac``, ``mode2_counts``, ``apply_mode1_256``
-    (a second int argument after an underscore); ``W0`` is the loop)."""
+    ``states_NV256``, ``W5_pac``, ``named_W5_pac``, ``mode2_counts_t256``,
+    ``apply_mode1_256`` (a second int argument after an underscore; an int
+    argument after the flag, the launch bound in threads, after ``_t``);
+    ``W0`` is the loop)."""
     def label(text):
         for kernel, tag in PTXAS_LABELS.items():
-            m = re.search(kernel + r"(?:ILi(\d+)E(?:Li(\d+)E)?(Lb1E)?)?",
-                          text)
+            m = re.search(kernel + r"(?:ILi(\d+)E(?:Li(\d+)E)?"
+                          r"(?:(Lb1E)|Lb0E)?(?:Li(\d+)E)?)?", text)
             if m:
                 return tag + (m.group(1) or "") + \
                     (f"_{m.group(2)}" if m.group(2) else "") + \
-                    (PTXAS_FLAGS[kernel] if m.group(3) else "")
+                    (PTXAS_FLAGS[kernel] if m.group(3) else "") + \
+                    (f"_t{m.group(4)}" if m.group(4) else "")
         return None
 
     usage, head = {}, None
@@ -3863,6 +4027,7 @@ def main() -> int:
     launches["downtime_eval_roster"] = got["downtime_eval_roster"]
     mc_runs.update({("zoo", k): v for k, v in runs.items()})
     check_zoo_bench_rows()
+    races = check_autotune(faults["downtime_eval"], faults["fused_downtime"])
     rec.update(check_mlstm_kernel(bw, faults))
     launches["mlstm_chunkwise_sm90"] = check_serve()
     launches["mlstm_chunkwise"] = check_serve_cpu()
@@ -3904,6 +4069,13 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms")})
+        if kname in KERNEL_RACE:
+            fused = kname.startswith("fused")
+            kernels[-1]["tile"] = {
+                "entry_points": ["ops.step_eval(block_t=, block_p=)",
+                                 "ops.autotune_fused_blocks" if fused
+                                 else "ops.autotune_block_p"],
+                **races[KERNEL_RACE[kname]]}
     emit({"phase": "total", "wall_s": time.monotonic() - t_start,
           "device_count": torch.cuda.device_count()})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,7 +3,7 @@
     PYTHONPATH=src python -m repro_torch.bench_gate \\
         --config benchmarks/configs/latency.toml \\
         --config benchmarks/configs/shootout.toml [--config ...] \\
-        [--packed-too] [--device cuda] --out DIR
+        [--packed-too] [--autotune] [--device cuda] --out DIR
 
 Every committed config runs: ``sweep.toml``, the three
 ``downtime*.toml``, ``latency.toml`` and ``shootout.toml``.
@@ -13,7 +13,14 @@ For each config (and, with ``--packed-too``, a copy of it with
 ... --json ... --events ...`` in its own process, all at once, waits for
 them, then runs ``benchmarks/check_regression.py OUT BASELINE
 --identical`` on each result, the baseline being the config's
-``BENCH_<name>.json`` beside ``benchmarks/configs``.  It prints one JSON
+``BENCH_<name>.json`` beside ``benchmarks/configs``.  ``--autotune``
+runs each config as a copy with ``backend = "pallas"`` and ``autotune =
+true``: the sweep races the kernel's tiles first and runs the grid at
+the chosen one.  Its ``autotune`` row has no row key (``row_key`` is
+None): the gate never holds it.  ``check_regression.py --identical``
+compares every row of a dump in order, so the gate runs on
+``<label>.gated.json``, the summary without its rows that have no key,
+and every other row must still equal the baseline's.  It prints one JSON
 line per run (the gate's verdict, its last output line, and the sweep's
 own ``run_end.wall_s`` and rows per second from its events file) and
 exits non-zero if any run or gate failed.  The runs share the machine,
@@ -28,24 +35,55 @@ import subprocess
 import sys
 from pathlib import Path
 
+from .experiments.schema import row_key
+
 ROOT = Path(__file__).resolve().parents[2]
 
 
-def _runs(configs, packed_too: bool, out: Path):
+def gated_copy(path: Path) -> Path:
+    """The summary at `path` without its rows that have no row key (the
+    autotune row), written beside it as ``<stem>.gated.json``; `path`
+    itself when every row has a key."""
+    doc = json.loads(Path(path).read_text())
+    rows = [r for r in doc["rows"] if row_key(r) is not None]
+    if len(rows) == len(doc["rows"]):
+        return Path(path)
+    out = Path(path).with_suffix(".gated.json")
+    out.write_text(json.dumps(dict(doc, rows=rows), indent=1,
+                              sort_keys=True, allow_nan=False))
+    return out
+
+
+def tuned_text(text: str) -> str:
+    """A config's text with backend "pallas" and autotune on."""
+    lines = [line for line in text.splitlines()
+             if not line.replace(" ", "").startswith("backend=")]
+    return "\n".join(lines) + '\nbackend = "pallas"\nautotune = true\n'
+
+
+def _runs(configs, packed_too: bool, out: Path, autotune: bool = False):
     """(label, config path, baseline path) for every run."""
     for cfg in map(Path, configs):
         base = cfg.resolve().parents[1] / f"BENCH_{cfg.stem}.json"
-        yield cfg.stem, cfg, base
+        label, text = cfg.stem, cfg.read_text()
+        if autotune:
+            label, text = f"{cfg.stem}_autotune", tuned_text(text)
+            cfg = out / f"{label}.toml"
+            cfg.write_text(text)
+        yield label, cfg, base
         if packed_too:
-            packed = out / f"{cfg.stem}_packed.toml"
-            packed.write_text(cfg.read_text() + "packed = true\n")
-            yield f"{cfg.stem}_packed", packed, base
+            packed = out / f"{label}_packed.toml"
+            packed.write_text(text + "packed = true\n")
+            yield f"{label}_packed", packed, base
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", action="append", required=True)
     ap.add_argument("--packed-too", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="run each config with backend pallas and "
+                         "autotune on (the autotune row is not gated)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", required=True)
     args = ap.parse_args(argv)
@@ -53,7 +91,8 @@ def main(argv=None) -> int:
     out.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
-    for label, cfg, base in _runs(args.config, args.packed_too, out):
+    for label, cfg, base in _runs(args.config, args.packed_too, out,
+                                  args.autotune):
         log = open(out / f"{label}.log", "w")
         cmd = [sys.executable, "-m", "repro_torch.sweep", "--config",
                str(cfg), "--device", args.device, "--json",
@@ -67,8 +106,9 @@ def main(argv=None) -> int:
         log.close()
         gate = subprocess.run(
             [sys.executable, str(ROOT / "benchmarks" / "check_regression.py"),
-             str(out / f"{label}.json"), str(base), "--identical"],
-            capture_output=True, text=True) if rc == 0 else None
+             str(gated_copy(out / f"{label}.json")), str(base),
+             "--identical"], capture_output=True, text=True) \
+            if rc == 0 else None
         end = {}
         events = out / f"{label}.events.jsonl"
         if events.exists():

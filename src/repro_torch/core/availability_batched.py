@@ -475,7 +475,8 @@ def simulate_availability_batched(
         devices: int = 1, chunk_steps: int = 512,
         max_steps: Optional[int] = None, trajectory: bool = False,
         voters: Optional[int] = None, use_shard_map: Optional[bool] = None,
-        packed: bool = False, device=None) -> BatchedAvailabilityResult:
+        packed: bool = False, device=None, pac_block_p: Optional[int] = None,
+        block_t: Optional[int] = None) -> BatchedAvailabilityResult:
     """Batched Monte Carlo over `trials` trajectories sharing one
     succession matrix (seeded); failure randomness is independent per
     trial.  Same knobs and results as the reference engine.
@@ -491,7 +492,9 @@ def simulate_availability_batched(
     voters overrides the baseline quorum size (default 2*(rf-1)+1).
     packed=True carries the holder masks as (B, W, P) int32 words and
     evaluates with ``fused_pac_eval`` — layout only, trajectories
-    bit-identical to packed=False.
+    bit-identical to packed=False.  pac_block_p (and, packed, block_t) is
+    the kernel's tile, typically an autotuner's choice (``step_eval``'s
+    block_p / block_t; None: the kernel's default) — throughput only.
     """
     _validate_batched_args(devices=devices, trials=trials,
                            wave_width=wave_width, n=n)
@@ -511,7 +514,7 @@ def simulate_availability_batched(
                     packed=packed)
 
     def pac_fn(u, f):
-        o = step_eval(spec, u, f)
+        o = step_eval(spec, u, f, block_p=pac_block_p, block_t=block_t)
         return o.lark, o.maj, o.creps
 
     step = _make_step(pac_fn, succ, n=n, P=P, horizon=horizon,

@@ -283,7 +283,8 @@ def simulate_client_latency(
         size_skew: float = 1.0,
         node_bandwidth_gibps: float = math.inf,
         params: Optional[DowntimeParams] = None,
-        device=None, **kwargs) -> BatchedLatencyResult:
+        device=None, pac_block_p: Optional[int] = None,
+        block_t: Optional[int] = None, **kwargs) -> BatchedLatencyResult:
     """Run the §6 downtime Monte Carlo with the client-latency layer
     attached and summarize what the request stream saw.
 
@@ -291,7 +292,9 @@ def simulate_client_latency(
     devices/packed, chunking) via **kwargs, plus the workload knobs
     above, all validated in DowntimeParams; `params` takes precedence
     over the individual keywords.  device: ``None`` runs on ``cuda``
-    (and raises without a card); ``"cpu"`` runs the plain kernels."""
+    (and raises without a card); ``"cpu"`` runs the plain kernels.
+    pac_block_p / block_t: the §6 kernel's tile, as
+    ``simulate_downtime_batched`` takes it."""
     if params is None:
         params = DowntimeParams(
             dupres_ticks=dupres_ticks, rebuild_steps=rebuild_steps,
@@ -305,7 +308,8 @@ def simulate_client_latency(
     plan = make_latency_plan(seed, partitions, params, max_ticks)
     res = simulate_downtime_batched(
         partitions=partitions, seed=seed, max_ticks=max_ticks,
-        params=params, _lat_plan=plan, device=device, **kwargs)
+        params=params, _lat_plan=plan, device=device,
+        pac_block_p=pac_block_p, block_t=block_t, **kwargs)
 
     # -- pooling, host-side float64, the reference's expressions verbatim
     raw = res.latency_raw

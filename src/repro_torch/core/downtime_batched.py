@@ -1044,7 +1044,8 @@ def simulate_downtime_batched(
         engines: tuple = ("lark", "quorum"), lease_ticks: int = 0,
         view_change_ticks: int = 0, _disable_predicates: tuple = (),
         _lat_plan=None, use_shard_map: Optional[bool] = None,
-        device=None) -> BatchedDowntimeResult:
+        device=None, pac_block_p: Optional[int] = None,
+        block_t: Optional[int] = None) -> BatchedDowntimeResult:
     """Batched §6 commit-pause Monte Carlo over `trials` trajectories —
     the reference's knobs and results (see its docstring for each knob).
 
@@ -1058,6 +1059,9 @@ def simulate_downtime_batched(
     packed=True carries the holder
     masks as (B, W, P) int32 words and evaluates each step with one
     ``fused_downtime_eval`` launch — layout only, bit-identical.
+    pac_block_p (and, packed, block_t) is the kernel's tile, typically an
+    autotuner's choice (``step_eval``'s block_p / block_t; None: the
+    kernel's default) — throughput only.
 
     engines adds the protocol zoo on the same node trajectories (hermes:
     `lease_ticks` membership leases; spinnaker: `view_change_ticks`
@@ -1117,7 +1121,7 @@ def simulate_downtime_batched(
         [, counts]); the extras are repmask (hermes) and rleader
         (spinnaker, roster calls only)."""
         o = step_eval(spec, u, f, roster=roster, recruit=recruit,
-                      active=active)
+                      active=active, block_p=pac_block_p, block_t=block_t)
         extras = tuple(x for x in (o.repmask, o.rleader) if x is not None)
         base = (o.lark, o.maj, o.leader, o.leader_full, o.nrep) + extras \
             + (o.creps,)

@@ -6,10 +6,11 @@ provenance-stamped summary out.  The grids, the scales and every row
 expression are the reference's, so a spec regenerates the reference's
 rows byte for byte (``benchmarks/check_regression.py --identical``).
 
-* ``iter_rows(spec, device=...)`` — the i.i.d. grid, then each scenario
-  grid, in the reference's order and shapes: §5.1 availability rows, §6
-  downtime rows (with one row per protocol-zoo engine) or client-latency
-  rows (``spec.downtime_params()`` carries the knobs).
+* ``iter_rows(spec, device=...)`` — the autotune row (when
+  ``spec.autotune``), the i.i.d. grid, then each scenario grid, in the
+  reference's order and shapes: §5.1 availability rows, §6 downtime rows
+  (with one row per protocol-zoo engine) or client-latency rows
+  (``spec.downtime_params()`` carries the knobs).
 * ``ExperimentRunner`` — drives ``iter_rows``, prints the CSV progress
   lines, streams one JSONL event per row, assembles the summary.
 * ``run_batch(specs)`` — several specs back to back.
@@ -26,8 +27,18 @@ rows under ``backend="event"`` run the scalar event engine
 (``core/availability.py``, host numpy) once per seed, as the reference's
 do; scenario, downtime and latency rows under ``"event"`` run the batched
 engine on one device, as the reference's ``_batched_backend`` maps them.
-Not ported yet, raising ``NotImplementedError``: ``autotune`` (ROADMAP
-Queue 1 item 10).
+
+``autotune`` (backend ``"pallas"``) races the kernel's tiles before the
+grid (``_autotune_row``: ``kernels/ops.autotune_block_p``, or with
+``packed`` ``autotune_fused_blocks``) at the grid's first rf and runs
+every row at the chosen tile; the tile is throughput only, so every
+later row is the run without autotune's.  One departure from the
+reference, which races one device's shard, ``(trials // devices) *
+parts`` rows: a rank runs its D / R shards as one batch, so the race
+takes the shape the rank launches, ``(trials // world) * parts`` rows
+(``B = trials // world`` packed), world being the ranks of the group
+(1 without one).  Each rank races its own shape; rank 0 prints the
+``autotune,...`` line.
 """
 from __future__ import annotations
 
@@ -78,9 +89,60 @@ def _iid_grid(full: bool, smoke: bool):
     return SMOKE_GRID if smoke else (FULL_GRID if full else REDUCED_GRID)
 
 
+def _autotune_row(n: int, parts: int, trials: int, world: int, *,
+                  metric: str = "availability", rf: int = 2,
+                  rebuild_model: str = "fixed", packed: bool = False,
+                  device=None):
+    """Race the kernel's tile candidates at the shape this rank launches,
+    for the kernel the grid will run at the grid's rf: unpacked, the row
+    tile of ``pac_eval`` / ``downtime_eval`` (or its roster variant);
+    packed, the (block_t, block_p) block of the fused kernel of the same
+    metric and model.  Returns (block_p, block_t, row); block_t is None
+    unpacked.  Off the card the tuner returns the kernel's own tile as
+    "heuristic-fallback"."""
+    from ..kernels.ops import autotune_block_p, autotune_fused_blocks
+    voters = 2 * (rf - 1) + 1
+    lead = rdist.rank() == 0
+    # the latency layer rides on the downtime step: same kernels
+    if packed:
+        if metric in ("downtime", "latency"):
+            kernel = "fused_downtime_roster" if rebuild_model == "reconfig" \
+                else "fused_downtime"
+        else:
+            kernel = "fused_pac"
+        res = autotune_fused_blocks(trials // world, parts, n, rf=rf,
+                                    voters=voters, n_real=n, kernel=kernel,
+                                    device=device)
+        row = {"kind": "autotune", "block_p": res.block_p,
+               "block_t": res.block_t, "source": res.source,
+               "kernel": kernel, "rf": rf,
+               "timings_us": {f"{bt}x{bp}": v
+                              for (bt, bp), v in res.timings_us.items()}}
+        if lead:
+            print(f"autotune,fused_blocks,0,choice={res.block_t}x"
+                  f"{res.block_p};source={res.source};kernel={kernel};"
+                  f"rf={rf};candidates={len(res.timings_us)}")
+        return res.block_p, res.block_t, row
+    if metric in ("downtime", "latency"):
+        kernel = "downtime_roster" if rebuild_model == "reconfig" \
+            else "downtime"
+    else:
+        kernel = "pac"
+    res = autotune_block_p((trials // world) * parts, n, rf=rf,
+                           voters=voters, n_real=n, kernel=kernel,
+                           device=device)
+    row = {"kind": "autotune", "block_p": res.block_p, "source": res.source,
+           "kernel": kernel, "rf": rf,
+           "timings_us": {str(k): v for k, v in res.timings_us.items()}}
+    if lead:
+        print(f"autotune,block_p,0,choice={res.block_p};source={res.source};"
+              f"kernel={kernel};rf={rf};candidates={len(res.timings_us)}")
+    return res.block_p, None, row
+
+
 def _gen_run(full: bool = False, seeds=(0,), backend: str = "event",
              devices: int = 1, smoke: bool = False, packed: bool = False,
-             device=None):
+             device=None, pac_block_p=None, block_t=None):
     """i.i.d. rows.  ``backend="event"``: one scalar event-engine run per
     seed on the host, averaged; any other backend: one batch of
     len(seeds) trials from seed min(seeds) on `device`."""
@@ -110,7 +172,8 @@ def _gen_run(full: bool = False, seeds=(0,), backend: str = "event",
             r = simulate_availability_batched(
                 n=n, partitions=parts, rf=rf, p=p, trials=len(seeds),
                 max_ticks=max_ticks, min_ticks=min_ticks, seed=min(seeds),
-                devices=devices, packed=packed, device=device)
+                devices=devices, packed=packed, device=device,
+                pac_block_p=pac_block_p, block_t=block_t)
             u_l, u_m, ticks = r.u_lark, r.u_maj, r.ticks
             ci_l, ci_m = r.ci_lark, r.ci_maj
         f = rf - 1
@@ -126,7 +189,8 @@ def _gen_run(full: bool = False, seeds=(0,), backend: str = "event",
 
 def _gen_run_scenarios(names, full: bool = False, trials: int = 4,
                        seed: int = 0, devices: int = 1, smoke: bool = False,
-                       packed: bool = False, device=None):
+                       packed: bool = False, device=None, pac_block_p=None,
+                       block_t=None):
     n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=True)
     for name in names:
         sc = get_scenario(name)
@@ -135,6 +199,7 @@ def _gen_run_scenarios(names, full: bool = False, trials: int = 4,
                 n=n, partitions=parts, rf=rf, p=p, trials=trials,
                 max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
                 devices=devices, packed=packed, device=device,
+                pac_block_p=pac_block_p, block_t=block_t,
                 **sc.kwargs(n=n, rf=rf, p=p))
             yield {
                 "kind": "scenario", "scenario": name, "rf": rf, "p": p,
@@ -196,7 +261,8 @@ def _downtime_engine_rows(r, *, kind: str, scenario: str):
 def _gen_run_downtime(full: bool = False, trials: int = 4, seed: int = 0,
                       devices: int = 1, smoke: bool = False,
                       params: DowntimeParams = DowntimeParams(),
-                      packed: bool = False, device=None):
+                      packed: bool = False, device=None, pac_block_p=None,
+                      block_t=None):
     """§6 commit-pause rows over the i.i.d. grid: one batch of `trials`
     trials from `seed` per grid point."""
     grid = _iid_grid(full, smoke)
@@ -205,7 +271,8 @@ def _gen_run_downtime(full: bool = False, trials: int = 4, seed: int = 0,
         r = simulate_downtime_batched(
             n=n, partitions=parts, rf=rf, p=p, trials=trials,
             max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
-            devices=devices, params=params, packed=packed, device=device)
+            devices=devices, params=params, packed=packed, device=device,
+            pac_block_p=pac_block_p, block_t=block_t)
         yield _downtime_row(r, kind="downtime", scenario="iid")
         yield from _downtime_engine_rows(r, kind="downtime_engine",
                                          scenario="iid")
@@ -215,7 +282,8 @@ def _gen_run_downtime_scenarios(names, full: bool = False, trials: int = 4,
                                 seed: int = 0, devices: int = 1,
                                 smoke: bool = False,
                                 params: DowntimeParams = DowntimeParams(),
-                                packed: bool = False, device=None):
+                                packed: bool = False, device=None,
+                                pac_block_p=None, block_t=None):
     n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=True)
     for name in names:
         sc = get_scenario(name)
@@ -224,7 +292,8 @@ def _gen_run_downtime_scenarios(names, full: bool = False, trials: int = 4,
                 n=n, partitions=parts, rf=rf, p=p, trials=trials,
                 max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
                 devices=devices, params=params, packed=packed,
-                device=device, **sc.kwargs(n=n, rf=rf, p=p))
+                device=device, pac_block_p=pac_block_p, block_t=block_t,
+                **sc.kwargs(n=n, rf=rf, p=p))
             yield _downtime_row(r, kind="downtime_scenario", scenario=name)
             yield from _downtime_engine_rows(
                 r, kind="downtime_engine_scenario", scenario=name)
@@ -271,7 +340,8 @@ def _latency_row(r, *, kind: str, scenario: str):
 def _gen_run_latency(full: bool = False, trials: int = 4, seed: int = 0,
                      devices: int = 1, smoke: bool = False,
                      params: DowntimeParams = DowntimeParams(),
-                     packed: bool = False, device=None):
+                     packed: bool = False, device=None, pac_block_p=None,
+                     block_t=None):
     """Client-latency rows over the i.i.d. grid — the downtime metric's
     grid, scale and tick budgets, so both describe the same
     trajectories."""
@@ -281,7 +351,8 @@ def _gen_run_latency(full: bool = False, trials: int = 4, seed: int = 0,
         r = simulate_client_latency(
             n=n, partitions=parts, rf=rf, p=p, trials=trials,
             max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
-            devices=devices, params=params, packed=packed, device=device)
+            devices=devices, params=params, packed=packed, device=device,
+            pac_block_p=pac_block_p, block_t=block_t)
         yield _latency_row(r, kind="latency", scenario="iid")
 
 
@@ -289,7 +360,8 @@ def _gen_run_latency_scenarios(names, full: bool = False, trials: int = 4,
                                seed: int = 0, devices: int = 1,
                                smoke: bool = False,
                                params: DowntimeParams = DowntimeParams(),
-                               packed: bool = False, device=None):
+                               packed: bool = False, device=None,
+                               pac_block_p=None, block_t=None):
     n, parts, max_ticks, min_ticks = _run_scale(full, smoke, scenario=True)
     for name in names:
         sc = get_scenario(name)
@@ -298,7 +370,8 @@ def _gen_run_latency_scenarios(names, full: bool = False, trials: int = 4,
                 n=n, partitions=parts, rf=rf, p=p, trials=trials,
                 max_ticks=max_ticks, min_ticks=min_ticks, seed=seed,
                 devices=devices, params=params, packed=packed,
-                device=device, **sc.kwargs(n=n, rf=rf, p=p))
+                device=device, pac_block_p=pac_block_p, block_t=block_t,
+                **sc.kwargs(n=n, rf=rf, p=p))
             yield _latency_row(r, kind="latency_scenario", scenario=name)
 
 
@@ -354,25 +427,35 @@ def row_csv_line(r: dict):
     return None
 
 
-def _check_ported(spec: ExperimentSpec):
-    if spec.autotune:
-        raise NotImplementedError(
-            "autotune is not ported yet (ROADMAP Queue 1 item 10)")
-
-
 def iter_rows(spec: ExperimentSpec, device=None):
-    """Every result row of one spec, in emission order: the i.i.d. grid,
-    then each scenario grid."""
-    _check_ported(spec)
+    """Every result row of one spec, in emission order: the autotune row
+    (when spec.autotune), then the i.i.d. grid, then each scenario grid,
+    each run at the raced tile."""
     names = list(spec.scenarios)
     # batched rows under "event" run on one device, as the reference's
     # _batched_backend maps them
     devices = 1 if spec.backend == "event" else spec.devices
+    tile = dict(pac_block_p=None, block_t=None)
+    if spec.autotune:
+        n, parts = _grid_scale(spec.full, spec.smoke)
+        # rf of the first row the sweep will run (the scenario grid's when
+        # the i.i.d. grid is skipped)
+        if spec.scenarios_only and names:
+            tune_rf = get_scenario(names[0]).grid[0][0]
+        else:
+            tune_rf = _iid_grid(spec.full, spec.smoke)[0][0]
+        world = rdist.world_size() if devices > 1 else 1
+        block_p, block_t, row = _autotune_row(
+            n, parts, spec.trials, world, metric=spec.metric, rf=tune_rf,
+            rebuild_model=spec.rebuild_model, packed=spec.packed,
+            device=resolve_device(device))
+        tile = dict(pac_block_p=block_p, block_t=block_t)
+        yield row
     if spec.metric in ("downtime", "latency"):
         common = dict(full=spec.full, trials=spec.trials, seed=spec.seed,
                       devices=devices, smoke=spec.smoke,
                       params=spec.downtime_params(),
-                      packed=spec.packed, device=device)
+                      packed=spec.packed, device=device, **tile)
         iid, scen = (_gen_run_downtime, _gen_run_downtime_scenarios) \
             if spec.metric == "downtime" \
             else (_gen_run_latency, _gen_run_latency_scenarios)
@@ -386,12 +469,12 @@ def iter_rows(spec: ExperimentSpec, device=None):
             full=spec.full,
             seeds=tuple(range(spec.seed, spec.seed + spec.trials)),
             backend=spec.backend, devices=spec.devices, smoke=spec.smoke,
-            packed=spec.packed, device=device)
+            packed=spec.packed, device=device, **tile)
     if names:
         yield from _gen_run_scenarios(
             names, full=spec.full, trials=spec.trials, seed=spec.seed,
             devices=devices, smoke=spec.smoke, packed=spec.packed,
-            device=device)
+            device=device, **tile)
 
 
 class ExperimentRunner:

@@ -191,6 +191,17 @@ def finish_variants(procs: dict, symbol, argtypes) -> dict:
     return fns
 
 
+def launcher_argtypes(text: str, symbol: str) -> tuple:
+    """The ctypes argtypes of the C launcher `symbol` as the source `text`
+    declares it: c_void_p for each pointer and the stream, c_int for each
+    int."""
+    m = re.search(r"int " + symbol + r"\((.*?)\)", text, re.S)
+    if m is None:
+        raise ValueError(f"no launcher {symbol} in the source")
+    return tuple(ctypes.c_void_p if "*" in prm else ctypes.c_int
+                 for prm in m.group(1).split(","))
+
+
 def check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "

@@ -68,6 +68,13 @@
 // lane.  T comes from n_pad at launch so that the tile fits in shared
 // memory (and halves while that leaves SMs without a tile); a row too
 // wide for 16 rows is walked in column passes, one range per row segment.
+// A caller may name T instead (the launchers' `tile`, 0 for the plan's
+// choice): a power of two from 16 to 128 that divides R and whose buffers
+// fit the budget, or 16 alone where rows go in column passes; any other
+// value returns cudaErrorInvalidValue before anything is launched.  The
+// tile is throughput only: every valid T gives the same bits.  A tile of
+// up to 64 rows runs the instantiation bounded at 256 threads, as the
+// plan's own tiles always do; 128 rows the one bounded at 512.
 // The counts: a row's first lane loads its recruit id and active flag
 // before the tile arrives and, after the walk, holds the key b n_real +
 // node (b = r / P, taken per row: a tile straddles two trials whenever
@@ -94,6 +101,7 @@ enum Mode : int {
 
 constexpr int kLanes = 4;           // threads per row, consecutive lanes
 constexpr int kMaxRows = 64;        // rows of a tile (256 threads)
+constexpr int kTopRows = 128;       // largest tile a caller may name
 constexpr int kMinRows = 16;        // 16 * n_pad is a multiple of 16
 constexpr int kMinBlocks = 132;     // shrink T until the tiles fill the SMs
 constexpr int kBudget = 100 * 1024; // dynamic shared memory of one block
@@ -325,9 +333,10 @@ __device__ __forceinline__ void count_warp(int key,
     atomicAdd(cnt + key, __popc(peers));
 }
 
-// kCounts: the counts mode (recruit, active and cnt used; downtime modes)
-template <int kMode, bool kCounts>
-__global__ void __launch_bounds__(kMaxRows * kLanes)
+// kCounts: the counts mode (recruit, active and cnt used; downtime modes);
+// kThreads: the most threads a block of this instantiation has
+template <int kMode, bool kCounts, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 row_eval_kernel(const uint8_t* __restrict__ up,
                      const uint8_t* __restrict__ full,
                      const int32_t* __restrict__ roster,
@@ -464,11 +473,13 @@ row_eval_kernel(const uint8_t* __restrict__ up,
   }
 }
 
-// The tile: the most rows (128 down to 16) whose three row buffers and
+// The tile: the most rows (64 down to 16) whose three row buffers and
 // roster slice fit the budget, halved while that leaves SMs without a
 // tile; rows too wide even for 16 go in column passes.  A roster slice
-// larger than kRosterCap is read from global memory.
-Plan make_plan(int R, int n_pad, int rf, bool roster) {
+// larger than kRosterCap is read from global memory.  A non-zero `rows`
+// is the caller's T, taken as it is when valid (see the top of the file);
+// returns false when it is not.
+bool make_plan(int R, int n_pad, int rf, bool roster, int rows, Plan* out) {
   auto ro_bytes = [&](int T) -> int {
     if (!roster) return 0;
     const long long b = align16(4LL * T * rf + kSlop);
@@ -476,17 +487,27 @@ Plan make_plan(int R, int n_pad, int rf, bool roster) {
   };
   auto buf = [&](int T) { return align16(1LL * T * n_pad + kSlop); };
   auto tile = [&](int T) { return 3 * buf(T) + ro_bytes(T); };
-  if (tile(kMinRows) <= kBudget) {
-    int T = kMaxRows;
-    while (T > kMinRows &&
-           (tile(T) > kBudget || (R + T - 1) / T < kMinBlocks))
-      T /= 2;
-    return Plan{T, n_pad, 0, static_cast<int>(buf(T)), ro_bytes(T)};
+  const bool passes = tile(kMinRows) > kBudget;   // column passes
+  if (rows != 0 &&
+      (rows < kMinRows || rows > kTopRows || (rows & (rows - 1)) != 0 ||
+       R % rows != 0 || (passes ? rows != kMinRows : tile(rows) > kBudget)))
+    return false;
+  if (!passes) {
+    int T = rows;
+    if (T == 0) {
+      T = kMaxRows;
+      while (T > kMinRows &&
+             (tile(T) > kBudget || (R + T - 1) / T < kMinBlocks))
+        T /= 2;
+    }
+    *out = Plan{T, n_pad, 0, static_cast<int>(buf(T)), ro_bytes(T)};
+    return true;
   }
   const int T = kMinRows;
   const int chunk = ((kBudget - ro_bytes(T)) / (3 * T) - kSlop) & ~15;
   const int stride = chunk + kSlop;
-  return Plan{T, chunk, stride, T * stride, ro_bytes(T)};
+  *out = Plan{T, chunk, stride, T * stride, ro_bytes(T)};
+  return true;
 }
 
 // Zero the (B, n_real) counts on the launch's stream, before a kernel
@@ -496,27 +517,21 @@ int zero_counts(void* cnt, int B, int n_real, cudaStream_t stream) {
   return static_cast<int>(cudaMemsetAsync(cnt, 0, bytes, stream));
 }
 
-template <int kMode, bool kCounts>
-int launch(const void* up, const void* full, const void* roster,
-           const void* recruit, const void* active, void* lark, void* qmaj,
-           void* leader, void* lfull, void* nrep, void* repmask,
-           void* rleader, void* creps, void* cnt, int R, int n_pad,
-           int n_real, int rf, int voters, int B, int P, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kCounts) {
-    if (R != 1LL * B * P) return static_cast<int>(cudaErrorInvalidValue);
-    const int err = zero_counts(cnt, B, n_real, s);
-    if (err != 0) return err;
-  }
-  if (R <= 0) return 0;
+// one launch of the instantiation bounded at kThreads threads a block
+template <int kMode, bool kCounts, int kThreads>
+int run(const Plan& plan, const void* up, const void* full,
+        const void* roster, const void* recruit, const void* active,
+        void* lark, void* qmaj, void* leader, void* lfull, void* nrep,
+        void* repmask, void* rleader, void* creps, void* cnt, int R,
+        int n_pad, int n_real, int rf, int voters, int P, cudaStream_t s) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      row_eval_kernel<kMode, kCounts>,
+      row_eval_kernel<kMode, kCounts, kThreads>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kBudget);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const Plan plan = make_plan(R, n_pad, rf, kMode == kRoster);
   const int blocks = (R + plan.rows - 1) / plan.rows;
   const int smem = 3 * plan.buf + plan.ro_buf;
-  row_eval_kernel<kMode, kCounts><<<blocks, plan.rows * kLanes, smem, s>>>(
+  row_eval_kernel<kMode, kCounts, kThreads>
+      <<<blocks, plan.rows * kLanes, smem, s>>>(
       static_cast<const uint8_t*>(up), static_cast<const uint8_t*>(full),
       static_cast<const int32_t*>(roster),
       static_cast<const int32_t*>(recruit),
@@ -527,6 +542,34 @@ int launch(const void* up, const void* full, const void* roster,
       static_cast<uint8_t*>(creps), static_cast<int32_t*>(cnt), R, n_pad,
       n_real, rf, voters, P, plan);
   return static_cast<int>(cudaGetLastError());
+}
+
+// tile: the caller's T, or 0 for make_plan's choice
+template <int kMode, bool kCounts>
+int launch(const void* up, const void* full, const void* roster,
+           const void* recruit, const void* active, void* lark, void* qmaj,
+           void* leader, void* lfull, void* nrep, void* repmask,
+           void* rleader, void* creps, void* cnt, int R, int n_pad,
+           int n_real, int rf, int voters, int B, int P, int tile,
+           void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Plan plan;
+  if (!make_plan(R, n_pad, rf, kMode == kRoster, tile, &plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kCounts) {
+    if (R != 1LL * B * P) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = zero_counts(cnt, B, n_real, s);
+    if (err != 0) return err;
+  }
+  if (R <= 0) return 0;
+  if (plan.rows <= kMaxRows)
+    return run<kMode, kCounts, kMaxRows * kLanes>(
+        plan, up, full, roster, recruit, active, lark, qmaj, leader, lfull,
+        nrep, repmask, rleader, creps, cnt, R, n_pad, n_real, rf, voters, P,
+        s);
+  return run<kMode, kCounts, kTopRows * kLanes>(
+      plan, up, full, roster, recruit, active, lark, qmaj, leader, lfull,
+      nrep, repmask, rleader, creps, cnt, R, n_pad, n_real, rf, voters, P, s);
 }
 
 // node_count alone: one thread a row r = b P + p, no tile.
@@ -546,14 +589,15 @@ node_count_kernel(const int32_t* __restrict__ recruit,
 
 }  // namespace
 
+// Every launcher's `tile` is the rows of a tile, 0 for make_plan's choice.
 extern "C" int pac_eval_launch(const void* up, const void* full, void* lark,
                                void* maj, void* creps, int R, int n_pad,
-                               int n_real, int rf, int voters,
+                               int n_real, int rf, int voters, int tile,
                                void* stream) {
   return launch<kPac, false>(up, full, nullptr, nullptr, nullptr, lark, maj,
                              nullptr, nullptr, nullptr, nullptr, nullptr,
                              creps, nullptr, R, n_pad, n_real, rf, voters,
-                             0, 0, stream);
+                             0, 0, tile, stream);
 }
 
 extern "C" int downtime_eval_launch(const void* up, const void* full,
@@ -561,12 +605,12 @@ extern "C" int downtime_eval_launch(const void* up, const void* full,
                                     void* qmaj, void* leader, void* lfull,
                                     void* nrep, void* repmask,
                                     void* rleader, void* creps, int R,
-                                    int n_pad, int n_real, int rf,
+                                    int n_pad, int n_real, int rf, int tile,
                                     void* stream) {
   return launch<kPlain, false>(up, full, roster, nullptr, nullptr, lark,
                                qmaj, leader, lfull, nrep, repmask, rleader,
                                creps, nullptr, R, n_pad, n_real, rf, 0, 0, 0,
-                               stream);
+                               tile, stream);
 }
 
 extern "C" int downtime_roster_launch(const void* up, const void* full,
@@ -575,11 +619,11 @@ extern "C" int downtime_roster_launch(const void* up, const void* full,
                                       void* nrep, void* repmask,
                                       void* rleader, void* creps, int R,
                                       int n_pad, int n_real, int rf,
-                                      void* stream) {
+                                      int tile, void* stream) {
   return launch<kRoster, false>(up, full, roster, nullptr, nullptr, lark,
                                 qmaj, leader, lfull, nrep, repmask, rleader,
                                 creps, nullptr, R, n_pad, n_real, rf, 0, 0,
-                                0, stream);
+                                0, tile, stream);
 }
 
 // The counts mode: the launchers above plus the in-flight counts of the
@@ -590,10 +634,11 @@ extern "C" int downtime_eval_counts_launch(
     const void* recruit, const void* active, void* lark, void* qmaj,
     void* leader, void* lfull, void* nrep, void* repmask, void* rleader,
     void* creps, void* cnt, int R, int n_pad, int n_real, int rf, int B,
-    int P, void* stream) {
+    int P, int tile, void* stream) {
   return launch<kPlain, true>(up, full, roster, recruit, active, lark, qmaj,
                               leader, lfull, nrep, repmask, rleader, creps,
-                              cnt, R, n_pad, n_real, rf, 0, B, P, stream);
+                              cnt, R, n_pad, n_real, rf, 0, B, P, tile,
+                              stream);
 }
 
 extern "C" int downtime_roster_counts_launch(
@@ -601,10 +646,11 @@ extern "C" int downtime_roster_counts_launch(
     const void* recruit, const void* active, void* lark, void* qmaj,
     void* leader, void* lfull, void* nrep, void* repmask, void* rleader,
     void* creps, void* cnt, int R, int n_pad, int n_real, int rf, int B,
-    int P, void* stream) {
+    int P, int tile, void* stream) {
   return launch<kRoster, true>(up, full, roster, recruit, active, lark, qmaj,
                                leader, lfull, nrep, repmask, rleader, creps,
-                               cnt, R, n_pad, n_real, rf, 0, B, P, stream);
+                               cnt, R, n_pad, n_real, rf, 0, B, P, tile,
+                               stream);
 }
 
 // The counts alone, zeroed first: recruit, active (B, P), cnt (B, n_real).

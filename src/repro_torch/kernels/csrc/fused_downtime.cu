@@ -54,6 +54,21 @@
 // histogram: its zeroing, two barriers and flush took 0.51 us of a
 // 2.60 us launch at the paper tile on an H100 (kernels/mc_check.py
 // --ablate).  Integer math and commuting integer atomics only: exact.
+// The block: by default 128 partitions of one trial (block_t = 1,
+// block_p = kThreads).  A caller may name (block_t, block_p) instead, the
+// block's trials on its y axis and partitions on its x axis: block_p a
+// power of two from 32 to 1024 that divides P (never below a warp, so a
+// warp's lanes, and their __match_any_sync peers, lie in one trial),
+// block_t a power of two up to 16 that divides B, and at most 1024
+// threads; any other pair returns cudaErrorInvalidValue before anything
+// is launched, and (0, 0) is the default.  The block is throughput only:
+// every valid pair gives the same bits.  The default block runs
+// fused_downtime_kernel, bounded at kThreads with its indexing fixed at
+// compile time (reading blockDim there cost 0.1 us of the downtime mode's
+// 2.25 us a launch on an H100, kernels/mc_check.py --parent); a named
+// block, whatever its size, fused_named_kernel, which reads blockDim and
+// is capped at kNamedRegs registers a thread so that 1024 threads fit an
+// SM (a launch bound of 1024 let ptxas take 32 and spill in the loop).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +76,11 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kMaxThreads = 1024;   // the largest block a caller may name
+constexpr int kNamedRegs = 64;      // 65,536 registers / kMaxThreads
+constexpr int kMinBlockP = 32;     // a warp: peers never span trials
+constexpr int kMaxBlockP = 1024;
+constexpr int kMaxBlockT = 16;
 constexpr int kSeats = 4;   // roster ranks loaded up front
 
 __device__ __forceinline__ uint32_t prefix_mask(int count, int base) {
@@ -253,19 +273,17 @@ __device__ __forceinline__ int eval_loop(
   return (counting && active[row] != 0 && rc >= 0 && rc < n_real) ? rc : -1;
 }
 
-// kW: words per (trial, partition) held in registers, 0 walks W in a
-// loop; kPac: the pac mode (voters used), else the downtime mode
+// One (trial b, partition p) of the step, and its share of the counts:
+// kW words per (trial, partition) held in registers, 0 walks W in a loop;
+// kPac: the pac mode (voters used), else the downtime mode.  Every lane of
+// the warp calls it.
 template <int kW, bool kPac>
-__global__ void __launch_bounds__(kThreads)
-fused_downtime_kernel(const uint32_t* __restrict__ upw,
-                      const uint32_t* __restrict__ fullw,
-                      const int32_t* __restrict__ roster,
-                      const int32_t* __restrict__ recruit,
-                      const uint8_t* __restrict__ active, Outs o,
-                      int32_t* __restrict__ cnt, int W, int P, int n_real,
-                      int rf, int voters) {
-  const long long b = blockIdx.y;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
+__device__ __forceinline__ void step_row(
+    const uint32_t* __restrict__ upw, const uint32_t* __restrict__ fullw,
+    const int32_t* __restrict__ roster, const int32_t* __restrict__ recruit,
+    const uint8_t* __restrict__ active, const Outs& o,
+    int32_t* __restrict__ cnt, int W, int P, int n_real, int rf, int voters,
+    long long b, int p) {
   const bool counting = !kPac && cnt != nullptr;   // block-uniform
   int node = -1;                            // the node this row counts
   if (p < P) {
@@ -284,40 +302,93 @@ fused_downtime_kernel(const uint32_t* __restrict__ upw,
   }
 }
 
+// the default block: kThreads partitions of trial blockIdx.y
+template <int kW, bool kPac>
+__global__ void __launch_bounds__(kThreads)
+fused_downtime_kernel(const uint32_t* __restrict__ upw,
+                      const uint32_t* __restrict__ fullw,
+                      const int32_t* __restrict__ roster,
+                      const int32_t* __restrict__ recruit,
+                      const uint8_t* __restrict__ active, Outs o,
+                      int32_t* __restrict__ cnt, int W, int P, int n_real,
+                      int rf, int voters) {
+  step_row<kW, kPac>(upw, fullw, roster, recruit, active, o, cnt, W, P,
+                     n_real, rf, voters, blockIdx.y,
+                     blockIdx.x * kThreads + threadIdx.x);
+}
+
+// a named block: blockDim.y trials, blockDim.x (a multiple of 32)
+// partitions of each
+template <int kW, bool kPac>
+__global__ void __maxnreg__(kNamedRegs)
+fused_named_kernel(const uint32_t* __restrict__ upw,
+                   const uint32_t* __restrict__ fullw,
+                   const int32_t* __restrict__ roster,
+                   const int32_t* __restrict__ recruit,
+                   const uint8_t* __restrict__ active, Outs o,
+                   int32_t* __restrict__ cnt, int W, int P, int n_real,
+                   int rf, int voters) {
+  step_row<kW, kPac>(
+      upw, fullw, roster, recruit, active, o, cnt, W, P, n_real, rf, voters,
+      static_cast<long long>(blockIdx.y) * blockDim.y + threadIdx.y,
+      blockIdx.x * blockDim.x + threadIdx.x);
+}
+
 template <int kW, bool kPac>
 int launch(const void* upw, const void* fullw, const void* roster,
            const void* recruit, const void* active, const Outs& o, void* cnt,
-           int B, int W, int P, int n_real, int rf, int voters,
-           void* stream) {
-  const dim3 grid((P + kThreads - 1) / kThreads, B);
-  fused_downtime_kernel<kW, kPac><<<grid, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(upw), static_cast<const uint32_t*>(fullw),
-      static_cast<const int32_t*>(roster),
-      static_cast<const int32_t*>(recruit),
-      static_cast<const uint8_t*>(active), o, static_cast<int32_t*>(cnt), W,
-      P, n_real, rf, voters);
+           int W, int P, int n_real, int rf, int voters, dim3 grid,
+           dim3 block, bool named, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* u = static_cast<const uint32_t*>(upw);
+  const auto* f = static_cast<const uint32_t*>(fullw);
+  const auto* ro = static_cast<const int32_t*>(roster);
+  const auto* rc = static_cast<const int32_t*>(recruit);
+  const auto* ac = static_cast<const uint8_t*>(active);
+  auto* c = static_cast<int32_t*>(cnt);
+  if (named)
+    fused_named_kernel<kW, kPac><<<grid, block, 0, s>>>(
+        u, f, ro, rc, ac, o, c, W, P, n_real, rf, voters);
+  else
+    fused_downtime_kernel<kW, kPac><<<grid, block, 0, s>>>(
+        u, f, ro, rc, ac, o, c, W, P, n_real, rf, voters);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the instantiation for W: registers for W <= 8, else the loop
+__host__ inline bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+// the instantiation for W: registers for W <= 8, else the loop; the block
+// (block_t, block_p), or the default for (0, 0)
 template <bool kPac>
 int dispatch(const void* upw, const void* fullw, const void* roster,
              const void* recruit, const void* active, const Outs& o,
              void* cnt, int B, int W, int P, int n_real, int rf, int voters,
-             void* stream) {
+             int block_t, int block_p, void* stream) {
+  dim3 grid((P + kThreads - 1) / kThreads, B), block(kThreads, 1);
+  const bool named = block_t != 0 || block_p != 0;
+  if (named) {
+    if (!pow2(block_p) || block_p < kMinBlockP || block_p > kMaxBlockP ||
+        !pow2(block_t) || block_t > kMaxBlockT ||
+        block_t * block_p > kMaxThreads || P % block_p != 0 ||
+        B % block_t != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    grid = dim3(P / block_p, B / block_t);
+    block = dim3(block_p, block_t);
+  }
   if (B <= 0 || P <= 0) return 0;
   switch (W) {
 #define FDT_CASE(w)                                                         \
   case w:                                                                   \
-    return launch<w, kPac>(upw, fullw, roster, recruit, active, o, cnt, B,  \
-                           W, P, n_real, rf, voters, stream);
+    return launch<w, kPac>(upw, fullw, roster, recruit, active, o, cnt, W,  \
+                           P, n_real, rf, voters, grid, block, named,       \
+                           stream);
     FDT_CASE(1) FDT_CASE(2) FDT_CASE(3) FDT_CASE(4)
     FDT_CASE(5) FDT_CASE(6) FDT_CASE(7) FDT_CASE(8)
 #undef FDT_CASE
     default:
-      return launch<0, kPac>(upw, fullw, roster, recruit, active, o, cnt, B,
-                             W, P, n_real, rf, voters, stream);
+      return launch<0, kPac>(upw, fullw, roster, recruit, active, o, cnt, W,
+                             P, n_real, rf, voters, grid, block, named,
+                             stream);
   }
 }
 
@@ -328,24 +399,26 @@ extern "C" int fused_downtime_eval_launch(
     const void* recruit, const void* active, void* lark, void* qmaj,
     void* leader, void* lfull, void* nrep, void* repmask, void* rleader,
     void* crepsw, void* cnt, int B, int W, int P, int n_real, int rf,
-    void* stream) {
+    int block_t, int block_p, void* stream) {
   const Outs o{static_cast<uint8_t*>(lark), static_cast<uint8_t*>(qmaj),
                static_cast<int32_t*>(leader), static_cast<uint8_t*>(lfull),
                static_cast<int32_t*>(nrep), static_cast<int32_t*>(repmask),
                static_cast<int32_t*>(rleader),
                static_cast<uint32_t*>(crepsw)};
   return dispatch<false>(upw, fullw, roster, recruit, active, o, cnt, B, W,
-                         P, n_real, rf, rf, stream);
+                         P, n_real, rf, rf, block_t, block_p, stream);
 }
 
-// the pac mode: lark and maj (B, P) bytes, crepsw (B, W, P) words
+// the pac mode: lark and maj (B, P) bytes, crepsw (B, W, P) words; both
+// launchers take (block_t, block_p), (0, 0) for the default block
 extern "C" int fused_pac_eval_launch(const void* upw, const void* fullw,
                                      void* lark, void* maj, void* crepsw,
                                      int B, int W, int P, int n_real, int rf,
-                                     int voters, void* stream) {
+                                     int voters, int block_t, int block_p,
+                                     void* stream) {
   const Outs o{static_cast<uint8_t*>(lark), static_cast<uint8_t*>(maj),
                nullptr, nullptr, nullptr, nullptr, nullptr,
                static_cast<uint32_t*>(crepsw)};
   return dispatch<true>(upw, fullw, nullptr, nullptr, nullptr, o, nullptr, B,
-                        W, P, n_real, rf, voters, stream);
+                        W, P, n_real, rf, voters, block_t, block_p, stream);
 }

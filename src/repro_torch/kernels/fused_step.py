@@ -17,9 +17,15 @@ The kernel gives one thread to each (trial, partition); word k of
 neighbouring partitions is contiguous, so every load and store is
 coalesced.  It holds a thread's words in registers for W <= 8, every
 load issued before the arithmetic, and walks more in a loop.  Words are
-carried as int32 (the reference's uint32 bit patterns).  Dispatch follows
-the tensor: a CUDA tensor launches the kernel (or raises), a CPU tensor
-runs the plain version.  There is no fallback.
+carried as int32 (the reference's uint32 bit patterns).  Both wrappers
+take ``block_t`` and ``block_p``, the block's trials and partitions
+(both None: the default block, 128 partitions of one trial; one None:
+1 trial or 128 partitions); a named pair must be one of
+``fused_blocks``.  The block is throughput only: every valid pair gives
+the same bits.  Dispatch follows the tensor: a CUDA tensor launches the
+kernel (or raises), a CPU tensor runs the plain version, which has no
+block and ignores one.  An invalid block on a CUDA tensor raises
+``ValueError`` before any launch.  There is no fallback.
 """
 from __future__ import annotations
 
@@ -29,7 +35,49 @@ import torch
 
 from . import _build, bitpack, pac_eval
 
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,)
+
+#: csrc/fused_downtime.cu's block bounds: the default block's threads
+#: (128 partitions of one trial), the most threads a named block may
+#: have, and block_p's and block_t's ranges (powers of two)
+DEFAULT_BLOCK = (1, 128)
+MAX_THREADS, MIN_BLOCK_P, MAX_BLOCK_P, MAX_BLOCK_T = 1024, 32, 1024, 16
+
+
+def fused_blocks(B: int, P: int, *, max_threads: int = MAX_THREADS) -> tuple:
+    """Every (block_t, block_p) a caller may name for a (B, P) grid:
+    block_p a power of two from 32 to 1024 dividing P, block_t a power of
+    two up to 16 dividing B, at most `max_threads` threads; in (block_t,
+    block_p) order.  A pure function of the shape; empty when P has no
+    power-of-two divisor from 32."""
+    out = []
+    bt = 1
+    while bt <= min(B, MAX_BLOCK_T):
+        if B % bt == 0:
+            bp = MIN_BLOCK_P
+            while bp <= min(P, MAX_BLOCK_P):
+                if P % bp == 0 and bt * bp <= max_threads:
+                    out.append((bt, bp))
+                bp *= 2
+        bt *= 2
+    return tuple(out)
+
+
+def _block(block_t, block_p, B: int, P: int) -> tuple:
+    """The launchers' (block_t, block_p): (0, 0) when both are None, else
+    the pair with a None taken from the default block; raises ValueError,
+    before any launch, on a pair the kernel does not take."""
+    if block_t is None and block_p is None:
+        return 0, 0
+    pair = (DEFAULT_BLOCK[0] if block_t is None else int(block_t),
+            DEFAULT_BLOCK[1] if block_p is None else int(block_p))
+    if pair not in fused_blocks(B, P):
+        raise ValueError(f"(block_t, block_p)={pair} is not a block of a "
+                         f"(B={B}, P={P}) grid: block_p a power of two in "
+                         f"[{MIN_BLOCK_P}, {MAX_BLOCK_P}] dividing P, "
+                         f"block_t a power of two <= {MAX_BLOCK_T} dividing "
+                         f"B, block_t * block_p <= {MAX_THREADS}")
+    return pair
 
 
 def fused_pac_eval_plain(upw, fullw, *, rf: int, voters: int, n_real: int):
@@ -63,10 +111,11 @@ def _check(upw, fullw, *, rf: int, voters: int, n_real: int):
                          "words")
 
 
-def fused_pac_eval(upw, fullw, *, rf: int, voters: int, n_real: int):
+def fused_pac_eval(upw, fullw, *, rf: int, voters: int, n_real: int,
+                   block_t=None, block_p=None):
     """(B, W, P) int32 words -> (lark (B, P) bool, maj (B, P) bool,
-    crepsw (B, W, P) int32).  CUDA tensors run the kernel; CPU tensors
-    run ``fused_pac_eval_plain``."""
+    crepsw (B, W, P) int32).  CUDA tensors run the kernel in blocks of
+    (block_t, block_p); CPU tensors run ``fused_pac_eval_plain``."""
     _check(upw, fullw, rf=rf, voters=voters, n_real=n_real)
     if upw.device.type == "cpu":
         return fused_pac_eval_plain(upw, fullw, rf=rf, voters=voters,
@@ -78,6 +127,7 @@ def fused_pac_eval(upw, fullw, *, rf: int, voters: int, n_real: int):
     if B > 65535:
         raise ValueError(f"fused_pac_eval takes at most 65535 trials (the "
                          f"grid's y axis); got {B}")
+    bt, bp = _block(block_t, block_p, B, P)
     lark = torch.empty((B, P), dtype=torch.bool, device=upw.device)
     maj = torch.empty((B, P), dtype=torch.bool, device=upw.device)
     crepsw = torch.empty((B, W, P), dtype=torch.int32, device=upw.device)
@@ -85,7 +135,8 @@ def fused_pac_eval(upw, fullw, *, rf: int, voters: int, n_real: int):
                              _ARGTYPES)
     err = launch(upw.data_ptr(), fullw.data_ptr(), lark.data_ptr(),
                  maj.data_ptr(), crepsw.data_ptr(), B, W, P, n_real, rf,
-                 voters, torch.cuda.current_stream(upw.device).cuda_stream)
+                 voters, bt, bp,
+                 torch.cuda.current_stream(upw.device).cuda_stream)
     _build.check(err, "fused_pac_eval")
     fused_pac_eval.launches += 1
     return lark, maj, crepsw
@@ -100,7 +151,7 @@ fused_pac_eval.launches = 0
 # fused_downtime_eval: §6 eval + roster + node counts on packed words
 # ---------------------------------------------------------------------------
 
-_FDT_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 5 + \
+_FDT_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 7 + \
     (ctypes.c_void_p,)
 
 
@@ -129,7 +180,8 @@ def fused_downtime_eval_plain(upw, fullw, *, rf: int, n_real: int,
 def fused_downtime_eval(upw, fullw, *, rf: int, n_real: int, roster=None,
                         recruit=None, active=None,
                         want_repmask: bool = False,
-                        want_rleader: bool = False):
+                        want_rleader: bool = False, block_t=None,
+                        block_p=None):
     """(B, W, P) int32 words -> (lark, qmaj, leader, leader_full, nrep
     (each (B, P)), *extras, crepsw (B, W, P) int32[, counts (B, n_real)
     int32]) in one launch.
@@ -139,7 +191,8 @@ def fused_downtime_eval(upw, fullw, *, rf: int, n_real: int, roster=None,
     passes it moved to (B, rf, P) for the TPU's lanes.  recruit (B, P)
     int32 and active (B, P) bool, optional and together: also count the
     in-flight catch-ups per (trial, node).  CUDA tensors launch the
-    kernel; CPU tensors run ``fused_downtime_eval_plain``."""
+    kernel in blocks of (block_t, block_p); CPU tensors run
+    ``fused_downtime_eval_plain``."""
     _check(upw, fullw, rf=rf, voters=rf, n_real=n_real)
     if want_rleader and roster is None:
         raise ValueError("rleader needs a roster (it elects among "
@@ -173,6 +226,7 @@ def fused_downtime_eval(upw, fullw, *, rf: int, n_real: int, roster=None,
     if B > 65535:
         raise ValueError(f"fused_downtime_eval takes at most 65535 trials "
                          f"(the grid's y axis); got {B}")
+    bt, bp = _block(block_t, block_p, B, P)
     dev = upw.device
 
     def rows(dtype):
@@ -195,8 +249,8 @@ def fused_downtime_eval(upw, fullw, *, rf: int, n_real: int, roster=None,
                  ptr(recruit), ptr(active), lark.data_ptr(),
                  qmaj.data_ptr(), leader.data_ptr(), lfull.data_ptr(),
                  nrep.data_ptr(), ptr(repmask), ptr(rleader),
-                 crepsw.data_ptr(), ptr(counts), B, W, P, n_real, rf,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 crepsw.data_ptr(), ptr(counts), B, W, P, n_real, rf, bt,
+                 bp, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_downtime_eval")
     fused_downtime_eval.launches += 1
     extras = tuple(t for t in (repmask, rleader) if t is not None)

@@ -25,17 +25,27 @@ within the first word, across it and past n_real.  Every output is
 held with ``torch.equal``.  A planted fault's copy of a source is run on
 outputs filled with a sentinel first, so that a row or byte it leaves
 unwritten cannot pass by holding an earlier call's value.
+Both sources take a tile at run time (the row kernels' rows T, the fused
+kernel's (block_t, block_p)); a named tile must divide the rows, trials
+and partitions, so the ragged cases above run the default tile alone and
+refuse a named one.  ``tile_checks`` holds the default, the smallest and
+the largest valid tile on ``*_TILE_CASES``: the same edges with the
+counts made to tile, plus rows wide enough for column passes (n_pad
+2500, where only T = 16 is valid) and tiles across trials (P 24 under
+T 32 and 64).
 
     PYTHONPATH=src python -m repro_torch.kernels.mc_check [--parent DIR]
-        [--ablate]
+        [--ablate] [--tiles]
 
 builds csrc/downtime_eval.cu, csrc/latency_charge.cu and
 csrc/fused_downtime.cu and a copy of each per planted fault (``FAULTS``)
 under ``build/``, runs every case through the kernels and the copies,
-and prints one JSON line per case.  With ``--parent DIR`` (a checkout of
-an earlier commit, e.g. a ``git archive`` of it) it also builds that
-commit's sources of the same launchers (found by symbol, so a source
-that a launcher has since left is found too, as node_count.cu) and times
+and prints one JSON line per case (``--tiles``: also ``tile_checks``).
+With ``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
+archive`` of it) it also builds that commit's sources of the same
+launchers (found by symbol, so a source that a launcher has since left
+is found too, as node_count.cu, and bound by the signature its own text
+declares, so one from before the run-time tile binds too) and times
 both versions at the paper tile in turns, parent, change, change, parent
 (``device_times``); a parent without the counts mode also has its
 fill, node_count and row eval timed against one counts launch
@@ -327,6 +337,41 @@ FUSED_PAC_CASES = (("w1_n31", 3, 1, 1000, 31, 1),
 #: edge, across it (33), past n_real on the narrow cases, and past n_real
 #: and every word on all
 FUSED_PAC_KNOBS = ((2, 3), (3, 31), (4, 33), (30, 62), (2, 200), (5, 300))
+#: row-tile cases (as DOWNTIME_CASES): the edges with R made to tile,
+#: and rows too wide for one pass of 16 (column passes: T = 16 alone)
+ROW_TILE_CASES = (("paper_155", 8 * 4096, 155, 155, 0.5, (0, 0, 0)),
+                  ("n31", 1024, 31, 31, 0.5, (0, 0, 0)),
+                  ("n63_pad", 1152, 63, 60, 0.5, (0, 0, 0)),
+                  ("unaligned_155", 8 * 4096, 155, 155, 0.5, (3, 9, 4)),
+                  ("sparse_unaligned_160", 4096, 160, 155, 0.03, (7, 1, 12)),
+                  ("columns_2500", 256, 2500, 2400, 0.5, (5, 0, 8)))
+#: counts tile cases (as COUNTS_CASES): tiles across trials (P 24, 16,
+#: 100 under T 32 and 64), B 1 / 8 / 9, n_real 1 / 31 / 155 / 300
+COUNTS_TILE_CASES = (("paper", 8, 4096, 155, 155, "mixed", "mixed"),
+                     ("b8_p24_straddle", 8, 24, 155, 155, "mixed", "mixed"),
+                     ("b9_p128_n31", 9, 128, 31, 31, "mixed", "all"),
+                     ("b9_p16_n63_pad", 9, 16, 63, 60, "mixed", "mixed"),
+                     ("b1_p16_n1", 1, 16, 31, 1, "mixed", "all"),
+                     ("b1_p4096_n300", 1, 4096, 300, 300, "mixed", "mixed"),
+                     ("b8_p100_none_active", 8, 100, 155, 155, "mixed",
+                      "none"))
+#: fused tile cases (as FUSED_CASES): B 1 / 4 / 8 / 9 / 16, W 1 / 5 / 8 /
+#: 9, every P a multiple of 32
+FUSED_TILE_CASES = (("w1_n31", 4, 1, 1024, 31, 1, "mixed", 0),
+                    ("w5_n155", 8, 5, 4096, 155, 1, "mixed", 0),
+                    ("w5_sparse_all_active", 8, 5, 4096, 155, 3, "all", 4),
+                    ("b16_w5_n150_none_active", 16, 5, 1024, 150, 2, "none",
+                     0),
+                    ("w8_n250", 4, 8, 768, 250, 2, "mixed", 0),
+                    ("b9_w9_n270", 9, 9, 512, 270, 1, "mixed", 0),
+                    ("b1_w9_n257_sparse", 1, 9, 320, 257, 4, "mixed", 4))
+#: fused_pac tile cases (as FUSED_PAC_CASES)
+FUSED_PAC_TILE_CASES = (("w1_n31", 4, 1, 1024, 31, 1),
+                        ("w5_n155", 8, 5, 4096, 155, 1),
+                        ("b9_w5_n150_sparse", 9, 5, 1024, 150, 3),
+                        ("w8_n250", 4, 8, 768, 250, 1),
+                        ("b16_w9_n270", 16, 9, 256, 270, 1),
+                        ("b1_w9_n257_sparse", 1, 9, 320, 257, 3))
 #: latency cases beside the paper tile's: (name, trials, partitions, byte
 #: offset of dirty and the decay tables, slo_ticks)
 LATENCY_CASES = (("paper_slo0", 8, 4096, 0, 0),
@@ -537,8 +582,40 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def tile_args(fn, nargs: int, tile=()) -> tuple:
+    """The ints a launcher `fn` takes between its `nargs` other arguments
+    and the stream: `tile` ((T,) or (block_t, block_p)), 0 for each one
+    not given (the default tile); () for a launcher from before the tile
+    (a parent's, bound by its own source's signature)."""
+    extra = len(fn.argtypes) - nargs - 1
+    tile = tuple(tile)
+    if len(tile) > extra:
+        raise ValueError(f"this launcher takes {extra} tile arguments, "
+                         f"not {len(tile)}")
+    return tile + (0,) * (extra - len(tile))
+
+
+def tile_of(tile) -> tuple:
+    """A tile as a launcher's tile arguments: None (the default) as (), a
+    row tile T as (T,), a (block_t, block_p) pair as itself."""
+    if tile is None:
+        return ()
+    return tuple(tile) if isinstance(tile, tuple) else (tile,)
+
+
+def held_tiles(valid) -> list:
+    """The tiles a tile case holds: the default (None), the smallest
+    valid tile and the largest (most threads, then most trials)."""
+    valid = list(valid)
+    if not valid:
+        return [None]
+    big = max(valid, key=lambda t: (t[0] * t[1], t) if isinstance(t, tuple)
+              else t)
+    return [None] + list(dict.fromkeys((min(valid), big)))
+
+
 def run_downtime(fn, up, full, *, rf, n_real, roster=None,
-                 want_repmask=False, want_rleader=False):
+                 want_repmask=False, want_rleader=False, tile=()):
     """One raw launch of a downtime launcher `fn` (plain or roster symbol,
     to match `roster`); the outputs start as True / -7, and come back in
     the wrapper's order."""
@@ -558,7 +635,7 @@ def run_downtime(fn, up, full, *, rf, n_real, roster=None,
     err = fn(up.data_ptr(), full.data_ptr(), _ptr(roster), lark.data_ptr(),
              qmaj.data_ptr(), leader.data_ptr(), lfull.data_ptr(),
              nrep.data_ptr(), _ptr(repmask), _ptr(rleader), creps.data_ptr(),
-             R, n_pad, n_real, rf,
+             R, n_pad, n_real, rf, *tile_args(fn, 15, tile),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "downtime_eval (raw)")
     extras = tuple(t for t in (repmask, rleader) if t is not None)
@@ -573,7 +650,7 @@ def counts_out(Bq, n_real, dev):
 
 
 def run_counts(fn, up, full, *, rf, n_real, recruit, active, roster=None,
-               want_repmask=False, want_rleader=False):
+               want_repmask=False, want_rleader=False, tile=()):
     """One raw launch of a counts launcher `fn` (plain or roster, to match
     `roster`) on outputs that start as True / SENTINEL; returns the
     wrapper's outputs, then the guard words past the counts."""
@@ -596,7 +673,7 @@ def run_counts(fn, up, full, *, rf, n_real, recruit, active, roster=None,
              active.data_ptr(), lark.data_ptr(), qmaj.data_ptr(),
              leader.data_ptr(), lfull.data_ptr(), nrep.data_ptr(),
              _ptr(repmask), _ptr(rleader), creps.data_ptr(), cnt.data_ptr(),
-             R, n_pad, n_real, rf, Bq, Pq,
+             R, n_pad, n_real, rf, Bq, Pq, *tile_args(fn, 20, tile),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "downtime_eval counts (raw)")
     extras = tuple(t for t in (repmask, rleader) if t is not None)
@@ -614,7 +691,7 @@ def run_node_count(fn, recruit, active, *, n_real):
     return cnt, guard
 
 
-def run_pac(fn, up, full, *, rf, voters, n_real):
+def run_pac(fn, up, full, *, rf, voters, n_real, tile=()):
     """One raw launch of a pac_eval launcher `fn` on outputs that start
     True; returns (lark, maj, creps)."""
     R, n_pad = up.shape
@@ -622,14 +699,14 @@ def run_pac(fn, up, full, *, rf, voters, n_real):
             torch.ones(R, dtype=torch.bool, device=up.device),
             torch.ones((R, n_pad), dtype=torch.bool, device=up.device))
     err = fn(up.data_ptr(), full.data_ptr(), *(o.data_ptr() for o in outs),
-             R, n_pad, n_real, rf, voters,
+             R, n_pad, n_real, rf, voters, *tile_args(fn, 10, tile),
              torch.cuda.current_stream(up.device).cuda_stream)
     _build.check(err, "pac_eval (raw)")
     return outs
 
 
 def run_fused(fn, upw, fullw, *, rf, n_real, roster=None, recruit=None,
-              active=None, want_repmask=False, want_rleader=False):
+              active=None, want_repmask=False, want_rleader=False, tile=()):
     """One raw launch of a fused_downtime_eval launcher `fn`; the outputs
     start as True / -7 (the counts, which the kernel adds to, as 0), and
     come back in the wrapper's order."""
@@ -652,7 +729,7 @@ def run_fused(fn, upw, fullw, *, rf, n_real, roster=None, recruit=None,
              _ptr(active), lark.data_ptr(), qmaj.data_ptr(),
              leader.data_ptr(), lfull.data_ptr(), nrep.data_ptr(),
              _ptr(repmask), _ptr(rleader), crepsw.data_ptr(), _ptr(counts),
-             Bq, W, Pq, n_real, rf,
+             Bq, W, Pq, n_real, rf, *tile_args(fn, 19, tile),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_downtime_eval (raw)")
     extras = tuple(t for t in (repmask, rleader) if t is not None)
@@ -660,7 +737,7 @@ def run_fused(fn, upw, fullw, *, rf, n_real, roster=None, recruit=None,
     return outs + ((counts,) if counts is not None else ())
 
 
-def run_fused_pac(fn, upw, fullw, *, rf, voters, n_real):
+def run_fused_pac(fn, upw, fullw, *, rf, voters, n_real, tile=()):
     """One raw launch of a fused_pac_eval launcher `fn`; lark and maj
     start True, crepsw -7.  Returns (lark, maj, crepsw)."""
     Bq, W, Pq = upw.shape
@@ -669,7 +746,7 @@ def run_fused_pac(fn, upw, fullw, *, rf, voters, n_real):
             torch.ones((Bq, Pq), dtype=torch.bool, device=dev),
             torch.full((Bq, W, Pq), -7, dtype=torch.int32, device=dev))
     err = fn(upw.data_ptr(), fullw.data_ptr(), *(o.data_ptr() for o in outs),
-             Bq, W, Pq, n_real, rf, voters,
+             Bq, W, Pq, n_real, rf, voters, *tile_args(fn, 11, tile),
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_pac_eval (raw)")
     return outs
@@ -713,14 +790,27 @@ def float_err(got, want) -> float:
 # the checks: one record per case, each fault's verdict in it
 # ---------------------------------------------------------------------------
 
-def downtime_checks(gen, faults, *, entry=None):
-    """Run every DOWNTIME_CASES case (rf 2 and 3, first-rf and roster,
-    with the extras) through ``entry`` (the wrapper by default; a raw
-    launcher pair for another build) and through each fault's pair of
-    launchers.  Yields one record per case: kernel name, tags, "equal",
-    "max_abs_err" and "faults_failed"."""
+def refuses(fn) -> bool:
+    """Whether `fn()` raises ValueError (a wrapper refusing a named tile
+    before it launches)."""
+    try:
+        fn()
+    except ValueError:
+        return True
+    return False
+
+
+def downtime_checks(gen, faults, *, entry=None, cases=DOWNTIME_CASES,
+                    tiled=False):
+    """Run every case of `cases` (DOWNTIME_CASES: rf 2 and 3, first-rf and
+    roster, with the extras) through ``entry`` (the wrapper by default; a
+    raw launcher pair for another build) and through each fault's pair of
+    launchers; with `tiled`, at each of ``held_tiles`` of the case (and a
+    case no named tile divides must refuse one).  Yields one record per
+    case and tile: kernel name, tags, "tile", "equal", "max_abs_err" and
+    "faults_failed"."""
     dev = gen.device
-    for case in DOWNTIME_CASES:
+    for case in cases:
         name, R, n_pad, n_real = case[:4]
         for rf in (2, 3):
             up, full, roster = downtime_inputs(gen, case, rf, dev)
@@ -729,54 +819,74 @@ def downtime_checks(gen, faults, *, entry=None):
                           want_rleader=with_roster,
                           roster=roster if with_roster else None)
                 want = pk.downtime_eval_plain(up, full, **kw)
-                if entry is None:
-                    got = pk.downtime_eval(up, full, **kw)
-                else:
-                    got = run_downtime(entry[int(with_roster)], up, full,
-                                       **kw)
-                failed = [f for f, fns in faults.items()
-                          if not same(run_downtime(fns[int(with_roster)],
-                                                   up, full, **kw), want)]
-                torch.cuda.synchronize()
-                yield {"kernel": "downtime_eval_roster" if with_roster
-                       else "downtime_eval", "case": name, "R": R,
-                       "n_pad": n_pad, "n_real": n_real, "rf": rf,
-                       "offsets": list(case[5]), "equal": same(got, want),
-                       "max_abs_err": int_err(got, want),
-                       "faults_failed": failed}
+                valid = pk.row_tiles(R, n_pad, rf=rf, roster=with_roster)
+                extra = {}
+                if tiled and not valid:
+                    extra["refused"] = refuses(lambda: pk.downtime_eval(
+                        up, full, block_p=16, **kw))
+                for tile in held_tiles(valid) if tiled else [None]:
+                    if entry is None:
+                        got = pk.downtime_eval(up, full, block_p=tile, **kw)
+                    else:
+                        got = run_downtime(entry[int(with_roster)], up, full,
+                                           tile=tile_of(tile), **kw)
+                    failed = [f for f, fns in faults.items()
+                              if not same(run_downtime(
+                                  fns[int(with_roster)], up, full,
+                                  tile=tile_of(tile), **kw), want)]
+                    torch.cuda.synchronize()
+                    yield {"kernel": "downtime_eval_roster" if with_roster
+                           else "downtime_eval", "case": name, "R": R,
+                           "n_pad": n_pad, "n_real": n_real, "rf": rf,
+                           "offsets": list(case[5]), "tile": tile,
+                           "equal": same(got, want),
+                           "max_abs_err": int_err(got, want),
+                           "faults_failed": failed, **extra}
 
 
-def pac_checks(gen, faults, *, entry=None):
-    """Run every DOWNTIME_CASES case with each PAC_KNOBS (rf, voters)
-    through ``entry`` (the wrapper by default, else downtime_eval.cu's
-    launchers) and each fault's pac launcher; yields one record per case,
-    as ``downtime_checks``."""
+def pac_checks(gen, faults, *, entry=None, cases=DOWNTIME_CASES,
+               tiled=False):
+    """Run every case of `cases` with each PAC_KNOBS (rf, voters) through
+    ``entry`` (the wrapper by default, else downtime_eval.cu's launchers)
+    and each fault's pac launcher, at each tile as ``downtime_checks``;
+    yields one record per case and tile, as ``downtime_checks``."""
     dev = gen.device
-    for case in DOWNTIME_CASES:
+    for case in cases:
         name, R, n_pad, n_real = case[:4]
         up, full, _ = downtime_inputs(gen, case, 2, dev)
+        valid = pk.row_tiles(R, n_pad)
         for rf, voters in PAC_KNOBS:
             kw = dict(rf=rf, voters=voters, n_real=n_real)
             want = pk.pac_eval_plain(up, full, **kw)
-            got = pk.pac_eval(up, full, **kw) if entry is None \
-                else run_pac(entry[PAC], up, full, **kw)
-            failed = [f for f, fns in faults.items()
-                      if not same(run_pac(fns[PAC], up, full, **kw), want)]
-            torch.cuda.synchronize()
-            yield {"kernel": "pac_eval", "case": name, "R": R,
-                   "n_pad": n_pad, "n_real": n_real, "rf": rf,
-                   "voters": voters, "offsets": list(case[5][:2]),
-                   "equal": same(got, want), "max_abs_err": int_err(got, want),
-                   "faults_failed": failed}
+            extra = {}
+            if tiled and not valid:
+                extra["refused"] = refuses(lambda: pk.pac_eval(
+                    up, full, block_p=16, **kw))
+            for tile in held_tiles(valid) if tiled else [None]:
+                got = pk.pac_eval(up, full, block_p=tile, **kw) \
+                    if entry is None else run_pac(entry[PAC], up, full,
+                                                  tile=tile_of(tile), **kw)
+                failed = [f for f, fns in faults.items()
+                          if not same(run_pac(fns[PAC], up, full,
+                                              tile=tile_of(tile), **kw),
+                                      want)]
+                torch.cuda.synchronize()
+                yield {"kernel": "pac_eval", "case": name, "R": R,
+                       "n_pad": n_pad, "n_real": n_real, "rf": rf,
+                       "voters": voters, "offsets": list(case[5][:2]),
+                       "tile": tile, "equal": same(got, want),
+                       "max_abs_err": int_err(got, want),
+                       "faults_failed": failed, **extra}
 
 
-def counts_checks(gen, faults, *, rf=2):
-    """Run every COUNTS_CASES case through the counts mode (first-rf and
-    roster, the extras on) and node_count alone, by the wrappers and by
-    each fault's launchers, whose raw launches must also leave the guard
-    words past the counts alone.  Yields one record per case and kernel,
-    as ``downtime_checks``."""
-    for case in COUNTS_CASES:
+def counts_checks(gen, faults, *, rf=2, cases=COUNTS_CASES, tiled=False):
+    """Run every case of `cases` (COUNTS_CASES) through the counts mode
+    (first-rf and roster, the extras on) and node_count alone, by the
+    wrappers and by each fault's launchers, whose raw launches must also
+    leave the guard words past the counts alone; the counts mode at each
+    tile as ``downtime_checks``.  Yields one record per case, kernel and
+    tile, as ``downtime_checks``."""
+    for case in cases:
         name, Bq, Pq, n_pad, n_real = case[:5]
         up, full, roster, recruit, active = counts_inputs(gen, case, rf)
         guard = torch.full((GUARD,), SENTINEL, dtype=torch.int32,
@@ -785,11 +895,15 @@ def counts_checks(gen, faults, *, rf=2):
         want_cnt = pk.node_count_plain(recruit, active, n_real=n_real)
         for kernel in ("downtime_eval_counts", "downtime_eval_roster_counts",
                        "node_count"):
+            extra = {}
             if kernel == "node_count":
                 want = (want_cnt,)
-                got = (pk.node_count(recruit, active, n_real=n_real),)
+                tiles = [None]
 
-                def run(fns):
+                def got_at(tile):
+                    return (pk.node_count(recruit, active, n_real=n_real),)
+
+                def run(fns, tile):
                     return run_node_count(fns[NODE_COUNT], recruit, active,
                                           n_real=n_real)
             else:
@@ -798,27 +912,43 @@ def counts_checks(gen, faults, *, rf=2):
                           want_rleader=with_roster,
                           roster=roster if with_roster else None)
                 want = pk.downtime_eval_plain(up, full, **kw) + (want_cnt,)
-                got = pk.downtime_eval(up, full, **counted, **kw)
+                valid = pk.row_tiles(Bq * Pq, n_pad, rf=rf,
+                                     roster=with_roster)
+                tiles = held_tiles(valid) if tiled else [None]
+                if tiled and not valid:
+                    extra["refused"] = refuses(lambda kw=kw: pk.downtime_eval(
+                        up, full, block_p=16, **counted, **kw))
 
-                def run(fns, kw=kw, idx=COUNTS + int(with_roster)):
-                    return run_counts(fns[idx], up, full, **counted, **kw)
-            failed = [f for f, fns in faults.items()
-                      if not same(run(fns), want + (guard,))]
-            torch.cuda.synchronize()
-            yield {"kernel": kernel, "case": name, "B": Bq, "P": Pq,
-                   "n_pad": n_pad, "n_real": n_real, "rf": rf,
-                   "active": case[6], "ids": case[5],
-                   "equal": same(got, want), "max_abs_err": int_err(got, want),
-                   "faults_failed": failed}
+                def got_at(tile, kw=kw):
+                    return pk.downtime_eval(up, full, block_p=tile,
+                                            **counted, **kw)
+
+                def run(fns, tile, kw=kw, idx=COUNTS + int(with_roster)):
+                    return run_counts(fns[idx], up, full, **counted,
+                                      tile=tile_of(tile), **kw)
+            for tile in tiles:
+                got = got_at(tile)
+                failed = [f for f, fns in faults.items()
+                          if not same(run(fns, tile), want + (guard,))]
+                torch.cuda.synchronize()
+                yield {"kernel": kernel, "case": name, "B": Bq, "P": Pq,
+                       "n_pad": n_pad, "n_real": n_real, "rf": rf,
+                       "active": case[6], "ids": case[5], "tile": tile,
+                       "equal": same(got, want),
+                       "max_abs_err": int_err(got, want),
+                       "faults_failed": failed, **extra}
 
 
-def fused_checks(gen, faults, *, entry=None):
-    """Run every FUSED_CASES case (rf 2 and 3; first-rf and roster, each
-    with and without the counts; the extras on) through ``entry`` (the
-    wrapper by default, else a raw launcher) and each fault's launcher;
-    yields one record per case, as ``downtime_checks``."""
-    for case in FUSED_CASES:
+def fused_checks(gen, faults, *, entry=None, cases=FUSED_CASES, tiled=False):
+    """Run every case of `cases` (FUSED_CASES: rf 2 and 3; first-rf and
+    roster, each with and without the counts; the extras on) through
+    ``entry`` (the wrapper by default, else a raw launcher) and each
+    fault's launcher, at each of ``held_tiles`` of the case with `tiled`
+    (a case no named block tiles must refuse one); yields one record per
+    case and block, as ``downtime_checks``."""
+    for case in cases:
         name, Bq, W, Pq, n_real = case[:5]
+        valid = fk.fused_blocks(Bq, Pq)
         for rf in (2, 3):
             upw, fullw, roster, recruit, active = fused_inputs(gen, case, rf)
             for with_roster in (False, True):
@@ -829,45 +959,98 @@ def fused_checks(gen, faults, *, entry=None):
                     if counts:
                         kw.update(recruit=recruit, active=active)
                     want = fk.fused_downtime_eval_plain(upw, fullw, **kw)
-                    got = fk.fused_downtime_eval(upw, fullw, **kw) \
-                        if entry is None else run_fused(entry[0], upw, fullw,
-                                                        **kw)
-                    failed = [f for f, fns in faults.items()
-                              if not same(run_fused(fns[0], upw, fullw, **kw),
-                                          want)]
-                    torch.cuda.synchronize()
-                    yield {"kernel": "fused_downtime_eval", "case": name,
-                           "B": Bq, "W": W, "P": Pq, "n_real": n_real,
-                           "rf": rf, "roster": with_roster, "counts": counts,
-                           "active": case[6], "equal": same(got, want),
-                           "max_abs_err": int_err(got, want),
-                           "faults_failed": failed}
+                    extra = {}
+                    if tiled and not valid:
+                        extra["refused"] = refuses(
+                            lambda: fk.fused_downtime_eval(
+                                upw, fullw, block_t=1, block_p=32, **kw))
+                    for block in held_tiles(valid) if tiled else [None]:
+                        bt, bp = block or (None, None)
+                        got = fk.fused_downtime_eval(
+                            upw, fullw, block_t=bt, block_p=bp, **kw) \
+                            if entry is None else run_fused(
+                                entry[0], upw, fullw,
+                                tile=tile_of(block), **kw)
+                        failed = [f for f, fns in faults.items()
+                                  if not same(run_fused(
+                                      fns[0], upw, fullw,
+                                      tile=tile_of(block), **kw), want)]
+                        torch.cuda.synchronize()
+                        yield {"kernel": "fused_downtime_eval",
+                               "case": name, "B": Bq, "W": W, "P": Pq,
+                               "n_real": n_real, "rf": rf,
+                               "roster": with_roster, "counts": counts,
+                               "active": case[6],
+                               "tile": None if block is None
+                               else list(block),
+                               "equal": same(got, want),
+                               "max_abs_err": int_err(got, want),
+                               "faults_failed": failed, **extra}
 
 
-def fused_pac_checks(gen, faults, *, entry=None):
-    """Run every FUSED_PAC_CASES case with each FUSED_PAC_KNOBS (rf,
-    voters) through ``entry`` (the wrapper by default, else
-    fused_downtime.cu's launchers) and each fault's fused_pac_eval
-    launcher; yields one record per case, as ``downtime_checks``."""
-    for case in FUSED_PAC_CASES:
+def fused_pac_checks(gen, faults, *, entry=None, cases=FUSED_PAC_CASES,
+                     tiled=False):
+    """Run every case of `cases` (FUSED_PAC_CASES) with each
+    FUSED_PAC_KNOBS (rf, voters) through ``entry`` (the wrapper by
+    default, else fused_downtime.cu's launchers) and each fault's
+    fused_pac_eval launcher, at each block as ``fused_checks``; yields one
+    record per case and block, as ``downtime_checks``."""
+    for case in cases:
         name, Bq, W, Pq, n_real, dens = case
+        valid = fk.fused_blocks(Bq, Pq)
         upw = words(gen, (Bq, W, Pq), dens)
         upw[0, :, :5] = 0
         fullw = words(gen, (Bq, W, Pq))
         for rf, voters in FUSED_PAC_KNOBS:
             kw = dict(rf=rf, voters=voters, n_real=n_real)
             want = fk.fused_pac_eval_plain(upw, fullw, **kw)
-            got = fk.fused_pac_eval(upw, fullw, **kw) if entry is None \
-                else run_fused_pac(entry[FUSED_PAC], upw, fullw, **kw)
-            failed = [f for f, fns in faults.items()
-                      if not same(run_fused_pac(fns[FUSED_PAC], upw, fullw,
-                                                **kw), want)]
-            torch.cuda.synchronize()
-            yield {"kernel": "fused_pac_eval", "case": name, "B": Bq,
-                   "W": W, "P": Pq, "n_real": n_real, "rf": rf,
-                   "voters": voters, "equal": same(got, want),
-                   "max_abs_err": int_err(got, want),
-                   "faults_failed": failed}
+            extra = {}
+            if tiled and not valid:
+                extra["refused"] = refuses(lambda: fk.fused_pac_eval(
+                    upw, fullw, block_t=1, block_p=32, **kw))
+            for block in held_tiles(valid) if tiled else [None]:
+                bt, bp = block or (None, None)
+                got = fk.fused_pac_eval(upw, fullw, block_t=bt, block_p=bp,
+                                        **kw) if entry is None \
+                    else run_fused_pac(entry[FUSED_PAC], upw, fullw,
+                                       tile=tile_of(block), **kw)
+                failed = [f for f, fns in faults.items()
+                          if not same(run_fused_pac(
+                              fns[FUSED_PAC], upw, fullw,
+                              tile=tile_of(block), **kw), want)]
+                torch.cuda.synchronize()
+                yield {"kernel": "fused_pac_eval", "case": name, "B": Bq,
+                       "W": W, "P": Pq, "n_real": n_real, "rf": rf,
+                       "voters": voters,
+                       "tile": None if block is None else list(block),
+                       "equal": same(got, want),
+                       "max_abs_err": int_err(got, want),
+                       "faults_failed": failed, **extra}
+
+
+#: the tile checks: (source, checks, the ragged cases at the default tile
+#: alone, the cases that tile); ``tile_checks`` runs both sets of each
+TILE_CHECKS = (("downtime_eval", downtime_checks, DOWNTIME_CASES,
+                ROW_TILE_CASES),
+               ("downtime_eval", pac_checks, DOWNTIME_CASES, ROW_TILE_CASES),
+               ("downtime_eval", counts_checks, COUNTS_CASES,
+                COUNTS_TILE_CASES),
+               ("fused_downtime", fused_checks, FUSED_CASES,
+                FUSED_TILE_CASES),
+               ("fused_downtime", fused_pac_checks, FUSED_PAC_CASES,
+                FUSED_PAC_TILE_CASES))
+
+
+def tile_checks(gen, faults: dict):
+    """Every TILE_CHECKS entry, tiled: the ragged cases (the default tile,
+    a named one refused) and the tile cases (the default, the smallest
+    and the largest valid tile), each through the wrappers and each
+    fault's launchers (`faults`: {source: {fault: launchers}}).  Yields
+    (source, record)."""
+    for src, checks, ragged, tiling in TILE_CHECKS:
+        for cases in (ragged, tiling):
+            for rec in checks(gen, faults[src], cases=cases, tiled=True):
+                yield src, rec
 
 
 def latency_checks(gen, faults, *, entry=None, nbins=16):
@@ -1011,11 +1194,14 @@ def event_ms(launch, reps: int = 200) -> float:
 # ---------------------------------------------------------------------------
 
 def raw_launch(fn, ptrs, *tensors):
-    """launch(stream) = fn(*ptrs, stream), holding `tensors` (the buffers
-    behind the pointers) for as long as it lives: a buffer freed while its
-    pointer is still launched on is written after PyTorch's cache has
-    handed it on, or, once a CUDA graph capture has emptied the cache,
-    after it was freed on the device (an illegal address)."""
+    """launch(stream) = fn(*ptrs, <the default tile>, stream), holding
+    `tensors` (the buffers behind the pointers) for as long as it lives: a
+    buffer freed while its pointer is still launched on is written after
+    PyTorch's cache has handed it on, or, once a CUDA graph capture has
+    emptied the cache, after it was freed on the device (an illegal
+    address)."""
+    ptrs = tuple(ptrs) + tile_args(fn, len(ptrs))
+
     def launch(s):
         return fn(*ptrs, s)
     launch.holds = tensors
@@ -1302,6 +1488,14 @@ def parent_sources(csrc: Path) -> dict:
     return found
 
 
+def parent_argtypes(csrc: Path, src: str, syms) -> tuple:
+    """The ctypes argtypes of each launcher of `syms` as the earlier
+    checkout's own csrc/<src>.cu declares it (``_build.launcher_argtypes``):
+    a source from before the run-time tile binds without it."""
+    text = (csrc / f"{src}.cu").read_text()
+    return tuple(_build.launcher_argtypes(text, sym) for sym in syms)
+
+
 def argtypes_of(symbol: str):
     """The ctypes argtypes of a launcher symbol of SYMBOLS."""
     for src, syms in SYMBOLS.items():
@@ -1333,6 +1527,9 @@ def main(argv=None) -> int:
                     "against (its src/repro_torch/kernels/csrc)")
     ap.add_argument("--ablate", action="store_true",
                     help="also time the ABLATIONS copies")
+    ap.add_argument("--tiles", action="store_true",
+                    help="also run tile_checks (each case at the default, "
+                    "the smallest and the largest valid tile)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("mc_check needs an NVIDIA card", file=sys.stderr)
@@ -1344,8 +1541,8 @@ def main(argv=None) -> int:
         csrc = Path(args.parent) / "src" / "repro_torch" / "kernels" / "csrc"
         for src, syms in parent_sources(csrc).items():
             so = out_dir / f"lib{src}-parent.so"
-            parent_procs[src] = (syms, {"parent": (
-                _build._nvcc(so, csrc / f"{src}.cu"), so)})
+            parent_procs[src] = (syms, parent_argtypes(csrc, src, syms), {
+                "parent": (_build._nvcc(so, csrc / f"{src}.cu"), so)})
     ablation_procs = {src: _build.start_variants(src, variants, out_dir,
                                                  with_source=False)
                       for src, variants in ABLATIONS.items()} \
@@ -1369,14 +1566,18 @@ def main(argv=None) -> int:
             ok = ok and rec["equal"]
             for f in rec["faults_failed"]:
                 caught[src][f].append(f"{rec['kernel']}:{rec['case']}")
+    for src, rec in tile_checks(gen, faults) if args.tiles else ():
+        print(json.dumps(rec), flush=True)
+        ok = ok and rec["equal"] and rec.get("refused", True)
+        for f in rec["faults_failed"]:
+            caught[src][f].append(f"{rec['kernel']}:{rec['case']}")
     missed = missed_faults(caught)
     print(json.dumps({"faults_caught_in": caught, "missed": missed}),
           flush=True)
     if parent_procs:
         parent = {}
-        for syms, handle in parent_procs.values():
-            found = _build.finish_variants(
-                handle, syms, tuple(argtypes_of(s) for s in syms))["parent"]
+        for syms, argtypes, handle in parent_procs.values():
+            found = _build.finish_variants(handle, syms, argtypes)["parent"]
             parent.update(zip(syms, found))
         for rec in ab_times(parent, change):
             print(json.dumps({"ab": rec}), flush=True)

@@ -35,8 +35,17 @@ and one atomicAdd per (trial, node).
 chain and writes its histogram rows as 16-byte stores.  Every byte is
 read or written once; see the sources.
 
+``pac_eval`` and ``downtime_eval`` take ``block_p``, the rows T of the
+kernel's tile (None: the kernel's own plan, ``default_row_tile``).  A
+named T must be one of ``row_tiles``: a power of two from 16 to 128 that
+divides R and whose three row buffers and roster slice fit the 100 KiB
+of shared memory a block gets, or 16 alone where a row needs column
+passes.  The tile is throughput only: every valid T gives the same bits.
+
 Dispatch follows the tensor: a CUDA tensor launches the kernel (or
-raises), a CPU tensor runs the plain version.  There is no fallback.
+raises), a CPU tensor runs the plain version, which has no tile and
+ignores one.  An invalid tile on a CUDA tensor raises ``ValueError``
+before any launch.  There is no fallback.
 """
 from __future__ import annotations
 
@@ -47,7 +56,66 @@ import torch
 from . import _build
 from .latency import latency_step_ref
 
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
+
+# csrc/downtime_eval.cu's tile constants: threads a row, the rows of the
+# plan's largest tile, of the largest a caller may name and of the
+# smallest, the blocks the plan keeps in flight (one per SM), a block's
+# dynamic shared memory, the largest staged roster slice, and the slack
+# each buffer carries for 16-byte widening
+_LANES, _MAX_ROWS, _TOP_ROWS, _MIN_ROWS = 4, 64, 128, 16
+_MIN_BLOCKS, _BUDGET, _ROSTER_CAP, _SLOP = 132, 100 * 1024, 16 * 1024, 32
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def row_tile_bytes(T: int, n_pad: int, *, rf: int = 0,
+                   roster: bool = False) -> int:
+    """Shared memory of a one-pass tile of T rows: the up, full and creps
+    buffers and, for the roster variant, the staged roster slice (read
+    from global memory, 0 bytes here, when it would pass 16 KiB)."""
+    ro = _align16(4 * T * rf + _SLOP) if roster else 0
+    return 3 * _align16(T * n_pad + _SLOP) + (ro if ro <= _ROSTER_CAP else 0)
+
+
+def default_row_tile(R: int, n_pad: int, *, rf: int = 0,
+                     roster: bool = False) -> int:
+    """The T that csrc/downtime_eval.cu's make_plan chooses: 64 rows,
+    halved to 16 while the tile overflows the budget or the tiles leave
+    some of the 132 SMs without one; 16 where rows go in column passes."""
+    T = _MAX_ROWS
+    while T > _MIN_ROWS and (
+            row_tile_bytes(T, n_pad, rf=rf, roster=roster) > _BUDGET
+            or (R + T - 1) // T < _MIN_BLOCKS):
+        T //= 2
+    return T
+
+
+def row_tiles(R: int, n_pad: int, *, rf: int = 0,
+              roster: bool = False) -> tuple:
+    """Every T a caller may name for an (R, n_pad) tile: powers of two
+    from 16 to 128 that divide R and fit the budget, or 16 alone (when it
+    divides R) where even 16 rows overflow it (column passes).  A pure
+    function of the shape; empty when no power of two from 16 divides R."""
+    if row_tile_bytes(_MIN_ROWS, n_pad, rf=rf, roster=roster) > _BUDGET:
+        return (_MIN_ROWS,) if R % _MIN_ROWS == 0 else ()
+    return tuple(T for T in (16, 32, 64, _TOP_ROWS) if R % T == 0 and
+                 row_tile_bytes(T, n_pad, rf=rf, roster=roster) <= _BUDGET)
+
+
+def _row_tile(block_p, R: int, n_pad: int, *, rf: int, roster: bool) -> int:
+    """The launcher's `tile` for `block_p` (None: 0, the plan's choice);
+    raises ValueError, before any launch, on a T the kernel does not take."""
+    if block_p is None:
+        return 0
+    T = int(block_p)
+    valid = row_tiles(R, n_pad, rf=rf, roster=roster)
+    if T not in valid:
+        raise ValueError(f"block_p={block_p} is not a row tile of an "
+                         f"({R}, {n_pad}) tile; valid: {valid}")
+    return T
 
 
 def pac_eval_plain(up, full, *, rf: int, voters: int, n_real: int):
@@ -90,9 +158,11 @@ def _check(up, full, *, rf: int, voters: int, n_real: int):
         raise ValueError("pac_eval tiles must hold fewer than 2^31 lanes")
 
 
-def pac_eval(up, full, *, rf: int, voters: int, n_real: int):
+def pac_eval(up, full, *, rf: int, voters: int, n_real: int,
+             block_p=None):
     """(R, n_pad) bool rank-space tiles -> (lark (R,), maj (R,),
-    creps (R, n_pad)) bool.  CUDA tensors run the kernel; CPU tensors run
+    creps (R, n_pad)) bool.  CUDA tensors run the kernel, with `block_p`
+    rows a tile (None: the kernel's plan); CPU tensors run
     ``pac_eval_plain``."""
     _check(up, full, rf=rf, voters=voters, n_real=n_real)
     if up.device.type == "cpu":
@@ -100,13 +170,15 @@ def pac_eval(up, full, *, rf: int, voters: int, n_real: int):
     if up.device.type != "cuda":
         raise ValueError(f"pac_eval runs on cuda or cpu, not {up.device}")
     R, n_pad = up.shape
+    tile = _row_tile(block_p, R, n_pad, rf=rf, roster=False)
     lark = torch.empty(R, dtype=torch.bool, device=up.device)
     maj = torch.empty(R, dtype=torch.bool, device=up.device)
     creps = torch.empty((R, n_pad), dtype=torch.bool, device=up.device)
     launch = _build.function("downtime_eval", "pac_eval_launch", _ARGTYPES)
     err = launch(up.data_ptr(), full.data_ptr(), lark.data_ptr(),
                  maj.data_ptr(), creps.data_ptr(), R, n_pad, n_real, rf,
-                 voters, torch.cuda.current_stream(up.device).cuda_stream)
+                 voters, tile,
+                 torch.cuda.current_stream(up.device).cuda_stream)
     _build.check(err, "pac_eval")
     pac_eval.launches += 1
     return lark, maj, creps
@@ -121,10 +193,10 @@ pac_eval.launches = 0
 # downtime_eval: the §6 per-row evaluation (plain and roster variants)
 # ---------------------------------------------------------------------------
 
-_DT_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 4 + \
+_DT_ARGTYPES = (ctypes.c_void_p,) * 11 + (ctypes.c_int,) * 5 + \
     (ctypes.c_void_p,)
 #: the counts launchers: + recruit, active, cnt and B, P
-_DTC_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 6 + \
+_DTC_ARGTYPES = (ctypes.c_void_p,) * 14 + (ctypes.c_int,) * 7 + \
     (ctypes.c_void_p,)
 
 
@@ -181,7 +253,7 @@ def downtime_eval_plain(up, full, *, rf: int, n_real: int, roster=None,
 
 def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
                   want_repmask: bool = False, want_rleader: bool = False,
-                  recruit=None, active=None):
+                  recruit=None, active=None, block_p=None):
     """(R, n_pad) bool rank-space tiles [+ roster (R, rf) int32] ->
     (lark, qmaj, leader, leader_full, nrep, *extras, creps[, counts]);
     see ``downtime_eval_plain``.  With recruit (B, P) int32 and active
@@ -189,8 +261,9 @@ def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
     n_real) int32 of ``node_count_plain`` come last.  CUDA tensors make
     one launch (``downtime_eval.launches`` counts the plain variant,
     ``roster_launches`` the roster one, ``counts_launches`` and
-    ``roster_counts_launches`` the same with the counts); CPU tensors run
-    the plain versions."""
+    ``roster_counts_launches`` the same with the counts), with `block_p`
+    rows a tile (None: the kernel's plan); CPU tensors run the plain
+    versions."""
     _check(up, full, rf=rf, voters=rf, n_real=n_real)
     if want_rleader and roster is None:
         raise ValueError("rleader needs a roster (it elects among "
@@ -228,6 +301,7 @@ def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
                          f"{up.device}")
     dev = up.device
     n_pad = up.shape[1]
+    tile = _row_tile(block_p, R, n_pad, rf=rf, roster=roster is not None)
 
     def rows(dtype):
         return torch.empty(R, dtype=dtype, device=dev)
@@ -252,10 +326,11 @@ def downtime_eval(up, full, *, rf: int, n_real: int, roster=None,
         counts = torch.empty((B, n_real), dtype=torch.int32, device=dev)
         launch = _build.function("downtime_eval", symbol, _DTC_ARGTYPES)
         err = launch(*ins, recruit.data_ptr(), active.data_ptr(), *row_outs,
-                     counts.data_ptr(), R, n_pad, n_real, rf, B, P, stream)
+                     counts.data_ptr(), R, n_pad, n_real, rf, B, P, tile,
+                     stream)
     else:
         launch = _build.function("downtime_eval", symbol, _DT_ARGTYPES)
-        err = launch(*ins, *row_outs, R, n_pad, n_real, rf, stream)
+        err = launch(*ins, *row_outs, R, n_pad, n_real, rf, tile, stream)
     _build.check(err, "downtime_eval")
     setattr(downtime_eval, counter, getattr(downtime_eval, counter) + 1)
     extras = tuple(t for t in (repmask, rleader) if t is not None)

@@ -379,15 +379,8 @@ PARENT_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 3 + \
 TIMED_SHAPE = (BATCH, 3072, 4096)
 
 
-def launcher_argtypes(text: str, symbol: str) -> tuple:
-    """The ctypes argtypes of the C launcher `symbol` as the source `text`
-    declares it: c_void_p for each pointer and the stream, c_int for each
-    int."""
-    m = re.search(r"int " + symbol + r"\((.*?)\)", text, re.S)
-    if m is None:
-        raise ValueError(f"no launcher {symbol} in the source")
-    return tuple(ctypes.c_void_p if "*" in prm else ctypes.c_int
-                 for prm in m.group(1).split(","))
+#: the ctypes argtypes of a C launcher as a source's text declares it
+launcher_argtypes = _build.launcher_argtypes
 
 
 def parent_args(x, log_a, *, fill=None):

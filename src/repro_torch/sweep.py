@@ -17,9 +17,11 @@ byte-identical to the reference's for the same spec.
 flags do; the §6 knobs (rebuild model, size skew, bandwidth) come from a
 config, as in ``benchmarks/configs/downtime*.toml``,
 ``latency.toml`` (the client-latency metric) and ``shootout.toml`` (the
-protocol zoo).  Availability under ``--backend event`` and
-``autotune`` are not ported; the runner raises ``NotImplementedError``
-for them.  ``--device`` defaults to cuda.
+protocol zoo).  ``--autotune`` (with ``--backend pallas``) races the
+kernel's tiles before the grid, on the shape this rank launches, prints
+an ``autotune,...`` line and runs every row at the chosen tile (with
+``--packed`` the fused kernel's (block_t, block_p) race); the rows are
+those of the run without it.  ``--device`` defaults to cuda.
 
 Across ranks, ``torchrun --nproc-per-node R -m repro_torch.sweep ...``
 runs the spec on R ranks (``gloo``; R must divide the spec's
@@ -44,6 +46,7 @@ SPEC_FLAGS = {
     "metric": "metric", "trials": "trials", "devices": "devices",
     "seed": "seed", "scenario": "scenarios", "scenarios": "scenarios",
     "scenarios_only": "scenarios_only", "packed": "packed",
+    "autotune": "autotune",
 }
 
 
@@ -83,6 +86,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--packed", action="store_true",
                     help="carry holder masks as bit-packed words "
                          "(fused_pac_eval; bit-identical to unpacked)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="race the kernel's tile candidates before the "
+                         "sweep (the row tile; with --packed the fused "
+                         "kernel's block_t x block_p race); backend "
+                         "pallas")
     ap.add_argument("--json", metavar="PATH",
                     help="write rows + provenance-stamped meta as JSON")
     ap.add_argument("--events", metavar="PATH",

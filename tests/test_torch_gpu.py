@@ -27,7 +27,7 @@ from repro_torch.configs import reduced_config
 from repro_torch.core import microsim
 from repro_torch.kernels import (flash_attention, flash_check, fused_step,
                                  mc_check, microsim_scan, mlstm_check,
-                                 mlstm_chunk, pac_eval, rglru_check,
+                                 mlstm_chunk, ops, pac_eval, rglru_check,
                                  rglru_scan)
 from repro_torch.kernels.latency import decay_pow_tables
 from repro_torch.models import build_model
@@ -323,8 +323,43 @@ def test_cuda_fused_pac_eval_edge_cases_match_plain(cuda, case):
 def test_cuda_mc_check_catches_planted_faults(cuda):
     """Every mc_check case passes on the four Monte Carlo row kernels,
     and each planted fault of their sources fails at least one (pac_eval's
-    own a pac_eval case)."""
-    assert mc_check.main([]) == 0
+    own a pac_eval case); with --tiles also at the default, the smallest
+    and the largest valid tile of each tile case."""
+    assert mc_check.main(["--tiles"]) == 0
+
+
+@pytest.mark.parametrize("kind", ops.AUTOTUNE_KERNELS + ops.FUSED_KERNELS)
+def test_cuda_every_tile_gives_the_plain_bits(cuda, kind):
+    """Each candidate tile of each kind, on n_pad 63 with n_real 60, gives
+    the plain version's outputs, and the race measures on the card."""
+    fused = kind in ops.FUSED_KERNELS
+    dims = (8, 512) if fused else (8 * 128,)
+    kw = dict(rf=2, voters=3, n_real=60)
+    call, plain = ops.race_calls(kind, dims, 63, device=cuda, **kw)
+    want = plain()
+    cands = ops.fused_block_candidates(*dims, 63, kernel=kind) if fused \
+        else ops.block_p_candidates(*dims, 63, kernel=kind)
+    for tile in (None,) + cands:
+        assert mc_check.same(call(tile), want), tile
+    res = ops.autotune_fused_blocks(*dims, 63, kernel=kind, iters=3,
+                                    device=cuda, **kw) if fused else \
+        ops.autotune_block_p(*dims, 63, kernel=kind, iters=3, device=cuda,
+                             **kw)
+    assert res.source == "measured" and set(res.timings_us) == set(cands)
+
+
+def test_cuda_invalid_tiles_raise_before_any_launch(cuda):
+    up = torch.ones((8 * 4093, 155), dtype=torch.bool, device=cuda)
+    before = pac_eval.pac_eval.launches
+    with pytest.raises(ValueError, match="row tile"):
+        pac_eval.pac_eval(up, up, rf=2, voters=3, n_real=155, block_p=16)
+    upw = torch.zeros((8, 5, 4096), dtype=torch.int32, device=cuda)
+    fbefore = fused_step.fused_pac_eval.launches
+    with pytest.raises(ValueError, match="is not a block"):
+        fused_step.fused_pac_eval(upw, upw, rf=2, voters=3, n_real=155,
+                                  block_t=3, block_p=32)
+    assert pac_eval.pac_eval.launches == before
+    assert fused_step.fused_pac_eval.launches == fbefore
 
 
 @pytest.mark.parametrize("packed", [False, True], ids=["bool", "packed"])

@@ -501,3 +501,101 @@ def test_plain_repmask_with_rf_above_n_pad_matches_the_pallas_kernel(
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("n_pad", [31, 63, 155, 160, 300, 1000, 2100])
+@pytest.mark.parametrize("R", [16, 900, 8 * 1024, 8 * 4093, 8 * 4096,
+                               1 << 20])
+def test_default_row_tile_is_make_plans_choice(R, n_pad):
+    """pac_eval.default_row_tile, the wrappers' and the tuners' Python
+    mirror of make_plan, gives this file's own mirror's T."""
+    assert pac_eval.default_row_tile(R, n_pad) == _tile_rows(R, n_pad)
+
+
+TILED = [(src, sym) for src, sym in LAUNCHERS if sym not in
+         ("node_count_launch", "latency_charge_launch")]
+
+
+@pytest.mark.parametrize("src,symbol", TILED, ids=[s for _, s in TILED])
+def test_launchers_take_the_tile_before_the_stream(src, symbol):
+    """The row launchers take `int tile`, the fused ones `int block_t, int
+    block_p`, as their last ints; the argtypes end with them and the
+    stream."""
+    m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)", _source(src),
+                  re.S)
+    params = [p.split()[-1] for p in m.group(1).split(",")]
+    tile = ["tile"] if src == "downtime_eval" else ["block_t", "block_p"]
+    assert params[-1 - len(tile):] == tile + ["stream"]
+    argtypes = mc_check.argtypes_of(symbol)
+    assert argtypes[-1 - len(tile):] == \
+        (ctypes.c_int,) * len(tile) + (ctypes.c_void_p,)
+
+
+def test_parents_bind_by_their_own_text_and_take_no_tile(tmp_path):
+    """A parent source from before the run-time tile binds by the
+    signature its text declares; its raw launches get no tile arguments,
+    this tree's get 0 (the default) unless a tile is named."""
+    old = re.sub(r",\s*int tile", "", _source("downtime_eval"))
+    (tmp_path / "downtime_eval.cu").write_text(old)
+    syms = mc_check.parent_sources(tmp_path)["downtime_eval"]
+    got = dict(zip(syms, mc_check.parent_argtypes(tmp_path, "downtime_eval",
+                                                  syms)))
+    assert got["pac_eval_launch"] == pac_eval._ARGTYPES[:-2] + \
+        (ctypes.c_void_p,)
+    assert got["downtime_eval_launch"] == \
+        pac_eval._DT_ARGTYPES[:-2] + (ctypes.c_void_p,)
+    assert got["node_count_launch"] == pac_eval._NC_ARGTYPES
+
+    class Fn:
+        def __init__(self, argtypes):
+            self.argtypes = argtypes
+
+    parent, here = Fn(got["pac_eval_launch"]), Fn(pac_eval._ARGTYPES)
+    assert mc_check.tile_args(parent, 10) == ()
+    assert mc_check.tile_args(here, 10) == (0,)
+    assert mc_check.tile_args(here, 10, (32,)) == (32,)
+    fused = Fn(fused_step._ARGTYPES)
+    assert mc_check.tile_args(fused, 11) == (0, 0)
+    assert mc_check.tile_args(fused, 11, (2, 64)) == (2, 64)
+    with pytest.raises(ValueError, match="tile arguments"):
+        mc_check.tile_args(parent, 10, (32,))
+
+
+def test_held_tiles_are_the_default_the_smallest_and_the_largest():
+    assert mc_check.held_tiles(()) == [None]
+    assert mc_check.held_tiles((16,)) == [None, 16]
+    assert mc_check.held_tiles((16, 32, 64, 128)) == [None, 16, 128]
+    blocks = fused_step.fused_blocks(8, 4096)
+    assert mc_check.held_tiles(blocks) == [None, (1, 32), (8, 128)]
+    assert mc_check.held_tiles(fused_step.fused_blocks(9, 64)) == \
+        [None, (1, 32), (1, 64)]
+
+
+def test_tile_cases_tile_and_the_ragged_cases_refuse():
+    """Every tile case admits a named tile (the column-pass one only 16);
+    every ragged case of the kernel phase admits none, so it runs the
+    default and must refuse a named one.  The counts tile cases put tiles
+    across trials; the fused ones take B 1 / 9 / 16 and W 1 / 5 / 8 / 9."""
+    for _, R, n_pad, *_ in mc_check.ROW_TILE_CASES:
+        for roster in (False, True):
+            assert pac_eval.row_tiles(R, n_pad, rf=3, roster=roster)
+    assert any(pac_eval.row_tiles(R, n_pad) == (16,) and
+               pac_eval.row_tile_bytes(16, n_pad) > 100 * 1024
+               for _, R, n_pad, *_ in mc_check.ROW_TILE_CASES)
+    assert {31, 63} <= {c[2] for c in mc_check.ROW_TILE_CASES}
+    assert any(all(o % 16 for o in c[5]) for c in mc_check.ROW_TILE_CASES)
+    for _, R, n_pad, *_ in mc_check.DOWNTIME_CASES:
+        assert not pac_eval.row_tiles(R, n_pad, rf=2, roster=True)
+    straddle = False
+    for _, Bq, Pq, n_pad, *_ in mc_check.COUNTS_TILE_CASES:
+        valid = pac_eval.row_tiles(Bq * Pq, n_pad, rf=2)
+        assert valid
+        straddle = straddle or any(Pq % T for T in valid)
+    assert straddle
+    assert {1, 8, 9} <= {c[1] for c in mc_check.COUNTS_TILE_CASES}
+    for cases in (mc_check.FUSED_TILE_CASES, mc_check.FUSED_PAC_TILE_CASES):
+        assert all(fused_step.fused_blocks(c[1], c[3]) for c in cases)
+        assert {1, 9, 16} <= {c[1] for c in cases}
+        assert {1, 5, 8, 9} == {c[2] for c in cases}
+    for cases in (mc_check.FUSED_CASES, mc_check.FUSED_PAC_CASES):
+        assert any(not fused_step.fused_blocks(c[1], c[3]) for c in cases)

@@ -1,9 +1,10 @@
 """The port's experiments layer against the reference: smoke-spec rows
 serialize byte for byte like the reference runner's (reference backend
 jax; the scalar event engine under backend "event"), spec identities and
-RNG salts match, and the path still to be ported (autotune) raises
-``NotImplementedError``."""
+RNG salts match, and the autotune pre-pass yields the reference's
+``autotune`` row (its tile the port's own) before the same rows."""
 import json
+import sys
 from dataclasses import asdict
 from itertools import islice
 from pathlib import Path
@@ -77,13 +78,19 @@ def test_rng_salts_and_constants_match_reference():
      "item 8"),
     (dict(smoke=True), "item 11"),                       # backend event
     (dict(smoke=True, backend="pallas", autotune=True), "item 10"),
+    (dict(smoke=True, backend="pallas", autotune=True, packed=True),
+     "item 10"),
 ])
 def test_unported_paths_raise(kw, item):
-    """Paths still to be ported raise NotImplementedError naming their
-    ROADMAP Queue 1 item.  Items 7 (the protocol zoo), 8 (the latency
-    metric) and 11 (the scalar event engine: the smoke spec's default
-    backend "event") are ported: their rows are the reference runner's,
-    the first ones for 7 and 8, all of them for 11."""
+    """The paths of ROADMAP Queue 1 that once raised NotImplementedError
+    give the reference runner's rows: items 7 (the protocol zoo) and 8
+    (the latency metric) their first rows, 11 (the scalar event engine:
+    the smoke spec's default backend "event") all of them, and 10 (the
+    autotune pre-pass, unpacked and packed) the reference's ``autotune``
+    row, whose tile alone is the port's own (the CPU fallback gives the
+    kernel's default tile, where the reference gives its Pallas block),
+    then every row of the same spec without autotune, which the
+    reference's backends (here jax) give bit for bit."""
     rows = runner.iter_rows(ExperimentSpec.create(**kw), device="cpu")
     if item in ("item 7", "item 8"):
         k = 2 if item == "item 7" else 1       # + the hermes engine row
@@ -97,8 +104,25 @@ def test_unported_paths_raise(kw, item):
         assert [r["kind"] for r in got] == ["iid", "iid"]
         assert _dumps(got) == _dumps(want)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        next(rows)
+    got = list(rows)
+    want_tune = next(ref_runner.iter_rows(RefSpec.create(**kw)))
+    tune = got[0]
+    assert set(tune) == set(want_tune)
+    for key in ("kind", "source", "kernel", "rf", "timings_us"):
+        assert tune[key] == want_tune[key]
+    assert tune["source"] == "heuristic-fallback"
+    if kw.get("packed"):
+        assert (tune["block_t"], tune["block_p"]) == (1, 128)
+    else:
+        assert tune["block_p"] == 16          # make_plan's T at R = 128
+    want = list(ref_runner.iter_rows(RefSpec.create(
+        **{**kw, "backend": "jax", "autotune": False})))
+    assert [r["kind"] for r in got[1:]] == ["iid", "iid"]
+    assert _dumps(got[1:]) == _dumps(want)
+    # chip_smoke.py's autotune phase holds its sweeps against these rows
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    assert chip_smoke.SMOKE_ROWS == _dumps(want)
 
 
 def test_sweep_cli_writes_provenance_stamped_summary(tmp_path, capsys):
