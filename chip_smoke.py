@@ -15,8 +15,9 @@ mLSTM and RG-LRU cells, and the train step of xlstm-350m,
 recurrentgemma-9b (cut to 3 layers) and smollm-360m at full width behind
 the LARK and quorum-log checkpoint stores; and across ranks on the one
 card: the Monte Carlo's trials sharded over 2 and 4 processes,
-smollm-360m's data-parallel train step on 2, and recurrentgemma-9b
-tensor-parallel over 2.
+smollm-360m's and recurrentgemma-9b's ZeRO train steps on 2 and
+recurrentgemma-9b tensor-parallel over 2; and the five examples of
+``repro_torch.examples``.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -275,10 +276,21 @@ One JSON line per phase:
    steps/s and the spawn cost (start to a ready CUDA context).
 27. ``train_dp``: smollm-360m at full width and depth in float32, 4 x
    1024 tokens, 2 steps: one process, then 2 ranks on the card each
-   taking 2 rows through ``make_train_step``'s data parallelism (gloo
-   all-reduce of the gradients): the loss, grad norm and every parameter
-   leaf within the float32 reduction-order tolerance of
-   ``tests/test_torch_train_dp.py``, the ranks' replicas equal.
+   taking 2 rows through ``make_train_step``'s all-reduce step (whole
+   moments; ``train_dp_all_reduce``) and then its ZeRO step (the moments
+   distributed under ``opt_state_shardings``, the gradients
+   reduce-scattered into each rank's half, the parameters all-gathered):
+   for each, the loss, grad norm, every parameter leaf and both moments
+   within the float32 reduction-order tolerance of
+   ``tests/test_torch_train_dp.py``, the ranks' replicas equal.  Then
+   ``train_dp_zero_rg``: recurrentgemma-9b cut to ``train_rg``'s 3
+   layers (bf16), one step on 2 x 2048 tokens, one process against the
+   ZeRO step on 2 ranks of one row: every leaf and each rank's moment
+   blocks within ``TP_LEAF_TOL``, the loss and grad norm within
+   rtol 1e-3, ``rglru_scan`` and ``rglru_scan_bwd`` launched on each rank
+   as in the one process.  Each rank holds exactly its moment shards;
+   prints each rank's moment bytes, peak memory and step ms beside one
+   process's; within ``DP_BOX_S``.
 28. ``tp``: recurrentgemma-9b at full width cut to ``train_rg``'s 3
    layers, bf16, seed 0, tensor-parallel over a (1, 2) ("data", "model")
    mesh of 2 ranks on the card (gloo, DTensor parameters under the
@@ -294,7 +306,15 @@ One JSON line per phase:
    ``rglru_check`` allowance of the plain version in float64.  Prints
    each rank's step ms beside the one process's and the kernels' µs at
    the local shape; the phase must end within ``TP_BOX_S``.
-29. ``kernels``: every ported kernel with its launches on its main path,
+29. ``examples``: the five ``repro_torch.examples`` on the card at the
+   reference's constants: ``outage_timeseries`` (Table 3 row 3 at
+   520,000 ticks equal to phase 18's row, one ``microsim_scan`` launch;
+   the stores' commits; the Monte Carlo's figures, trajectory and peaks
+   equal to the same call on the CPU, ``pac_eval`` launched),
+   ``rolling_restart`` (its lines the reference's), ``quickstart`` (5
+   finite losses), ``serve_kv`` (the session resumes) and ``train_lm``
+   (LARK commits while worker 3 is down, the baseline misses one).
+30. ``kernels``: every ported kernel with its launches on its main path,
    time, plain time, bound, error and, where one PyTorch call computes
    the same function, that call's time; the Monte Carlo kernels with a
    tile also its entry points (``step_eval``'s tile, the tuner) and the
@@ -308,7 +328,9 @@ exits 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -2386,7 +2408,8 @@ def check_microsim(bw, faults):
     names = ("microsim_scan", "microsim_plain")
     reset_counts()
     t0 = time.monotonic()
-    lines = microsim_tables.lines(microsim_tables.run(device=DEVICE))
+    results = microsim_tables.run(device=DEVICE)
+    lines = microsim_tables.lines(results)
     tables_s = time.monotonic() - t0
     launches = read_counts(names)
     same_lines = lines == microsim_tables.reference_lines()
@@ -2448,7 +2471,7 @@ def check_microsim(bw, faults):
           "wall_s": time.monotonic() - t_phase})
     if not all(checks.values()):
         raise SystemExit(f"the microsim phase failed: {checks}")
-    return rec, launches["microsim_scan"]
+    return rec, launches["microsim_scan"], results["t3"][2]
 
 
 # ---------------------------------------------------------------------------
@@ -3443,8 +3466,13 @@ SHARD_STOP = dict(n=N, partitions=P, rf=2, p=2e-4, trials=B, seed=0,
                   trajectory=True)
 #: the data-parallel train step: smollm-360m at full width and depth in
 #: float32 (so the CPU test's float32 tolerance applies), 4 x 1024
-#: tokens split over 2 ranks, 2 steps
+#: tokens split over 2 ranks, 2 steps, the moments under ZeRO placement
 DP_ARCH, DP_WORLD, DP_ROWS, DP_SEQ, DP_STEPS = "smollm_360m", 2, 4, 1024, 2
+#: its case of recurrentgemma-9b cut to train_rg's 3 layers (bf16):
+#: DP_WORLD x DP_RG_SEQ tokens, one row a rank, DP_RG_STEPS steps (each
+#: moves 6.8 GB of float32 gradients through gloo's host staging); the
+#: phase's time box (s)
+DP_RG_SEQ, DP_RG_STEPS, DP_BOX_S = 2048, 1, 240.0
 
 
 def shard_paths():
@@ -3603,10 +3631,10 @@ def dp_config():
                                        act_dtype="float32")
 
 
-def dp_batches(cfg, device):
-    data = SyntheticLMData(cfg, DP_ROWS, DP_SEQ)
+def dp_batches(cfg, device, rows=DP_ROWS, seq=DP_SEQ, steps=DP_STEPS):
+    data = SyntheticLMData(cfg, rows, seq)
     return [{k: torch.from_numpy(v).to(device)
-             for k, v in data.batch_at(s).items()} for s in range(DP_STEPS)]
+             for k, v in data.batch_at(s).items()} for s in range(steps)]
 
 
 def dp_train(step_fn, params, opt_state, batches, device):
@@ -3623,43 +3651,141 @@ def dp_train(step_fn, params, opt_state, batches, device):
     return params, opt_state, losses, norms, ms
 
 
+def state_bytes_local(opt_state) -> int:
+    """Bytes of the optimizer state this process holds (a DTensor's
+    local shard)."""
+    return sum((x.to_local() if hasattr(x, "to_local") else x).numel()
+               * x.element_size() for x in tree.leaves(opt_state))
+
+
+def rg_launches():
+    return {"rglru_scan": rk.rglru_scan.launches,
+            "rglru_scan_bwd": rk.rglru_scan_bwd.launches}
+
+
+def dp_run(cfg, rows, seq, steps, lr, mesh, device, zero=True):
+    """One run of the train_dp phase on a rank: seed-0 weights, `steps`
+    steps through ``make_train_step``'s sharding arguments, the moments
+    distributed under ``opt_state_shardings`` (`zero`: the ZeRO step) or
+    whole (the all-reduce step).  Returns ({"losses", "norms", "ms",
+    "peak_bytes", "moment_bytes", "moment_shard_bytes", "launches"},
+    params, opt_state)."""
+    from repro_torch.launch.shardings import (
+        batch_shardings, distribute, grad_shardings, opt_state_shardings,
+        shard_shape)
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = model["init_params"](gen)
+    batches = dp_batches(cfg, device, rows, seq, steps)
+    _, step_fn, opt = make_train_step(
+        cfg, **({} if lr is None else {"peak_lr": lr}),
+        grad_shardings=grad_shardings(cfg, mesh, params),
+        batch_shardings=batch_shardings(cfg, mesh, batches[0], rows))
+    opt_state = opt.init(params)
+    shard = state_bytes_local(opt_state)
+    if zero:
+        osh = opt_state_shardings(cfg, mesh, params, opt_state)
+        shard = sum(math.prod(shard_shape(x.shape, sh.spec, mesh)) *
+                    x.element_size() for x, sh in
+                    zip(tree.leaves(opt_state),
+                        tree.flatten_up_to(opt_state, osh)))
+        opt_state = distribute(opt_state, osh, mesh)
+    torch.cuda.empty_cache()
+    rk.rglru_scan.launches = rk.rglru_scan_bwd.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    params, opt_state, losses, norms, ms = dp_train(step_fn, params,
+                                                    opt_state, batches,
+                                                    device)
+    return {"losses": losses, "norms": norms, "ms": ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(device),
+            "moment_bytes": state_bytes_local(opt_state),
+            "moment_shard_bytes": shard, "launches": rg_launches()}, \
+        params, opt_state
+
+
 def dp_rank(rank, world, store, out_dir):
-    """One rank of the train_dp phase: the data-parallel step on a
-    (world, 1) ("data", "model") mesh; rank 0 saves the parameters and
-    the optimizer state, and every rank the sums of its parameter leaves
+    """One rank of the train_dp phase on a (world, 1) ("data", "model")
+    mesh of CUDA shards: smollm-360m's all-reduce step with whole moments
+    (rank 0 saves its parameters and moments), then its ZeRO step (rank
+    0 saves its parameters and its moments gathered), then
+    recurrentgemma-9b's ZeRO step, each parameter leaf and each rank's
+    moment shards held on the card against the one process's
+    (``rg_one.pt``); every rank records the sums of its parameter leaves
     (the replicas must agree)."""
+    import faulthandler
     import pickle
     from repro_torch.launch import dist as rdist
+    from repro_torch.launch import tp
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.shardings import (batch_shardings,
-                                              grad_shardings)
+    from repro_torch.launch.shardings import spec_of
+    faulthandler.enable()      # a rank that crashes prints its stack
+    # two ranks of a 1.7 B-parameter step share the card: segments that
+    # grow keep the freed whole moments' holes from stranding memory
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     # the chip's machine has no network: gloo's pairs use the loopback
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     rdist.init(f"file://{store}", rank=rank, world_size=world,
                timeout_s=300)
     try:
         dev = rdist.local_device()
-        cfg = dp_config()
-        model = build_model(cfg)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        params = model["init_params"](gen)
-        mesh = make_host_mesh((world, 1), ("data", "model"))
-        batches = dp_batches(cfg, dev)
-        init_fn, step_fn, opt = make_train_step(
-            cfg, grad_shardings=grad_shardings(cfg, mesh, params),
-            batch_shardings=batch_shardings(cfg, mesh, batches[0], DP_ROWS))
-        params, opt_state, losses, norms, ms = dp_train(
-            step_fn, params, opt.init(params), batches, dev)
-        sums = [float(t.double().sum()) for t in tree.leaves(params)]
+        torch.cuda.set_device(dev)
+        mesh = make_host_mesh((world, 1), ("data", "model"),
+                              device_type="cuda")
+        t0 = time.monotonic()
+        ar, params, opt_state = dp_run(dp_config(), DP_ROWS, DP_SEQ,
+                                       DP_STEPS, None, mesh, dev, zero=False)
+        ar["sums"] = [float(t.double().sum()) for t in tree.leaves(params)]
         if rank == 0:
             torch.save([[t.cpu() for t in tree.leaves(x)]
                         for x in (params, opt_state)],
+                       Path(out_dir, "params_ar.pt"))
+        del params, opt_state
+        torch.cuda.empty_cache()
+        secs = {"all_reduce": time.monotonic() - t0}
+        t0 = time.monotonic()
+        out, params, opt_state = dp_run(dp_config(), DP_ROWS, DP_SEQ,
+                                        DP_STEPS, None, mesh, dev)
+        out["sums"] = [float(t.double().sum()) for t in tree.leaves(params)]
+        # the moments whole, by the step's own all-gather (DTensor's
+        # full_tensor runs functional collectives, which crash on CUDA
+        # tensors over gloo)
+        flat = tree.leaves(opt_state)
+        state = tp.all_gather_leaves([t.to_local() for t in flat],
+                                     [spec_of(t) for t in flat],
+                                     [()] * len(flat), mesh)
+        if rank == 0:
+            torch.save([[t.cpu() for t in tree.leaves(params)],
+                        [t.cpu() for t in state]],
                        Path(out_dir, "params.pt"))
+        del params, opt_state, state, flat
+        torch.cuda.empty_cache()
+        secs["zero"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        rec, params, opt_state = dp_run(tp_config(), world, DP_RG_SEQ,
+                                        DP_RG_STEPS, TRAIN_LR, mesh, dev)
+        want, want_opt = torch.load(Path(out_dir, "rg_one.pt"), mmap=True)
+        rec["leaf_worst"] = max(rel_err(p.float(), w.to(dev).float())
+                                for p, w in zip(tree.leaves(params), want))
+        # each moment shard against its block of one process's moment
+        # (after one step m = (1 - b1) g and v = (1 - b2) g^2, so this
+        # holds the reduce-scattered gradient blocks element by element)
+        worst, counts = {}, True
+        for k, v in opt_state.items():
+            for x, w in zip(tree.leaves(v), want_opt[k]):
+                w = tp.local_shard(w, spec_of(x), mesh).to(dev)
+                if w.is_floating_point():
+                    worst[k] = max(worst.get(k, 0.0),
+                                   rel_err(x.to_local().float(), w.float()))
+                else:
+                    counts &= torch.equal(x.to_local(), w)
+        rec["moment_worst"], rec["counts_equal"] = worst, counts
+        rec["sums"] = [float(t.double().sum()) for t in tree.leaves(params)]
+        secs["rg"] = time.monotonic() - t0
+        out["rg"], out["all_reduce"], out["seconds"] = rec, ar, secs
     finally:
         rdist.shutdown()
-    Path(out_dir, f"dp{rank}.pkl").write_bytes(pickle.dumps(
-        {"losses": losses, "norms": norms, "ms": ms, "sums": sums}))
+    Path(out_dir, f"dp{rank}.pkl").write_bytes(pickle.dumps(out))
 
 
 def rel_err(got, want):
@@ -3669,44 +3795,11 @@ def rel_err(got, want):
     return diff / scale if scale else diff
 
 
-def check_train_dp(smi):
-    """Phase train_dp: smollm-360m at full width and depth (float32), 2
-    steps on 4 x 1024 tokens, one process against 2 ranks on the card
-    (gloo), each rank taking 2 rows and all-reduce-averaging the
-    gradients.  Held: the loss and grad norm within rtol 1e-3 and every
-    parameter leaf within rtol 1e-3 / atol 1e-3 of its largest magnitude
-    (tests/test_torch_train_dp.py's float32 reduction-order tolerance);
-    the AdamW moments m and v, which are linear in the averaged
-    gradients and their squares, each leaf within 1e-3 of its own
-    largest magnitude; the update (parameters after less before) of
-    every leaf within 1e-2 of its own norm in L2, and not zero where
-    one process moved the leaf (per
-    element the update is ~lr sign(g), so an element whose gradient is
-    within rounding of 0 may flip, which the max-norm error, reported,
-    cannot tell from a fault); the two ranks' replicas equal."""
-    import pickle
-    import tempfile
-    from repro_torch.launch import dist as rdist
-    t_phase = time.monotonic()
-    cfg = dp_config()
-    model, params = init_model(cfg)
-    start = [t.cpu() for t in tree.leaves(params)]
-    batches = dp_batches(cfg, DEVICE)
-    _, step_fn, opt = make_train_step(cfg)
-    want, want_opt, losses, norms, ms = dp_train(
-        step_fn, params, opt.init(params), batches, DEVICE)
-    want = [t.cpu() for t in tree.leaves(want)]
-    want_opt = [t.cpu() for t in tree.leaves(want_opt)]
-    del params
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.monotonic()
-        rdist.spawn(dp_rank, DP_WORLD, (DP_WORLD, str(Path(tmp, "store")),
-                                        tmp), timeout_s=600)
-        wall = time.monotonic() - t0
-        ranks = [pickle.loads(Path(tmp, f"dp{r}.pkl").read_bytes())
-                 for r in range(DP_WORLD)]
-        got, got_opt = torch.load(Path(tmp, "params.pt"))
+def dp_close(got, got_opt, want, want_opt, start):
+    """The train_dp checks of one ranks' run against one process (see
+    ``check_train_dp``), on the card (`want`, `want_opt` and `start`
+    there already): (leaves_close, update_ok, a record)."""
+    got, got_opt = ([t.to(DEVICE) for t in ts] for ts in (got, got_opt))
     worst, close = 0.0, True
     for g, w in zip(got, want):
         scale = max(1.0, w.abs().max().item())
@@ -3727,27 +3820,194 @@ def check_train_dp(smi):
         update_max = max(update_max, rel_err(dg, dw))
     moved = bool(moved) and all(moved)
     update_ok = moved and update_l2 <= 1e-2 and moment_worst <= 1e-3 \
-        and counts_equal
+        and counts_equal and len(got_opt) == len(want_opt)
+    return close, update_ok, {
+        "worst_abs_over_scale": worst, "leaves_close": close,
+        "moment_worst_over_own_max": moment_worst,
+        "update_worst_l2_over_own_l2": update_l2,
+        "update_worst_max_over_own_max": update_max,
+        "every_leaf_moved": moved, "update_close": update_ok}
+
+
+def check_train_dp(smi):
+    """Phase train_dp: smollm-360m at full width and depth (float32), 2
+    steps on 4 x 1024 tokens, one process against 2 ranks on the card
+    (gloo), each rank taking 2 rows, first through the all-reduce step
+    (whole moments: one all-reduce of every gradient), then through the
+    ZeRO step: the moments distributed under ``opt_state_shardings``,
+    each rank reduce-scatters the gradients into its half, updates its
+    half of the parameters with its half of the moments and all-gathers
+    them.  Held, for both steps: the loss and
+    grad norm within rtol 1e-3 and every parameter leaf within rtol 1e-3
+    / atol 1e-3 of its largest magnitude (tests/test_torch_train_dp.py's
+    float32 reduction-order tolerance); the AdamW moments m and v
+    (gathered), which are linear in the averaged gradients and their
+    squares, each leaf within 1e-3 of its own largest magnitude; the
+    update (parameters after less before) of every leaf within 1e-2 of
+    its own norm in L2, and not zero where one process moved the leaf
+    (per element the update is ~lr sign(g), so an element whose gradient
+    is within rounding of 0 may flip, which the max-norm error, reported,
+    cannot tell from a fault); the two ranks' replicas equal.  Then
+    recurrentgemma-9b cut to train_rg's 3 layers (bf16, AdamW), one step
+    on 2 x 2048 tokens, one process against the ZeRO step on 2 ranks of
+    one row each: every leaf, and each rank's block of every moment,
+    within ``TP_LEAF_TOL`` of its largest magnitude (the gradients are
+    bf16 before their float32 sum, so the moments, which after one step
+    are (1 - b1) g and (1 - b2) g^2, differ by bf16 roundings; a block
+    from the wrong rows or a missing update is off by its whole size),
+    the step counts equal, the loss and grad norm within rtol 1e-3 (the
+    tp phase's bounds), ``rglru_scan`` and ``rglru_scan_bwd`` launched on
+    each rank as often as in the one process.  Every rank holds exactly its moment
+    shards' bytes (``shard_shape`` under ``opt_state_shardings``); each
+    rank's moment bytes, peak memory and step ms are printed beside one
+    process's.  Returns the RG-LRU kernels' launches over the ranks."""
+    import pickle
+    import tempfile
+    from repro_torch.launch import dist as rdist
+    t_phase = time.monotonic()
+    cfg = dp_config()
+    model, params = init_model(cfg)
+    start = [t.cpu() for t in tree.leaves(params)]
+    batches = dp_batches(cfg, DEVICE)
+    _, step_fn, opt = make_train_step(cfg)
+    opt_state = opt.init(params)
+    one = {"moment_bytes": state_bytes_local(opt_state)}
+    torch.cuda.reset_peak_memory_stats()
+    want, want_opt, losses, norms, ms = dp_train(
+        step_fn, params, opt_state, batches, DEVICE)
+    one["peak_bytes"] = torch.cuda.max_memory_allocated()
+    want = [t.cpu() for t in tree.leaves(want)]
+    want_opt = [t.cpu() for t in tree.leaves(want_opt)]
+    del params, opt_state
+    torch.cuda.empty_cache()
+    secs = {"one_process": time.monotonic() - t_phase}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        rcfg = tp_config()
+        _, rparams = init_model(rcfg)
+        _, rstep, ropt = make_train_step(rcfg, peak_lr=TRAIN_LR)
+        rstate = ropt.init(rparams)
+        rg_one = {"moment_bytes": state_bytes_local(rstate)}
+        rk.rglru_scan.launches = rk.rglru_scan_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rparams, rstate, rg_one["losses"], rg_one["norms"], rg_one["ms"] = \
+            dp_train(rstep, rparams, rstate,
+                     dp_batches(rcfg, DEVICE, DP_WORLD, DP_RG_SEQ,
+                                DP_RG_STEPS), DEVICE)
+        rg_one.update(peak_bytes=torch.cuda.max_memory_allocated(),
+                      launches=rg_launches())
+        torch.save([[t.cpu() for t in tree.leaves(rparams)],
+                    {k: [t.cpu() for t in tree.leaves(v)]
+                     for k, v in rstate.items()}], Path(tmp, "rg_one.pt"))
+        del rparams, rstate
+        torch.cuda.empty_cache()
+        secs["rg_one_process_and_save"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        rdist.spawn(dp_rank, DP_WORLD, (DP_WORLD, str(Path(tmp, "store")),
+                                        tmp), timeout_s=DP_BOX_S)
+        secs["spawn_and_run"] = wall = time.monotonic() - t0
+        t0 = time.monotonic()
+        ranks = [pickle.loads(Path(tmp, f"dp{r}.pkl").read_bytes())
+                 for r in range(DP_WORLD)]
+        want, want_opt, start = ([t.to(DEVICE) for t in ts]
+                                 for ts in (want, want_opt, start))
+        close, update_ok, rec = dp_close(
+            *torch.load(Path(tmp, "params.pt"), mmap=True), want, want_opt,
+            start)
+        ar_close, ar_update_ok, ar_rec = dp_close(
+            *torch.load(Path(tmp, "params_ar.pt"), mmap=True), want,
+            want_opt, start)
+    del want, want_opt, start
+    torch.cuda.empty_cache()
+    secs["load_and_compare"] = time.monotonic() - t0
+
+    def held(rs):
+        """(losses and norms within rtol 1e-3 of one process's, the
+        ranks' replicas and losses equal)"""
+        return (np.allclose(rs[0]["losses"], losses, rtol=1e-3) and
+                np.allclose(rs[0]["norms"], norms, rtol=1e-3),
+                all(r["sums"] == rs[0]["sums"] and r["losses"] ==
+                    rs[0]["losses"] for r in rs))
     r0 = ranks[0]
-    metrics_close = np.allclose(r0["losses"], losses, rtol=1e-3) and \
-        np.allclose(r0["norms"], norms, rtol=1e-3)
-    replicated = all(r["sums"] == r0["sums"] and r["losses"] ==
-                     r0["losses"] for r in ranks)
+    metrics_close, replicated = held(ranks)
+    ar = [r["all_reduce"] for r in ranks]
+    ar_metrics_close, ar_replicated = held(ar)
+    holds_shard = all(r["moment_bytes"] == r["moment_shard_bytes"]
+                      for r in ranks)
+    rg = [r["rg"] for r in ranks]
+    rg_checks = {
+        "leaf_worst_over_max": max(r["leaf_worst"] for r in rg),
+        "moment_worst_over_own_max": {
+            k: max(r["moment_worst"][k] for r in rg)
+            for k in rg[0]["moment_worst"]},
+        "counts_equal": all(r["counts_equal"] for r in rg),
+        "metrics_close": np.allclose(rg[0]["losses"], rg_one["losses"],
+                                     rtol=1e-3) and
+        np.allclose(rg[0]["norms"], rg_one["norms"], rtol=1e-3),
+        "replicated": all(r["sums"] == rg[0]["sums"] for r in rg),
+        "holds_its_shard": all(r["moment_bytes"] == r["moment_shard_bytes"]
+                               for r in rg),
+        "launches_each_rank": all(r["launches"] == rg_one["launches"] and
+                                  min(r["launches"].values()) > 0
+                                  for r in rg)}
+    wall_phase = time.monotonic() - t_phase
+    emit({"phase": "train_dp_all_reduce", "arch": DP_ARCH,
+          "dtype": "float32", "world": DP_WORLD, "rows": DP_ROWS,
+          "seq": DP_SEQ, "gpu": smi, "loss_ranks": ar[0]["losses"],
+          "grad_norm_ranks": ar[0]["norms"],
+          "ms_ranks": [r["ms"] for r in ar],
+          "moment_bytes_ranks": [r["moment_bytes"] for r in ar],
+          "peak_bytes_ranks": [r["peak_bytes"] for r in ar], **ar_rec,
+          "metrics_close": ar_metrics_close, "replicated": ar_replicated})
     emit({"phase": "train_dp", "arch": DP_ARCH, "dtype": "float32",
           "world": DP_WORLD, "rows": DP_ROWS, "seq": DP_SEQ, "gpu": smi,
           "loss_one_process": losses, "loss_ranks": r0["losses"],
           "grad_norm_one_process": norms, "grad_norm_ranks": r0["norms"],
           "ms_one_process": ms, "ms_ranks": [r["ms"] for r in ranks],
-          "worst_abs_over_scale": worst, "leaves_close": close,
-          "moment_worst_over_own_max": moment_worst,
-          "update_worst_l2_over_own_l2": update_l2,
-          "update_worst_max_over_own_max": update_max,
-          "every_leaf_moved": moved, "update_close": update_ok,
+          "moment_bytes_one_process": one["moment_bytes"],
+          "moment_bytes_ranks": [r["moment_bytes"] for r in ranks],
+          "peak_bytes_one_process": one["peak_bytes"],
+          "peak_bytes_ranks": [r["peak_bytes"] for r in ranks], **rec,
           "metrics_close": metrics_close, "replicated": replicated,
-          "spawn_and_run_s": wall, "wall_s": time.monotonic() - t_phase})
-    if not (close and update_ok and metrics_close and replicated):
-        raise SystemExit("train_dp: the data-parallel step differs from "
-                         "one process")
+          "holds_its_shard": holds_shard, "spawn_and_run_s": wall,
+          "seconds": secs, "rank_seconds": [r["seconds"] for r in ranks],
+          "wall_s": wall_phase, "box_s": DP_BOX_S})
+    emit({"phase": "train_dp_zero_rg", "arch": rcfg.name,
+          "layers": rcfg.num_layers, "dtype": rcfg.param_dtype,
+          "world": DP_WORLD, "rows": DP_WORLD, "seq": DP_RG_SEQ,
+          "steps": DP_RG_STEPS, "gpu": smi,
+          "loss_one_process": rg_one["losses"],
+          "loss_ranks": rg[0]["losses"],
+          "grad_norm_one_process": rg_one["norms"],
+          "grad_norm_ranks": rg[0]["norms"],
+          "ms_one_process": rg_one["ms"], "ms_ranks": [r["ms"] for r in rg],
+          "moment_bytes_one_process": rg_one["moment_bytes"],
+          "moment_bytes_ranks": [r["moment_bytes"] for r in rg],
+          "peak_bytes_one_process": rg_one["peak_bytes"],
+          "peak_bytes_ranks": [r["peak_bytes"] for r in rg],
+          "launches_one_process": rg_one["launches"],
+          "launches_ranks": [r["launches"] for r in rg],
+          "leaf_tol": TP_LEAF_TOL, **rg_checks})
+    if not (ar_close and ar_update_ok and ar_metrics_close and
+            ar_replicated):
+        raise SystemExit("train_dp: the all-reduce step with whole "
+                         "moments differs from one process")
+    if not (close and update_ok and metrics_close and replicated and
+            holds_shard):
+        raise SystemExit("train_dp: the ZeRO step differs from one "
+                         "process, or a rank holds more than its moment "
+                         "shards")
+    worst = ("leaf_worst_over_max", "moment_worst_over_own_max")
+    if not (rg_checks["leaf_worst_over_max"] <= TP_LEAF_TOL and
+            max(rg_checks["moment_worst_over_own_max"].values()) <=
+            TP_LEAF_TOL and
+            all(v for k, v in rg_checks.items() if k not in worst)):
+        raise SystemExit(f"train_dp: recurrentgemma's ZeRO step: "
+                         f"{rg_checks}")
+    if wall_phase > DP_BOX_S:
+        raise SystemExit(f"train_dp: {wall_phase:.1f} s, past its "
+                         f"{DP_BOX_S} s box")
+    return {k: sum(r["launches"][k] for r in rg) for k in rg_launches()}
 
 
 #: the tp phase: 2 ranks of one card, recurrentgemma-9b cut to train_rg's
@@ -3964,6 +4224,104 @@ def check_tp(smi):
         raise SystemExit(f"tp: {wall:.1f} s, past its {TP_BOX_S} s box")
 
 
+#: rolling_restart's printed lines: the reference script's
+#: (tests/test_torch_examples.py holds this constant to them)
+ROLLING_RESTART_LINES = [
+    f"restarted node {v}: partitions available during window: 8/8, "
+    f"regime {3 + 2 * v}" for v in range(5)] + [
+    "", "writes committed during restarts: 40/40",
+    "final reads correct: 8/8",
+    "partition-unavailability events: 0 (expect 0)", "linearizable: True"]
+#: the train_lm example's checkpoint steps with worker 3 down (it fails at
+#: step 100 and recovers at 120)
+EXAMPLE_DOWN_STEPS = range(100, 120)
+
+
+def check_examples(smi, micro_row):
+    """Phase examples: the five ``repro_torch.examples`` on the card,
+    each through its ``run`` at the reference's constants.
+    ``outage_timeseries``: Table 3 row 3 at 520,000 ticks equal to the
+    microsim phase's row (both from ``microsim_scan``, one launch here),
+    the checkpoint stores' commits, and the Monte Carlo's u_lark, u_maj,
+    trial 0's trajectory and per-bucket peaks equal to the same engine
+    call on the CPU (bitwise engines), ``pac_eval`` launched;
+    ``rolling_restart``: its lines equal ``ROLLING_RESTART_LINES``;
+    ``quickstart``: 5 finite losses; ``serve_kv``: the session resumes
+    after the server failure; ``train_lm``: LARK commits every checkpoint
+    while worker 3 is down and the quorum-log baseline misses one.
+    Returns the kernels' launches."""
+    from repro_torch.examples import (outage_timeseries, quickstart,
+                                      rolling_restart, serve_kv, train_lm)
+    t_phase = time.monotonic()
+    printed, secs = {}, {}
+
+    def capture(name, fn, **kw):
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            out = fn(device=DEVICE, **kw)
+        secs[name] = time.monotonic() - t0
+        printed[name] = buf.getvalue().splitlines()
+        return out
+
+    names = ("pac_eval", "microsim_scan", "microsim_plain",
+             "fused_pac_eval")
+    reset_counts()
+    outage = capture("outage_timeseries", outage_timeseries.run)
+    launches = read_counts(names)
+    cpu = ab.simulate_availability_batched(**outage_timeseries.MC,
+                                           device="cpu")
+    row = outage["row"]
+    figures = ("window_s", "throughput_ratio", "lark_backfill_s",
+               "base_down_s")
+    t = cpu.trajectory["times"][:, 0]
+    checks = {
+        "row_equals_microsim_phase": all(
+            row[k] == micro_row[k] for k in figures) and all(
+            row[m] == micro_row[m] for m in ("lark", "base")) and all(
+            np.array_equal(row[k], micro_row[k])
+            for k in ("lark_ts", "base_ts")),
+        "stores": (outage["lark_ok"], outage["base_ok"]) == (60, 54),
+        "mc_equals_cpu": (outage["u_lark"], outage["u_maj"]) ==
+        (cpu.u_lark, cpu.u_maj) and all(
+            np.array_equal(v, cpu.trajectory[k][:, 0])
+            for k, v in outage["trajectory"].items()) and all(
+            np.array_equal(outage["peaks"][n], outage_timeseries.
+                           bucket_peaks(t, cpu.trajectory[k][:, 0]))
+            for n, k in (("LARK", "unavail_lark"), ("MAJ", "unavail_maj"))),
+        "outage_launches": launches["microsim_scan"] == 1 and
+        launches["pac_eval"] > 0 and launches["microsim_plain"] == 0 and
+        launches["fused_pac_eval"] == 0}
+    capture("rolling_restart", rolling_restart.run)
+    checks["rolling_restart_lines"] = \
+        printed["rolling_restart"] == ROLLING_RESTART_LINES
+    quick = capture("quickstart", quickstart.run)
+    checks["quickstart_five_finite"] = len(quick["losses"]) == 5 and all(
+        math.isfinite(x) for x in quick["losses"])
+    served = capture("serve_kv", serve_kv.run)
+    checks["serve_kv_resumes"] = served["resumed"] is not None
+    trained = capture("train_lm", train_lm.run)
+    down = [r for r in trained["metrics"] if r["step"] in EXAMPLE_DOWN_STEPS
+            and "lark_commit" in r]
+    checks["train_lm_commits"] = bool(down) and all(
+        r["lark_commit"] for r in down) and not all(
+        r["baseline_commit"] for r in down)
+    emit({"phase": "examples", "gpu": smi, "launches": launches,
+          "seconds": secs, "outage_lines": printed["outage_timeseries"],
+          "quickstart_losses": quick["losses"],
+          "resumed_shape": None if served["resumed"] is None else
+          list(served["resumed"].shape),
+          "train_lm_loss_line": printed["train_lm"][-1],
+          "train_lm_down_checkpoints": [
+              {k: r[k] for k in ("step", "lark_commit", "baseline_commit")}
+              for r in down], **checks,
+          "wall_s": time.monotonic() - t_phase})
+    if not all(checks.values()):
+        raise SystemExit(f"examples: {checks}")
+    return {"pac_eval": launches["pac_eval"],
+            "microsim_scan": launches["microsim_scan"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -4037,8 +4395,8 @@ def main() -> int:
     launches.update(flash_launches)
     launches["rglru_scan"] = check_serve_rg()
     check_serve_rg_cpu()
-    rec["microsim_scan"], launches["microsim_scan"] = check_microsim(
-        bw, faults["microsim_scan"])
+    rec["microsim_scan"], launches["microsim_scan"], t3_row3 = \
+        check_microsim(bw, faults["microsim_scan"])
     check_serve_dense()
     check_families()
     rec["rglru_scan_bwd"] = check_rglru_bwd_kernel(bw,
@@ -4056,8 +4414,11 @@ def main() -> int:
             "mlstm_chunkwise_bwd"]
         check_elastic()
     check_sharded(mc_runs)
-    check_train_dp(smi)
+    for k, n in check_train_dp(smi).items():
+        launches[k] += n
     check_tp(smi)
+    for k, n in check_examples(smi, t3_row3).items():
+        launches[k] += n
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

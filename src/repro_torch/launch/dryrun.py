@@ -25,10 +25,16 @@ computes, as host arithmetic on meta tensors (the counterpart of
   meta tensors: the parameters, optimizer state and decode state as meta
   DTensors under the cell's specs (``shardings.distribute``), so the
   step is the sharded one (``training/train_loop.py``,
-  ``training/sharded.py``; on batch-only specs it is data parallelism);
-  its collectives also by mesh axis (``collectives_by_axis``).  A cell
-  that cannot be traced records ``"not traced"``, the op and the
-  reason.
+  ``training/sharded.py``).  A train cell's step is the ZeRO step of the
+  per-layer tree: the moments under ``opt_state_shardings``, each
+  gradient reduce-scattered over the batch axes into its
+  ``grad_shardings`` block, the update on that block, the parameters
+  all-gathered into ``param_shardings``.  Its collectives also by mesh
+  axis (``collectives_by_axis``).  A reduce-scatter books its input, the
+  flat buffer of every rank's blocks (the rank keeps 1/size of it); an
+  all-gather books its input too, this rank's blocks (it receives size
+  times that).  A cell that cannot be traced records ``"not traced"``,
+  the op and the reason.
 
 XLA's ``memory_analysis`` temporaries have no counterpart here and are
 recorded as not measured.  Every byte count is host arithmetic on
@@ -200,13 +206,14 @@ def _axis_names(mesh):
             for names in itertools.combinations(dims, k)}
 
 
-def _trace(cfg, shape, mesh, inputs, bshard):
+def _trace(cfg, shape, mesh, inputs, bshard, gshard=None):
     """op_analysis of one rank's step, or "not traced", the op and why."""
     from repro_torch.training import make_serve_steps, make_train_step
     try:
         if shape.kind == "train":
             params, opt_state, batch = inputs
-            _, step_fn, _ = make_train_step(cfg, batch_shardings=bshard)
+            _, step_fn, _ = make_train_step(cfg, grad_shardings=gshard,
+                                            batch_shardings=bshard)
             res = op_analysis.analyze(step_fn, params, opt_state, batch)
         elif shape.kind == "prefill":
             params, batch = inputs
@@ -271,13 +278,18 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         dev["opt_state"] = sharded_bytes(opt_state, oshard, mesh)
         dev["batch"] = sharded_bytes(batch, bshard, mesh)
         if trace:
-            local = per_layer_params(cfg, params)
-            local = distribute(local, param_shardings(cfg, mesh, local),
-                               mesh)
+            # the ZeRO step on the per-layer tree, as the reference's jit
+            # places it: the parameters under param_shardings, the moments
+            # under opt_state_shardings, the gradients reduce-scattered
+            # into grad_shardings
+            whole = per_layer_params(cfg, params)
+            moments = make_optimizer(cfg.optimizer).init(whole)
             rec["op_analysis"] = _trace(
                 cfg, shape, mesh,
-                (local, make_optimizer(cfg.optimizer).init(local), batch),
-                bshard)
+                (distribute(whole, param_shardings(cfg, mesh, whole), mesh),
+                 distribute(moments, opt_state_shardings(
+                     cfg, mesh, whole, moments), mesh), batch),
+                bshard, grad_shardings(cfg, mesh, whole))
     else:
         pshard = param_shardings(cfg, mesh, params, fsdp=cfg.tensor_parallel)
         dev["params"] = sharded_bytes(params, pshard, mesh)

@@ -15,9 +15,16 @@ Across ranks (``training/train_loop.py``'s sharded step): ``init`` takes
 DTensor parameters and gives moments placed as their parameters (an
 Adafactor factor drops the parameter's dim it averages over);
 ``clip_by_global_norm`` takes DTensor gradients and sums each shard's
-squares across the mesh axes that shard it; ``update`` runs on the local
-shards, and Adafactor's means over a sharded dim (its factors, the
-update's RMS) are combined across that dim's ranks (``shards``).
+squares across the mesh axes that shard it, so a block held by several
+ranks counts once; ``update`` runs on the local shards, and Adafactor's
+means over a sharded dim (its factors, the update's RMS) are combined
+across that dim's ranks (``shards``).  ``state_specs`` gives the layout
+``update`` computes each moment in when the gradients are local under
+given specs (the ZeRO step's ``grad_shardings``): a moment of the
+parameter's shape in the gradient's spec, Adafactor's row factor in the
+gradient's spec without its last dim and the column factor without its
+second-to-last, so each rank holds the factor entries its gradient's
+rows and columns need, whatever placement the moments are stored in.
 """
 from __future__ import annotations
 
@@ -33,6 +40,15 @@ from repro_torch.models.layers import DTYPES
 class Optimizer(NamedTuple):
     init: Callable
     update: Callable  # (grads, state, params) -> (updates, new_state)
+    #: (params, specs) -> the state's tree with, at each leaf, the spec
+    #: its update computes it in when each gradient leaf is local under
+    #: its entry of `specs` (flattening order)
+    state_specs: Callable
+
+
+def _full(spec, ndim: int) -> tuple:
+    """`spec` with an entry for each of `ndim` dims."""
+    return tuple(spec) + (None,) * (ndim - len(spec))
 
 
 def warmup_cosine(peak_lr: float, warmup: int = 100, total: int = 10_000,
@@ -178,7 +194,12 @@ def adamw(lr: Callable, *, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
             "m": tree.unflatten(params, ms), "v": tree.unflatten(params, vs),
             "count": c}
 
-    return Optimizer(init, update)
+    def state_specs(params, specs):
+        moments = tree.unflatten(params, [
+            _full(s, p.dim()) for p, s in zip(tree.leaves(params), specs)])
+        return {"m": moments, "v": moments, "count": ()}
+
+    return Optimizer(init, update, state_specs)
 
 
 def adafactor(lr: Callable, *, eps=1e-30, clip_threshold=1.0, decay=0.8,
@@ -253,7 +274,20 @@ def adafactor(lr: Callable, *, eps=1e-30, clip_threshold=1.0, decay=0.8,
             new["m"] = tree.unflatten(params, new_m)
         return tree.unflatten(params, new_u), new
 
-    return Optimizer(init, update)
+    def state_specs(params, specs):
+        vs = []
+        for p, s in zip(tree.leaves(params), specs):
+            s = _full(s, p.dim())
+            vs.append({"vr": s[:-1], "vc": s[:-2] + s[-1:]} if factored(p)
+                      else {"v": s})
+        st = {"v": vs, "count": ()}
+        if momentum is not None:
+            st["m"] = tree.unflatten(params, [
+                _full(s, p.dim()) for p, s in zip(tree.leaves(params),
+                                                   specs)])
+        return st
+
+    return Optimizer(init, update, state_specs)
 
 
 def make_optimizer(name: str, peak_lr: float = 3e-4, **kw) -> Optimizer:

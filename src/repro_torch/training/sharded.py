@@ -5,8 +5,15 @@ its DTensors are stored in (the reference's specs, ``launch/shardings``).
 * Parameters: stored under ``param_shardings`` (``model`` on head, ff,
   vocab, expert and RG-LRU width dims; FSDP adds ``data`` on a free dim);
   computed with only their ``model`` shards (an FSDP shard is gathered
-  over ``data`` for the step, and its gradient cut back after the
-  batch-axis average).
+  over ``data`` for the step).
+* Gradients: computed as the parameters are, then reduce-scattered over
+  the batch axes into their blocks under ``grad_shardings`` (ZeRO: the
+  parameters' ``model`` shards with ``data``, and for a non-TP arch
+  ``model`` too, on free dims; the parameters' own specs without it).
+  The update runs on those blocks, with the parameters cut to them and
+  each moment converted from the placement it is stored in to the one
+  ``opt.state_specs`` computes it in; the new blocks are all-gathered
+  into the parameters' placement and the moments converted back.
 * The batch: the rows of this rank's index over the batch axes, and
   under sequence parallelism its block of the sequence
   (``batch_shardings``); a whole batch (the same on every rank) or

@@ -13,8 +13,9 @@ and decode steps.
 
 The reference's sharding arguments (trees of
 ``launch/shardings.NamedSharding``) take effect on their DeviceMesh.
-Where every spec names only batch axes, as data parallelism: each rank
-takes its rows of the global batch (its index over the batch axes,
+Where every spec names only batch axes and the parameters and moments
+are plain tensors, as data parallelism: each rank takes its rows of the
+global batch (its index over the batch axes,
 ``launch/shardings.batch_axes``; ranks on the other axes hold the same
 rows), accumulates its microbatches as above, and all-reduce-averages
 the gradients and the loss over the batch axes before clipping, so the
@@ -23,20 +24,27 @@ step, bit for bit.
 
 Where a spec names ``model`` outside the batch axes (a tensor-parallel
 arch on a model axis above 1, or sequence parallelism), or the
-parameters are DTensors, the step is sharded (``training/sharded.py``):
-the parameters and optimizer state are DTensors
-(``launch/shardings.distribute`` of ``param_shardings``; ``opt.init`` of
-those), each rank computes on its shards under a
-``launch/tp.Context``, the gradients of sharded leaves stay shards, the
-batch-axis average (summed over the sequence ranks too) applies to every
-leaf, the global norm sums every shard's squares, and the update runs on
-each rank's shards; the parameters come back as DTensors placed as they
-went in.  A rank whose rows do not split into the configured
-microbatches takes their greatest common divisor (``sharded.
-microbatches``; the reference splits the global batch first and pads).
-The moments follow the parameters' placements: the reference's ZeRO
-placement of the accumulator and moments (``grad_shardings``' and
-``opt_state_shardings``' extra data shard) is ROADMAP Queue 1 item 22.
+parameters are DTensors, or ``grad_shardings`` is given and the
+optimizer state holds DTensors, the step is sharded
+(``training/sharded.py``): the parameters and optimizer state are
+DTensors (``launch/shardings.distribute`` of ``param_shardings`` and of
+``opt_state_shardings``, the reference's ZeRO placement of the moments;
+or ``opt.init`` of DTensor parameters, placed as they are), and each
+rank computes on its shards under a ``launch/tp.Context``.  The ZeRO
+step: each rank accumulates its microbatches in float32 locally,
+reduce-scatters every gradient over the batch axes (summed over the
+sequence ranks too) into its block under ``grad_shardings`` (without
+them, the parameter's own placement) in one flat collective per
+placement (``tp.reduce_scatter_leaves``), all-reduces the loss, clips on
+the blocks (the global norm sums each distinct block's squares once),
+updates its block of the parameters with its block of each moment, and
+all-gathers the new blocks into the parameters' placement
+(``param_shardings``: replicated for a non-TP arch, whose parameters may
+be whole tensors; ``model`` plus FSDP's ``data`` for the others).  The
+parameters come back placed as they went in, and the moments too.  A
+rank whose rows do not split into the configured microbatches takes
+their greatest common divisor (``sharded.microbatches``; the reference
+splits the global batch first and pads).
 
 ``make_serve_steps(cfg, mesh)`` serves on a mesh likewise: DTensor
 parameters, the batch cut by ``batch_shardings``, the decode state as
@@ -67,8 +75,9 @@ def accumulate_grads(loss_fn, params, batch, nmb: int = 1):
     gradients float32 (a leaf no path reaches gets zeros)."""
     flat = [p.detach().requires_grad_(True) for p in tree.leaves(params)]
     live = tree.unflatten(params, flat)
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in flat]
+    # each accumulator is the first microbatch's gradient, so no zeros
+    # are held through the first backward
+    acc = [None] * len(flat)
     loss_sum = None
     for i in range(nmb):
         if nmb == 1:
@@ -78,11 +87,15 @@ def accumulate_grads(loss_fn, params, batch, nmb: int = 1):
                      for k, v in batch.items()}
         total, _ = loss_fn(live, micro)
         grads = torch.autograd.grad(total, flat, allow_unused=True)
-        for a, g in zip(acc, grads):
+        for j, g in enumerate(grads):
             if g is not None:
-                a += g.to(torch.float32)
+                g = g.to(torch.float32)
+                acc[j] = g if acc[j] is None else acc[j] + g
+        del grads
         total = total.detach().to(torch.float32)
         loss_sum = total if loss_sum is None else loss_sum + total
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           if a is None else a for a, p in zip(acc, flat)]
     if nmb > 1:
         acc = [a / nmb for a in acc]
         loss_sum = loss_sum / nmb
@@ -121,16 +134,13 @@ class _DataParallel:
         return _flat_average(loss, grads, self.axis, self.ways)
 
 
-def _flat_average(loss, grads, ax, ways: int, loss_ranks: int = 1):
+def _flat_average(loss, grads, ax, ways: int):
     """(loss, grads) summed over `ax`'s ranks in one all-reduce of a flat
-    float32 buffer and divided by `ways`; the loss first divided by
-    `loss_ranks`, the ranks of `ax` that hold the same loss."""
+    float32 buffer and divided by `ways`."""
     if ax.size == 1:
         return loss, grads
     flat = tree.leaves(grads)
-    buf = torch.cat([g.reshape(-1) for g in flat] +
-                    [(loss / loss_ranks if loss_ranks > 1 else loss)
-                     .reshape(1)])
+    buf = torch.cat([g.reshape(-1) for g in flat] + [loss.reshape(1)])
     dist.all_reduce(buf, group=ax.group)
     buf = buf / ways
     out, at = [], 0
@@ -168,9 +178,11 @@ def _is_sharded(cfg, mesh, bspecs) -> bool:
                for d in range(1, len(s)))
 
 
-def _sharded_step(cfg, model, opt, nmb, clip_norm, mesh, bspecs, params,
-                  opt_state, batch):
-    """One step of the sharded path (the module doc)."""
+def _sharded_step(cfg, model, opt, nmb, clip_norm, mesh, bspecs, gspecs,
+                  params, opt_state, batch):
+    """One step of the sharded path (the module doc); `gspecs` the
+    gradients' specs (flattening order), None for the parameters'
+    own."""
     main = SH.main_spec(bspecs)
     rows_ax = tp.entry_axes(main, 0)
     seq_ax = tp.entry_axes(main, 1)
@@ -181,28 +193,47 @@ def _sharded_step(cfg, model, opt, nmb, clip_norm, mesh, bspecs, params,
     with tp.use(ctx):
         loss, grads = accumulate_grads(model["loss_fn"], local, lb,
                                        SH.microbatches(rows, nmb))
-    # the batch-axis average, summed over the sequence's ranks
-    loss, grads = _flat_average(
-        loss, grads, tp.axis(mesh, SH.union(mesh, rows_ax, seq_ax)),
-        tp.axis(mesh, rows_ax).size, ctx.sp.size)
-    flat = tree.leaves(grads)
+    # the batch-axis average, summed over the sequence's ranks: each
+    # gradient reduce-scattered into its block under its spec
+    summed = SH.union(mesh, rows_ax, seq_ax)
+    ways = tp.axis(mesh, rows_ax).size
+    loss = tp.all_reduce(loss / ctx.sp.size, tp.axis(mesh, summed)) / ways
+    gspecs = gspecs or pspecs
     pflat = tree.leaves(params)
-    gdt = [SH.wrap(p, tp.to_spec(g, SH.model_only(s), s, mesh), mesh)
-           for p, g, s in zip(pflat, flat, pspecs)]
+    glocal = tp.reduce_scatter_leaves(
+        tree.leaves(grads), [SH.model_only(s) for s in pspecs], gspecs,
+        summed, mesh)
+    del grads                    # the whole accumulators
+    gdt = [SH.wrap(None, g.div_(ways), mesh, s, p.shape)
+           for p, g, s in zip(pflat, glocal, gspecs)]
+    del glocal
     gdt, gnorm = clip_by_global_norm(tree.unflatten(params, gdt), clip_norm)
     with torch.no_grad():
-        plocal = tree.unflatten(params, [SH.unwrap(p)[0] for p in pflat])
-        glocal = tree.map_leaves(lambda g: SH.unwrap(g)[0], gdt)
-        slocal = tree.map_leaves(lambda x: SH.unwrap(x)[0], opt_state)
+        # the update on each rank's gradient blocks, with the parameters'
+        # and moments' blocks in the same layout
+        pg = [tp.to_spec(SH.unwrap(p)[0], s, g, mesh)
+              for p, s, g in zip(pflat, pspecs, gspecs)]
+        comp = [s for _, s in SH.spec_leaves(opt.state_specs(params,
+                                                             gspecs))]
+        sflat = tree.leaves(opt_state)
+        stored = [SH.unwrap(x)[1] for x in sflat]
+        slocal = [tp.to_spec(SH.unwrap(x)[0], s, c, mesh)
+                  for x, s, c in zip(sflat, stored, comp)]
         updates, new_state = opt.update(
-            glocal, slocal, plocal,
-            shards=[SH.shards_of(s, mesh) for s in pspecs])
-        new = [SH.wrap(p, pl + u.to(pl.dtype), mesh) for p, pl, u in
-               zip(pflat, tree.leaves(plocal), tree.leaves(updates))]
-        new_state = tree.map_leaves(lambda x, y: SH.wrap(x, y, mesh),
-                                    opt_state, new_state)
-    return tree.unflatten(params, new), new_state, {"loss": loss,
-                                                    "grad_norm": gnorm}
+            tree.map_leaves(lambda g: SH.unwrap(g)[0], gdt),
+            tree.unflatten(opt_state, slocal), tree.unflatten(params, pg),
+            shards=[SH.shards_of(s, mesh) for s in gspecs])
+        del gdt                  # the clipped gradient blocks
+        new = [p + u.to(p.dtype) for p, u in zip(pg, tree.leaves(updates))]
+        del updates
+        new = tp.all_gather_leaves(new, gspecs, pspecs, mesh)
+        new = [SH.wrap(p, x, mesh) for p, x in zip(pflat, new)]
+        new_state = [SH.wrap(x, tp.to_spec(y, c, s, mesh), mesh)
+                     for x, y, c, s in zip(sflat, tree.leaves(new_state),
+                                           comp, stored)]
+    return tree.unflatten(params, new), \
+        tree.unflatten(opt_state, new_state), {"loss": loss,
+                                               "grad_norm": gnorm}
 
 
 def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
@@ -235,10 +266,16 @@ def make_train_step(cfg: ModelConfig, peak_lr: float = 3e-4,
         par = None
         if mesh is not None:
             bspecs = SH.batch_specs(cfg, mesh, batch, batch_shardings)
-            if _is_sharded(cfg, mesh, bspecs) or \
+            zero = grad_shardings is not None and \
+                SH.mesh_of(opt_state) is not None
+            if zero or _is_sharded(cfg, mesh, bspecs) or \
                     SH.mesh_of(params) is not None:
+                gspecs = None if grad_shardings is None else [
+                    sh.spec for sh in tree.flatten_up_to(params,
+                                                         grad_shardings)]
                 return _sharded_step(cfg, model, opt, nmb, clip_norm, mesh,
-                                     bspecs, params, opt_state, batch)
+                                     bspecs, gspecs, params, opt_state,
+                                     batch)
             par = data_parallel(batch)
             batch = par.rows(batch, nmb)
         loss, grads = accumulate_grads(model["loss_fn"], params, batch, nmb)

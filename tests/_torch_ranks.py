@@ -142,12 +142,24 @@ def train(step_fn, params, opt_state, batch):
     return params, opt_state, metrics
 
 
+def _whole(t):
+    """A leaf as a float32 numpy array: a DTensor gathered whole."""
+    t = t.full_tensor() if hasattr(t, "full_tensor") else t
+    return t.float().numpy()
+
+
 def train_rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
     """Train every TRAIN_ARCHS config for TRAIN_STEPS data-parallel steps
-    on a (world, 1) ("data", "model") mesh and pickle the results."""
+    on a (world, 1) ("data", "model") mesh, with the moments whole and
+    (the ZeRO step) distributed under ``opt_state_shardings``, and pickle
+    the results: the ZeRO case's moments gathered, and each moment's
+    local shape beside its ``shard_shape``."""
     from repro_torch import tree
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.shardings import batch_shardings, grad_shardings
+    from repro_torch.launch.shardings import (batch_shardings, distribute,
+                                              grad_shardings,
+                                              opt_state_shardings,
+                                              shard_shape)
     from repro_torch.training import make_train_step
     torch.set_num_threads(1)
     rdist.init(f"file://{store}", rank=rank, world_size=world,
@@ -156,16 +168,29 @@ def train_rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
         mesh = make_host_mesh((world, 1), ("data", "model"))
         got = {}
         for arch in TRAIN_ARCHS:
-            cfg, params, opt_state, batch = train_setup(arch)
-            _, step_fn, _ = make_train_step(
-                cfg, grad_shardings=grad_shardings(cfg, mesh, params),
-                batch_shardings=batch_shardings(
-                    cfg, mesh, batch, next(iter(batch.values())).shape[0]))
-            params, opt_state, metrics = train(step_fn, params, opt_state,
-                                               batch)
-            got[arch] = ([t.numpy() for t in tree.leaves(params)],
-                         [t.float().numpy() for t in tree.leaves(opt_state)],
-                         metrics)
+            for zero in (False, True):
+                cfg, params, opt_state, batch = train_setup(arch)
+                _, step_fn, _ = make_train_step(
+                    cfg, grad_shardings=grad_shardings(cfg, mesh, params),
+                    batch_shardings=batch_shardings(
+                        cfg, mesh, batch,
+                        next(iter(batch.values())).shape[0]))
+                shapes = None
+                if zero:
+                    osh = opt_state_shardings(cfg, mesh, params, opt_state)
+                    opt_state = distribute(opt_state, osh, mesh)
+                params, opt_state, metrics = train(step_fn, params,
+                                                   opt_state, batch)
+                if zero:
+                    shapes = [(tuple(t.to_local().shape),
+                               shard_shape(t.shape, sh.spec, mesh))
+                              for t, sh in zip(tree.leaves(opt_state),
+                                               tree.flatten_up_to(
+                                                   opt_state, osh))]
+                got[(arch, zero)] = (
+                    [t.numpy() for t in tree.leaves(params)],
+                    [_whole(t) for t in tree.leaves(opt_state)], metrics,
+                    shapes)
     finally:
         torch.distributed.destroy_process_group()
     Path(out_dir, f"train{rank}.pkl").write_bytes(pickle.dumps(got))

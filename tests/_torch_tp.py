@@ -47,6 +47,11 @@ CASES = {
                              ("serve",)),
     "mixtral_8x7b_b1": ("mixtral_8x7b", {"experts": 3}, 1, ("serve",)),
 }
+#: the tensor-parallel archs whose train step also runs with ZeRO
+#: moments (distributed under ``opt_state_shardings``): AdamW, and
+#: Adafactor's factored moments for qwen3-moe and nemotron
+ZERO = ("internlm2_20b", "mixtral_8x7b", "qwen3_moe_235b_a22b",
+        "minicpm3_4b", "nemotron_4_340b", "recurrentgemma_9b")
 TRAIN_STEPS, DECODE_STEPS = 2, 4
 TRAIN_SEQ, PROMPT, MAX_LEN = 16, 12, 20
 MESH = ((2, 2), ("data", "model"))
@@ -71,15 +76,19 @@ def _full(t):
     return t.detach().to(torch.float32).numpy()
 
 
-def run(name, mesh=None):
+def run(name, mesh=None, zero=False):
     """{"metrics", "params", "logits"} of the case: TRAIN_STEPS steps
     from seed 0 on a numpy-seeded batch, then a prefill of the initial
     weights and DECODE_STEPS greedy steps; on a mesh the parameters are
-    distributed under the reference's specs."""
+    distributed under the reference's specs.  With `zero`, only the
+    train steps, with the moments distributed under
+    ``opt_state_shardings`` (and "shapes": each moment's local shape
+    beside its ``shard_shape``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.shardings import (batch_shardings, distribute,
                                               grad_shardings,
-                                              param_shardings)
+                                              opt_state_shardings,
+                                              param_shardings, shard_shape)
     from repro_torch.models import build_model
     from repro_torch.models.model import make_batch
     from repro_torch.training import make_serve_steps, make_train_step
@@ -99,7 +108,12 @@ def run(name, mesh=None):
             _, step_fn, opt = make_train_step(
                 cfg, grad_shardings=grad_shardings(cfg, mesh, params),
                 batch_shardings=batch_shardings(cfg, mesh, batch, rows))
-        st = opt.init(p)
+        if zero:
+            whole = opt.init(params)
+            osh = opt_state_shardings(cfg, mesh, params, whole)
+            st = distribute(whole, osh, mesh)
+        else:
+            st = opt.init(p)
         metrics = []
         for _ in range(TRAIN_STEPS):
             p, st, m = step_fn(p, st, batch)
@@ -108,6 +122,13 @@ def run(name, mesh=None):
         out["params"] = [_full(t) for t in tree.leaves(p)]
         out["opt_state"] = [_full(t) for t in tree.leaves(st)]
         out["opt_dtypes"] = [str(t.dtype) for t in tree.leaves(st)]
+        if zero:
+            out["shapes"] = [
+                (tuple(t.to_local().shape), shard_shape(t.shape, sh.spec,
+                                                        mesh))
+                for t, sh in zip(tree.leaves(st),
+                                 tree.flatten_up_to(st, osh))]
+            return out
     if "serve" in what or "prefill" in what:
         batch = make_batch(cfg, ShapeConfig("p", PROMPT, rows, "prefill"),
                            np.random.default_rng(1))
@@ -145,6 +166,72 @@ def clip_case(mesh=None):
     return float(norm), [_full(g) for g in clipped]
 
 
+#: to_spec's conversions where an axis moves between dims (a moment
+#: stored in another leaf's placement): (src spec, dst spec)
+MOVES = ((("data", "model"), ("model", "data")),
+         (("model", None), (None, "model")),
+         ((None, ("data", "model")), (("data", "model"), None)),
+         (("data", None), ("model", "data")),
+         ((("data", "model"), None), ("model", "data")))
+#: the bucketed reduce-scatter's leaves: (global shape, the spec they
+#: are summed in, the spec each rank keeps)
+BUCKETS = (((8, 6), (None, "model"), ("data", "model")),
+           ((4, 8), (), ("data", "model")),
+           ((6,), (), ("data",)),
+           ((3, 5), (), ()),
+           ((8, 4), (), (("data", "model"), None)),
+           ((4, 8), (), ("model", "data")))
+
+
+def collectives_case(mesh, rank: int, world: int):
+    """``_collectives`` at ``tp.CHUNK``, then with buckets cut in pieces
+    of 10 elements (a rank's pieces of 5 leaves of the reduce-scatter)."""
+    from repro_torch.launch import tp
+    out = _collectives(mesh, rank, world)
+    saved, tp.CHUNK = tp.CHUNK, 10
+    try:
+        out += _collectives(mesh, rank, world)[len(MOVES):]
+    finally:
+        tp.CHUNK = saved
+    return out
+
+
+def _collectives(mesh, rank: int, world: int):
+    """[(got, want)] of ``tp.to_spec`` over MOVES, of
+    ``tp.reduce_scatter_leaves`` over "data" (every rank's BUCKETS leaves
+    from numpy seed `100 + rank`) and of ``tp.all_gather_leaves`` from
+    each leaf's kept spec to its summed one, each against slices of
+    whole tensors."""
+    from repro_torch.launch import tp
+    out = []
+    whole = torch.arange(8 * 12, dtype=torch.float32).reshape(8, 12)
+    for src, dst in MOVES:
+        out.append((tp.to_spec(tp.local_shard(whole, src, mesh), src, dst,
+                               mesh), tp.local_shard(whole, dst, mesh)))
+    mine = [[torch.from_numpy(np.random.default_rng(100 + r)
+                              .standard_normal(s).astype(np.float32))
+             for s, _, _ in BUCKETS] for r in range(world)]
+    src = [s for _, s, _ in BUCKETS]
+    dst = [d for _, _, d in BUCKETS]
+    got = tp.reduce_scatter_leaves(
+        [tp.local_shard(x, s, mesh) for x, s in zip(mine[rank], src)], src,
+        dst, ("data",), mesh)
+    model = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))["model"]
+    # ranks of one model coordinate (rank = 2 * data + model) summed
+    sums = [sum(m[i] for r, m in enumerate(mine) if r % 2 == model)
+            for i in range(len(BUCKETS))]
+    out += [(g, tp.local_shard(w, d, mesh)) for g, w, d in
+            zip(got, sums, dst)]
+    # every rank's blocks of one whole tensor, gathered back
+    total = [sum(m[i] for m in mine) for i in range(len(BUCKETS))]
+    back = tp.all_gather_leaves(
+        [tp.local_shard(w, d, mesh) for w, d in zip(total, dst)], dst, src,
+        mesh)
+    out += [(b, tp.local_shard(w, s, mesh)) for b, w, s in
+            zip(back, total, src)]
+    return [(g.numpy(), w.numpy()) for g, w in out]
+
+
 def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
     """Join a gloo group through the file store, run every case and the
     clipping case on MESH, and pickle rank 0's results."""
@@ -155,7 +242,10 @@ def rank_main(rank: int, world: int, store: str, out_dir: str) -> None:
     try:
         mesh = make_host_mesh(*MESH)
         got = {name: run(name, mesh) for name in CASES}
+        got.update({(name, "zero"): run(name, mesh, zero=True)
+                    for name in ZERO})
         got["clip"] = clip_case(mesh)
+        got["collectives"] = collectives_case(mesh, rank, world)
     finally:
         torch.distributed.destroy_process_group()
     if rank == 0:

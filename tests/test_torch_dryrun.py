@@ -7,10 +7,13 @@ the op analysis: ``batch_axes``, ``param_count``,
 reference's numbers from ``jax.eval_shape`` and
 ``NamedSharding.shard_shape`` (``_torch_ref_specs``), and an unsupported
 cell is skipped with the reference's reason.  Three cells are traced:
-smollm-360m train_4k on 16x16, data parallel over all 256 ranks (its one
-all-reduce carries every float32 gradient and the loss); internlm2-20b
-train_4k, tensor-parallel over the model axis (one rank's flops a small
-share of the whole step's, activations all-reduced over "model"); and
+smollm-360m train_4k on 16x16, data parallel over all 256 ranks (the
+ZeRO step: its float32 gradients reduce-scattered into the ranks'
+``grad_shardings`` blocks, the parameters all-gathered, the loss an
+all-reduced scalar; the bytes a rank keeps agree with
+``per_device_bytes``); internlm2-20b train_4k, tensor-parallel over the
+model axis (one rank's flops a small share of the whole step's,
+activations all-reduced over "model", one reduce-scatter over "data"); and
 smollm-360m decode_32k, whose cache's sequence is sharded over "model"
 (the step combines its softmax across ranks and gathers no cache).  The
 CLI writes a record per cell.  ``op_analysis`` counts a matmul as
@@ -28,6 +31,7 @@ import _torch_ref_specs as REF
 from repro_torch.configs import ARCH_IDS, SHAPES_BY_NAME, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis
+from repro_torch.launch import tp as TP
 
 CELLS = [(a, s, False) for a in ARCH_IDS for s in SHAPES_BY_NAME
          if get_config(a).supports(SHAPES_BY_NAME[s])] + \
@@ -70,16 +74,54 @@ def test_unsupported_cell_is_skipped(fake512):
         SHAPES_BY_NAME["long_500k"])
 
 
+def _norm_elements(cfg):
+    """(elements of the per-layer tree's 1-D leaves, of those inside the
+    layer blocks)."""
+    from repro_torch import tree
+    layers = D.per_layer_params(cfg, D.abstract_params(cfg))
+
+    def ones(t):
+        return sum(x.numel() for x in tree.leaves(t) if x.dim() == 1)
+    return ones(layers), ones(layers["blocks"])
+
+
 def test_traced_train_cell(ref, fake512):
     rec = D.run_cell("smollm_360m", "train_4k", False)
     oa = rec["op_analysis"]
     assert oa["status"] == "ok"
     n = rec["param_count"]
-    # one rank: one row of 4096 tokens; the step's one all-reduce is the
-    # flat float32 buffer of every gradient and the loss
-    assert oa["collectives"] == {"allreduce_": {"bytes": 4 * (n + 1),
-                                                "count": 1}}
-    assert oa["collective_bytes_total"] == 4 * (n + 1)
+    n1, n1_blocks = _norm_elements(get_config("smollm_360m"))
+    n2 = n - n1
+    # one rank of 256 (data x model, the batch axes): one row of 4096
+    # tokens.  The ZeRO step: the 2-D leaves' float32 gradients in one
+    # reduce-scatter over data+model (their specs cut them 256 ways), the
+    # 1-D leaves' (d_model, cut over data only) in one over data and
+    # their blocks all-reduced over model; the bf16 parameters gathered
+    # back the same ways; the loss and the clip's sums of squares
+    # all-reduced as scalars.  No whole gradient is all-reduced.
+    # (a flat collective moves at most tp.CHUNK elements a rank, so the
+    # 2-D bucket goes in pieces)
+    pieces = -(-(n2 // 256) // (TP.CHUNK // 256))
+    by = oa["collectives_by_axis"]
+    assert by["data+model"] == {
+        "_reduce_scatter_base_": {"bytes": 4 * n2, "count": pieces},
+        "_allgather_base_": {"bytes": 2 * n2 // 256, "count": pieces},
+        "allreduce_": {"bytes": 8, "count": 2}}
+    assert by["data"] == {
+        "_reduce_scatter_base_": {"bytes": 4 * n1, "count": 1},
+        "_allgather_base_": {"bytes": 2 * n1 // 16, "count": 1},
+        "allreduce_": {"bytes": 4, "count": 1}}
+    assert by["model"] == {"allreduce_": {"bytes": 4 * n1 // 16,
+                                          "count": 1}}
+    assert oa["collective_bytes_total"] == 4 * n + 2 * n2 // 256 + \
+        2 * n1 // 16 + 12 + 4 * n1 // 16
+    # the gradient bytes a rank keeps (a reduce-scatter books its input,
+    # of which the rank keeps 1/size) are per_device_bytes' grads, but
+    # for the blocks' 1-D leaves, which the reference's stacked layout
+    # also cuts over model along the layer dim: 256 ways, not 16
+    kept = 4 * n2 // 256 + 4 * n1 // 16
+    assert kept == rec["per_device_bytes"]["grads"] + \
+        4 * n1_blocks // 16 - 4 * n1_blocks // 256
     # forward, remat recompute and backward: at least 8 flops per
     # parameter and token
     assert oa["flops"] > 8 * n * 4096
@@ -95,6 +137,15 @@ def test_traced_train_cell(ref, fake512):
     assert whole / 1024 < tp["flops"] < whole / 16
     model = tp["collectives_by_axis"]["model"]["allreduce_"]
     assert model["count"] > 0 and model["bytes"] > 0
+    # over data, the batch axis: one reduce-scatter of the rank's model
+    # shards of every float32 gradient, of which it keeps exactly
+    # per_device_bytes' grads; the scalars (loss, a clip sum) all-reduced
+    data = tp["collectives_by_axis"]["data"]
+    scattered = data["_reduce_scatter_base_"]["bytes"]
+    assert data["_reduce_scatter_base_"]["count"] == \
+        -(-(scattered // 4) // TP.CHUNK)
+    assert scattered // 16 == rec["per_device_bytes"]["grads"]
+    assert data["allreduce_"] == {"bytes": 8, "count": 2}
 
 
 def test_traced_decode_cell_gathers_no_cache(ref, fake512):

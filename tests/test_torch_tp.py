@@ -11,7 +11,10 @@ that shards d_model, Adafactor with FSDP, RG-LRU with one KV head) and
 the sequence-parallel ones (smollm, whisper and qwen2-vl with the
 sequence over "model"; xlstm's one-row decode with its state over data x
 model; recurrentgemma's and mixtral's too, tensor-parallel): two train
-steps, a prefill and four greedy decode steps.
+steps, a prefill and four greedy decode steps.  The six tensor-parallel
+archs train again with ZeRO moments (``_torch_tp.ZERO``: distributed
+under ``opt_state_shardings``, Adafactor's factored moments for qwen3-moe
+and nemotron), each rank holding its shard.
 
 Tolerance: float32 sums split across ranks move by rounding alone.  Held:
 every parameter leaf and every logit within ``_torch_lm.close_deep``
@@ -66,7 +69,23 @@ def one_process():
 
 @pytest.mark.parametrize("name", TRAIN)
 def test_train_steps_match_one_process(ranks, one_process, name):
-    got, want = ranks[name], one_process(name)
+    _train_matches(ranks[name], one_process(name))
+
+
+@pytest.mark.parametrize("name", T.ZERO)
+def test_zero_train_steps_match_one_process(ranks, one_process, name):
+    """The ZeRO step: moments stored under opt_state_shardings, each rank
+    holding its shard only (data on a free dim beside the model
+    shards)."""
+    got = ranks[name, "zero"]
+    assert all(local == want for local, want in got["shapes"])
+    assert any(local != want for local, want in zip(
+        [s for s, _ in got["shapes"]],
+        [tuple(o.shape) for o in got["opt_state"]]))
+    _train_matches(got, one_process(name))
+
+
+def _train_matches(got, want):
     for g, w in zip(got["metrics"], want["metrics"]):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(g[k], w[k], rtol=1e-3)
@@ -141,3 +160,17 @@ def test_clip_global_norm_across_shards(ranks):
     for g, w in zip(got, clipped):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-7)
 
+
+
+def test_moves_and_bucketed_collectives(ranks):
+    """``tp.to_spec`` where an axis moves between dims (one all-to-all),
+    and the ZeRO step's bucketed reduce-scatter (summed over "data": a
+    leaf cut on both axes keeps its model-axis cut locally, a leaf whose
+    spec adds no summed axis is all-reduced) and all-gather back, whole
+    and in pieces of at most ``tp.CHUNK`` elements, equal to slices of
+    the whole tensors on rank 0."""
+    got = ranks["collectives"]
+    assert len(got) == len(T.MOVES) + 4 * len(T.BUCKETS)
+    for g, w in got:
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)

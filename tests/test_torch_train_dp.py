@@ -5,7 +5,10 @@ Two ``gloo`` ranks (a ``file://`` store under the test's tmp dir) on a
 (2, 1) ("data", "model") mesh each take their half of the batch, train
 the reduced smollm (2 microbatches) and xlstm for two steps, and
 all-reduce-average the gradients and the loss; one process trains the
-same weights on the whole batch.
+same weights on the whole batch.  In the same spawn the ZeRO step: the
+AdamW moments distributed under ``opt_state_shardings``, so each rank
+reduce-scatters the gradients into its shard (``grad_shardings``),
+updates its shard of the parameters and all-gathers them.
 
 Tolerance: the ranks split the sums over batch rows, so the float32
 results move by reduction order alone.  Measured (CPU): smollm's leaves
@@ -57,20 +60,49 @@ def _one_process(arch):
 @pytest.mark.parametrize("arch", list(TR.TRAIN_ARCHS))
 def test_two_ranks_match_one_process(ranks, arch):
     params, opt_state, metrics = _one_process(arch)
-    (p0, o0, m0), (p1, o1, m1) = ranks[0][arch], ranks[1][arch]
+    (p0, o0, m0, _), (p1, o1, m1, _) = (ranks[0][arch, False],
+                                        ranks[1][arch, False])
     for a, b in zip(p0 + o0, p1 + o1):
         assert np.array_equal(a, b)               # the update is replicated
     assert m0 == m1
+    _match_one_process(arch, params, opt_state, metrics, p0, o0, m0)
+
+
+def _match_one_process(arch, params, opt_state, metrics, p0, o0, m0):
     for got, want in zip(m0, metrics):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-3)
+    assert len(p0) == len(tree.leaves(params))
     for got, want in zip(p0, tree.leaves(params)):
         lm.close_deep(got, want.numpy())
+    assert len(o0) == len(tree.leaves(opt_state))
     for got, want in zip(o0, tree.leaves(opt_state)):
         lm.close_deep(got, want.float().numpy())
     # the step moved the parameters
     start = tree.leaves(TR.train_setup(arch)[1])
     assert any(not np.array_equal(a, s.numpy()) for a, s in zip(p0, start))
+
+
+@pytest.mark.parametrize("arch", list(TR.TRAIN_ARCHS))
+def test_zero_moments_match_one_process(ranks, arch):
+    """The ZeRO step: moments distributed under opt_state_shardings, each
+    rank holding its shard only; the parameters replicated bit for bit,
+    and everything within the bound of one process."""
+    params, opt_state, metrics = _one_process(arch)
+    (p0, o0, m0, s0), (p1, o1, m1, s1) = (ranks[0][arch, True],
+                                          ranks[1][arch, True])
+    for a, b in zip(p0, p1):
+        assert np.array_equal(a, b)
+    assert m0 == m1
+    for shapes in (s0, s1):
+        assert all(local == want for local, want in shapes)
+    # each rank holds half of every moment leaf with an even dim, and
+    # the others (the step count among them) whole
+    assert len(s0) == len(o0)
+    for (local, _), whole in zip(s0, o0):
+        assert 2 * int(np.prod(local)) == whole.size or (
+            local == whole.shape and all(n % 2 for n in whole.shape))
+    _match_one_process(arch, params, opt_state, metrics, p0, o0, m0)
 
 
 @pytest.mark.parametrize("arch", list(TR.TRAIN_ARCHS))
