@@ -14,10 +14,11 @@ reference's 520,000 ticks; and training: the backward kernels of the
 mLSTM and RG-LRU cells, and the train step of xlstm-350m,
 recurrentgemma-9b (cut to 3 layers) and smollm-360m at full width behind
 the LARK and quorum-log checkpoint stores; and across ranks on the one
-card: the Monte Carlo's trials sharded over 2 and 4 processes,
+card: the Monte Carlo's trials sharded over 4 processes,
 smollm-360m's and recurrentgemma-9b's ZeRO train steps on 2 and
-recurrentgemma-9b tensor-parallel over 2; and the five examples of
-``repro_torch.examples``.
+recurrentgemma-9b tensor-parallel over 2; the five examples of
+``repro_torch.examples``; and the reference's benchmark tools: the
+sweep's every flag and the suite runner ``repro_torch.tools.run``.
 One JSON line per phase:
 
 1. ``nvidia-smi``: the card's name and power limit.
@@ -58,31 +59,35 @@ One JSON line per phase:
    the profiler's kernel durations, ``graph_ms`` from a CUDA graph's
    replay and ``cold_ms`` with the L2 cold).
 4. ``engine``: ``simulate_availability_batched`` on cuda, unpacked and
-   packed, 512 steps with the trajectory kept.  The two runs must
-   agree exactly, the first 128 steps must equal a ``device="cpu"`` run,
-   and both §5.1 kernels must have launched over this path.
+   packed, 256 steps with the trajectory kept.  The two runs must
+   agree exactly, the first ``CPU_STEPS`` (32) steps must equal a
+   ``device="cpu"`` run, and both §5.1 kernels must have launched over
+   this path.
 5. ``bench_row``: the BENCH_sweep i.i.d. row and the hetero-mttf row at
    rf = 2, p = 1e-3, rebuilt by the port's runner on cuda, packed and
    unpacked, must equal the committed rows of
    ``benchmarks/BENCH_sweep.json`` byte for byte.
 6. ``downtime``: ``simulate_downtime_batched`` on cuda at rf = 2,
-   p = 1e-3, 512 steps with the trajectory kept, for the fixed model
+   p = 1e-3, 256 steps with the trajectory kept, for the fixed model
    (default knobs, and with 1 GiB/s shared bandwidth) and for reconfig
    with zipf sizes (skew 1) and 1 GiB/s shared bandwidth, each unpacked
    and packed; the layouts must agree exactly, each §6 kernel of a
    configuration must have launched over its run (under shared bandwidth
    the counts mode of ``downtime_eval``, and ``node_count`` alone
-   never), and a 128-step run on cuda must equal the same run on the
-   CPU.
+   never), and a ``CPU_STEPS``-step run on cuda must equal the same run
+   on the CPU.
 7. ``downtime_bench_row``: the i.i.d. row at rf = 2, p = 3e-3 of
    BENCH_downtime.json, BENCH_downtime_reconfig.json and
    BENCH_downtime_skew.json, rebuilt on cuda, packed and unpacked, must
-   equal the committed row byte for byte.
+   equal the committed row byte for byte.  Each config's spec is built
+   from its documented flag line (``FLAG_LINES``) through
+   ``repro_torch.sweep.build_spec`` and must equal the file's spec, hash
+   included; the rows come out of the flag path.
 8. ``latency``: ``simulate_client_latency`` on cuda at rf = 2, p = 1e-3,
-   the fixed model, 512 steps, unpacked and packed; the layouts must
+   the fixed model, 256 steps, unpacked and packed; the layouts must
    agree exactly, ``latency_charge`` must have launched on this path
-   (and the §6 eval kernels beside it), and a 128-step run on cuda must
-   equal the same run on the CPU.  ``latency_charge`` itself is held
+   (and the §6 eval kernels beside it), and a ``CPU_STEPS``-step run on
+   cuda must equal the same run on the CPU.  ``latency_charge`` itself is held
    against its plain version in phase 3, on adversarial inputs.
 9. ``zoo``: the reconfig engine with hermes and spinnaker
    (lease_ticks = 40, view_change_ticks = 200) at the same tile, the same
@@ -90,7 +95,22 @@ One JSON line per phase:
 10. ``zoo_bench_row``: the i.i.d. rf = 2, p = 3e-3 row of
    BENCH_latency.json and the three rows of that grid point in
    BENCH_shootout.json (downtime, hermes, spinnaker), rebuilt on cuda,
-   packed and unpacked, byte for byte.
+   packed and unpacked, byte for byte, their specs from the flag lines
+   as in phase 7.
+10b. ``suites``: the suite runner (``repro_torch.tools.run.main``)
+   in-process on cuda with ``SUITES_DOWNTIME_FLAGS`` (a §6 smoke sweep
+   crossing every knob family: reconfig, ticks per GiB, zipf sizes,
+   shared bandwidth, dup-res, the four-engine zoo with its lease and
+   view change), unpacked and then ``--packed``: CSV rows from all five
+   suites and ``benchmarks_total``, the sweep's rows equal to
+   ``FLAG_ROWS_DOWNTIME`` (the reference runner's) in both layouts, and
+   launched: the roster counts mode of ``downtime_eval`` (packed:
+   ``fused_downtime_eval``), ``microsim_scan`` once, kernel_bench's
+   ``pac_eval``, ``fused_pac_eval`` and ``downtime_eval``; then
+   ``repro_torch.sweep.main`` with ``SUITES_LATENCY_FLAGS`` (every
+   latency workload knob): rows ``FLAG_ROWS_LATENCY``, ``latency_charge``
+   launched; then ``--trails 8`` under ``CI=1``: exit 2 and no suite
+   run.  Within ``SUITES_BOX_S``.
 10a. ``autotune``: the run-time tile of the Monte Carlo kernels
    (``downtime_eval.cu``'s rows T, ``fused_downtime.cu``'s (block_t,
    block_p)) and its tuners.  At the paper tile each of the six kinds
@@ -242,7 +262,7 @@ One JSON line per phase:
    shape in bf16; SIMT: the reduced xlstm's, B = 2, H = 4, S = 300,
    Dq = Dv = 32, float32).
 23. ``train``, ``train_rg``, ``train_dense``: ``make_train_step`` (AdamW,
-   remat as configured) on xlstm-350m (24 layers, B = 4, S = 1024, 4
+   remat as configured) on xlstm-350m (24 layers, B = 4, S = 1024, 3
    steps), recurrentgemma-9b at full width cut to 3 layers (B = 2,
    S = 2048, 4 steps in 2 microbatches) and smollm-360m (32 layers,
    B = 4, S = 1024, 8 steps), bf16, seed-0 weights, ``SyntheticLMData``.
@@ -265,12 +285,12 @@ One JSON line per phase:
 25. ``elastic``: the reduced xlstm on the card through
    ``ElasticTrainer``: checkpoint, a worker leaves, restore, continue;
    bitwise equal to an uninterrupted run.
-26. ``sharded``: the Monte Carlo's trials over worlds of 2 and 4 ranks
+26. ``sharded``: the Monte Carlo's trials over a world of 4 ranks
    on the one card (``torch.multiprocessing`` spawn, ``gloo`` through a
    ``file://`` store, ``devices = 8``): every path of phases 4, 6, 8 and
    9, unpacked and packed, on every rank equal to those phases' own
    one-process runs in every field and trajectory, every kernel of the
-   path launched on every rank (at 4 and 2 trials a grid); a §5.1 run
+   path launched on every rank (at 2 trials a grid); a §5.1 run
    with the early stop live (default min_ticks, p = 2e-4) stopping at
    the same step in 4 ranks as in one process.  Prints each rank's
    steps/s and the spawn cost (start to a ready CUDA context).
@@ -338,6 +358,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -350,7 +371,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # phases check that a step repeats bit for bit
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
-from repro_torch import microsim_tables, tree  # noqa: E402
+from repro_torch import microsim_tables, sweep, tree  # noqa: E402
 from repro_torch.checkpoint import LarkStore, QuorumLogStore  # noqa: E402
 from repro_torch.configs.base import MLSTM, RGLRU  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
@@ -378,6 +399,7 @@ from repro_torch.serving import LarkSessionStore, ServeLoop  # noqa: E402
 from repro_torch.models.transformer import layer_kinds  # noqa
 from repro_torch.profile_train import (leaf_distances,  # noqa: E402
                                        plain_cells, profile_step)
+from repro_torch.tools import run as suite_run  # noqa: E402
 from repro_torch.training import (ElasticTrainer,  # noqa: E402
                                   accumulate_grads, make_train_step)
 
@@ -385,10 +407,15 @@ from repro_torch.training import (ElasticTrainer,  # noqa: E402
 N, P, B = 155, 4096, 8
 #: steps of each Monte Carlo main-path run, in chunks of MC_CHUNK steps
 #: (2048 steps in 512-step chunks until the sharded phase reused these
-#: runs as its one-process side): every main path and every sharded
-#: path crosses three chunk boundaries, where the drains, the gathers
-#: across ranks and the accumulator resets run
-MC_STEPS, MC_CHUNK = 512, 128
+#: runs as its one-process side, 512 in 128-step chunks until the suites
+#: phase needed the time): every main path and every sharded path
+#: crosses three chunk boundaries, where the drains, the gathers across
+#: ranks and the accumulator resets run
+MC_STEPS, MC_CHUNK = 256, 64
+#: steps of the runs that hold each Monte Carlo path on the card against
+#: the CPU (128 until the suites phase needed their time: 7.1-11.1 s of
+#: CPU a run at 128, on an H100's host)
+CPU_STEPS = 32
 DEVICE = "cuda"
 #: published HBM rates by card (NVIDIA data sheets), bytes/s
 HBM_BW = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
@@ -489,6 +516,167 @@ SMOKE_ROWS = [
     '"kind": "iid", "p": 0.01, "ratio": 9.068359375, "rf": 3, '
     '"ticks": 16467, "u_lark": 0.0007287301876480233, '
     '"u_maj": 0.0066083872290034614}']
+#: the flag line documented in each committed config's header (the
+#: reference's CLI/config contract, tests/test_experiments.py's
+#: FLAG_LINES; tests/test_torch_sweep_flags.py holds the two equal):
+#: phases 7 and 10 build each config's spec from its line through
+#: ``repro_torch.sweep.build_spec`` as well as from the file
+FLAG_LINES = {
+    "sweep.toml": ["--backend", "jax", "--trials", "8", "--devices", "8",
+                   "--scenario", "all"],
+    "downtime.toml": ["--backend", "jax", "--trials", "8", "--devices",
+                      "8", "--metric", "downtime", "--smoke",
+                      "--scenario", "all"],
+    "downtime_reconfig.toml": ["--backend", "jax", "--trials", "8",
+                               "--devices", "8", "--metric", "downtime",
+                               "--smoke", "--rebuild-model", "reconfig",
+                               "--scenario", "all"],
+    "downtime_skew.toml": ["--backend", "jax", "--trials", "8",
+                           "--devices", "8", "--metric", "downtime",
+                           "--smoke", "--rebuild-model", "reconfig",
+                           "--size-dist", "zipf", "--size-skew", "1",
+                           "--node-bandwidth-gibps", "1",
+                           "--scenario", "all"],
+    "latency.toml": ["--backend", "jax", "--trials", "8", "--devices",
+                     "8", "--metric", "latency", "--smoke",
+                     "--scenario", "all"],
+    "shootout.toml": ["--backend", "jax", "--trials", "8", "--devices",
+                      "8", "--metric", "downtime", "--smoke",
+                      "--rebuild-model", "reconfig", "--engines",
+                      "lark,quorum,hermes,spinnaker", "--lease-ticks",
+                      "40", "--view-change-ticks", "200",
+                      "--scenario", "rolling-restart"],
+}
+#: the suites phase's runner line: a §6 smoke sweep whose flags cross
+#: every knob family (reconfig catch-ups, zipf sizes, shared bandwidth,
+#: dup-res, the four-engine zoo)
+SUITES_DOWNTIME_FLAGS = [
+    "--smoke", "--backend", "pallas", "--trials", "1", "--devices", "1",
+    "--metric", "downtime", "--rebuild-model", "reconfig",
+    "--rebuild-ticks-per-gib", "120", "--size-dist", "zipf",
+    "--size-skew", "1", "--node-bandwidth-gibps", "1", "--dupres-ticks",
+    "2", "--engines", "lark,quorum,hermes,spinnaker", "--lease-ticks",
+    "40", "--view-change-ticks", "200"]
+#: the suites phase's latency sweep: every workload knob, and a fixed
+#: model knob
+SUITES_LATENCY_FLAGS = [
+    "--smoke", "--backend", "pallas", "--trials", "1", "--devices", "1",
+    "--metric", "latency", "--key-zipf", "1.2", "--read-frac", "0.5",
+    "--requests-per-tick", "16", "--slo-ticks", "4", "--write-skew", "0.5",
+    "--slo-curve-bins", "6", "--rebuild-steps", "60"]
+#: the reference runner's rows of those two lines (backend numpy; every
+#: batched backend and layout gives these bits), serialized as the
+#: runner dumps them; tests/test_torch_sweep_flags.py holds them
+FLAG_ROWS_DOWNTIME = [
+    '{"ci_pause_lark": 0.0001319807253150336, "ci_pause_quorum": '
+    '0.0007878829332728512, "dupres_ticks": 2, "hist_edges": [1, 2, 4, '
+    '8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, '
+    '32768], "hist_lark": [28, 4865, 112, 52, 0, 0, 0, 0, 0, 0, 0, 0, '
+    '0, 0, 0, 0], "hist_quorum": [0, 0, 0, 32, 393, 883, 1378, 966, '
+    '359, 143, 46, 11, 7, 0, 0, 0], "kind": "downtime", "lark_events": '
+    '5058, "node_bandwidth_gibps": 1.0, "p": 0.003, "pause_lark": '
+    '0.007045056210072181, "pause_quorum": 0.5265215350949971, '
+    '"quorum_events": 4316, "ratio": 74.736314288343, "rebuild_model": '
+    '"reconfig", "rebuild_steps": 100, "rebuild_ticks_per_gib": 120, '
+    '"rf": 2, "scenario": "iid", "size_dist": "zipf", "size_skew": 1.0,'
+    ' "ticks": 12053}',
+    '{"ci_pause": 0.0006509575048864952, "dupres_ticks": 2, "engine": '
+    '"hermes", "events": 7466, "hist": [0, 0, 0, 0, 0, 6673, 722, 21, '
+    '0, 0, 0, 0, 0, 0, 0, 0], "hist_edges": [1, 2, 4, 8, 16, 32, 64, '
+    '128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768], "kind": '
+    '"downtime_engine", "lease_ticks": 40, "node_bandwidth_gibps": 1.0,'
+    ' "p": 0.003, "pause": 0.217468550360906, "rebuild_model": '
+    '"reconfig", "rebuild_steps": 100, "rebuild_ticks_per_gib": 120, '
+    '"rf": 2, "scenario": "iid", "size_dist": "zipf", "size_skew": 1.0,'
+    ' "ticks": 12053, "view_change_ticks": 200}',
+    '{"ci_pause": 0.0007539354519867868, "dupres_ticks": 2, "engine": '
+    '"spinnaker", "events": 3089, "hist": [0, 0, 0, 11, 135, 293, 431, '
+    '1008, 709, 303, 63, 16, 7, 0, 0, 0], "hist_edges": [1, 2, 4, 8, '
+    '16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768], '
+    '"kind": "downtime_engine", "lease_ticks": 40, '
+    '"node_bandwidth_gibps": 1.0, "p": 0.003, "pause": '
+    '0.6473887465776156, "rebuild_model": "reconfig", "rebuild_steps": '
+    '100, "rebuild_ticks_per_gib": 120, "rf": 2, "scenario": "iid", '
+    '"size_dist": "zipf", "size_skew": 1.0, "ticks": 12053, '
+    '"view_change_ticks": 200}',
+    '{"ci_pause_lark": 0.00024298746703721636, "ci_pause_quorum": '
+    '0.0003321676794475488, "dupres_ticks": 2, "hist_edges": [1, 2, 4, '
+    '8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, '
+    '32768], "hist_lark": [59, 13762, 107, 14, 0, 0, 0, 0, 0, 0, 0, 0, '
+    '0, 0, 0, 0], "hist_quorum": [0, 0, 0, 5, 39, 97, 208, 348, 392, '
+    '335, 176, 42, 16, 3, 0, 0], "kind": "downtime", "lark_events": '
+    '13942, "node_bandwidth_gibps": 1.0, "p": 0.01, "pause_lark": '
+    '0.021085261389630194, "pause_quorum": 0.9598131314334731, '
+    '"quorum_events": 1785, "ratio": 45.52057068192252, '
+    '"rebuild_model": "reconfig", "rebuild_steps": 100, '
+    '"rebuild_ticks_per_gib": 120, "rf": 3, "scenario": "iid", '
+    '"size_dist": "zipf", "size_skew": 1.0, "ticks": 10492}',
+    '{"ci_pause": 0.0007751781555273818, "dupres_ticks": 2, "engine": '
+    '"hermes", "events": 12721, "hist": [0, 0, 0, 0, 0, 6881, 4326, '
+    '1295, 109, 0, 0, 0, 0, 0, 0, 0], "hist_edges": [1, 2, 4, 8, 16, '
+    '32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768], '
+    '"kind": "downtime_engine", "lease_ticks": 40, '
+    '"node_bandwidth_gibps": 1.0, "p": 0.01, "pause": '
+    '0.6998308234845597, "rebuild_model": "reconfig", "rebuild_steps": '
+    '100, "rebuild_ticks_per_gib": 120, "rf": 3, "scenario": "iid", '
+    '"size_dist": "zipf", "size_skew": 1.0, "ticks": 10492, '
+    '"view_change_ticks": 200}',
+    '{"ci_pause": 0.00018839262003676803, "dupres_ticks": 2, "engine": '
+    '"spinnaker", "events": 602, "hist": [0, 0, 0, 1, 8, 19, 16, 29, '
+    '54, 107, 108, 86, 43, 5, 0, 0], "hist_edges": [1, 2, 4, 8, 16, 32,'
+    ' 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768], "kind":'
+    ' "downtime_engine", "lease_ticks": 40, "node_bandwidth_gibps": '
+    '1.0, "p": 0.01, "pause": 0.9874346228078537, "rebuild_model": '
+    '"reconfig", "rebuild_steps": 100, "rebuild_ticks_per_gib": 120, '
+    '"rf": 3, "scenario": "iid", "size_dist": "zipf", "size_skew": 1.0,'
+    ' "ticks": 10492, "view_change_ticks": 200}']
+FLAG_ROWS_LATENCY = [
+    '{"ci_lat_lark": 0.0, "ci_lat_quorum": 0.0, "dupres_ticks": 1, '
+    '"hist_edges": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, '
+    '4096, 8192, 16384, 32768], "hist_quorum_req": [353.19308949261904,'
+    ' 712.829053863883, 1454.905666142702, 3000.631925046444, '
+    '6478.307014107704, 8606.35140967369, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,'
+    ' 0.0, 0.0, 0.0, 0.0], "key_zipf": 1.2, "kind": "latency", '
+    '"lat_hermes": 0.20353311336537158, "lat_lark": '
+    '0.43870399698230583, "lat_quorum": 2.864583360142978, "p": 0.003, '
+    '"p50_hermes": 0.0, "p50_lark": 0.0, "p50_quorum": 0.0, '
+    '"p999_hermes": 1.0, "p999_lark": 1.0, "p999_quorum": 32.0, '
+    '"p99_hermes": 1.0, "p99_lark": 1.0, "p99_quorum": 32.0, '
+    '"read_frac": 0.5, "rebuild_model": "fixed", "req_total": 192848.0,'
+    ' "requests_per_tick": 16.0, "rf": 2, "scenario": "iid", '
+    '"slo_curve_bins": 6, "slo_curve_edges": [0, 1, 3, 7, 15, 31], '
+    '"slo_curve_hermes": [0.20353311336537158, 0.0, 0.0, 0.0, 0.0, '
+    '0.0], "slo_curve_lark": [0.43870399698230583, 0.0, 0.0, 0.0, 0.0, '
+    '0.0], "slo_curve_quorum": [0.10685212269936449, '
+    '0.10502066429952306, 0.10132433841663145, 0.09378002545438811, '
+    '0.07822045561157696, 0.04462764150872029], "slo_hermes": 0.0, '
+    '"slo_lark": 0.0, "slo_quorum": 0.09946725613881194, "slo_ticks": '
+    '4, "ticks": 12053, "write_skew": 0.5}',
+    '{"ci_lat_lark": 0.0, "ci_lat_quorum": 0.0, "dupres_ticks": 1, '
+    '"hist_edges": [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, '
+    '4096, 8192, 16384, 32768], "hist_quorum_req": [386.96399522945285,'
+    ' 814.3768789060414, 1796.3165501356125, 4225.139800310135, '
+    '12105.867015898228, 41089.13965344429, 0.0, 0.0, 0.0, 0.0, 0.0, '
+    '0.0, 0.0, 0.0, 0.0, 0.0], "key_zipf": 1.2, "kind": "latency", '
+    '"lat_hermes": 0.2749889049801365, "lat_lark": 0.6002502399068886, '
+    '"lat_quorum": 13.734741403363017, "p": 0.01, "p50_hermes": 0.0, '
+    '"p50_lark": 1.0, "p50_quorum": 0.0, "p999_hermes": 1.0, '
+    '"p999_lark": 1.0, "p999_quorum": 32.0, "p99_hermes": 1.0, '
+    '"p99_lark": 1.0, "p99_quorum": 32.0, "read_frac": 0.5, '
+    '"rebuild_model": "fixed", "req_total": 167872.0, '
+    '"requests_per_tick": 16.0, "rf": 3, "scenario": "iid", '
+    '"slo_curve_bins": 6, "slo_curve_edges": [0, 1, 3, 7, 15, 31], '
+    '"slo_curve_hermes": [0.2749889049801365, 0.0, 0.0, 0.0, 0.0, 0.0],'
+    ' "slo_curve_lark": [0.6002502399068886, 0.0, 0.0, 0.0, 0.0, 0.0], '
+    '"slo_curve_quorum": [0.3599039976525195, 0.3575988842611889, '
+    '0.35274770670384736, 0.34204719351441965, 0.3168783756036892, '
+    '0.24476469961306407], "slo_hermes": 0.0, "slo_lark": 0.0, '
+    '"slo_quorum": 0.3501944789337012, "slo_ticks": 4, "ticks": 10492, '
+    '"write_skew": 0.5}']
+#: the suites phase's box, seconds: the phase took 121.05-161.73 s on an
+#: H100 (host-bound smoke steps, ~2.2 ms a tick), so a 90 s box would
+#: fail every run; hosts move a phase 1.3-1.9x
+SUITES_BOX_S = 240.0
 #: the sources whose planted faults the kernel, mlstm, rglru and flash
 #: phases run: (faults, C symbol or symbols, argtypes)
 FAULT_SOURCES = {**{src: (faults, mcc.SYMBOLS[src], mcc.ARGTYPES[src])
@@ -1095,11 +1283,11 @@ def check_engine():
         raise SystemExit(f"a kernel was not launched on the main path: "
                          f"{launches}")
 
-    # a first chunk of 128 steps on the CPU, through the plain versions
+    # the first CPU_STEPS steps on the CPU, through the plain versions
     t0 = time.monotonic()
     cpu = ab.simulate_availability_batched(
-        packed=False, device="cpu", **{**kw, "chunk_steps": 128,
-                                       "max_steps": 2})
+        packed=False, device="cpu", **{**kw, "chunk_steps": CPU_STEPS,
+                                       "max_steps": CPU_STEPS})
     cpu_wall = time.monotonic() - t0
     k = len(cpu.trajectory["times"])
     cpu_same = all(np.array_equal(cpu.trajectory[c], a.trajectory[c][:k])
@@ -1198,6 +1386,19 @@ def check_downtime_engine():
     return launches, runs
 
 
+def flag_spec(config: str):
+    """A committed config's spec built from its documented flag line
+    through the sweep's CLI, which must equal the spec of the file, hash
+    included."""
+    spec, _ = sweep.build_spec(FLAG_LINES[config])
+    want = ExperimentSpec.from_file(str(ROOT / "benchmarks" / "configs" /
+                                        config))
+    if spec != want or spec.content_hash() != want.content_hash():
+        raise SystemExit(f"{config}: the flag line's spec differs from the "
+                         f"file's:\n{spec.canonical()}\n{want.canonical()}")
+    return spec
+
+
 def check_downtime_bench_rows():
     """Phase 7: the i.i.d. rf = 2, p = 3e-3 row of each committed §6
     baseline, rebuilt on cuda, packed and unpacked."""
@@ -1209,8 +1410,7 @@ def check_downtime_bench_rows():
         if len(want) != 1:
             raise SystemExit(f"no committed i.i.d. row in BENCH_{name}")
         want = json.dumps(want[0], sort_keys=True)
-        spec = runner.ExperimentSpec.from_file(
-            str(ROOT / "benchmarks" / "configs" / f"{name}.toml"))
+        spec = flag_spec(f"{name}.toml")
         for packed in (False, True):
             t0 = time.monotonic()
             row = next(runner._gen_run_downtime(
@@ -1222,6 +1422,7 @@ def check_downtime_bench_rows():
             got = json.dumps(runner._json_safe(row), sort_keys=True)
             emit({"phase": "downtime_bench_row", "config": name,
                   "packed": packed, "identical": got == want,
+                  "flag_path": True,
                   "pause_quorum": row["pause_quorum"],
                   "ticks": row["ticks"], "wall_s": wall})
             if got != want:
@@ -1268,7 +1469,7 @@ def check_engine_pair(phase, simulate, fingerprint, kernels, knobs, *,
     MC_CHUNK-step chunks, unpacked and packed, with the launch
     counts set to 0 just before and read just after: the layouts must
     agree exactly, every kernel of `kernels` must have launched, and a
-    128-step run on cuda must equal the CPU's.  Returns the runs by
+    CPU_STEPS-step run on cuda must equal the CPU's.  Returns the runs by
     packed and every kernel's launches over the two runs."""
     kw = dict(n=N, partitions=P, rf=2, p=1e-3, trials=B, min_ticks=10 ** 9,
               max_steps=steps, chunk_steps=MC_CHUNK, seed=0, **knobs)
@@ -1295,13 +1496,14 @@ def check_engine_pair(phase, simulate, fingerprint, kernels, knobs, *,
     if min(launches[k] for k in kernels) <= 0:
         raise SystemExit(f"a kernel of {kernels} was not launched on the "
                          f"{phase} path ({config}): {launches}")
-    short = dict(kw, chunk_steps=128, max_steps=2)
+    short = dict(kw, chunk_steps=CPU_STEPS, max_steps=CPU_STEPS)
     gpu = simulate(device=DEVICE, **short)
     t0 = time.monotonic()
     cpu = simulate(device="cpu", **short)
     cpu_wall = time.monotonic() - t0
     same = same_fingerprint(fingerprint(gpu), fingerprint(cpu))
-    emit({**tag, "cpu_steps": 128, "cpu_equal": same, "cpu_wall_s": cpu_wall})
+    emit({**tag, "cpu_steps": CPU_STEPS, "cpu_equal": same,
+          "cpu_wall_s": cpu_wall})
     if not same:
         raise SystemExit(f"cuda {phase} run disagrees with the cpu run "
                          f"({config})")
@@ -1351,8 +1553,7 @@ def check_zoo_bench_rows():
         want = [json.dumps(r, sort_keys=True) for r in base["rows"]
                 if r["scenario"] == "iid" and r["rf"] == 2
                 and r["p"] == 3e-3]
-        spec = runner.ExperimentSpec.from_file(
-            str(ROOT / "benchmarks" / "configs" / f"{name}.toml"))
+        spec = flag_spec(f"{name}.toml")
         for packed in (False, True):
             t0 = time.monotonic()
             rows = gen(full=spec.full, trials=spec.trials, seed=spec.seed,
@@ -1364,10 +1565,115 @@ def check_zoo_bench_rows():
             wall = time.monotonic() - t0
             emit({"phase": "zoo_bench_row", "config": name, "packed": packed,
                   "rows": len(want), "identical": got == want,
+                  "flag_path": True,
                   "wall_s": wall})
             if not want or got != want:
                 raise SystemExit(f"rows differ from BENCH_{name}.json:\n"
                                  f"got  {got}\nwant {want}")
+
+
+#: the suites phase's kernels that each runner run must launch: the
+#: sweep's step in its layout (unpacked under reconfig with shared
+#: bandwidth: the roster counts mode), the tables' one launch and
+#: kernel_bench's steps in both layouts (its reconfig step passes
+#: recruits, so it takes the roster counts mode too)
+SUITES_KERNELS = {False: ("downtime_eval_roster_counts",),
+                  True: ("fused_downtime_eval",)}
+SUITES_BENCH_KERNELS = ("pac_eval", "fused_pac_eval", "downtime_eval")
+#: each suite's CSV row names, by the row's first field
+SUITE_ROWS = {"heartbeat_crossover": ("heartbeat_crossover",),
+              "kernel_bench": ("kernel_bench_device", "kernel_step_"),
+              "availability_sweep": ("downtime", "downtime_engine"),
+              "microsim_tables": ("microsim_t3", "microsim_t4"),
+              "roofline": ("roofline_card", "roofline_mc_step"),
+              "total": ("benchmarks_total",)}
+
+
+def run_captured(fn, argv):
+    """fn(argv)'s return and its standard output's lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def sweep_rows(path) -> list:
+    return [json.dumps(runner._json_safe(r), sort_keys=True)
+            for r in json.loads(Path(path).read_text())["rows"]]
+
+
+def check_suites(tmp: Path):
+    """Phase 10b: the suite runner and the sweep's flags on cuda,
+    in-process (the launch counts read): the runner on
+    SUITES_DOWNTIME_FLAGS, unpacked and packed, rows from all five suites
+    and the total, the sweep's rows FLAG_ROWS_DOWNTIME and the kernels of
+    SUITES_KERNELS, SUITES_BENCH_KERNELS and microsim_scan (once) launched;
+    the sweep on SUITES_LATENCY_FLAGS, rows FLAG_ROWS_LATENCY and
+    latency_charge launched; a typo under CI=1 refused with exit 2 before
+    any suite runs; all within SUITES_BOX_S.  Returns the launches."""
+    t0 = time.monotonic()
+    total = {}
+    for packed in (False, True):
+        out = tmp / f"suites_downtime_{int(packed)}.json"
+        argv = SUITES_DOWNTIME_FLAGS + ["--packed"] * packed + \
+            ["--json", str(out)]
+        reset_counts()
+        t1 = time.monotonic()
+        rc, lines = run_captured(suite_run.main, argv)
+        wall = time.monotonic() - t1
+        got = read_counts(counters())
+        names = {ln.split(",", 1)[0] for ln in lines}
+        missing = [suite for suite, rows in SUITE_ROWS.items()
+                   if not any(n.startswith(r) for n in names for r in rows)]
+        same = rc == 0 and sweep_rows(out) == FLAG_ROWS_DOWNTIME
+        need = SUITES_KERNELS[packed] + SUITES_BENCH_KERNELS
+        emit({"phase": "suites", "run": "downtime", "packed": packed,
+              "rc": rc, "rows_identical": same, "missing_suites": missing,
+              "csv_rows": len(lines), "wall_s": wall, "launches": got})
+        if not same or missing:
+            raise SystemExit(f"the suite runner's rows differ or a suite is "
+                             f"missing (packed={packed}): {missing}")
+        if min(got[k] for k in need) <= 0 or got["microsim_scan"] != 1:
+            raise SystemExit(f"a suite kernel of {need} did not launch, or "
+                             f"microsim_scan not once: {got}")
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+    out = tmp / "suites_latency.json"
+    reset_counts()
+    t1 = time.monotonic()
+    rc, lines = run_captured(sweep.main, SUITES_LATENCY_FLAGS +
+                             ["--json", str(out)])
+    wall = time.monotonic() - t1
+    got = read_counts(counters())
+    same = rc == 0 and sweep_rows(out) == FLAG_ROWS_LATENCY
+    emit({"phase": "suites", "run": "latency", "rc": rc,
+          "rows_identical": same, "wall_s": wall, "launches": got})
+    if not same or got["latency_charge"] <= 0:
+        raise SystemExit(f"the latency flag rows differ or latency_charge "
+                         f"did not launch: {got}")
+    for k, n in got.items():
+        total[k] = total.get(k, 0) + n
+    # node_count's work runs in the counts mode's launches (phase 6)
+    total["node_count"] += total["downtime_eval_counts"] + \
+        total["downtime_eval_roster_counts"]
+    err = io.StringIO()
+    os.environ["CI"] = "1"
+    try:
+        with contextlib.redirect_stderr(err):
+            rc, lines = run_captured(suite_run.main, ["--trails", "8"])
+    finally:
+        del os.environ["CI"]
+    refused = rc == 2 and not lines and "'--trials'" in err.getvalue()
+    wall = time.monotonic() - t0
+    emit({"phase": "suites", "typo_refused": refused, "wall_s": wall,
+          "box_s": SUITES_BOX_S, "launches": total})
+    if not refused:
+        raise SystemExit(f"the runner did not refuse --trails under CI "
+                         f"before any suite ran: rc {rc}, {lines}")
+    if wall > SUITES_BOX_S:
+        raise SystemExit(f"the suites phase took {wall:.1f} s, past its "
+                         f"{SUITES_BOX_S} s box")
+    return total
 
 
 #: the autotune phase's box, seconds
@@ -3021,14 +3327,15 @@ def check_mlstm_bwd_kernel(bw, faults):
 
 #: the train phases: (arch, depth or None for the config's, batch, seq,
 #: steps, microbatches or None for the config's, the step at which
-#: worker 3 is lost).  xlstm-350m whole, 4 steps: a step takes ~12 s,
+#: worker 3 is lost).  xlstm-350m whole, 3 steps (4 until the suites
+#: phase needed the time; one warm step is left): a step takes ~14 s,
 #: 330,000 kernel launches of the sLSTM's per-token loop (forward, remat
 #: recompute, backward; measured on one H100);
 #: recurrentgemma-9b at full width cut to one (RGLRU, RGLRU, LOCAL_ATTN)
 #: pattern (its 9.40 B parameters with float32 gradients and AdamW's
 #: float32 moments need about 131 GB; 3 layers need ~40), in the train
 #: launcher's 2 microbatches; smollm-360m whole
-TRAIN_CELLS = {"train": ("xlstm_350m", None, 4, 1024, 4, None, 1),
+TRAIN_CELLS = {"train": ("xlstm_350m", None, 4, 1024, 3, None, 1),
                "train_rg": ("recurrentgemma_9b", 3, 2, 2048, 4, 2, 1),
                "train_dense": ("smollm_360m", None, 4, 1024, 8, None, 4)}
 #: the stores of the launch.train loop: 4 workers at rf 2, a checkpoint
@@ -3455,10 +3762,11 @@ def check_elastic():
 # Across ranks: the Monte Carlo's trials and the data-parallel train step
 # ---------------------------------------------------------------------------
 
-#: the sharded phase: worlds of ranks on the one card (gloo), and the
-#: `devices` every run asks for (the committed configs' 8, which both
-#: worlds divide)
-SHARD_WORLDS, SHARD_DEVICES = (2, 4), 8
+#: the sharded phase: worlds of ranks on the one card (gloo; (2, 4)
+#: until the suites phase needed the time: 4 ranks hold every path at
+#: the smaller shard, 2 trials a rank), and the `devices` every run asks
+#: for (the committed configs' 8, which each world divides)
+SHARD_WORLDS, SHARD_DEVICES = (4,), 8
 #: the §5.1 run with the early stop live (default min_ticks 50,000, 200
 #: events): p = 2e-4 reaches 50,000 ticks in ~3,100 steps, with ~1,300
 #: LARK and majority outage events over the 8 trials by then
@@ -3560,8 +3868,8 @@ def sharded_rank(rank, world, store, out_dir, t_spawn):
 
 
 def check_sharded(one_process):
-    """Phase sharded: the Monte Carlo's trials over 2 and 4 ranks on the
-    one card (gloo through a file store), every path of the engine,
+    """Phase sharded: the Monte Carlo's trials over SHARD_WORLDS ranks on
+    the one card (gloo through a file store), every path of the engine,
     downtime, latency and zoo phases, unpacked and packed (MC_STEPS
     steps in MC_CHUNK-step chunks): every rank's result equal to the
     one-process devices = 1 run in every field and trajectory
@@ -4385,6 +4693,8 @@ def main() -> int:
     launches["downtime_eval_roster"] = got["downtime_eval_roster"]
     mc_runs.update({("zoo", k): v for k, v in runs.items()})
     check_zoo_bench_rows()
+    with tempfile.TemporaryDirectory() as tmp:
+        suites_launches = check_suites(Path(tmp))
     races = check_autotune(faults["downtime_eval"], faults["fused_downtime"])
     rec.update(check_mlstm_kernel(bw, faults))
     launches["mlstm_chunkwise_sm90"] = check_serve()
@@ -4419,6 +4729,9 @@ def main() -> int:
     check_tp(smi)
     for k, n in check_examples(smi, t3_row3).items():
         launches[k] += n
+    for k, n in suites_launches.items():
+        if k in SOURCES:
+            launches[k] += n
 
     kernels = []
     for kname, (source, replaces) in SOURCES.items():

@@ -46,6 +46,7 @@ import argparse
 import itertools
 import json
 import math
+import time
 import traceback
 from pathlib import Path
 
@@ -59,6 +60,7 @@ from repro_torch.models.layers import DTYPES
 from repro_torch.models.model import batch_specs
 from repro_torch.models.transformer import encoder_config
 from repro_torch.optim import make_optimizer
+from repro_torch.training.sharded import microbatches
 
 from . import op_analysis
 from .mesh import make_production_mesh
@@ -209,6 +211,7 @@ def _axis_names(mesh):
 def _trace(cfg, shape, mesh, inputs, bshard, gshard=None):
     """op_analysis of one rank's step, or "not traced", the op and why."""
     from repro_torch.training import make_serve_steps, make_train_step
+    t0 = time.monotonic()
     try:
         if shape.kind == "train":
             params, opt_state, batch = inputs
@@ -235,7 +238,7 @@ def _trace(cfg, shape, mesh, inputs, bshard, gshard=None):
     res["collectives_by_axis"] = {
         names.get(g, g): ops
         for g, ops in res.pop("collectives_by_group").items()}
-    return {"status": "ok", **res}
+    return {"status": "ok", "trace_s": time.monotonic() - t0, **res}
 
 
 def _specs_per_layer(cfg, specs_stacked):
@@ -246,10 +249,14 @@ def _specs_per_layer(cfg, specs_stacked):
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             trace: bool = True) -> dict:
+             trace: bool = True, overrides=None) -> dict:
     """One cell's record; the fake group of the mesh's size must be the
-    default group (``fake_world``)."""
+    default group (``fake_world``).  `overrides` replace fields of the
+    arch's config (``ModelConfig.replace``), as the perf probe's
+    variants do."""
     cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.replace(**overrides)
     shape = SHAPES_BY_NAME[shape_name]
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
@@ -274,9 +281,22 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         batch = abstract_batch(cfg, shape)
         bshard = batch_shardings(cfg, mesh, batch, B)
         dev["params"] = sharded_bytes(params, pshard, mesh)
-        dev["grads"] = sharded_bytes(_f32(params), gshard, mesh)
+        # without grad_shardings the gradients are placed as the
+        # parameters are (the all-reduce step)
+        dev["grads"] = sharded_bytes(_f32(params),
+                                     pshard if gshard is None else gshard,
+                                     mesh)
         dev["opt_state"] = sharded_bytes(opt_state, oshard, mesh)
         dev["batch"] = sharded_bytes(batch, bshard, mesh)
+        # a rank's rows and the microbatches the step cuts them into
+        # (sharded.microbatches: the configured count, or where the rows
+        # do not split into it, their greatest common divisor)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+        rows = B // math.prod(sizes[a] for a in baxes)
+        nmb = microbatches(rows, max(1, cfg.microbatches_train))
+        rec["microbatches"] = {"configured": cfg.microbatches_train,
+                               "rank_rows": rows, "traced": nmb,
+                               "traced_rows": rows // nmb}
         if trace:
             # the ZeRO step on the per-layer tree, as the reference's jit
             # places it: the parameters under param_shardings, the moments

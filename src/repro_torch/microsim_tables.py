@@ -23,6 +23,7 @@ import sys
 from pathlib import Path
 
 from .core.microsim import TABLES, run_tables, table_configs
+from .tools import option_strings, parse
 
 TICKS = 520_000
 #: the reference's lines, committed (header line: command, jax, commit)
@@ -77,12 +78,23 @@ def reference_lines() -> list:
             if ln and not ln.startswith("#")]
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu")
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.microsim_tables",
+                                 description=__doc__.splitlines()[0],
+                                 allow_abbrev=False)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the tables run (default cuda; cpu runs "
+                         "the plain tick loop)")
     ap.add_argument("--ticks", type=int, default=TICKS)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def cli_options() -> tuple:
+    return option_strings(build_parser())
+
+
+def main(argv=None, *, strict: bool = True) -> int:
+    args = parse(build_parser(), argv, strict)
     for ln in lines(run(ticks=args.ticks, device=args.device)):
         print(ln)
     return 0

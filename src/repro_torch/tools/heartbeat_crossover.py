@@ -33,7 +33,17 @@ def line(P: int = 4096, rf: int = 3) -> str:
             f"n={n_star:.1f};paper=156.8;below150={below};above165={above}")
 
 
-def main(argv=None) -> int:
+def cli_options() -> tuple:
+    """No flags of its own."""
+    return ()
+
+
+def main(argv=None, *, strict: bool = True) -> int:
+    extra = sys.argv[1:] if argv is None else list(argv)
+    if strict and extra:
+        print(f"python -m repro_torch.tools.heartbeat_crossover: error: "
+              f"unrecognized arguments: {' '.join(extra)}", file=sys.stderr)
+        raise SystemExit(2)
     print(line())
     if abs(crossover() - 156.76) >= 0.5:
         raise AssertionError("the crossover moved off the paper's ~157")

@@ -37,6 +37,7 @@ from repro_torch.kernels import bitpack
 from repro_torch.kernels.ops import (StepSpec, autotune_block_p,
                                      autotune_fused_blocks, step_eval,
                                      step_hbm_bytes)
+from repro_torch.tools import option_strings, parse
 
 
 def _time_us(fn, iters: int, dev: torch.device) -> float:
@@ -75,19 +76,25 @@ def _card(dev: torch.device) -> str:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.tools."
                                  "kernel_bench",
-                                 description=__doc__.splitlines()[0])
+                                 description=__doc__.splitlines()[0],
+                                 allow_abbrev=False)
     ap.add_argument("--autotune", action="store_true",
                     help="race the row tile and the fused block")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--trials", type=int, default=8)
+    ap.add_argument("--trials", type=int, default=8,
+                    help="trials B of the step's (B, P, n) tile")
     ap.add_argument("--partitions", type=int, default=4096)
     ap.add_argument("--nodes", type=int, default=155)
     ap.add_argument("--iters", type=int, default=100)
     return ap
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+def cli_options() -> tuple:
+    return option_strings(build_parser())
+
+
+def main(argv=None, *, strict: bool = True) -> int:
+    args = parse(build_parser(), argv, strict)
     dev = resolve_device(args.device)
     B, P, n, iters = args.trials, args.partitions, args.nodes, args.iters
     R = B * P

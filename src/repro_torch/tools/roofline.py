@@ -38,6 +38,7 @@ from typing import Dict, List
 
 from repro_torch.configs import ARCH_IDS, SHAPES_BY_NAME, get_config
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.tools import option_strings, parse
 
 #: the card the peaks are for, with the power limit they assume
 CARD = "NVIDIA H100 SXM 80GB, 700 W"
@@ -166,13 +167,23 @@ def mc_step_rows() -> List[Dict]:
     return rows
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.tools.roofline",
+                                 description=__doc__.splitlines()[0],
+                                 allow_abbrev=False)
     ap.add_argument("--results", default=str(RESULTS_DIR),
                     help="the dry run's records (default "
                          "results/dryrun_torch)")
     ap.add_argument("--mesh", default="pod16x16", choices=sorted(CHIPS))
-    args = ap.parse_args(argv)
+    return ap
+
+
+def cli_options() -> tuple:
+    return option_strings(build_parser())
+
+
+def main(argv=None, *, strict: bool = True) -> int:
+    args = parse(build_parser(), argv, strict)
     print(f"roofline_card,{args.mesh},0,card={CARD};"
           f"peak_flops={PEAK_FLOPS:.3g};hbm_bw={HBM_BW:.3g};"
           f"link_bw={LINK_BW:.3g}")
