@@ -25,8 +25,10 @@ One JSON line per phase:
 2. ``build``: nvcc for sm_90a, one process per source, all at once, and
    their seconds, and the registers, spill bytes and serialized-wgmma
    flag of each instantiation of ``flash_attention_sm90.cu`` (per head
-   dim), ``mlstm_chunk_sm90.cu`` (per kernel and Dv block) and
-   ``downtime_eval.cu`` (per mode, with and without the counts); beside
+   dim), ``mlstm_chunk_sm90.cu`` (per kernel and Dv block),
+   ``flash_attention.cu`` and ``mlstm_chunk.cu`` (per input type and
+   output n8 tiles) and ``downtime_eval.cu`` (per mode, with and without
+   the counts); beside
    them, at the same time, the copies of ``downtime_eval.cu``,
    ``latency_charge.cu``, ``fused_downtime.cu``, ``rglru_scan.cu``, both
    flash sources, both mLSTM sources, both mLSTM backward sources and
@@ -140,9 +142,14 @@ One JSON line per phase:
    entry point takes the bf16 cases on the sm90 source
    (``mlstm_chunk_sm90.cu``) and the f32 case on the simt source
    (``mlstm_chunk.cu``), each route's launches counted; the simt source
-   also runs the bf16 cases by its launcher; each planted fault of each
-   source must fail a case.  Then both sources' times, and each kernel of
-   the sm90 source on its own.
+   also runs the bf16 cases by its launcher, and through the entry point
+   ``mlstm_check.SIMT_CASES`` (its main path, the reduced xlstm's call,
+   and head dims off its 32-row pieces); each planted fault of each
+   source must fail a case (the simt source's ``tf32_lo_dropped``, every
+   product one TF32 product, among them).  Then the sm90 source's time at
+   the serve shape and each of its kernels on its own; the simt source's
+   at its main path (device and L2-cold times too) and at the serve shape
+   in float32.
 12. ``serve``: xlstm-350m at full width (24 layers, d_model 1024, vocab
    50304, bf16, random weights from seed 0) serves 4 prompts of 1024
    tokens from ``SyntheticLMData`` through ``ServeLoop``: 32 tokens with
@@ -176,9 +183,12 @@ One JSON line per phase:
    within its allowance against the plain version on float64 copies
    (``flash_check``), a bitwise repeat, each route's launches counted,
    the plain version never run, and each planted fault of each source
-   failing a case.  Then both sources' times beside
-   ``F.scaled_dot_product_attention``'s with the same boolean mask and
-   with ``is_causal``.
+   failing a case (the simt source's on its own cases too, where its
+   ``tf32_lo_dropped`` must fail the float32 one).  Then the sm90
+   source's time beside ``F.scaled_dot_product_attention``'s with the
+   same boolean mask and with ``is_causal``, and the simt source's at its
+   own cases (float32 at D = 256, bf16 at D = 32) beside SDPA's with the
+   same type and boolean mask, and the kernels SDPA picked.
 16. ``serve_rg``: recurrentgemma-9b at full width and depth (38 layers,
    d_model 4096, vocab 256000, bf16 with float32 RG-LRU gates, random
    weights from seed 0) serves 4 prompts of 3072 tokens (past the 2048
@@ -340,7 +350,11 @@ One JSON line per phase:
    tile also its entry points (``step_eval``'s tile, the tuner) and the
    race of phase 10a (choice, default, each candidate's µs).
    ``node_count``'s launches are those of the counts mode, which does its
-   work on the main path; its time is node_count alone.
+   work on the main path; its time is node_count alone.  The simt
+   ``mlstm_chunkwise`` counts ``serve_cpu``'s and ``train_cpu``'s
+   forward launches, its record is at their shape (2, 4, 300, 32, chunk
+   256, float32); the simt ``flash_attention_fwd``'s at the float32 entry
+   point case.
 
 Any failure raises and exits non-zero.  The last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script
@@ -478,9 +492,13 @@ SOURCES = {
         "backward; jax.value_and_grad through ref.mlstm_chunkwise)"),
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
-#: the mLSTM kernel's input type: bf16 on the tensor cores, f32 on the
-#: CUDA cores (f32 work has no faster exact path)
+#: a kernel's input type: bf16 on the tensor cores, f32 on the CUDA cores
+#: (the bound of float32 work: the port's float32 routes take each product
+#: as three TF32 products, ``TF32_PEAK``)
 FLOAT_PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: the TF32 tensor-core peak of an H100 SXM (dense), FLOP/s: what a
+#: three-term TF32 split's products would take at best
+TF32_PEAK = 495e12
 #: the serve phase: xlstm-350m, 4 prompts of 1024 tokens, 32 tokens then
 #: 8 more after a failover, a session checkpoint every 8 tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
@@ -871,15 +889,15 @@ def check_kernels(bw, faults, fused_faults):
 
 
 def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
-           rate=INT_OPS, launch=None, events=None, shape=None):
+           rate=INT_OPS, launch=None, events=None, shape=None, reps=200):
     """One kernel's timing record: its bound is the larger of its bytes
     over the HBM rate and its ops (`ops`, or lanes x OPS_PER_LANE) over
     `rate` (the 32-bit lane rate unless given).  `ms` is back-to-back
     launches by CUDA events, launch rate and device time together; with
     `launch` (one raw launch on a given stream) the record adds
     ``mc_check.device_times``: device_ms (the profiler's kernel duration),
-    graph_ms (a CUDA graph's replay) and cold_ms (L2 cold).  `shape`, where
-    given, tags the emitted line."""
+    graph_ms (a CUDA graph's replay) and cold_ms (L2 cold), over `reps`
+    launches.  `shape`, where given, tags the emitted line."""
     bytes_ms = nbytes / bw * 1e3
     if ops is None:
         ops = lanes * OPS_PER_LANE[name]
@@ -889,7 +907,7 @@ def record(name, nbytes, lanes, ms, wrap_ms, plain_ms, err, bw, ops=None,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     if launch is not None:
-        rec.update(mcc.device_times(launch, events=events))
+        rec.update(mcc.device_times(launch, reps=reps, events=events))
     if shape is not None:
         rec["shape"] = list(shape)
     emit({"phase": "kernel_time", "kernel": name, **rec})
@@ -1920,23 +1938,50 @@ def check_mlstm_kernel(bw, faults):
             held(name, "simt", dtype, s, h, state, same, want, scales,
                  by="launcher")
         del args, init, h, state, h2, state2, want, scales
+    # the simt source alone through the entry point: its main path's
+    # shape and shapes off its 32-row pieces, with its planted faults
+    main_err = None
+    for name, dtype, Bc, Hc, s, Dq, Dv, Lc, initial in mc.SIMT_CASES:
+        args, init = mc.mlstm_inputs(gen, Bc, Hc, s, Dq, Dv, dtype,
+                                     initial=initial)
+        assert mk._route(dtype, Dq, Dv, Lc) == "simt"
+        reset_counts()
+        h, state = mk.mlstm_chunkwise(*args, chunk=Lc, initial=init)
+        torch.cuda.synchronize()
+        h2, state2 = mk.mlstm_chunkwise(*args, chunk=Lc, initial=init)
+        same = torch.equal(h, h2) and all(
+            torch.equal(a, b) for a, b in zip(state, state2))
+        got = read_counts((*names.values(), "mlstm_chunkwise_plain"))
+        if got[names["simt"]] != 2 or sum(got.values()) != 2:
+            raise SystemExit(f"mlstm: the entry point took the wrong route "
+                             f"(simt expected): {got}")
+        want, scales = mc.reference(args, Lc, init)
+        fault_errs = {}
+        for fname, fn in faults["mlstm_chunk"].items():
+            fh, fstate = mk.launch_with(fn, *args, Lc, init)
+            errs = mc.mlstm_errors(fh, fstate, *want, scales)
+            fault_errs[f"mlstm_chunk:{fname}"] = max(errs.values())
+            if not all(e <= 1.0 for e in errs.values()):
+                caught["mlstm_chunk"][fname].append(name)
+        held(name, "simt", dtype, s, h, state, same, want, scales,
+             by="entry point", shape=[Bc, Hc, s, Dq, Dv, Lc],
+             faults_error_over_allowed=fault_errs)
+        if main_err is None:          # the first case is the main path's
+            main_err = mlstm_abs_err(h, want[0].to(dtype))
+        del args, init, h, state, h2, state2, want, scales
     for src in mc.FAULTS:
         held_faults(f"mlstm_chunkwise ({src}.cu)", caught[src])
 
-    # times at the serve shape: both sources' raw launchers, in turns, and
-    # each kernel of the sm90 source alone (on the scratch a full launch
-    # left)
+    # times: the sm90 source at the serve shape, its main path, and each
+    # of its kernels alone (on the scratch a full launch left)
     (q, k, v, lf, li), _ = mc.mlstm_inputs(gen, B, H, S, D, D,
                                            torch.bfloat16)
     sm90_fn = _build.function(*mk.ROUTES["sm90"])
     a90, _, keep90 = mk.launch_args(q, k, v, lf, li, L, None, route="sm90")
-    asimt, _, keepsimt = mk.launch_args(q, k, v, lf, li, L, None)
-    simt_ms = time_ms(lambda: simt_fn(*asimt), 10)
     ms = time_ms(lambda: sm90_fn(*a90), 50)
     parts_ms = {part: time_ms(lambda: sm90_fn(*a90[:-2], bit, a90[-1]), 50)
                 for part, bit in mk.PARTS.items()}
     ms_again = time_ms(lambda: sm90_fn(*a90), 50)
-    simt_ms_again = time_ms(lambda: simt_fn(*asimt), 10)
     wrap_ms = time_ms(lambda: mk.mlstm_chunkwise(q, k, v, lf, li, chunk=L),
                       50)
     plain_ms = time_ms(lambda: mk.mlstm_chunkwise_plain(q, k, v, lf, li,
@@ -1944,11 +1989,44 @@ def check_mlstm_kernel(bw, faults):
     flops = mlstm_flops(B, H, S, D, D, L)
     mix = mlstm_sm90_mix(B, H, S, D, D, L)
     nbytes = mlstm_bytes(B, H, S, D, D, torch.bfloat16)
-    rec = {route: record(names[route], nbytes, 0, t, wt, plain_ms,
-                         worst[route], bw, ops=flops,
-                         rate=FLOAT_PEAK[torch.bfloat16])
-           for route, t, wt in (("sm90", ms, wrap_ms),
-                                ("simt", simt_ms, None))}
+    rec = {"sm90": record(names["sm90"], nbytes, 0, ms, wrap_ms, plain_ms,
+                          worst["sm90"], bw, ops=flops,
+                          rate=FLOAT_PEAK[torch.bfloat16])}
+    # the simt source at its main path (the reduced xlstm's call, float32:
+    # serve_cpu's prefill and train_cpu's forward), bound by the float32
+    # CUDA-core rate; and at the serve shape in float32
+    _, _, Bs, Hs, Ss, Dqs, Dvs, Ls, _ = mc.SIMT_CASES[0]
+    (qs, ks, vs, lfs, lis), _ = mc.mlstm_inputs(gen, Bs, Hs, Ss, Dqs, Dvs,
+                                                torch.float32)
+    asimt, _, keepsimt = mk.launch_args(qs, ks, vs, lfs, lis, Ls, None)
+
+    def simt_launch(stream):
+        return simt_fn(*asimt[:-1], stream)
+
+    simt_ms = time_ms(lambda: simt_fn(*asimt), 200)
+    simt_wrap_ms = time_ms(lambda: mk.mlstm_chunkwise(
+        qs, ks, vs, lfs, lis, chunk=Ls), 200)
+    simt_plain_ms = time_ms(lambda: mk.mlstm_chunkwise_plain(
+        qs, ks, vs, lfs, lis, chunk=Ls), 20)
+    simt_flops = mlstm_flops(Bs, Hs, Ss, Dqs, Dvs, Ls)
+    rec["simt"] = record(
+        names["simt"], mlstm_bytes(Bs, Hs, Ss, Dqs, Dvs, torch.float32), 0,
+        simt_ms, simt_wrap_ms, simt_plain_ms, main_err, bw, ops=simt_flops,
+        rate=FLOAT_PEAK[torch.float32], launch=simt_launch,
+        shape=(Bs, Hs, Ss, Dqs, Dvs, Ls))
+    (qf, kf, vf, lff, lif), _ = mc.mlstm_inputs(gen, B, H, S, D, D,
+                                                torch.float32)
+    af, _, keepf = mk.launch_args(qf, kf, vf, lff, lif, L, None)
+    simt_f32_ms = time_ms(lambda: simt_fn(*af), 10)
+    emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise",
+          "route": "simt", "shape": [B, H, S, D, D, L], "dtype": "float32",
+          "ms": simt_f32_ms, "flops": flops,
+          "tf32_split_mix_ms": 3 * flops / TF32_PEAK * 1e3,
+          "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3,
+          "main_path": {"shape": [Bs, Hs, Ss, Dqs, Dvs, Ls],
+                        "tf32_split_mix_ms":
+                        3 * simt_flops / TF32_PEAK * 1e3}})
+    del keepsimt, keepf
     # the C_c hi and lo (BH, nC - 1 chunks, Dq, Dv) the states kernel
     # writes and the output kernel reads, and the n_c
     scratch_bytes = 2 * 2 * B * H * (S // L - 1) * D * D + \
@@ -1956,16 +2034,14 @@ def check_mlstm_kernel(bw, faults):
     emit({"phase": "kernel_time", "kernel": "mlstm_chunkwise",
           "shape": [B, H, S, D, D, L], "dtype": "bfloat16",
           "sm90_ms": ms, "sm90_ms_again": ms_again,
-          "sm90_parts_ms": parts_ms, "simt_ms": simt_ms,
-          "simt_ms_again": simt_ms_again, "wrapper_ms": wrap_ms,
+          "sm90_parts_ms": parts_ms, "wrapper_ms": wrap_ms,
           "plain_ms": plain_ms, "flops": flops, "tensor_core_flops": mix,
           "sm90_tflops_function": flops / ms / 1e9,
           "sm90_tflops_mix": mix / ms / 1e9,
-          "simt_tflops_function": flops / simt_ms / 1e9,
           "mix_bound_ms": mix / FLOAT_PEAK[torch.bfloat16] * 1e3,
           "chunk_state_bytes": scratch_bytes,
           "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3})
-    del keep90, keepsimt
+    del keep90
     return {names[route]: r for route, r in rec.items()}
 
 
@@ -2224,6 +2300,20 @@ def sdpa_ms(q, k, v, *, window, reps):
     return time_ms(lambda: sdpa(q, k, v, attn_mask=mask), reps)
 
 
+def sdpa_kernels(q, k, v, mask) -> list:
+    """The device kernels that one F.scaled_dot_product_attention call
+    with `mask` runs (the backend it picked), from the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    f = torch.nn.functional.scaled_dot_product_attention
+    f(q, k, v, attn_mask=mask)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        f(q, k, v, attn_mask=mask)
+        torch.cuda.synchronize()
+    return sorted({e.key.split("(")[0][:120] for e in prof.key_averages()
+                   if e.device_type.name == "CUDA"})
+
+
 #: the instantiations whose registers the build phase reports: the
 #: mangled name's kernel and first template argument (and "_pac" for the
 #: pac mode of fused_downtime_kernel), to a label
@@ -2261,6 +2351,15 @@ def ptxas_usage(log: str) -> dict:
     argument after the flag, the launch bound in threads, after ``_t``);
     ``W0`` is the loop)."""
     def label(text):
+        # the float32 routes' kernels, templated on the input type (and the
+        # output's n8 tiles NV): flash_f32_NV32, mlstm_output_bf16_NV8, ...
+        m = re.search(r"(flash_fwd|mlstm_output|mlstm_states)_kernelI"
+                      r"(f|13__nv_bfloat16)(?:Li(\d+)E)?", text)
+        if m:
+            return {"flash_fwd": "flash", "mlstm_output": "output",
+                    "mlstm_states": "states"}[m.group(1)] + "_" + \
+                ("f32" if m.group(2) == "f" else "bf16") + \
+                (f"_NV{m.group(3)}" if m.group(3) else "")
         for kernel, tag in PTXAS_LABELS.items():
             m = re.search(kernel + r"(?:ILi(\d+)E(?:Li(\d+)E)?"
                           r"(?:(Lb1E)|Lb0E)?(?:Li(\d+)E)?)?", text)
@@ -2373,12 +2472,23 @@ def check_flash_kernel(bw, faults):
         held(case, "simt", o, same, want, allowed, window=window,
              q_scale=q_scale, by="launcher")
         del q, k, v, o, want, allowed
+    main_err = {}
     for case, dtype, Dc, S, window, q_scale in fc.SIMT_CASES:
         q, k, v = fc.flash_inputs(gen, B, H, S, Dc, dtype, q_scale)
         o, same = entry(q, k, v, window, "simt")
         want, allowed = fc.reference(q, k, v, causal=True, window=window)
+        fault_errs = {}
+        for name, fn in faults["flash_attention"].items():
+            err = fc.flash_error(fa.launch_with(
+                fn, q, k, v, causal=True, window=window, scale=None,
+                route="simt"), want, allowed)
+            fault_errs[f"flash_attention:{name}"] = err
+            if err > 1.0:
+                caught["flash_attention"][name].append(case)
         held(case, "simt", o, same, want, allowed, window=window,
-             q_scale=q_scale, by="entry point")
+             q_scale=q_scale, by="entry point",
+             faults_error_over_allowed=fault_errs)
+        main_err[case] = (o.double() - want).abs().max().item()
         del q, k, v, o, want, allowed
     for src in fc.FAULTS:
         held_faults(f"flash_attention_fwd ({src}.cu)", caught[src])
@@ -2393,9 +2503,6 @@ def check_flash_kernel(bw, faults):
     scale = 1.0 / math.sqrt(D)
     ms = {w: time_ms(lambda: sm90_fn(*ptrs, B * H, S, S, D, scale, 1, w,
                                      stream), 20) for w in (window, 0)}
-    simt_ms = {w: time_ms(lambda: simt_fn(*ptrs, B * H, S, S, D, D, scale, 1,
-                                          w, 1, stream), 5)
-               for w in (window, 0)}
     wrap_ms = time_ms(lambda: fa.flash_attention_fwd(
         q, k, v, causal=True, window=window), 20)
     plain_ms = time_ms(lambda: fa.flash_attention_plain(
@@ -2415,18 +2522,13 @@ def check_flash_kernel(bw, faults):
     flops = {w: 4 * D * pairs[w] for w in (window, 0)}
     mix = {w: 6 * D * pairs[w] for w in (window, 0)}
     nbytes = 4 * 2 * B * H * S * D
-    rec = {
-        "sm90": record(names["sm90"], nbytes, 0, ms[window], wrap_ms,
-                       plain_ms, worst["sm90"], bw, ops=flops[window],
-                       rate=FLOAT_PEAK[torch.bfloat16]),
-        "simt": record(names["simt"], nbytes, 0, simt_ms[window], None,
-                       plain_ms, worst["simt"], bw, ops=flops[window],
-                       rate=FLOAT_PEAK[torch.bfloat16])}
-    for r in rec.values():
-        r["library_ms"] = lib_ms[window]
+    rec = {"sm90": record(names["sm90"], nbytes, 0, ms[window], wrap_ms,
+                          plain_ms, worst["sm90"], bw, ops=flops[window],
+                          rate=FLOAT_PEAK[torch.bfloat16])}
+    rec["sm90"]["library_ms"] = lib_ms[window]
     emit({"phase": "kernel_time", "kernel": "flash_attention_fwd",
-          "shape": [B, H, S, D], "dtype": "bfloat16", "window": window,
-          "sm90_ms": ms[window], "simt_ms": simt_ms[window],
+          "route": "sm90", "shape": [B, H, S, D], "dtype": "bfloat16",
+          "window": window, "sm90_ms": ms[window],
           "library_ms": lib_ms[window],
           "library": "F.scaled_dot_product_attention (boolean mask)",
           "library_vs_sm90_max_abs": sdpa_err,
@@ -2434,15 +2536,62 @@ def check_flash_kernel(bw, faults):
           "tensor_core_flops": mix[window],
           "sm90_tflops_function": flops[window] / ms[window] / 1e9,
           "sm90_tflops_mix": mix[window] / ms[window] / 1e9,
-          "simt_tflops_function": flops[window] / simt_ms[window] / 1e9,
           "mix_bound_ms": mix[window] / FLOAT_PEAK[torch.bfloat16] * 1e3,
           "causal_no_window": {
-              "sm90_ms": ms[0], "simt_ms": simt_ms[0],
-              "library_is_causal_ms": lib_ms[0],
+              "sm90_ms": ms[0], "library_is_causal_ms": lib_ms[0],
               "library_boolean_mask_ms": lib_mask_causal_ms,
               "sm90_tflops_function": flops[0] / ms[0] / 1e9,
               "sm90_tflops_mix": mix[0] / ms[0] / 1e9,
               "bound_ms": flops[0] / FLOAT_PEAK[torch.bfloat16] * 1e3}})
+    del q, k, v, o, mask, causal_mask
+
+    # the simt source at its main path, the entry point's cases (float32
+    # at D = 256, bf16 at D = 32), beside SDPA with the same type and
+    # boolean mask; the float32 case is the kernels line's record, bound
+    # by the float32 CUDA-core rate
+    for case, dtype, Dc, Sc, wc, q_scale in fc.SIMT_CASES:
+        q, k, v = fc.flash_inputs(gen, B, H, Sc, Dc, dtype, q_scale)
+        o = torch.empty_like(q)
+        cptrs = [t.data_ptr() for t in (q, k, v, o)]
+        f32 = dtype == torch.float32
+
+        def launch(stream, cptrs=cptrs, Sc=Sc, Dc=Dc, wc=wc, f32=f32):
+            return simt_fn(*cptrs, B * H, Sc, Sc, Dc, Dc,
+                           1.0 / math.sqrt(Dc), 1, wc, int(not f32), stream)
+
+        reps = 5 if f32 else 50
+        t_ms = time_ms(lambda: launch(torch.cuda.current_stream()
+                                      .cuda_stream), reps)
+        w_ms = time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, causal=True, window=wc), reps)
+        l_ms = sdpa_ms(q, k, v, window=wc, reps=reps)
+        cmask = fa.attention_mask(Sc, Sc, causal=True, window=wc,
+                                  device=dev)
+        npairs = flash_pairs(Sc, Sc, True, wc) * B * H
+        fl = 4 * Dc * npairs
+        nb = 4 * q.element_size() * B * H * Sc * Dc
+        # the split's tensor-core work: float32 three TF32 products for
+        # q k^T and for p v; bf16 q k^T once and p v twice
+        mix_ms = (12 * Dc * npairs / TF32_PEAK if f32 else
+                  6 * Dc * npairs / FLOAT_PEAK[torch.bfloat16]) * 1e3
+        if f32:
+            p_ms = time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, causal=True, window=wc), 3)
+            rec["simt"] = record(names["simt"], nb, 0, t_ms, w_ms, p_ms,
+                                 main_err[case], bw, ops=fl,
+                                 rate=FLOAT_PEAK[dtype], launch=launch,
+                                 shape=(B, H, Sc, Dc), reps=20)
+            rec["simt"]["library_ms"] = l_ms
+        emit({"phase": "kernel_time", "kernel": "flash_attention_fwd",
+              "route": "simt", "case": case, "shape": [B, H, Sc, Dc],
+              "dtype": str(dtype), "window": wc, "ms": t_ms,
+              "wrapper_ms": w_ms, "library_ms": l_ms,
+              "library": "F.scaled_dot_product_attention (boolean mask)",
+              "library_kernels": sdpa_kernels(q, k, v, cmask),
+              "pairs": npairs, "function_flops": fl,
+              "bound_ms": max(nb / bw, fl / FLOAT_PEAK[dtype]) * 1e3,
+              "split_mix_ms": mix_ms, "tflops_function": fl / t_ms / 1e9})
+        del q, k, v, o, cmask
     launches = {names[r]: counted[names[r]] for r in names}
     return {names[r]: rec[r] for r in names}, launches
 
@@ -4656,6 +4805,9 @@ def main() -> int:
               logs.get("flash_attention_sm90", "")),
           "mlstm_chunk_sm90_ptxas": ptxas_usage(
               logs.get("mlstm_chunk_sm90", "")),
+          "flash_attention_ptxas": ptxas_usage(
+              logs.get("flash_attention", "")),
+          "mlstm_chunk_ptxas": ptxas_usage(logs.get("mlstm_chunk", "")),
           "rglru_scan_ptxas": ptxas_usage(logs.get("rglru_scan", "")),
           "fused_downtime_ptxas": ptxas_usage(
               logs.get("fused_downtime", "")),
@@ -4719,9 +4871,11 @@ def main() -> int:
         launches["rglru_scan_bwd"] = check_train(
             "train_rg", smi)["rglru_scan_bwd"]
         check_train("train_dense", smi)
-        # the reduced float32 xlstm: the SIMT backward's main path
-        launches["mlstm_chunkwise_bwd"] = check_train_cpu()[
-            "mlstm_chunkwise_bwd"]
+        # the reduced float32 xlstm: the SIMT backward's main path, and
+        # the simt forward's besides serve_cpu
+        cpu_launches = check_train_cpu()
+        launches["mlstm_chunkwise_bwd"] = cpu_launches["mlstm_chunkwise_bwd"]
+        launches["mlstm_chunkwise"] += cpu_launches.get("mlstm_chunkwise", 0)
         check_elastic()
     check_sharded(mc_runs)
     for k, n in check_train_dp(smi).items():

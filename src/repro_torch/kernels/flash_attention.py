@@ -21,12 +21,19 @@ dtype and the head dims alone:
   recurrentgemma).  bf16 wgmma on TMA-fed tiles; the softmax weights p
   stay float32 through a hi/lo split into two bf16 products.
 * ``simt`` (csrc/flash_attention.cu): float32, and every other D or Dv up
-  to 256.  Float32 on the CUDA cores.
+  to 256.  mma.sync on the tensor cores: float32 q k^T and p v each as
+  three TF32 products of a hi/lo split of both operands (one TF32 product
+  would miss ``flash_check``'s allowance), bf16 as bf16 products with p
+  split hi/lo as in the sm90 source; cp.async-fed k / v tiles, the
+  softmax in registers, two warps a row group each taking half of a k
+  tile.
 
 Bound by operations at the recurrentgemma-9b local attention shape (B =
-4, 16 heads, S = 3072, D = 256, window 2048, bf16): 268.5 M kept (q, k)
-pairs at 4 D float ops each, 278 us at the bf16 tensor-core peak.
-``flash_check`` holds both sources against the plain version.
+4, 16 heads, S = 3072, D = 256, window 2048): 268.5 M kept (q, k) pairs
+at 4 D float ops each, 278 us at the bf16 tensor-core peak, 4.10 ms at
+the float32 CUDA-core rate (the simt route's float32 case; its split's
+TF32 products take 1.67 ms at the TF32 peak).  ``flash_check`` holds
+both sources against the plain version.
 
 No model path calls it, as in the reference: the local attention of
 ``models/attention.py`` is the reference's own masked softmax.  Its entry
@@ -45,8 +52,8 @@ import torch
 from . import _build
 
 NEG = -1e30
-#: the largest head dims the simt kernel takes (its accumulator is 16
-#: columns per thread of a 16-wide grid)
+#: the largest head dims the simt kernel takes (a warp's output
+#: accumulator is at most 32 n8 tiles)
 MAX_D = 256
 #: the head dims of the sm90 kernel (one template instantiation each)
 SM90_HEAD_DIMS = (64, 128, 256)

@@ -18,11 +18,14 @@ version on float64 copies of the same inputs.
 builds both CUDA sources of the kernel (``flash_attention.ROUTES``) and
 copies of each with one planted fault (``FAULTS``: the window one key
 too wide, the rescale of the accumulator by exp(m_old - m_new) dropped,
-the last k tile skipped; and for the sm90 source p_lo dropped, so that
-p v multiplies by p rounded to bf16) under ``build/``, runs every case of
-``CASES`` through each on the card, and prints per variant and case the
-largest error over its allowance.  It exits 0 when each source passes
-every case and every fault fails at least one.  Needs nvcc and a card.
+the last k tile skipped; for the sm90 source p_lo dropped, so that p v
+multiplies by p rounded to bf16; for the simt source the lo halves of
+its TF32 splits dropped, so that each float32 product is one TF32
+product, a_hi b_hi) under ``build/``, runs every case of ``CASES``
+through each on the card and the cases of ``SIMT_CASES`` through the
+simt source's, and prints per variant and case the largest error over
+its allowance.  It exits 0 when each source passes every case and every
+fault fails at least one.  Needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -52,7 +55,9 @@ SIMT_CASES = (("f32_local_3072", torch.float32, 256, 3072, 2048, 1.0),
 
 #: float32 rounding allowed per unit of the scale above: 2^-16 (256
 #: units), as the scores sum D <= 256 products and the two row sums run
-#: over up to 64 keys a tile and one term per tile
+#: over up to 64 keys a tile and one term per tile.  One TF32 product
+#: (2^-11 of each operand) misses it; the three-term split (about 2^-21)
+#: does not
 GAMMA = 2.0 ** -16
 #: what rounding o to its type adds, relative to |o|: half a step of the
 #: last bit, 2^-8 for bfloat16, allowed twice (float32's own rounding lies
@@ -111,8 +116,12 @@ FAULTS = {
     "flash_attention": {
         "window_off_by_one": ("ok = ok && kp > qp - window;",
                               "ok = ok && kp >= qp - window;"),
-        "rescale_dropped": ("acc[i][c] *= al;", "acc[i][c] *= 1.f;"),
+        "rescale_dropped": (
+            "acc[n][0] *= al0; acc[n][1] *= al0; acc[n][2] *= al1; "
+            "acc[n][3] *= al1;", ""),
         "last_tile_skipped": ("kt < kt1; ++kt", "kt < kt1 - 1; ++kt"),
+        "tf32_lo_dropped": (
+            "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));", "lo = 0u;"),
     },
     "flash_attention_sm90": {
         "window_off_by_one": ("ok = ok && kp > qp - window;",
@@ -145,11 +154,14 @@ def main() -> int:
     caught = {src: {name: [] for name in faults}
               for src, faults in FAULTS.items()}
     source_ok = True
-    for case, S, window, q_scale in CASES:
-        q, k, v = flash_inputs(gen, B, H, S, D, torch.bfloat16, q_scale)
+    runs = [(case, torch.bfloat16, D, S, window, q_scale, tuple(fns))
+            for case, S, window, q_scale in CASES] + \
+        [(*case, ("flash_attention",)) for case in SIMT_CASES]
+    for case, dtype, Dc, S, window, q_scale, sources in runs:
+        q, k, v = flash_inputs(gen, B, H, S, Dc, dtype, q_scale)
         want, allowed = reference(q, k, v, causal=True, window=window)
-        for src, variants in fns.items():
-            for name, fn in variants.items():
+        for src in sources:
+            for name, fn in fns[src].items():
                 o = fa.launch_with(fn, q, k, v, causal=True, window=window,
                                    scale=None, route=SOURCE_ROUTE[src])
                 err = flash_error(o, want, allowed)

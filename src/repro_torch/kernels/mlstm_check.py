@@ -16,12 +16,13 @@ builds both CUDA sources of the kernel (``mlstm_chunk.ROUTES``) and
 copies of each with one planted fault (``FAULTS``: a dropped or 1 % wrong
 carry term, the diagonal masked out, one 64-column slice of v shifted;
 for the sm90 source also the lo half of each hi/lo split dropped, and the
-previous chunk's state read in place of the chunk's own) into a
-temporary directory, runs every case of ``CASES`` through each by its
-launcher (the float32 case on the simt source alone: the sm90 route
-takes bf16 only), and prints per source, variant and case the largest
-error over what rounding allows, beside the verdict of a tolerance scaled
-by the largest |h|.  It exits 0 when each source passes every case it
+previous chunk's state read in place of the chunk's own; for the simt
+source the lo halves of its TF32 splits dropped) into a temporary
+directory, runs every case of ``CASES`` through each by its launcher
+(the float32 case on the simt source alone: the sm90 route takes bf16
+only) and ``SIMT_CASES`` through the simt source's, and prints per
+source, variant and case the largest error over what rounding allows,
+beside the verdict of a tolerance scaled by the largest |h|.  It exits 0 when each source passes every case it
 takes and every fault fails at least one.  Then the same for the
 backward's two sources on ``BWD_CASES`` against the plain backward in
 float64, within ``mlstm_bwd_rounding_scale``: csrc/mlstm_chunk_bwd.cu
@@ -52,6 +53,19 @@ CASES = (("serve_bf16", torch.bfloat16, 1024, False, False),
          ("initial", torch.bfloat16, 512, True, False),
          ("stabilizer", torch.bfloat16, 1024, False, True))
 SHAPE = {"B": 4, "H": 4, "D": 512, "chunk": 256}
+#: cases of the simt source alone, at its main path and off its 32-row
+#: pieces: (name, input type, B, H, S, Dq, Dv, chunk, with an initial
+#: state).  First the reduced xlstm's call (chip_smoke.py serve_cpu's
+#: prefill and train_cpu's forward, which take the simt route through the
+#: entry point), then head dims off the 32-wide pieces (Dq 40, Dv 72: two
+#: 64-column blocks, the second 8 wide) at a chunk of 100 (a piece that
+#: crosses the chunk's end), in float32 and bf16
+SIMT_CASES = (("reduced_f32", torch.float32, 2, 4, 300, 32, 32, 256, False),
+              ("reduced_initial", torch.float32, 2, 4, 300, 32, 32, 256,
+               True),
+              ("odd_dims", torch.float32, 2, 3, 300, 40, 72, 100, False),
+              ("odd_dims_bf16", torch.bfloat16, 2, 3, 300, 40, 72, 100,
+               True))
 
 
 def mlstm_inputs(gen, B, H, S, Dq, Dv, dtype, *, stress=False,
@@ -217,17 +231,27 @@ def max_scaled_ok(h, state, want_h, want_state) -> bool:
 #: replacement)}, each text once in its source
 FAULTS = {
     "mlstm_chunk": {
-        "carry_dropped": ("acc[i][j] *= w;", "acc[i][j] *= 0.f;"),
-        "carry_weight_1pct": ("expf(mprev - Mt[grow + t]) : 0.f;",
-                              "expf(mprev - Mt[grow + t]) * 1.01f : 0.f;"),
-        "den_carry_dropped": ("rden[tid] = wc * (qn * scale);",
-                              "rden[tid] = 0.f * (qn * scale);"),
-        "diagonal_masked": ("if (treal && s <= t)", "if (treal && s < t)"),
+        "carry_dropped": (
+            "acc[n][0] *= w0; acc[n][1] *= w0; acc[n][2] *= w1; "
+            "acc[n][3] *= w1;",
+            "acc[n][0] *= 0.f; acc[n][1] *= 0.f; acc[n][2] *= 0.f; "
+            "acc[n][3] *= 0.f;"),
+        "carry_weight_1pct": (
+            "rWc[h2] = real && carry ? expf(mprev - rM[h2]) : 0.f;",
+            "rWc[h2] = real && carry ? expf(mprev - rM[h2]) * 1.01f : 0.f;"),
+        "den_carry_dropped": (
+            "const float rden = rWc[h2] * (qn[h2] * scale);",
+            "const float rden = 0.f * (qn[h2] * scale);"),
+        "diagonal_masked": ("if (s <= tt && tt < len)",
+                            "if (s < tt && tt < len)"),
         "v_slice_shifted": (
-            "p = cb + s, j = j0 + cc;",
-            "p = cb + s, j = j0 + cc + (jt == 3 ? kTile : 0);"),
-        "decay_1pct": ("const float decay = expf(mprev - ML);",
-                       "const float decay = expf(mprev - ML) * 1.01f;"),
+            "vc, Dv, kPiece * kt, kPiece, len, j0,",
+            "vc, Dv, kPiece * kt, kPiece, len, j0 + (jt == 3 ? 8 * NV : 0),"),
+        "decay_1pct": ("const float decay = expf(m - ML);",
+                       "const float decay = expf(m - ML) * 1.01f;"),
+        # every product one TF32 product, a_hi b_hi
+        "tf32_lo_dropped": (
+            "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));", "lo = 0u;"),
     },
     "mlstm_chunk_sm90": {
         "w_lo_dropped": ("wa - __low2float(whi), wb - __high2float(whi)",
@@ -498,15 +522,18 @@ def main() -> int:
         bwd_procs = {src: _build.start_variants(src, faults, Path(tmp))
                      for src, faults in BWD_SOURCE_FAULTS.items()}
         fns = build_variants(Path(tmp))
-        for case, dtype, S, initial, stress in CASES:
-            args, init = mlstm_inputs(gen, B, H, S, D, D, dtype,
+        runs = [(case, dtype, B, H, S, D, D, L, initial, stress,
+                 [src for src in fns if takes(src, dtype)])
+                for case, dtype, S, initial, stress in CASES] + \
+            [(*case, False, ["mlstm_chunk"]) for case in SIMT_CASES]
+        for case, dtype, Bc, Hc, S, Dq, Dv, Lc, initial, stress, srcs \
+                in runs:
+            args, init = mlstm_inputs(gen, Bc, Hc, S, Dq, Dv, dtype,
                                       stress=stress, initial=initial)
-            (want_h, want_state), scales = reference(args, L, init)
-            for src, variants in fns.items():
-                if not takes(src, dtype):
-                    continue
-                for name, fn in variants.items():
-                    h, state = mk.launch_with(fn, *args, L, init,
+            (want_h, want_state), scales = reference(args, Lc, init)
+            for src in srcs:
+                for name, fn in fns[src].items():
+                    h, state = mk.launch_with(fn, *args, Lc, init,
                                               route=SOURCE_ROUTE[src])
                     errs = mlstm_errors(h, state, want_h, want_state,
                                         scales)

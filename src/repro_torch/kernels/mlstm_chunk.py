@@ -23,8 +23,12 @@ recurrence ``mlstm_step_plain`` that decode uses.
     (128 x Dq bf16) beside a 96 KB ring in shared memory, which caps Dq
     at 512.
   - ``simt`` (csrc/mlstm_chunk.cu): float32, and every other shape whose
-    (Dq, 64) slice of C fits a block's shared memory.  Float32 on the
-    CUDA cores.
+    output kernel's q rows fit a block's shared memory
+    (``simt_smem_bytes``).  Two launches (the gate scans folded into the
+    chunk-start states, then h over blocks of 16 or 64 rows, as the head
+    dims go, with the key tiles split among warps), the products on the tensor cores
+    (mma.sync) through a three-term TF32 split of every float32 operand;
+    one TF32 product would miss ``mlstm_check``'s allowance for h.
 
   ``mlstm_check`` holds both against the plain version.
 * ``mlstm_chunkwise_bwd`` is its gradient for ``initial=None``, beside
@@ -59,9 +63,7 @@ from . import _build
 
 NEG = -1e30
 
-#: the kernel's output tile (rows and columns), and the shared memory one
-#: block of it may use on Hopper (bytes)
-TILE = 64
+#: the shared memory one block may use on Hopper (bytes)
 SMEM_LIMIT = 232448
 
 
@@ -87,12 +89,34 @@ def sm90_smem_bytes(Dq: int, Dv: int, chunk: int) -> int:
     return max(out, states)
 
 
-def columns_smem_bytes(Dq: int, chunk: int) -> int:
-    """Shared memory of csrc/mlstm_chunk.cu's column kernel: its (Dq, 64)
-    slice of C and n (Dq rounded up to 64), a 64 x 65 and a 64 x 64
-    staged tile, two row vectors and the chunk's carry weights."""
-    DqP = -(-Dq // TILE) * TILE
-    return 4 * (DqP * TILE + DqP + TILE * 65 + TILE * TILE + 2 * TILE + chunk)
+#: csrc/mlstm_chunk.cu's pieces: rows of a piece, the states kernel's
+#: slots (two rounds of four pieces), the output kernel's least ring (it
+#: takes up to 8 slots, as many as a block has items, where shared memory
+#: holds them)
+SIMT_PIECE, SIMT_STATES_SLOTS, SIMT_RING = 32, 8, 2
+
+
+def simt_smem_bytes(Dq: int, Dv: int, chunk: int) -> int:
+    """The least dynamic shared memory of csrc/mlstm_chunk.cu's larger
+    kernel.  Its tiles follow the head dims: where Dv <= 32 the output
+    kernel's blocks are 16 rows of 4 key-tile parities and 32 columns,
+    else 64 rows of 2 parities and 64 columns; where Dq, Dv <= 32 the
+    states kernel's tiles are 16 x 16, else 32 x 32.  The output kernel
+    holds its q rows (rows x (Dq rounded up to 32, + 8) float32), a ring
+    of two slots, each the parities' k pieces (32 keys x 32 depths, row
+    stride 40) beside their v pieces (32 keys x the columns, row stride
+    36 or 68), the chunk's g and n_c; the states kernel two rounds of
+    four k and v pieces (32 x (TS + 4) each), the chunk's gated-key
+    weights, log_f and log_i (each the chunk rounded up to 32) and three
+    warps' shares of a TS x TS tile (and n)."""
+    DqP = -(-Dq // SIMT_PIECE) * SIMT_PIECE
+    rows, parities, ldv = (16, 4, 36) if Dv <= 32 else (64, 2, 68)
+    out = 4 * (rows * (DqP + 8) +
+               SIMT_RING * parities * SIMT_PIECE * (40 + ldv) + chunk + DqP)
+    ts = 16 if Dq <= 32 and Dv <= 32 else 32
+    states = 4 * (SIMT_STATES_SLOTS * 2 * SIMT_PIECE * (ts + 4) +
+                  3 * -(-chunk // SIMT_PIECE) * SIMT_PIECE + 3 * (ts * ts + 32))
+    return max(out, states)
 
 
 def _f32(*xs):
@@ -711,14 +735,13 @@ def launch_args(q, k, v, log_f, log_i, chunk, initial, *, route="simt",
         scratch = (g, Mt, mt, mchain, Chi, Clo, f32(BH, nC, Dq))
         tail = (BH, S, Dq, Dv, chunk, parts)
     else:
-        if columns_smem_bytes(Dq, chunk) > SMEM_LIMIT:
-            raise ValueError(f"the kernel keeps a (Dq, {TILE}) slice of C "
-                             f"in shared memory: Dq={Dq}, chunk={chunk} "
-                             f"need {columns_smem_bytes(Dq, chunk)} bytes "
-                             f"> {SMEM_LIMIT}")
-        Lp = -(-chunk // TILE) * TILE
-        # and the masked scores
-        scratch = (g, Mt, mt, mchain, f32(BH * nC, Lp, Lp))
+        if simt_smem_bytes(Dq, Dv, chunk) > SMEM_LIMIT:
+            raise ValueError(f"the kernel keeps 64 rows of q in shared "
+                             f"memory: Dq={Dq}, Dv={Dv}, chunk={chunk} need "
+                             f"{simt_smem_bytes(Dq, Dv, chunk)} bytes > "
+                             f"{SMEM_LIMIT}")
+        # and the chunk-start states C_c of every (b h, chunk), then n_c
+        scratch = (g, Mt, mt, mchain, f32(BH * nC * (Dq * Dv + Dq)))
         tail = (BH, S, Dq, Dv, chunk, int(q.dtype == torch.bfloat16))
     tensors = (q, k, v, lf, li, C0, n0, m0, h, C, n, m, *scratch)
     ptrs = tuple(None if t is None else t.data_ptr() for t in tensors)

@@ -12,7 +12,9 @@ dispatch on the CPU and its choice of CUDA source (``_route``); and the
 check the card holds the kernel to (``flash_check``): the plain version
 passes it against float64, a window one key too wide fails it, p rounded
 to bf16 before p v fails it and the sm90 kernel's hi/lo split of p passes
-it; every planted fault's text occurs once in its source.
+it, one TF32 product for q k^T and p v fails it and the simt kernel's
+three-term TF32 split passes it (TF32 rounding emulated on the float32
+bits); every planted fault's text occurs once in its source.
 
 Inputs come from numpy with a seed."""
 import math
@@ -210,6 +212,88 @@ def test_check_rejects_bf16_p_and_accepts_the_hi_lo_split(case, D):
     split = _p_into_bf16(q, k, v, window=window // 8, split=True)
     assert FC.flash_error(rounded, want, allowed) > 1.0
     assert FC.flash_error(split, want, allowed) <= 1.0
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest on
+    the low 13 mantissa bits of its float32 pattern, ties away from zero
+    (the bits are sign and magnitude, so adding half a step to the
+    pattern rounds the magnitude)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, split):
+    """einsum(eq, a, b) as the tensor cores take two float32 operands:
+    one TF32 product (split False), or the three-term split a_hi b_hi +
+    a_hi b_lo + a_lo b_hi, hi = tf32(x) and lo = tf32(x - hi); each
+    product exact in float32, the sums in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl) +
+                                       torch.einsum(eq, al, bh))
+
+
+def _f32_into_tf32(q, k, v, *, window, split):
+    """The simt kernel's float32 arithmetic in plain torch over one tile:
+    q k^T and p v through TF32 products (one, or the three-term split),
+    p = exp(s - m) and l in float32."""
+    mask = T.attention_mask(q.shape[2], k.shape[2], causal=True,
+                            window=window)
+    s = _tf32_product("bhqd,bhkd->bhqk", q, k, split) / \
+        math.sqrt(q.shape[-1])
+    s = torch.where(mask, s, T.NEG)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return _tf32_product("bhqk,bhkd->bhqd", p, v, split) / l
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    """The emulation keeps 10 mantissa bits, rounds to nearest with ties
+    away from zero (cvt.rna), both signs alike, and leaves a float32 that
+    is already TF32 as it is."""
+    step = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + step, 1.0 + step / 2, 1.0 + step / 4,
+                      1.0 + 3 * step / 4, 3.0, 2.0 ** -20])
+    want = torch.tensor([1.0, 1.0 + step, 1.0 + step, 1.0, 1.0 + step,
+                         3.0, 2.0 ** -20])
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32(-x), -want)
+    y = torch.from_numpy(np.random.default_rng(3).standard_normal(4096)
+                         .astype(np.float32))
+    hi = _tf32(y)
+    assert torch.equal(_tf32(hi), hi)
+    assert ((y - hi).abs() <= hi.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("D", [32, 256])
+@pytest.mark.parametrize(
+    "case", [c for c in FC.SIMT_CASES if c[1] == torch.float32],
+    ids=[c[0] for c in FC.SIMT_CASES if c[1] == torch.float32])
+def test_check_rejects_one_tf32_product_and_accepts_the_three_term_split(
+        case, D):
+    """Why the simt kernel splits each float32 operand in three TF32
+    terms: with ``flash_check``'s unchanged allowance, one TF32 product
+    for q k^T and p v fails, the three-term split passes, at 512
+    positions (S / 6) and the case's window / 8; so does the oracle's
+    float32 (``repro.kernels.ref.attention_ref``) on the same inputs."""
+    _, _, _, S, window, q_scale = case
+    rng = np.random.default_rng(32)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, S // 6, D))
+                                .astype(np.float32)) for _ in range(3))
+    q = q * q_scale
+    want, allowed = FC.reference(q, k, v, causal=True, window=window // 8)
+    one = _f32_into_tf32(q, k, v, window=window // 8, split=False)
+    split = _f32_into_tf32(q, k, v, window=window // 8, split=True)
+    assert FC.flash_error(one, want, allowed) > 1.0
+    assert FC.flash_error(split, want, allowed) <= 1.0
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    oracle = _t(R.attention_ref(_t(jq), _t(jk), _t(jv), causal=True,
+                                window=window // 8))
+    assert FC.flash_error(torch.from_numpy(np.array(oracle)), want,
+                          allowed) <= 1.0
 
 
 def test_library_name_hashes_the_included_headers(tmp_path, monkeypatch):

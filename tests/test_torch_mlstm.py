@@ -29,6 +29,7 @@ import torch
 
 from repro.kernels import ref as R
 from repro.kernels.mlstm_chunk import mlstm_chunkwise as pallas_mlstm
+from repro_torch.configs import reduced_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import mlstm_ablate as MA
 from repro_torch.kernels import mlstm_check as MC
@@ -198,11 +199,26 @@ def test_wrapper_dispatches_by_device_without_fallback():
 def test_shared_memory_budget_covers_the_full_width():
     """xlstm-350m's head dim (2048 / 4 = 512) at chunk 256 fits one
     block's shared memory on both sources; a head dim past the simt
-    budget is refused.  The sm90 budget is the source's own: the output
-    kernel's q rows, 3-slot ring of 32 KB and the chunk's g, the states
-    kernel's 4 slots of a k and a v slab and two chunks' wv."""
-    assert T.columns_smem_bytes(512, 256) <= T.SMEM_LIMIT
-    assert T.columns_smem_bytes(1024, 256) > T.SMEM_LIMIT
+    budget is refused.  Each budget is its source's own: the simt output
+    kernel's 64 q rows, 3-slot ring of 32-row pieces, the chunk's g and
+    n_c; the sm90 output kernel's q rows, 3-slot ring of 32 KB and the
+    chunk's g, its states kernel's 4 slots of a k and a v slab and two
+    chunks' wv."""
+    assert T.simt_smem_bytes(512, 512, 256) <= T.SMEM_LIMIT
+    assert T.simt_smem_bytes(1024, 512, 256) > T.SMEM_LIMIT
+    assert T.simt_smem_bytes(32, 32, 256) == \
+        4 * (16 * (32 + 8) + 2 * 4 * 32 * (40 + 36) + 256 + 32)
+    assert T.simt_smem_bytes(512, 512, 256) == \
+        4 * (64 * (512 + 8) + 2 * 2 * 32 * (40 + 68) + 256 + 512)
+    simt = (_build.CSRC / "mlstm_chunk.cu").read_text()
+    for decl in ("constexpr int kRound = 4;", "constexpr int kRingMin = 2;",
+                 "constexpr int kPiece = 32;",
+                 "constexpr int kLdK = kPiece + 8;",
+                 "static constexpr int kLdV = 8 * NV + 4;",
+                 "static constexpr int kLd = TS + 4;",
+                 "launch_output<T, 8, 4, 2>", "launch_output<T, 4, 1, 4>",
+                 "const bool small_tiles = Dq <= 32 && Dv <= 32;"):
+        assert decl in simt
     assert T.sm90_smem_bytes(512, 512, 256) + T.SM90_STATIC <= T.SMEM_LIMIT
     assert T.sm90_smem_bytes(512, 512, 256) == \
         128 * 512 * 2 + 3 * 32768 + 4 * 256 + 1024
@@ -263,6 +279,23 @@ def test_card_cases_take_their_route(case):
     assert T._route(dtype, D, D, L) == want
     assert MC.takes("mlstm_chunk_sm90", dtype) == (want == "sm90")
     assert MC.takes("mlstm_chunk", dtype)
+
+
+@pytest.mark.parametrize("case", MC.SIMT_CASES,
+                         ids=[c[0] for c in MC.SIMT_CASES])
+def test_simt_cases_take_the_simt_route(case):
+    """``mlstm_check.SIMT_CASES`` go through the entry point on the simt
+    route and fit its shared memory; the first is the reduced xlstm's own
+    call (the simt route's main path: B = 2, 300 positions of its float32
+    config's head dim at chunk 256)."""
+    _, dtype, B, H, S, Dq, Dv, chunk, _ = case
+    assert T._route(dtype, Dq, Dv, chunk) == "simt"
+    assert T.simt_smem_bytes(Dq, Dv, chunk) <= T.SMEM_LIMIT
+    cfg = reduced_config("xlstm_350m")
+    head = int(cfg.d_model * cfg.proj_factor) // cfg.num_heads
+    assert cfg.param_dtype == "float32"
+    assert MC.SIMT_CASES[0][1:8] == (torch.float32, 2, cfg.num_heads, 300,
+                                     head, head, 256)
 
 
 @pytest.mark.parametrize("source,fault", [
@@ -339,6 +372,95 @@ def _plain_with_bf16(q, k, v, log_f, log_i, chunk, operand, split):
         n = decay[..., None] * n + wk.sum(dim=-2)
         m = F[..., -1] + ML
     return torch.cat(hs, dim=2).to(q.dtype), (C, n, m)
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest on
+    the low 13 mantissa bits of its float32 pattern, ties away from
+    zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(eq, a, b, split):
+    """einsum(eq, a, b) as the simt kernel's tensor cores take two float32
+    operands: one TF32 product (split False), or a_hi b_hi + a_hi b_lo +
+    a_lo b_hi, hi = tf32(x) and lo = tf32(x - hi), each product exact in
+    float32, the sums in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not split:
+        return torch.einsum(eq, ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.einsum(eq, ah, bh) + (torch.einsum(eq, ah, bl) +
+                                       torch.einsum(eq, al, bh))
+
+
+def _plain_with_tf32(q, k, v, log_f, log_i, chunk, split):
+    """``mlstm_chunkwise_plain`` (no initial state, S a multiple of the
+    chunk) with every product taken as the simt kernel takes it: q k^T,
+    W v, q C and the carry's (wv k)^T v through TF32 products (one, or
+    the three-term split); den and n sum the float32 values, as the
+    kernel does on the CUDA cores."""
+    B, H, S, Dq = q.shape
+    Dv = v.shape[-1]
+    C = torch.zeros((B, H, Dq, Dv))
+    n = torch.zeros((B, H, Dq))
+    m = torch.full((B, H), T.NEG)
+    scale = 1.0 / math.sqrt(Dq)
+    lpos = torch.arange(chunk)
+    causal = lpos[:, None] >= lpos[None, :]
+    hs = []
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qi, ki, vi = T._f32(q[:, :, sl], k[:, :, sl], v[:, :, sl])
+        F = torch.cumsum(log_f[:, :, sl], dim=-1)
+        g = log_i[:, :, sl] - F
+        Mt = torch.maximum(m[..., None], torch.cummax(g, dim=-1).values)
+        w_carry = torch.exp(m[..., None] - Mt)
+        qCf = _tf32_product("bhld,bhdv->bhlv", qi, C, split) * scale
+        qnf = torch.einsum("bhld,bhd->bhl", qi, n) * scale
+        sc = _tf32_product("bhld,bhsd->bhls", qi, ki, split) * scale
+        W = sc * torch.where(causal, torch.exp(g[:, :, None, :] -
+                                              Mt[..., None]), 0.0)
+        num = w_carry[..., None] * qCf + \
+            _tf32_product("bhls,bhsv->bhlv", W, vi, split)
+        den = w_carry * qnf + W.sum(dim=-1)
+        hs.append(num / torch.maximum(den.abs(),
+                                      torch.exp(-(F + Mt)))[..., None])
+        ML = Mt[..., -1]
+        wk = torch.exp(g - ML[..., None])[..., None] * ki
+        decay = torch.exp(m - ML)
+        C = decay[..., None, None] * C + \
+            _tf32_product("bhld,bhlv->bhdv", wk, vi, split)
+        n = decay[..., None] * n + wk.sum(dim=-2)
+        m = F[..., -1] + ML
+    return torch.cat(hs, dim=2).to(q.dtype), (C, n, m)
+
+
+@pytest.mark.parametrize("li_scale,lf_shift", [(1.0, 2.0), (10.0, 8.0)],
+                         ids=["gates", "stabilizer"])
+@pytest.mark.parametrize("D,chunk", [(32, 128), (64, 64)])
+def test_check_rejects_one_tf32_product_and_accepts_the_three_term_split(
+        D, chunk, li_scale, lf_shift):
+    """Why the simt kernel splits each float32 operand in three TF32
+    terms: with ``mlstm_check``'s unchanged allowances, every product
+    taken as one TF32 product fails (h), the three-term split passes
+    every output, and so does the oracle (``repro.kernels.ref``) on the
+    same inputs; at the reduced xlstm's head dim and one more."""
+    B, H, S = 1, 2, 256
+    x = _inputs(13, B, H, S, D, li_scale=li_scale, lf_shift=lf_shift)
+    args = _torch(*x)
+    (want_h, want_state), scales = MC.reference(args, chunk, None)
+    h, state = _plain_with_tf32(*args, chunk, split=False)
+    assert MC.mlstm_errors(h, state, want_h, want_state,
+                           scales)["h"] > 1.0
+    h, state = _plain_with_tf32(*args, chunk, split=True)
+    errs = MC.mlstm_errors(h, state, want_h, want_state, scales)
+    assert all(e <= 1.0 for e in errs.values()), errs
+    hr, sr = R.mlstm_chunkwise(*_jnp(*x), chunk=chunk)
+    errs = MC.mlstm_errors(*_torch(hr), _torch(*sr), want_h, want_state,
+                           scales)
+    assert all(e <= 1.0 for e in errs.values()), errs
 
 
 @pytest.mark.parametrize("initial", [False, True])
