@@ -270,12 +270,14 @@ One JSON line per phase:
    ``BWD_FAULTS_SM90``, ``w_lo_dropped`` among them) failing a case; each
    source's time at its main path's shape (sm90: the xlstm-350m train
    shape in bf16; SIMT: the reduced xlstm's, B = 2, H = 4, S = 300,
-   Dq = Dv = 32, float32).
+   Dq = Dv = 32, float32), and the SIMT source's at the train shape in
+   float32 on a kernel_time line of its own.
 23. ``train``, ``train_rg``, ``train_dense``: ``make_train_step`` (AdamW,
-   remat as configured) on xlstm-350m (24 layers, B = 4, S = 1024, 3
-   steps), recurrentgemma-9b at full width cut to 3 layers (B = 2,
-   S = 2048, 4 steps in 2 microbatches) and smollm-360m (32 layers,
-   B = 4, S = 1024, 8 steps), bf16, seed-0 weights, ``SyntheticLMData``.
+   remat as configured) on xlstm-350m at full width cut to 23 layers
+   (all 21 mLSTM blocks, 2 of 3 sLSTM; B = 4, S = 1024, 3 steps),
+   recurrentgemma-9b at full width cut to 3 layers (B = 2, S = 2048, 4
+   steps in 2 microbatches) and smollm-360m (32 layers, B = 4, S = 1024,
+   8 steps), bf16, seed-0 weights, ``SyntheticLMData``.
    Off the main path, step 0: every gradient leaf finite and not all
    zero, the step again bitwise equal (torch's deterministic algorithms
    on), and the step with the cells' plain forward and backward within
@@ -493,12 +495,23 @@ SOURCES = {
 }
 #: dense peak float rates of one H100 SXM (NVIDIA data sheet, 700 W) by
 #: a kernel's input type: bf16 on the tensor cores, f32 on the CUDA cores
-#: (the bound of float32 work: the port's float32 routes take each product
-#: as three TF32 products, ``TF32_PEAK``)
+#: (the bound of elementwise float32 work; the port's float32 products run
+#: on the tensor cores, ``split_work``)
 FLOAT_PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: the TF32 tensor-core peak of an H100 SXM (dense), FLOP/s: what a
 #: three-term TF32 split's products would take at best
 TF32_PEAK = 495e12
+
+
+def split_work(flops, dtype):
+    """(ops, rate) of the bound of `flops` of products in `dtype` on the
+    tensor cores: bf16 at the bf16 peak; float32 through the three-term
+    TF32 split that the port's float32 routes run, three TF32 products a
+    product, at the TF32 peak (``FLOAT_PEAK[torch.float32]``, the CUDA
+    cores' rate, is printed beside as ``f32_cuda_core_bound_ms``)."""
+    if dtype == torch.float32:
+        return 3 * flops, TF32_PEAK
+    return flops, FLOAT_PEAK[dtype]
 #: the serve phase: xlstm-350m, 4 prompts of 1024 tokens, 32 tokens then
 #: 8 more after a failover, a session checkpoint every 8 tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, SERVE_RESUME = 4, 1024, 32, 8
@@ -1993,8 +2006,8 @@ def check_mlstm_kernel(bw, faults):
                           worst["sm90"], bw, ops=flops,
                           rate=FLOAT_PEAK[torch.bfloat16])}
     # the simt source at its main path (the reduced xlstm's call, float32:
-    # serve_cpu's prefill and train_cpu's forward), bound by the float32
-    # CUDA-core rate; and at the serve shape in float32
+    # serve_cpu's prefill and train_cpu's forward), bound by the TF32
+    # split's products; and at the serve shape in float32
     _, _, Bs, Hs, Ss, Dqs, Dvs, Ls, _ = mc.SIMT_CASES[0]
     (qs, ks, vs, lfs, lis), _ = mc.mlstm_inputs(gen, Bs, Hs, Ss, Dqs, Dvs,
                                                 torch.float32)
@@ -2009,11 +2022,11 @@ def check_mlstm_kernel(bw, faults):
     simt_plain_ms = time_ms(lambda: mk.mlstm_chunkwise_plain(
         qs, ks, vs, lfs, lis, chunk=Ls), 20)
     simt_flops = mlstm_flops(Bs, Hs, Ss, Dqs, Dvs, Ls)
+    n_ops, rate = split_work(simt_flops, torch.float32)
     rec["simt"] = record(
         names["simt"], mlstm_bytes(Bs, Hs, Ss, Dqs, Dvs, torch.float32), 0,
-        simt_ms, simt_wrap_ms, simt_plain_ms, main_err, bw, ops=simt_flops,
-        rate=FLOAT_PEAK[torch.float32], launch=simt_launch,
-        shape=(Bs, Hs, Ss, Dqs, Dvs, Ls))
+        simt_ms, simt_wrap_ms, simt_plain_ms, main_err, bw, ops=n_ops,
+        rate=rate, launch=simt_launch, shape=(Bs, Hs, Ss, Dqs, Dvs, Ls))
     (qf, kf, vf, lff, lif), _ = mc.mlstm_inputs(gen, B, H, S, D, D,
                                                 torch.float32)
     af, _, keepf = mk.launch_args(qf, kf, vf, lff, lif, L, None)
@@ -2024,8 +2037,8 @@ def check_mlstm_kernel(bw, faults):
           "tf32_split_mix_ms": 3 * flops / TF32_PEAK * 1e3,
           "f32_cuda_core_bound_ms": flops / FLOAT_PEAK[torch.float32] * 1e3,
           "main_path": {"shape": [Bs, Hs, Ss, Dqs, Dvs, Ls],
-                        "tf32_split_mix_ms":
-                        3 * simt_flops / TF32_PEAK * 1e3}})
+                        "f32_cuda_core_bound_ms":
+                        simt_flops / FLOAT_PEAK[torch.float32] * 1e3}})
     del keepsimt, keepf
     # the C_c hi and lo (BH, nC - 1 chunks, Dq, Dv) the states kernel
     # writes and the output kernel reads, and the n_c
@@ -2329,7 +2342,6 @@ PTXAS_LABELS = {"flash_sm90_kernel": "D", "mlstm_states_kernel": "states_NV",
                 "bwd90_gates_kernel": "gates", "bwd90_rows_kernel": "rows",
                 "bwd90_weights_kernel": "weights",
                 "bwd90_dgates_kernel": "dgates",
-                "bwd_gates_kernel": "gates", "bwd_dgates_kernel": "dgates",
                 **{f"bwd_{k}_kernelI{t}": f"{k}_{n}"
                    for k in ("fstates", "rows", "dstates", "cols")
                    for t, n in (("f", "f32"), ("13__nv_bfloat16", "bf16"))}}
@@ -2548,7 +2560,7 @@ def check_flash_kernel(bw, faults):
     # the simt source at its main path, the entry point's cases (float32
     # at D = 256, bf16 at D = 32), beside SDPA with the same type and
     # boolean mask; the float32 case is the kernels line's record, bound
-    # by the float32 CUDA-core rate
+    # by the TF32 split's products
     for case, dtype, Dc, Sc, wc, q_scale in fc.SIMT_CASES:
         q, k, v = fc.flash_inputs(gen, B, H, Sc, Dc, dtype, q_scale)
         o = torch.empty_like(q)
@@ -2574,13 +2586,14 @@ def check_flash_kernel(bw, faults):
         # q k^T and for p v; bf16 q k^T once and p v twice
         mix_ms = (12 * Dc * npairs / TF32_PEAK if f32 else
                   6 * Dc * npairs / FLOAT_PEAK[torch.bfloat16]) * 1e3
+        n_ops, rate = split_work(fl, dtype)
         if f32:
             p_ms = time_ms(lambda: fa.flash_attention_plain(
                 q, k, v, causal=True, window=wc), 3)
             rec["simt"] = record(names["simt"], nb, 0, t_ms, w_ms, p_ms,
-                                 main_err[case], bw, ops=fl,
-                                 rate=FLOAT_PEAK[dtype], launch=launch,
-                                 shape=(B, H, Sc, Dc), reps=20)
+                                 main_err[case], bw, ops=n_ops, rate=rate,
+                                 launch=launch, shape=(B, H, Sc, Dc),
+                                 reps=20)
             rec["simt"]["library_ms"] = l_ms
         emit({"phase": "kernel_time", "kernel": "flash_attention_fwd",
               "route": "simt", "case": case, "shape": [B, H, Sc, Dc],
@@ -2589,8 +2602,11 @@ def check_flash_kernel(bw, faults):
               "library": "F.scaled_dot_product_attention (boolean mask)",
               "library_kernels": sdpa_kernels(q, k, v, cmask),
               "pairs": npairs, "function_flops": fl,
-              "bound_ms": max(nb / bw, fl / FLOAT_PEAK[dtype]) * 1e3,
-              "split_mix_ms": mix_ms, "tflops_function": fl / t_ms / 1e9})
+              "bound_ms": max(nb / bw, n_ops / rate) * 1e3,
+              "split_mix_ms": mix_ms,
+              "f32_cuda_core_bound_ms":
+              fl / FLOAT_PEAK[torch.float32] * 1e3 if f32 else None,
+              "tflops_function": fl / t_ms / 1e9})
         del q, k, v, o, cmask
     launches = {names[r]: counted[names[r]] for r in names}
     return {names[r]: rec[r] for r in names}, launches
@@ -3368,13 +3384,16 @@ def check_mlstm_bwd_kernel(bw, faults):
     launches counted; the SIMT source also by its launcher on every case
     its shared memory holds; each source's planted faults
     (``mlstm_check.BWD_SOURCE_FAULTS``, in `faults` by source) failing a
-    case it takes; then each source's time at its main path's shape.
-    Returns {kernel: record}."""
+    case it takes; then each source's time at its main path's shape, and
+    the SIMT source's at the xlstm-350m train shape in float32 too (a
+    kernel_time line of its own, bound by the TF32 split's products with
+    the float32 CUDA-core figure beside it).  Returns {kernel: record}."""
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(25)
     caught = {src: {name: [] for name in faults[src]}
               for src in mc.BWD_SOURCE_FAULTS}
-    worst = {"mlstm_chunkwise_bwd": 0.0, "mlstm_chunkwise_bwd_sm90": 0.0}
+    worst = {"mlstm_chunkwise_bwd": 0.0, "mlstm_chunkwise_bwd_sm90": 0.0,
+             "train_f32": 0.0}
     simt = _build.function(*mk.BWD_ROUTES["simt"])
     reset_counts()
     routes = {}
@@ -3399,6 +3418,8 @@ def check_mlstm_bwd_kernel(bw, faults):
             worst["mlstm_chunkwise_bwd_sm90"] = max(abs_err.values())
         if case == "train_cpu_f32":
             worst["mlstm_chunkwise_bwd"] = max(abs_err.values())
+        if case == "train_f32":
+            worst["train_f32"] = max(abs_err.values())
         fault_errs = {}
         for src, fns in faults.items():
             if not mc.bwd_takes(src, dtype, Dq, Dv, L):
@@ -3441,14 +3462,17 @@ def check_mlstm_bwd_kernel(bw, faults):
     recs = {}
     # each source at its main path's shape through the entry point: the
     # sm90 route at the xlstm-350m train step's (bf16, bound by the bf16
-    # tensor-core rate; the float32 CUDA-core figure printed beside it),
-    # the SIMT source at the reduced xlstm's (train_cpu: float32, bound
-    # by the float32 CUDA-core rate)
-    for kname, route, (B, H, S, D, L), dtype in (
+    # tensor-core rate), the SIMT source at the reduced xlstm's (train_cpu:
+    # float32, bound by the TF32 split's products at the TF32 rate), the
+    # kernels line's records; then the SIMT source at the train step's
+    # shape in float32; the float32 CUDA-core figure beside each
+    for kname, route, (B, H, S, D, L), dtype, err in (
             ("mlstm_chunkwise_bwd_sm90", "sm90", (4, 4, 1024, 512, 256),
-             torch.bfloat16),
+             torch.bfloat16, "mlstm_chunkwise_bwd_sm90"),
             ("mlstm_chunkwise_bwd", "simt", (2, 4, 300, 32, 256),
-             torch.float32)):
+             torch.float32, "mlstm_chunkwise_bwd"),
+            ("mlstm_chunkwise_bwd", "simt", (4, 4, 1024, 512, 256),
+             torch.float32, "train_f32")):
         args = mc.mlstm_bwd_inputs(gen, B, H, S, D, D, dtype, "gates")
         assert mk.bwd_route(dtype, D, D, L) == route
         plain_ms = time_ms(
@@ -3462,9 +3486,12 @@ def check_mlstm_bwd_kernel(bw, faults):
 
         ms = mcc.event_ms(launch, reps=20)
         wrap_ms = time_ms(lambda: mk.mlstm_chunkwise_bwd(*args, chunk=L), 20)
-        recs[kname] = record(kname, mlstm_bwd_bytes(B, H, S, D, D, dtype),
-                             0, ms, wrap_ms, plain_ms, worst[kname], bw,
-                             ops=flops, rate=FLOAT_PEAK[dtype], launch=launch)
+        n_ops, rate = split_work(flops, dtype)
+        rec = record(kname, mlstm_bwd_bytes(B, H, S, D, D, dtype), 0, ms,
+                     wrap_ms, plain_ms, worst[err], bw, ops=n_ops, rate=rate,
+                     launch=launch, shape=(B, H, S, D, D, L))
+        if err == kname:
+            recs[kname] = rec
         emit({"phase": "kernel_time", "kernel": kname, "route": route,
               "shape": [B, H, S, D, D, L], "dtype": str(dtype),
               "flops": flops, "tflops": flops / ms / 1e9,
@@ -3476,15 +3503,20 @@ def check_mlstm_bwd_kernel(bw, faults):
 
 #: the train phases: (arch, depth or None for the config's, batch, seq,
 #: steps, microbatches or None for the config's, the step at which
-#: worker 3 is lost).  xlstm-350m whole, 3 steps (4 until the suites
-#: phase needed the time; one warm step is left): a step takes ~14 s,
-#: 330,000 kernel launches of the sLSTM's per-token loop (forward, remat
-#: recompute, backward; measured on one H100);
+#: worker 3 is lost).  xlstm-350m at full width cut to 23 layers: all
+#: 21 mLSTM blocks, whose kernels the phase checks, and the first two of
+#: its three sLSTM blocks (whole until the float32 mLSTM backward's build
+#: and train-shape timing needed ~16.5 s: an sLSTM block is about a third
+#: of the phase, the per-token loop's launches, and an mLSTM block about
+#: a second), 3 steps (4 until the suites phase needed it; one warm step
+#: is left): a whole-depth step takes ~10-15 s, 330,000 kernel launches
+#: of the sLSTM's per-token loop (forward, remat recompute, backward;
+#: measured on one H100);
 #: recurrentgemma-9b at full width cut to one (RGLRU, RGLRU, LOCAL_ATTN)
 #: pattern (its 9.40 B parameters with float32 gradients and AdamW's
 #: float32 moments need about 131 GB; 3 layers need ~40), in the train
 #: launcher's 2 microbatches; smollm-360m whole
-TRAIN_CELLS = {"train": ("xlstm_350m", None, 4, 1024, 3, None, 1),
+TRAIN_CELLS = {"train": ("xlstm_350m", 23, 4, 1024, 3, None, 1),
                "train_rg": ("recurrentgemma_9b", 3, 2, 2048, 4, 2, 1),
                "train_dense": ("smollm_360m", None, 4, 1024, 8, None, 4)}
 #: the stores of the launch.train loop: 4 workers at rf 2, a checkpoint

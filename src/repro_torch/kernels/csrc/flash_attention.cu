@@ -21,9 +21,10 @@
 // Bound: operations.  At the float32 case of its entry point, the
 // recurrentgemma-9b local-attention shape (B = 4, 16 heads, S = 3072, D =
 // 256, window 2048), the 268.5 M kept (q, k) pairs need 4 D = 1024 float
-// ops each: 274.9 GFLOP, 4.10 ms on the float32 CUDA cores (67 TFLOP/s);
-// q, k, v and o are 805 MB (240 us at 3.35 TB/s).  The three-term split does three TF32 products for each
-// float32 one: 824.8 GFLOP, 1.67 ms at the 495 TFLOP/s TF32 peak.  In
+// ops each: 274.9 GFLOP (4.10 ms on the float32 CUDA cores, 67 TFLOP/s);
+// q, k, v and o are 805 MB (240 us at 3.35 TB/s).  The three-term split
+// does three TF32 products for each float32 one: 824.8 GFLOP, 1.67 ms at
+// the 495 TFLOP/s TF32 peak, the bound.  In
 // bf16 at D = 32 (S = 3000, window 2048) the 259.1 M pairs need 33.2
 // GFLOP: 34 us at the 989 TFLOP/s bf16 peak (50 us for the mix: q k^T
 // once and p v twice).

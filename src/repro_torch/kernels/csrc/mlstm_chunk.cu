@@ -23,12 +23,12 @@
 // 64 up to 512 and a chunk that is a multiple of 64; this source every
 // other shape, float32 among them.
 //
-// Bound: operations.  At the reduced xlstm's shape (B = 2, H = 4, S = 300,
+// Bound: bytes.  At the reduced xlstm's shape (B = 2, H = 4, S = 300,
 // Dq = Dv = 32, L = 256, float32: serve_cpu's prefill and train_cpu's
 // forward) a call needs 44.5 MFLOP (q C and the C update, 2 l Dq Dv
-// each, and the causal half of q k^T and W v), 0.66 us on the float32
-// CUDA cores, against 1.28 MB of inputs and outputs (0.38 us); the
-// split's TF32 products take 0.27 us at the 495 TFLOP/s TF32 peak.  At
+// each, and the causal half of q k^T and W v): the split's TF32 products
+// take 0.27 us at the 495 TFLOP/s TF32 peak (0.66 us on the float32 CUDA
+// cores), less than its 1.28 MB of inputs and outputs (0.38 us).  At
 // that size a call is latency: few launches, each spread over enough
 // blocks, with short serial chains inside them.
 //

@@ -22,8 +22,13 @@ kernel's share of it.  With
 ``--parent DIR`` (an earlier commit's tree, e.g. a ``git archive``
 unpacked under ``build/``) DIR's copies of the three sources are built
 beside these and every case is timed in turns parent, this, this,
-parent.  Prints one JSON line per case and exits 0; needs nvcc and a
-card:
+parent; the backward of each tree is launched on the arguments its own
+``mlstm_chunk.bwd_launch_args`` lays out (DIR's module loaded beside
+this one), so a parent whose backward takes other scratch is timed on
+its own layout.  The float32 bounds are those of the three-term TF32
+split these sources run (three TF32 products a product, at the TF32
+tensor-core peak), with the float32 CUDA-core figure beside them.
+Prints one JSON line per case and exits 0; needs nvcc and a card:
 
     PYTHONPATH=src python -m repro_torch.kernels.f32_times [--parent DIR]
 """
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import math
 import shutil
@@ -91,9 +97,29 @@ def bound(nbytes, flops, bw, rate):
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
+def f32_bound(nbytes, flops):
+    """The bound of float32 work on the three-term TF32 split: (ms, "bytes"
+    | "operations", the float32 CUDA-core figure in ms)."""
+    b_ms, by = bound(nbytes, 3 * flops, HBM_BW, TF32_PEAK)
+    return b_ms, by, flops / F32_PEAK * 1e3
+
+
+def parent_module(parent: Path, name: str):
+    """DIR's kernels/`name`.py, loaded beside this tree's module of that
+    name (its relative imports resolve to this tree's modules)."""
+    path = parent / "src" / "repro_torch" / "kernels" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"{__package__}._parent_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def build_parent(parent: Path, out_dir: Path) -> dict:
     """DIR's copies of SOURCES (with its csrc/ headers) built into
-    `out_dir`: {source: ctypes launcher}."""
+    `out_dir`: {source: ctypes launcher}; the backward bound by DIR's own
+    ``BWD_ARGTYPES``, with DIR's ``bwd_launch_args`` as its
+    ``launch_args``."""
     csrc = parent / "src" / "repro_torch" / "kernels" / "csrc"
     for header in csrc.glob("*.cuh"):
         shutil.copy(header, out_dir / header.name)
@@ -115,6 +141,9 @@ def build_parent(parent: Path, out_dir: Path) -> dict:
                                f"{log}")
         symbol, argtypes = SOURCES[name]
         fn = getattr(ctypes.CDLL(str(so)), symbol)
+        if name == "mlstm_chunk_bwd":
+            pmk = parent_module(parent, "mlstm_chunk")
+            argtypes, fn.launch_args = pmk.BWD_ARGTYPES, pmk.bwd_launch_args
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -199,28 +228,35 @@ def time_8b(variants, gen, shape, reps, runs):
     flops = mlstm_flops(*shape)
     nbytes = 4 * B * H * S * (2 * Dq + 2 * Dv) + 8 * B * H * S + \
         4 * B * H * (Dq * Dv + Dq + 1)
-    b_ms, by = bound(nbytes, flops, HBM_BW, F32_PEAK)
+    b_ms, by, core_ms = f32_bound(nbytes, flops)
     del keep
     return {"source": "mlstm_chunk", "row": "8b", "shape": list(shape),
             "dtype": "float32", "device_ms": t, "flops": flops,
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": by,
-            "tf32_split_mix_ms": 3 * flops / TF32_PEAK * 1e3}
+            "f32_cuda_core_bound_ms": core_ms}
 
 
 def time_13b(variants, gen, shape, reps, runs):
-    """The simt backward at `shape`, float32."""
+    """The simt backward at `shape`, float32, each variant on the
+    arguments its own tree's ``bwd_launch_args`` lays out."""
     B, H, S, Dq, Dv, L = shape
     ins = mc.mlstm_bwd_inputs(gen, B, H, S, Dq, Dv, torch.float32, "gates")
-    a, _, keep = mk.bwd_launch_args(*ins, L)
-    t = turns(variants, lambda fn: lambda s: fn(*a[:-1], s), reps, runs)
+    keep = []
+
+    def launch_of(fn):
+        a, _, held = fn.launch_args(*ins, L)
+        keep.append(held)
+        return lambda s: fn(*a[:-1], s)
+
+    t = turns(variants, launch_of, reps, runs)
     flops = mlstm_bwd_flops(*shape)
     nbytes = 4 * B * H * S * (4 * Dq + 3 * Dv) + 16 * B * H * S
-    b_ms, by = bound(nbytes, flops, HBM_BW, F32_PEAK)
+    b_ms, by, core_ms = f32_bound(nbytes, flops)
     del ins, keep
     return {"source": "mlstm_chunk_bwd", "row": "13b", "shape": list(shape),
             "dtype": "float32", "device_ms": t, "flops": flops,
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": by,
-            "tf32_split_mix_ms": 3 * flops / TF32_PEAK * 1e3}
+            "f32_cuda_core_bound_ms": core_ms}
 
 
 def time_10b(variants, gen, case, runs):
@@ -241,18 +277,24 @@ def time_10b(variants, gen, case, runs):
     pairs = int(mask.sum().item()) * B * H
     flops = 4 * D * pairs
     nbytes = 4 * q.element_size() * B * H * S * D
-    rate = F32_PEAK if dtype == torch.float32 else BF16_PEAK
-    b_ms, by = bound(nbytes, flops, HBM_BW, rate)
-    # the split's tensor-core work: float32 three TF32 products for q k^T
-    # and for p v; bf16 one product for q k^T and two for p v
-    mix_ms = (12 * D * pairs / TF32_PEAK if dtype == torch.float32
-              else 6 * D * pairs / BF16_PEAK) * 1e3
+    # float32: three TF32 products for q k^T and for p v (the bound); bf16:
+    # the function at the bf16 peak, and the split's mix (one product for
+    # q k^T and two for p v) beside it
+    f32 = dtype == torch.float32
+    if f32:
+        b_ms, by, core_ms = f32_bound(nbytes, flops)
+    else:
+        b_ms, by = bound(nbytes, flops, HBM_BW, BF16_PEAK)
+        core_ms = None
+    mix_ms = (3 * flops / TF32_PEAK if f32 else
+              6 * D * pairs / BF16_PEAK) * 1e3
     sdpa_ms, sdpa_kernels = sdpa(q, k, v, mask, reps)
     return {"source": "flash_attention", "row": "10b", "case": name,
             "shape": [B, H, S, D], "dtype": str(dtype), "window": window,
             "device_ms": t, "pairs": pairs, "flops": flops,
             "bytes": nbytes, "bound_ms": b_ms, "bound_by": by,
-            "split_mix_ms": mix_ms, "sdpa_ms": sdpa_ms,
+            "split_mix_ms": mix_ms, "f32_cuda_core_bound_ms": core_ms,
+            "sdpa_ms": sdpa_ms,
             "sdpa_kernels": sdpa_kernels}
 
 
@@ -269,6 +311,7 @@ def main(argv=None) -> int:
     _build.build(tuple(SOURCES))
     variants = {name: {"this": _build.function(name, *SOURCES[name])}
                 for name in SOURCES}
+    variants["mlstm_chunk_bwd"]["this"].launch_args = mk.bwd_launch_args
     tmp = tempfile.TemporaryDirectory()
     if args.parent is not None:
         for name, fn in build_parent(args.parent, Path(tmp.name)).items():

@@ -30,10 +30,10 @@ dtype and the head dims alone:
 
 Bound by operations at the recurrentgemma-9b local attention shape (B =
 4, 16 heads, S = 3072, D = 256, window 2048): 268.5 M kept (q, k) pairs
-at 4 D float ops each, 278 us at the bf16 tensor-core peak, 4.10 ms at
-the float32 CUDA-core rate (the simt route's float32 case; its split's
-TF32 products take 1.67 ms at the TF32 peak).  ``flash_check`` holds
-both sources against the plain version.
+at 4 D float ops each, 278 us at the bf16 tensor-core peak; the simt
+route's float32 case takes them as the split's TF32 products, 1.67 ms
+at the TF32 peak (4.10 ms at the float32 CUDA-core rate).
+``flash_check`` holds both sources against the plain version.
 
 No model path calls it, as in the reference: the local attention of
 ``models/attention.py`` is the reference's own masked softmax.  Its entry

@@ -286,7 +286,7 @@ FAULTS = {
 #: either; then sm90 shapes off the 256 grid: Dq 128 and Dv 192 at chunk
 #: 128 (64- and 256-wide column tiles, the 64-column walks), Dq 320 at
 #: chunk 192 (64-row S and dP tiles), and chunk 1024 (32 positions a lane
-#: in the gate scans; past the SIMT source's shared memory)
+#: in the gate scans; the SIMT source's 16-key blocks hold it too)
 BWD_CASES = (("train_bf16", torch.bfloat16, 4, 4, 1024, 512, 512, 256,
               "gates"),
              ("train_f32", torch.float32, 4, 4, 1024, 512, 512, 256,
@@ -416,24 +416,28 @@ def run_bwd(fn, q, k, v, log_f, log_i, dh, chunk, route="simt"):
 
 #: planted faults of csrc/mlstm_chunk_bwd.cu: (text, replacement)
 BWD_FAULTS = {
-    # dq without the chunk-start state's term (C_c delta + n_c dd)
+    # dq, den and num without the chunk-start state's terms
     "state_carry_dropped": ("const bool carry = c > 0;",
                             "const bool carry = false;"),
     # dk, dv without the gradient carried back from later chunks
     "grad_carry_dropped": ("const bool carry_in = c + 1 < d.nC;",
                            "const bool carry_in = false;"),
-    # G_c = G_{c+1} + ...: the inter-chunk decay of dC (and dn) dropped
-    "dC_decay_dropped": ("const float decay = expf(mc - ML[bh * d.nC + c]);",
-                         "const float decay = 1.f;"),
+    # G_c = G_{c+1} + ...: the inter-chunk decay of dC (and dn) dropped in
+    # the reverse walk
+    "dC_decay_dropped": ("const float rdecay = expf(mc - ML);",
+                         "const float rdecay = 1.f;"),
     # den's gradient dropped where the clamp does not hold
     "den_grad_dropped": (
-        "ddv = active ? -copysignf(1.f, den) * rNum[tid] * inv * inv : 0.f;",
+        "ddv = active ? -copysignf(1.f, den) * num * inv * inv : 0.f;",
         "ddv = 0.f;"),
     # den's gradient taken where the clamp holds
     "clamp_ignored": ("const bool active = fabsf(den) > clamp;",
                       "const bool active = true;"),
     # dlog_f_r summed over the pairs s <= r, not s < r
     "dlf_off_by_one": ("dlf[out + t] = run;", "dlf[out + t] = run + li_t;"),
+    # every product one TF32 product, a_hi b_hi
+    "tf32_lo_dropped": (
+        "lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));", "lo = 0u;"),
 }
 
 
@@ -479,8 +483,8 @@ BWD_SOURCE_FAULTS = {"mlstm_chunk_bwd": BWD_FAULTS,
 
 def bwd_takes(src: str, dtype, Dq: int, Dv: int, chunk: int) -> bool:
     """Whether backward source `src` runs a case: the SIMT source every
-    one whose chunk fits its shared memory, the sm90 source those of its
-    route."""
+    one whose chunk fits its shared memory (chunks up to 1152), the sm90
+    source those of its route."""
     if BWD_SOURCE_ROUTE[src] == "simt":
         return mk.bwd_smem_bytes(chunk) <= mk.SMEM_LIMIT
     return mk.bwd_route(dtype, Dq, Dv, chunk) == "sm90"

@@ -38,7 +38,11 @@ recurrence ``mlstm_step_plain`` that decode uses.
   by ``bwd_route``: the forward's sm90 predicate and the backward's own
   shared memory take csrc/mlstm_chunk_bwd_sm90.cu (bf16 wgmma on TMA-fed
   tiles, every float32 operand split hi/lo), the rest
-  csrc/mlstm_chunk_bwd.cu (SIMT, float32 on the CUDA cores).
+  csrc/mlstm_chunk_bwd.cu (four launches: the chunk-start states with
+  the gate scans folded in, the rows, the states' gradients, the columns
+  with dlog_f's suffix sums in each (b, h)'s last block; the products on
+  the tensor cores (mma.sync) through a three-term TF32 split of every
+  float32 operand, tiles from the head dims).
 * ``mlstm_chunkwise`` is a ``torch.autograd.Function`` when no initial
   state is given: its forward saves q, k, v, log_f and log_i, its
   backward launches the backward kernel, and the final (C, n, m) is not
@@ -514,17 +518,21 @@ def mlstm_chunkwise_bwd_plain(q, k, v, log_f, log_i, dh, *,
 
 mlstm_chunkwise_bwd_plain.calls = 0
 
-#: the backward kernel's tiles: 64 x 64 outputs, 32-deep slabs padded to
-#: 65 columns, and per block one (64, chunk rounded up to 64, + 1) float32
-#: buffer (the rows kernel) or two (the columns kernel)
-BWD_TILE, BWD_SLAB, BWD_PAD = 64, 32, 65
+#: the backward kernel's pieces (csrc/mlstm_chunk_bwd.cu): 32 rows, read
+#: along their rows at a stride of 40 floats
+BWD_PIECE, BWD_LDA = 32, 40
 
 
 def bwd_smem_bytes(chunk: int) -> int:
     """Dynamic shared memory of csrc/mlstm_chunk_bwd.cu's larger kernel
-    (the columns kernel) at this chunk."""
-    Lp = -(-chunk // BWD_TILE) * BWD_TILE
-    return 4 * (2 * BWD_SLAB * BWD_PAD + 2 * BWD_TILE * (Lp + 1))
+    (the columns kernel, blocks of 16 keys) at this chunk: a ring of two
+    slots, each four parities' A piece (16 rows of 32) and B piece (32
+    rows); dk's and dv's weights for the block's keys over the chunk
+    (rounded up to 32, plus 8); the parities' hand-over (16 values a
+    thread); and M_t, inv_t, dd_t per position.  Chunks up to 1152 fit."""
+    Lp = -(-chunk // BWD_PIECE) * BWD_PIECE
+    slot = 4 * (16 + BWD_PIECE) * BWD_LDA
+    return 4 * (2 * slot + 2 * 16 * (Lp + 8) + 3 * 16 * 32 + 3 * Lp)
 
 
 def _tile_of(n: int) -> int:
@@ -616,7 +624,7 @@ def mlstm_chunkwise_bwd(q, k, v, log_f, log_i, dh, *, chunk: int = 256):
 
 
 #: csrc/mlstm_chunk_bwd.cu: mlstm_chunk_bwd_launch
-BWD_ARGTYPES = (ctypes.c_void_p,) * 25 + (ctypes.c_int,) * 6 + \
+BWD_ARGTYPES = (ctypes.c_void_p,) * 24 + (ctypes.c_int,) * 6 + \
     (ctypes.c_void_p,)
 #: csrc/mlstm_chunk_bwd_sm90.cu: mlstm_chunk_bwd_sm90_launch
 BWD_ARGTYPES_SM90 = (ctypes.c_void_p,) * 12 + (ctypes.c_longlong,) + \
@@ -654,7 +662,7 @@ def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, route="simt",
                              f"chunk = {BH * Sp} positions' blocks in one "
                              f"grid dimension: too many")
     elif bwd_smem_bytes(chunk) > SMEM_LIMIT:
-        raise ValueError(f"the backward kernel keeps (64, chunk) float32 "
+        raise ValueError(f"the backward kernel keeps (16, chunk) float32 "
                          f"buffers in shared memory: chunk={chunk} needs "
                          f"{bwd_smem_bytes(chunk)} bytes > {SMEM_LIMIT}")
     q, k, v = (a.contiguous() for a in (q, k, v))
@@ -680,13 +688,13 @@ def bwd_launch_args(q, k, v, log_f, log_i, dh, chunk, *, route="simt",
         args = tuple(t.data_ptr() for t in tensors) + \
             (nbytes, BH, S, Dq, Dv, chunk, stream)
         return args, tuple(outs), tensors
-    # the gates (g, M_t, m_t per position; M_L per chunk; the chunk-start
-    # m), the chunk-start states and their gradients, the rows' C_c dh_t,
-    # and per position 1 / max(|den|, e^{-m}), dd, q.dq and k.dk
-    scratch = (f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, nC),
-               f32(BH, nC + 1), f32(BH, nC, Dq, Dv), f32(BH, nC, Dq),
-               f32(BH, nC, Dq, Dv), f32(BH, nC, Dq), f32(BH, Sp, Dq),
-               f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, Sp))
+    # the gates (g, M_t, m_t per position; the chunk-start m), the
+    # chunk-start states and their gradients, the rows' C_c dh_t, per
+    # position 1 / max(|den|, e^{-m}), dd and q.dq, and a ticket per (b, h)
+    scratch = (f32(BH, Sp), f32(BH, Sp), f32(BH, Sp), f32(BH, nC + 1),
+               f32(BH, nC, Dq, Dv), f32(BH, nC, Dq), f32(BH, nC, Dq, Dv),
+               f32(BH, nC, Dq), f32(BH, Sp, Dq), f32(BH, Sp), f32(BH, Sp),
+               f32(BH, Sp), torch.empty(BH, dtype=torch.int32, device=dev))
     tensors = (q, k, v, lf, li, dh, *outs, *scratch)
     args = tuple(t.data_ptr() for t in tensors) + \
         (BH, S, Dq, Dv, chunk, int(dtype == torch.bfloat16), stream)

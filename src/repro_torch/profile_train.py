@@ -44,9 +44,8 @@ from repro_torch.models import build_model
 from repro_torch.training import accumulate_grads, make_train_step
 
 #: kernel names of the cells' kernels, for their shares
-CELL_KERNELS = {"mlstm_chunkwise_bwd": ("bwd_gates_kernel", "bwd_fstates",
-                                        "bwd_rows", "bwd_dstates",
-                                        "bwd_cols", "bwd_dgates"),
+CELL_KERNELS = {"mlstm_chunkwise_bwd": ("bwd_fstates", "bwd_rows",
+                                        "bwd_dstates", "bwd_cols"),
                 "mlstm_chunkwise_bwd_sm90": ("bwd90_",),
                 "mlstm_chunkwise_sm90": ("mlstm_gates_kernel",
                                          "mlstm_states_kernel",

@@ -172,10 +172,18 @@ def test_backward_argtypes_and_scratch(monkeypatch):
     assert all(o.isnan().all() for o in outs)
     assert tensors[5].dtype == torch.bfloat16         # dh in q's type
     # chunk-start states and their gradients: (BH, nC, Dq, Dv) float32
-    assert tensors[16].shape == tensors[18].shape == (6, 3, 40, 72)
-    assert T.bwd_smem_bytes(256) <= T.SMEM_LIMIT
+    assert tensors[15].shape == tensors[17].shape == (6, 3, 40, 72)
+    assert tensors[15].dtype == tensors[17].dtype == torch.float32
+    # C_c dh per position; a ticket per (b, h), int32
+    assert tensors[19].shape == (6, 384, 40)
+    assert tensors[23].shape == (6,) and tensors[23].dtype == torch.int32
+    # the columns kernel holds every chunk up to 1152; at chunk 256 two of
+    # its blocks fit an SM's 228 KB, 1 KB each aside
+    assert T.bwd_smem_bytes(1152) <= T.SMEM_LIMIT < T.bwd_smem_bytes(1184)
+    assert 2 * (T.bwd_smem_bytes(256) + 1024) <= 233472
+    T.bwd_launch_args(q, k, v, lf, li, dh, 1024)
     with pytest.raises(ValueError, match="shared memory"):
-        T.bwd_launch_args(q, k, v, lf, li, dh, 1024)
+        T.bwd_launch_args(q, k, v, lf, li, dh, 1280)
 
 
 @pytest.mark.parametrize("kind", ["gates", "stress", "clamp"])
@@ -214,3 +222,57 @@ def test_allowance_covers_float32_and_rejects_planted_errors(kind, dtype):
     if kind != "stress":       # there the decay is within 1e-3 of 1
         assert max(MC.mlstm_bwd_errors(outputs(no_decay), want,
                                        scales).values()) > 1.0
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest on
+    the low 13 mantissa bits of its float32 pattern, ties away from
+    zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_einsum(split):
+    """torch.einsum as csrc/mlstm_chunk_bwd.cu takes each product of two
+    float32 matrices on the tensor cores: one TF32 product (split False),
+    or a_hi b_hi + a_hi b_lo + a_lo b_hi, hi = tf32(x) and lo = tf32(x -
+    hi), each product exact in float32, the sums in float32.  A product
+    with a vector (q.n_c, dn's update) stays float32, as the kernel sums
+    those on the CUDA cores."""
+    einsum = torch.einsum
+
+    def product(eq, a, b):
+        if a.dim() < 4 or b.dim() < 4:
+            return einsum(eq, a, b)
+        ah, bh = _tf32(a), _tf32(b)
+        if not split:
+            return einsum(eq, ah, bh)
+        al, bl = _tf32(a - ah), _tf32(b - bh)
+        return einsum(eq, ah, bh) + (einsum(eq, ah, bl) +
+                                     einsum(eq, al, bh))
+    return product
+
+
+@pytest.mark.parametrize("kind", ["gates", "stress", "clamp"])
+@pytest.mark.parametrize("D,Dv,chunk", [(32, 32, 64), (64, 40, 48)])
+def test_backward_check_rejects_one_tf32_product_and_accepts_the_split(
+        monkeypatch, D, Dv, chunk, kind):
+    """Why the backward splits each float32 operand in three TF32 terms:
+    with ``mlstm_check``'s unchanged ``BWD_GAMMA``, the plain backward with
+    every matrix product (the recomputed states, q k^T, dh v^T, C_c dh,
+    dq, dk, dv and G's update) taken as one TF32 product fails on float32
+    inputs, and taken through the three-term split passes every output;
+    at the reduced xlstm's head dim and off the 32-wide pieces, several
+    chunks and a ragged tail."""
+    gen = torch.Generator()
+    gen.manual_seed(33)
+    args = MC.mlstm_bwd_inputs(gen, 1, 2, 200, D, Dv, torch.float32, kind)
+    want, scales = MC.bwd_reference((*args, chunk))
+    monkeypatch.setattr(torch, "einsum", _tf32_einsum(False))
+    one = T.mlstm_chunkwise_bwd_plain(*args, chunk=chunk)
+    monkeypatch.setattr(torch, "einsum", _tf32_einsum(True))
+    split = T.mlstm_chunkwise_bwd_plain(*args, chunk=chunk)
+    monkeypatch.undo()
+    assert max(MC.mlstm_bwd_errors(one, want, scales).values()) > 1.0
+    errs = MC.mlstm_bwd_errors(split, want, scales)
+    assert all(e <= 1.0 for e in errs.values()), errs

@@ -59,12 +59,12 @@ def test_card_cases_take_their_routes():
     assert routes["dims_128_192"] == routes["chunk_192"] == \
         routes["chunk_1024"] == "sm90"
     assert T._tile_of(192) == T._tile_of(320) == 64
-    # the SIMT source runs every case its shared memory holds, so not the
-    # chunk of 1024 (it raises there, as its entry point would)
+    # the SIMT source runs every case its shared memory holds: its
+    # 16-key column blocks hold chunks up to 1152, so every case, the
+    # chunk of 1024 among them
     takes = {case: MC.bwd_takes("mlstm_chunk_bwd", dtype, Dq, Dv, L)
              for case, dtype, _, _, _, Dq, Dv, L, _ in MC.BWD_CASES}
-    assert not takes["chunk_1024"]
-    assert all(t for case, t in takes.items() if case != "chunk_1024")
+    assert all(takes.values())
     for src in MC.BWD_SOURCE_ROUTE:
         assert any(MC.bwd_takes(src, dtype, Dq, Dv, L)
                    for _, dtype, _, _, _, Dq, Dv, L, _ in MC.BWD_CASES)
@@ -82,8 +82,16 @@ def test_each_sm90_backward_fault_text_occurs_once(fault):
 
 
 def test_sm90_faults_cover_the_simt_kinds_and_a_lo_product():
-    assert set(MC.BWD_FAULTS) < set(MC.BWD_FAULTS_SM90)
-    assert any(name.endswith("_lo_dropped") for name in MC.BWD_FAULTS_SM90)
+    """Each source plants the same six kinds of fault in the math, and
+    a split's low product dropped of its own (the SIMT source's three-term
+    TF32 split, the sm90 source's hi/lo float32 weights)."""
+    lo = {src: {n for n in f if n.endswith("_lo_dropped")}
+          for src, f in MC.BWD_SOURCE_FAULTS.items()}
+    assert lo == {"mlstm_chunk_bwd": {"tf32_lo_dropped"},
+                  "mlstm_chunk_bwd_sm90": {"w_lo_dropped"}}
+    assert set(MC.BWD_FAULTS) - lo["mlstm_chunk_bwd"] < \
+        set(MC.BWD_FAULTS_SM90)
+    assert len(set(MC.BWD_FAULTS) - lo["mlstm_chunk_bwd"]) == 6
     assert MC.BWD_SOURCE_FAULTS == {"mlstm_chunk_bwd": MC.BWD_FAULTS,
                                     "mlstm_chunk_bwd_sm90":
                                     MC.BWD_FAULTS_SM90}
